@@ -1,0 +1,49 @@
+"""Model configuration (mhada_tpu/config.py:12-34) and the kernel switch."""
+
+from dataclasses import dataclass
+
+import torch
+
+BACKENDS = ("auto", "plain", "kernel")
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    num_layers: int = 3
+    num_heads: int = 8
+    hidden_dim: int = 512
+    mlp_dim: int = 2048
+    patch_size: int = 8
+    activation: str = "softmax"
+    # "spatial" = idiomatic token attention; "batch_coupled" = the
+    # reference's batch-axis attention quirk, needed by reference .pth
+    # weights (mhada_tpu/models/vit.py:7-13).
+    attn_mode: str = "spatial"
+    # "auto": hand-written kernels for CUDA tensors, plain PyTorch twins for
+    # CPU tensors; "plain": the twins everywhere; "kernel": the kernels
+    # only (a CPU tensor raises).
+    mhada_backend: str = "auto"
+
+    def __post_init__(self):
+        if self.mhada_backend not in BACKENDS:
+            raise ValueError(f"unknown mhada_backend {self.mhada_backend!r}; "
+                             f"expected one of {BACKENDS}")
+
+
+def use_kernel(backend: str, x: torch.Tensor) -> bool:
+    """Whether a kernel wrapper launches its CUDA kernel for tensor ``x``.
+
+    The plain twin runs only for a CPU tensor or under ``"plain"``; a CUDA
+    tensor never falls back to it.
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown mhada_backend {backend!r}; "
+                         f"expected one of {BACKENDS}")
+    if backend == "plain":
+        return False
+    if x.is_cuda:
+        return True
+    if backend == "kernel":
+        raise RuntimeError(
+            f"mhada_backend='kernel' needs a CUDA tensor, got one on {x.device}")
+    return False

@@ -1,0 +1,196 @@
+// Single-head, 64-wide attention tile with an online softmax, shared by the
+// ViT self-attention kernel (attention_fwd.cu, K1) and the MHAda core
+// (mhada_fwd.cu, K4).
+//
+// One block owns (batch b, head h, a tile of kBQ = 64 queries) and loops
+// over the keys in tiles of kBK = 64 held in shared memory; nothing of the
+// (N, M) score matrix reaches device memory.  Operands are read straight
+// from token-major (rows, channels) tensors at channel offset h * 64, so no
+// head-split copies exist.  Accumulators are float32 in registers.
+//
+// The 256 threads form a 16 x 16 grid (ty, tx).  A thread owns score and
+// output rows ty + 16 i (i < 4) and key / channel columns tx + 16 j
+// (j < 4); the 16 threads of one row are one half-warp, so row max and row
+// sum reduce with xor shuffles inside it.
+#pragma once
+
+#include <math.h>
+
+#include "common.cuh"
+
+namespace mhada {
+
+constexpr int kHeadDim = 64;
+constexpr int kBQ = 64;
+constexpr int kBK = 64;
+constexpr int kFlashThreads = 256;
+constexpr int kTPad = 65;  // odd row stride of the transposed tiles
+
+// Shared memory: Q^T and K^T (d-major), V (key-major), P^T (key-major).
+constexpr size_t kFlashSmemBytes =
+    sizeof(float) * (2 * kHeadDim * kTPad + kBK * kHeadDim + kBK * kTPad);
+
+struct FlashArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* f;  // MHAda only: instance-normed fcs
+  void* out;
+  int n, m;       // query rows, key rows
+  long long q_bs, q_rs, kv_bs, kv_rs, f_bs, f_rs, o_bs, o_rs;  // strides
+  float scale;
+};
+
+// kMhada = false: out = softmax(scale Q K^T) V.
+// kMhada = true:  A = softmax(Q K^T) (scale 1), M1 = A V, E2 = A V^2,
+//                 out = sqrt(max(E2 - M1^2, 1e-6)) * f + M1.
+template <typename T, bool kMhada>
+__global__ void __launch_bounds__(kFlashThreads)
+    flash_tile_kernel(FlashArgs a) {
+  extern __shared__ float smem[];
+  float* qs = smem;                     // [d][kTPad]   query r at column r
+  float* ks = qs + kHeadDim * kTPad;    // [d][kTPad]   key c at column c
+  float* vs = ks + kHeadDim * kTPad;    // [key][d]
+  float* ps = vs + kBK * kHeadDim;      // [key][kTPad] probability of row r
+
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int q0 = blockIdx.x * kBQ;
+  const int hoff = blockIdx.y * kHeadDim;
+  const long long b = blockIdx.z;
+
+  for (int idx = tid; idx < kBQ * kHeadDim; idx += kFlashThreads) {
+    const int r = idx / kHeadDim, d = idx % kHeadDim;
+    const int row = q0 + r;
+    float x = 0.f;
+    if (row < a.n) x = to_f32(q[b * a.q_bs + row * a.q_rs + hoff + d]) * a.scale;
+    qs[d * kTPad + r] = x;
+  }
+
+  float o1[4][4], o2[4][4], mrow[4], lrow[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    mrow[i] = -INFINITY;
+    lrow[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o1[i][j] = o2[i][j] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < a.m; k0 += kBK) {
+    for (int idx = tid; idx < kBK * kHeadDim; idx += kFlashThreads) {
+      const int c = idx / kHeadDim, d = idx % kHeadDim;
+      const int key = k0 + c;
+      float kx = 0.f, vx = 0.f;
+      if (key < a.m) {
+        const long long off = b * a.kv_bs + key * a.kv_rs + hoff + d;
+        kx = to_f32(k[off]);
+        vx = to_f32(v[off]);
+      }
+      ks[d * kTPad + c] = kx;
+      vs[c * kHeadDim + d] = vx;
+    }
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < kHeadDim; ++d) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = qs[d * kTPad + ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = ks[d * kTPad + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (k0 + tx + 16 * j >= a.m) s[i][j] = -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(mrow[i], mx);  // finite: key k0 is valid
+      const float alpha = expf(mrow[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        sum += p;
+        ps[(tx + 16 * j) * kTPad + ty + 16 * i] = p;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      lrow[i] = lrow[i] * alpha + sum;
+      mrow[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        o1[i][j] *= alpha;
+        if (kMhada) o2[i][j] *= alpha;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int c = 0; c < kBK; ++c) {
+      float pv[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = ps[c * kTPad + ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) vv[j] = vs[c * kHeadDim + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          o1[i][j] = fmaf(pv[i], vv[j], o1[i][j]);
+          if (kMhada) o2[i][j] = fmaf(pv[i], vv[j] * vv[j], o2[i][j]);
+        }
+    }
+    __syncthreads();
+  }
+
+  const T* f = static_cast<const T*>(a.f);
+  T* out = static_cast<T*>(a.out);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= a.n) continue;
+    const float inv = 1.f / lrow[i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int d = tx + 16 * j;
+      float y = o1[i][j] * inv;
+      if (kMhada) {
+        // E2 - M1^2 cancels: both stay float32 until the clamp.
+        const float e2 = o2[i][j] * inv;
+        const float var = fmaxf(e2 - y * y, 1e-6f);
+        y = sqrtf(var) * to_f32(f[b * a.f_bs + row * a.f_rs + hoff + d]) + y;
+      }
+      out[b * a.o_bs + row * a.o_rs + hoff + d] = from_f32<T>(y);
+    }
+  }
+}
+
+template <typename T, bool kMhada>
+cudaError_t launch_flash_tile(const FlashArgs& a, int heads, int batch,
+                              cudaStream_t stream) {
+  const dim3 grid((a.n + kBQ - 1) / kBQ, heads, batch);
+  return launch_with_smem(flash_tile_kernel<T, kMhada>, grid,
+                          dim3(kFlashThreads), kFlashSmemBytes, stream, a);
+}
+
+}  // namespace mhada

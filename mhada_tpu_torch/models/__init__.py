@@ -1,0 +1,41 @@
+"""Model modules and the inference build (mhada_tpu/train/train_image.py:45-93)."""
+
+import torch
+
+from ..config import ModelConfig
+from .adaformer import AdaAttnMultiHead, AdaFormer
+from .decoder import Decoder
+from .layers import init_parameters
+from .vit import VisionTransformer
+
+__all__ = ["AdaAttnMultiHead", "AdaFormer", "Decoder", "VisionTransformer",
+           "build_models"]
+
+
+def build_models(cfg=None, device="cpu", generator: torch.Generator | None = None
+                 ) -> dict:
+    """The inference networks {vit_c, vit_s, adaFormer} in eval mode on
+    ``device``.
+
+    ``cfg``: a ModelConfig, or anything with a ``.model`` ModelConfig.
+    Weights are drawn on the CPU from ``generator`` (seed 0 if None), so a
+    seed gives the same weights on every device; load trained weights with
+    ``interop.load_params``.
+    """
+    m = getattr(cfg, "model", cfg) or ModelConfig()
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    vit = dict(patch_size=m.patch_size, num_layers=m.num_layers,
+               num_heads=m.num_heads, hidden_dim=m.hidden_dim,
+               mlp_dim=m.mlp_dim, attn_mode=m.attn_mode,
+               backend=m.mhada_backend)
+    models = {
+        "vit_c": VisionTransformer(pos_embedding=True, **vit),
+        "vit_s": VisionTransformer(pos_embedding=False, **vit),
+        "adaFormer": AdaFormer(m.num_layers, m.num_heads, m.hidden_dim,
+                               m.activation, m.mhada_backend),
+    }
+    for net in models.values():
+        init_parameters(net, generator)
+        net.to(device).eval()
+    return models
