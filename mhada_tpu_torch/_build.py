@@ -2,7 +2,8 @@
 
 The sources are compiled with ``nvcc`` into one shared library with a plain
 C interface at first use, and bound with ``ctypes`` (no PyTorch headers, so
-the build takes seconds, not minutes).  The library lands in ``_build/``
+the build takes seconds, not minutes): one ``nvcc -c`` per source, all
+started together, then one link.  The library lands in ``_build/``
 beside this file, named by a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one is reused.
 
@@ -22,14 +23,17 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types (pointers and the stream as c_void_p).
 SIGNATURES = {
     "mhada_attention_fwd": [_P, _P, _I, _I, _I, _I, _F, _I, _P],
     "mhada_mhada_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "mhada_mhada_prologue": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _P],
     "mhada_ln_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "mhada_decoder_tail": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _P],
@@ -70,6 +74,16 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmhada_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> tuple[list, str]:
+    """Run the commands concurrently -> (return codes, their joined log)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(f"$ {' '.join(c)}\n{o}" for c, o in zip(cmds, outs))
+    return [p.returncode for p in procs], log
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the shared library unless it is already built.
 
@@ -80,19 +94,26 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    tmp = BUILD_DIR / f"{out.stem}.{os.getpid()}"
+    tmp.mkdir(exist_ok=True)
+    nvcc = _nvcc()
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [tmp / f"{src.stem}.o" for src in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = (f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-           f"\n# {time.perf_counter() - t0:.1f} s, exit {proc.returncode}\n")
+    rcs, log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                     for src, o in zip(srcs, objs)])
+    if not any(rcs):
+        link_rcs, link_log = _run([[nvcc, *ARCH, "-shared", "-o",
+                                    str(tmp / out.name), *map(str, objs)]])
+        rcs, log = rcs + link_rcs, log + link_log
+    log += f"\n# {time.perf_counter() - t0:.1f} s, exit codes {rcs}\n"
     out.with_suffix(".log").write_text(log)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, out)  # atomic: a concurrent build never sees a partial .so
+    if any(rcs):
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise RuntimeError(f"nvcc failed (exit codes {rcs}):\n{log[-4000:]}")
+    # atomic: a concurrent build never sees a partial .so
+    os.replace(tmp / out.name, out)
+    shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 

@@ -1,4 +1,5 @@
-"""Model configuration (mhada_tpu/config.py:12-34) and the kernel switch."""
+"""Model configuration (mhada_tpu/config.py:12-34), the kernel switch and
+the device rule."""
 
 from dataclasses import dataclass
 
@@ -47,3 +48,15 @@ def use_kernel(backend: str, x: torch.Tensor) -> bool:
         raise RuntimeError(
             f"mhada_backend='kernel' needs a CUDA tensor, got one on {x.device}")
     return False
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for the CPU.  Raises, and never falls back, when CUDA is asked for and
+    no card is visible."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card is visible; to run on the CPU pass --device cpu "
+            "(device='cpu' from Python)")
+    return dev

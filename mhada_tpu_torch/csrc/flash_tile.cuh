@@ -1,12 +1,15 @@
 // Single-head, 64-wide attention tile with an online softmax, shared by the
-// ViT self-attention kernel (attention_fwd.cu, K1) and the MHAda core
-// (mhada_fwd.cu, K4).
+// ViT self-attention kernel (attention_fwd.cu, K1), the MHAda core
+// (mhada_fwd.cu, K4) and the MHAda core with the fused prologue
+// (mhada_prologue.cu, K3).
 //
 // One block owns (batch b, head h, a tile of kBQ = 64 queries) and loops
 // over the keys in tiles of kBK = 64 held in shared memory; nothing of the
 // (N, M) score matrix reaches device memory.  Operands are read straight
 // from token-major (rows, channels) tensors at channel offset h * 64, so no
-// head-split copies exist.  Accumulators are float32 in registers.
+// head-split copies exist.  Accumulators are float32 in registers.  The
+// key loop has no length cap: L = M = 16384 (1024^2) runs through the same
+// loop as 4096.  Offsets of batch and row are formed in 64 bits.
 //
 // The 256 threads form a 16 x 16 grid (ty, tx).  A thread owns score and
 // output rows ty + 16 i (i < 4) and key / channel columns tx + 16 j
@@ -34,49 +37,55 @@ struct FlashArgs {
   const void* q;
   const void* k;
   const void* v;
-  const void* f;  // MHAda only: instance-normed fcs
+  const void* f;  // MHAda only: instance-normed fcs (K4) or raw fcs (K3)
   void* out;
   int n, m;       // query rows, key rows
   long long q_bs, q_rs, kv_bs, kv_rs, f_bs, f_rs, o_bs, o_rs;  // strides
   float scale;
 };
 
-// kMhada = false: out = softmax(scale Q K^T) V.
-// kMhada = true:  A = softmax(Q K^T) (scale 1), M1 = A V, E2 = A V^2,
-//                 out = sqrt(max(E2 - M1^2, 1e-6)) * f + M1.
-template <typename T, bool kMhada>
-__global__ void __launch_bounds__(kFlashThreads)
-    flash_tile_kernel(FlashArgs a) {
-  extern __shared__ float smem[];
-  float* qs = smem;                     // [d][kTPad]   query r at column r
-  float* ks = qs + kHeadDim * kTPad;    // [d][kTPad]   key c at column c
-  float* vs = ks + kHeadDim * kTPad;    // [key][d]
-  float* ps = vs + kBK * kHeadDim;      // [key][kTPad] probability of row r
+struct FlashSmem {
+  float* qs;  // [d][kTPad]   query r at column r
+  float* ks;  // [d][kTPad]   key c at column c
+  float* vs;  // [key][d]
+  float* ps;  // [key][kTPad] probability of row r
+};
 
-  const T* q = static_cast<const T*>(a.q);
+__device__ __forceinline__ FlashSmem flash_smem(float* smem) {
+  FlashSmem s;
+  s.qs = smem;
+  s.ks = s.qs + kHeadDim * kTPad;
+  s.vs = s.ks + kHeadDim * kTPad;
+  s.ps = s.vs + kBK * kHeadDim;
+  return s;
+}
+
+// One thread's accumulators: sum_k p V (o1), sum_k p V^2 (o2, MHAda only),
+// the running row max and row sum of p.
+struct FlashAcc {
+  float o1[4][4], o2[4][4], mrow[4], lrow[4];
+};
+
+// The key loop.  On entry s.qs holds the block's query tile, scale applied
+// (written before this call; the loop's first __syncthreads publishes it).
+// kMhada = false accumulates softmax(Q K^T) V; kMhada = true also A V^2.
+// Both are left unnormalised: divide by acc.lrow.
+template <typename T, bool kMhada>
+__device__ __forceinline__ void flash_keys(const FlashArgs& a,
+                                           const FlashSmem& s, FlashAcc& acc) {
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * kBQ;
   const int hoff = blockIdx.y * kHeadDim;
   const long long b = blockIdx.z;
 
-  for (int idx = tid; idx < kBQ * kHeadDim; idx += kFlashThreads) {
-    const int r = idx / kHeadDim, d = idx % kHeadDim;
-    const int row = q0 + r;
-    float x = 0.f;
-    if (row < a.n) x = to_f32(q[b * a.q_bs + row * a.q_rs + hoff + d]) * a.scale;
-    qs[d * kTPad + r] = x;
-  }
-
-  float o1[4][4], o2[4][4], mrow[4], lrow[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    mrow[i] = -INFINITY;
-    lrow[i] = 0.f;
+    acc.mrow[i] = -INFINITY;
+    acc.lrow[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) o1[i][j] = o2[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j) acc.o1[i][j] = acc.o2[i][j] = 0.f;
   }
 
   for (int k0 = 0; k0 < a.m; k0 += kBK) {
@@ -89,27 +98,27 @@ __global__ void __launch_bounds__(kFlashThreads)
         kx = to_f32(k[off]);
         vx = to_f32(v[off]);
       }
-      ks[d * kTPad + c] = kx;
-      vs[c * kHeadDim + d] = vx;
+      s.ks[d * kTPad + c] = kx;
+      s.vs[c * kHeadDim + d] = vx;
     }
     __syncthreads();
 
-    float s[4][4];
+    float sc[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < kHeadDim; ++d) {
       float qv[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[d * kTPad + ty + 16 * i];
+      for (int i = 0; i < 4; ++i) qv[i] = s.qs[d * kTPad + ty + 16 * i];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[d * kTPad + tx + 16 * j];
+      for (int j = 0; j < 4; ++j) kv[j] = s.ks[d * kTPad + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
     }
 
 #pragma unroll
@@ -117,30 +126,30 @@ __global__ void __launch_bounds__(kFlashThreads)
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if (k0 + tx + 16 * j >= a.m) s[i][j] = -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
+        if (k0 + tx + 16 * j >= a.m) sc[i][j] = -INFINITY;
+        mx = fmaxf(mx, sc[i][j]);
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(mrow[i], mx);  // finite: key k0 is valid
-      const float alpha = expf(mrow[i] - m_new);
+      const float m_new = fmaxf(acc.mrow[i], mx);  // finite: key k0 is valid
+      const float alpha = expf(acc.mrow[i] - m_new);
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
+        const float p = expf(sc[i][j] - m_new);
         sum += p;
-        ps[(tx + 16 * j) * kTPad + ty + 16 * i] = p;
+        s.ps[(tx + 16 * j) * kTPad + ty + 16 * i] = p;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      lrow[i] = lrow[i] * alpha + sum;
-      mrow[i] = m_new;
+      acc.lrow[i] = acc.lrow[i] * alpha + sum;
+      acc.mrow[i] = m_new;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        o1[i][j] *= alpha;
-        if (kMhada) o2[i][j] *= alpha;
+        acc.o1[i][j] *= alpha;
+        if (kMhada) acc.o2[i][j] *= alpha;
       }
     }
     __syncthreads();
@@ -149,19 +158,47 @@ __global__ void __launch_bounds__(kFlashThreads)
     for (int c = 0; c < kBK; ++c) {
       float pv[4], vv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[c * kTPad + ty + 16 * i];
+      for (int i = 0; i < 4; ++i) pv[i] = s.ps[c * kTPad + ty + 16 * i];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) vv[j] = vs[c * kHeadDim + tx + 16 * j];
+      for (int j = 0; j < 4; ++j) vv[j] = s.vs[c * kHeadDim + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          o1[i][j] = fmaf(pv[i], vv[j], o1[i][j]);
-          if (kMhada) o2[i][j] = fmaf(pv[i], vv[j] * vv[j], o2[i][j]);
+          acc.o1[i][j] = fmaf(pv[i], vv[j], acc.o1[i][j]);
+          if (kMhada) acc.o2[i][j] = fmaf(pv[i], vv[j] * vv[j], acc.o2[i][j]);
         }
     }
     __syncthreads();
   }
+}
+
+// kMhada = false: out = softmax(scale Q K^T) V.
+// kMhada = true:  A = softmax(Q K^T) (scale 1), M1 = A V, E2 = A V^2,
+//                 out = sqrt(max(E2 - M1^2, 1e-6)) * f + M1.
+template <typename T, bool kMhada>
+__global__ void __launch_bounds__(kFlashThreads)
+    flash_tile_kernel(FlashArgs a) {
+  extern __shared__ float smem[];
+  const FlashSmem s = flash_smem(smem);
+
+  const T* q = static_cast<const T*>(a.q);
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int q0 = blockIdx.x * kBQ;
+  const int hoff = blockIdx.y * kHeadDim;
+  const long long b = blockIdx.z;
+
+  for (int idx = tid; idx < kBQ * kHeadDim; idx += kFlashThreads) {
+    const int r = idx / kHeadDim, d = idx % kHeadDim;
+    const int row = q0 + r;
+    float x = 0.f;
+    if (row < a.n) x = to_f32(q[b * a.q_bs + row * a.q_rs + hoff + d]) * a.scale;
+    s.qs[d * kTPad + r] = x;
+  }
+
+  FlashAcc acc;
+  flash_keys<T, kMhada>(a, s, acc);
 
   const T* f = static_cast<const T*>(a.f);
   T* out = static_cast<T*>(a.out);
@@ -169,14 +206,14 @@ __global__ void __launch_bounds__(kFlashThreads)
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= a.n) continue;
-    const float inv = 1.f / lrow[i];
+    const float inv = 1.f / acc.lrow[i];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int d = tx + 16 * j;
-      float y = o1[i][j] * inv;
+      float y = acc.o1[i][j] * inv;
       if (kMhada) {
         // E2 - M1^2 cancels: both stay float32 until the clamp.
-        const float e2 = o2[i][j] * inv;
+        const float e2 = acc.o2[i][j] * inv;
         const float var = fmaxf(e2 - y * y, 1e-6f);
         y = sqrtf(var) * to_f32(f[b * a.f_bs + row * a.f_rs + hoff + d]) + y;
       }

@@ -2,7 +2,7 @@
 
 import torch
 
-from ..config import ModelConfig
+from ..config import ModelConfig, resolve_device
 from .adaformer import AdaAttnMultiHead, AdaFormer
 from .decoder import Decoder
 from .layers import init_parameters
@@ -12,16 +12,18 @@ __all__ = ["AdaAttnMultiHead", "AdaFormer", "Decoder", "VisionTransformer",
            "build_models"]
 
 
-def build_models(cfg=None, device="cpu", generator: torch.Generator | None = None
-                 ) -> dict:
+def build_models(cfg=None, device="cuda",
+                 generator: torch.Generator | None = None) -> dict:
     """The inference networks {vit_c, vit_s, adaFormer} in eval mode on
-    ``device``.
+    ``device``: the card by default; raises without one unless ``device``
+    is the CPU.
 
     ``cfg``: a ModelConfig, or anything with a ``.model`` ModelConfig.
     Weights are drawn on the CPU from ``generator`` (seed 0 if None), so a
     seed gives the same weights on every device; load trained weights with
     ``interop.load_params``.
     """
+    device = resolve_device(device)
     m = getattr(cfg, "model", cfg) or ModelConfig()
     if generator is None:
         generator = torch.Generator().manual_seed(0)

@@ -6,8 +6,13 @@ Per layer i two MHAda blocks run (content as query, then the stylised
 features as query), then the decoder.  Heads split the channels
 contiguously; the per-head 1x1 convs are a (heads, d, d) kernel stack
 applied with one einsum, as in the JAX package, and the instance norms run
-once over the full channel axis.  The style K/V cache of the streaming path
-is not part of this module yet.
+once over the full channel axis.
+
+The streaming path caches each block's style keys and values
+(``AdaAttnMultiHead.style_kv``, mhada_tpu/infer/image.py:153-190); a block
+given them runs the fused-prologue core K3 (ops/mhada_prologue.py) for the
+softmax activation, at every key count (the JAX package's M <= 4096 guard
+at mhada_tpu/models/adaformer.py:82 is a TPU VMEM limit).
 """
 
 import math
@@ -17,8 +22,9 @@ import torch.nn as nn
 
 from .decoder import Decoder
 from .layers import uniform_
-from ..ops.instance_norm import instance_norm_tokens
+from ..ops.instance_norm import instance_norm_stats, instance_norm_tokens
 from ..ops.mhada_kernel import mhada_tm, mhada_tm_plain
+from ..ops.mhada_prologue import mhada_fused_prologue
 
 
 class AdaAttnMultiHead(nn.Module):
@@ -61,20 +67,35 @@ class AdaAttnMultiHead(nn.Module):
                          x.reshape(b, n, self.num_heads, -1), k) + bias
         return y.reshape(b, n, c)
 
-    def forward(self, fc: torch.Tensor, fs: torch.Tensor,
-                fcs: torch.Tensor) -> torch.Tensor:
+    def style_kv(self, fs: torch.Tensor):
+        """Token-major keys and values (B, M, C) of style tokens fs: they
+        depend on the style alone, so a stream computes them once."""
+        return (self._project(instance_norm_tokens(fs), "g").contiguous(),
+                self._project(fs, "h").contiguous())
+
+    def forward(self, fc: torch.Tensor, fs: torch.Tensor | None,
+                fcs: torch.Tensor, style_kv=None) -> torch.Tensor:
         """fc, fcs (B, N, C) queries / current stylised features; fs (B, M, C)
-        style features."""
-        q = self._project(instance_norm_tokens(fc), "f").contiguous()
-        k = self._project(instance_norm_tokens(fs), "g").contiguous()
-        v = self._project(fs, "h").contiguous()
-        fcs_n = instance_norm_tokens(fcs).contiguous()
-        if self.activation == "softmax":
-            out = mhada_tm(q, k, v, fcs_n, self.num_heads, backend=self.backend)
-        else:
-            out = mhada_tm_plain(q, k, v, fcs_n, self.num_heads,
-                                 self.activation)
+        style features, or None with ``style_kv``, this block's cached
+        ``(k, v)`` from ``style_kv(fs)``."""
+        k, v = self.style_kv(fs) if style_kv is None else style_kv
         dt = fc.dtype
+        if style_kv is not None and self.activation == "softmax":
+            mean_fc, rstd_fc = instance_norm_stats(fc)
+            mean_fcs, rstd_fcs = instance_norm_stats(fcs)
+            stats = torch.stack([mean_fc, rstd_fc, mean_fcs, rstd_fcs], 1)
+            out = mhada_fused_prologue(
+                fc.contiguous(), fcs.contiguous(), stats, self.f_kernel,
+                self.f_bias, k, v, backend=self.backend)
+        else:
+            q = self._project(instance_norm_tokens(fc), "f").contiguous()
+            fcs_n = instance_norm_tokens(fcs).contiguous()
+            if self.activation == "softmax":
+                out = mhada_tm(q, k, v, fcs_n, self.num_heads,
+                               backend=self.backend)
+            else:
+                out = mhada_tm_plain(q, k, v, fcs_n, self.num_heads,
+                                     self.activation)
         return out @ self.out_kernel.to(dt) + self.out_bias.to(dt)
 
 
@@ -92,13 +113,22 @@ class AdaFormer(nn.Module):
                 hidden_dim, num_heads, activation, backend))
         self.decoder = Decoder(hidden_dim, backend)
 
-    def forward(self, fc: list[torch.Tensor], fs: list[torch.Tensor]):
+    def forward(self, fc: list[torch.Tensor], fs: list[torch.Tensor] | None,
+                style_kv=None):
+        """``style_kv``: 2 * num_layers cached (k, v) pairs, one per block,
+        from ``infer.image.precompute_style_kv``; ``fs`` may then be None."""
         b, h, w, c = fc[0].shape
         fc_tok = [f.reshape(b, h * w, c) for f in fc]
-        fs_tok = [f.reshape(f.shape[0], -1, f.shape[-1]) for f in fs]
+        if style_kv is None:
+            fs_tok = [f.reshape(f.shape[0], -1, f.shape[-1]) for f in fs]
+            style_kv = [None] * (2 * self.num_layers)
+        else:
+            fs_tok = [None] * self.num_layers
         fcs = fc_tok[0]
         for i in range(self.num_layers):
-            fcs = getattr(self, f"ada{2 * i}")(fc_tok[i], fs_tok[i], fcs)
-            fcs = getattr(self, f"ada{2 * i + 1}")(fcs, fs_tok[i], fcs)
+            fcs = getattr(self, f"ada{2 * i}")(fc_tok[i], fs_tok[i], fcs,
+                                               style_kv[2 * i])
+            fcs = getattr(self, f"ada{2 * i + 1}")(fcs, fs_tok[i], fcs,
+                                                   style_kv[2 * i + 1])
         fcs_map = fcs.reshape(b, h, w, c)
         return fcs_map, self.decoder(fcs_map)

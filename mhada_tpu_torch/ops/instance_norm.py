@@ -8,9 +8,15 @@ network/adaDecoder.py:41-43,147-149).  Statistics are taken in float32.
 import torch
 
 
+def instance_norm_stats(x: torch.Tensor, eps: float = 1e-5):
+    """x: (B, N, C) -> float32 (mean, rstd), each (B, C), over N."""
+    xf = x.float()
+    mean = xf.mean(dim=1)
+    var = (xf - mean[:, None]).square().mean(dim=1)
+    return mean, torch.rsqrt(var + eps)
+
+
 def instance_norm_tokens(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """x: (B, N, C) -> normalised over N per (b, c), in x's dtype."""
-    xf = x.float()
-    mean = xf.mean(dim=1, keepdim=True)
-    var = (xf - mean).square().mean(dim=1, keepdim=True)
-    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    mean, rstd = instance_norm_stats(x, eps)
+    return ((x.float() - mean[:, None]) * rstd[:, None]).to(x.dtype)

@@ -18,8 +18,17 @@ def reflect_pad2d(x: torch.Tensor, pad: int) -> torch.Tensor:
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
            stride: int = 1) -> torch.Tensor:
-    """Unpadded NHWC conv with an OIHW kernel."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=stride)
+    """Unpadded NHWC conv with an OIHW kernel.
+
+    cuDNN's TF32 is off for the call (PyTorch leaves it on by default), so a
+    float32 conv computes in float32, as the configuration states.
+    """
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=stride)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
     return y.permute(0, 2, 3, 1)
 
 

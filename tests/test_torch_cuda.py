@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain twins on the card, at small
 and ragged shapes (partial query/key tiles, partial decoder tiles, tiny
-images) that the 512^2 path never produces.
+images) that the 512^2 path never produces, and K1 / K4 just past the TPU
+kernels' single-pass limit of 4096 keys.
 
 Marked ``cuda``: each test skips without a card.  On a machine with one (the
 repo conftest imports jax, which that machine need not have):
@@ -15,6 +16,8 @@ from mhada_tpu_torch.ops.attention_kernel import attention_tm
 from mhada_tpu_torch.ops.decoder_tail import decoder_tail
 from mhada_tpu_torch.ops.ln_matmul import ln_matmul
 from mhada_tpu_torch.ops.mhada_kernel import mhada_tm
+from mhada_tpu_torch.ops.instance_norm import instance_norm_stats
+from mhada_tpu_torch.ops.mhada_prologue import mhada_fused_prologue
 
 pytestmark = pytest.mark.cuda
 
@@ -61,7 +64,7 @@ def _check(entry, run, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,l", [(2, 100), (1, 64), (1, 7)])
+@pytest.mark.parametrize("b,l", [(2, 100), (1, 64), (1, 7), (1, 4160)])
 def test_attention_kernel(gen, dtype, b, l):
     qkv = _rnd(gen, dtype, b, l, 384)
     _check("mhada_attention_fwd",
@@ -69,7 +72,8 @@ def test_attention_kernel(gen, dtype, b, l):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,n,m", [(2, 70, 130), (1, 64, 64), (1, 1, 200)])
+@pytest.mark.parametrize("b,n,m", [(2, 70, 130), (1, 64, 64), (1, 1, 200),
+                                   (1, 4160, 4160)])
 def test_mhada_kernel(gen, dtype, b, n, m):
     q = _rnd(gen, dtype, b, n, 128, scale=0.35)
     k = _rnd(gen, dtype, b, m, 128, scale=0.35)
@@ -77,6 +81,24 @@ def test_mhada_kernel(gen, dtype, b, n, m):
     _check("mhada_mhada_fwd",
            lambda be, dt: mhada_tm(q.to(dt), k.to(dt), v.to(dt), f.to(dt), 2,
                                    backend=be), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,n,m", [(2, 70, 130), (1, 1, 200), (1, 64, 64)])
+def test_mhada_prologue_kernel(gen, dtype, b, n, m):
+    fc = _rnd(gen, dtype, b, n, 128, scale=2.0) + 1
+    fcs = _rnd(gen, dtype, b, n, 128, scale=3.0) - 1
+    mc, rc = instance_norm_stats(fc)
+    ms, rs = instance_norm_stats(fcs)
+    stats = torch.stack([mc, rc, ms, rs], 1)
+    wf = _rnd(gen, dtype, 2, 64, 64, scale=1 / 8)
+    fb = _rnd(gen, dtype, 2, 64, scale=1 / 8)
+    k = _rnd(gen, dtype, b, m, 128, scale=0.35)
+    v = _rnd(gen, dtype, b, m, 128)
+    _check("mhada_mhada_prologue",
+           lambda be, dt: mhada_fused_prologue(
+               fc.to(dt), fcs.to(dt), stats, wf, fb, k.to(dt), v.to(dt),
+               backend=be), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -53,7 +53,7 @@ def test_stylize_matches_jax(attn_mode):
     c, s = _images()
     ref = np.asarray(jax_make_stylize_fn(jmodels)(params, jnp.asarray(c),
                                                   jnp.asarray(s)))
-    models = build_models(ModelConfig(attn_mode=attn_mode, **SMALL))
+    models = build_models(ModelConfig(attn_mode=attn_mode, **SMALL), "cpu")
     load_params(models, jax_params_to_state_dicts(params))
     got = make_stylize_fn(models)(torch.from_numpy(c),
                                   torch.from_numpy(s)).numpy()
@@ -81,12 +81,12 @@ def test_pth_round_trip(tmp_path):
         for key in want[net]:
             torch.testing.assert_close(got[net][key], want[net][key],
                                        rtol=0, atol=0)
-    load_params(build_models(ModelConfig(attn_mode="batch_coupled", **SMALL)),
-                got)
+    load_params(build_models(ModelConfig(attn_mode="batch_coupled", **SMALL),
+                             "cpu"), got)
 
 
 def test_kernel_backend_on_cpu_raises():
-    models = build_models(ModelConfig(mhada_backend="kernel", **SMALL))
+    models = build_models(ModelConfig(mhada_backend="kernel", **SMALL), "cpu")
     c, s = _images(b=1)
     with pytest.raises(RuntimeError, match="needs a CUDA tensor"):
         stylize_image(models, c[0], s[0])
@@ -118,21 +118,38 @@ def test_cli_random_weights(tmp_path):
     assert np.asarray(Image.open(out)).shape == (64, 64, 3)
 
 
-def test_port_never_imports_jax():
+def test_port_never_imports_jax(tmp_path):
+    """In a fresh interpreter: import every module of the port, drive the
+    path, read a reference-format .pth triple written by the JAX package's
+    exporters, and find no module of jax, jaxlib, flax or mhada_tpu loaded."""
+    _, params = _jax_params("spatial")
+    layers, heads = SMALL["num_layers"], SMALL["num_heads"]
+    save_pth(str(tmp_path / "ada.pth"),
+             export_adaformer(params["adaFormer"], layers, heads))
+    save_pth(str(tmp_path / "vitc.pth"), export_vit(params["vit_c"], layers))
+    save_pth(str(tmp_path / "vits.pth"), export_vit(params["vit_s"], layers))
     code = (
-        "import sys, numpy as np\n"
-        "import mhada_tpu_torch.interop, mhada_tpu_torch.infer.image as ii\n"
+        "import importlib, pkgutil, sys, numpy as np\n"
+        "import mhada_tpu_torch as pkg\n"
+        "for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(mod.name)\n"
+        "import mhada_tpu_torch.infer.image as ii\n"
         "from mhada_tpu_torch.config import ModelConfig\n"
+        "from mhada_tpu_torch.interop import load_params, load_pth_params\n"
         "from mhada_tpu_torch.models import build_models\n"
-        "m = build_models(ModelConfig(num_layers=1, hidden_dim=128,"
-        " num_heads=2, mlp_dim=128))\n"
+        f"d = {str(tmp_path)!r}\n"
+        "sd = load_pth_params(d + '/ada.pth', d + '/vitc.pth', d + '/vits.pth',"
+        f" num_layers={layers}, num_heads={heads})\n"
+        "m = build_models(ModelConfig(num_layers=2, hidden_dim=128,"
+        " num_heads=2, mlp_dim=256), 'cpu')\n"
+        "load_params(m, sd)\n"
         "x = np.zeros((32, 32, 3), np.float32)\n"
         "assert ii.stylize_image(m, x, x).shape == (32, 32, 3)\n"
         "print(sorted(k for k in sys.modules if k.split('.')[0] in"
-        " ('jax', 'jaxlib', 'flax')))\n")
+        " ('jax', 'jaxlib', 'flax', 'mhada_tpu')))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "[]"
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
