@@ -24,19 +24,40 @@
 5. times: ms per frame of the kernel and plain paths, interleaved: the full
    path at 512^2; the streaming path at 512^2 with B = 1 and 8 (one B = 8
    batch held against the plain path first); the streaming path at
-   1024^2, B = 1, bfloat16.
+   1024^2, B = 1, bfloat16;
+6. training gates: the training kernels K6 (attention, forward and
+   backward), K7 (MHAda, forward and backward) and K8 (the decoder tail
+   writing its residuals) against their plain versions at the image
+   training step's shapes (B = 8, 256^2: L = N = M = 1024 tokens, the tail
+   from 128^2 to 256^2), float32 and bfloat16: each output, residual and
+   input gradient against its own scale, with times, bounds and the library
+   yardstick;
+7. the training path: one step (``train.train_image``) on the kernel build
+   and one on the plain build from the same weights and batch, losses and
+   every gradient held together (each tensor against its own scale, to a
+   bound widened only where a rounding-level change of the inputs moves
+   the plain build as far), launch counts exact; controls that the
+   gradient gate must report (a planted fault in K7's dq; the plain build
+   in bfloat16 against the float32 bounds); 5 steps on a fixed batch with
+   a falling loss; ``train.run_image`` for 2 steps over 16 synthetic PNGs
+   and one resumed step; ms/step of both builds, interleaved, float32 and
+   bfloat16.
 
 Each phase prints one line; any failure exits non-zero without the final
 result line.  The model is the full-width ``ModelConfig()`` with random
 weights from a seed.  The line before the last is the kernels' JSON
-summary; the last line is ``{"ok": true, "device": {...}}``.
+summary; the last line is ``{"ok": true, "device": {...}}``.  ``--dump
+FILE`` also writes phase 7's per-tensor gradient errors and bounds.
 """
 
+import argparse
+import contextlib
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -50,6 +71,9 @@ C6_GAIN = 3000.0
 ATTN, LN, K3, K4, TAIL = ("mhada_attention_fwd", "mhada_ln_matmul",
                           "mhada_mhada_prologue", "mhada_mhada_fwd",
                           "mhada_decoder_tail")
+K6F, K6B, K7F, K7B, K8 = ("mhada_attention_train_fwd",
+                          "mhada_attention_train_bwd", "mhada_mhada_train_fwd",
+                          "mhada_mhada_train_bwd", "mhada_decoder_tail_res")
 SRC = "mhada_tpu_torch/csrc/"
 ROWS = [
     # row, C entry point, source, TPU kernel it replaces (pallas_call line)
@@ -67,6 +91,16 @@ ROWS = [
      SRC + "attention_fwd.cu", "mhada_tpu/ops/attention_pallas.py:624"),
     ("K10 mhada streaming forward, by K4's kernel", K4,
      SRC + "mhada_fwd.cu", "mhada_tpu/ops/mhada_pallas.py:622"),
+    ("K6 attention_train forward", K6F, SRC + "attention_train.cu",
+     "mhada_tpu/ops/attention_pallas.py:236"),
+    ("K6 attention_train backward", K6B, SRC + "attention_train.cu",
+     "mhada_tpu/ops/attention_pallas.py:351"),
+    ("K7 mhada_train forward", K7F, SRC + "mhada_train.cu",
+     "mhada_tpu/ops/mhada_pallas.py:336"),
+    ("K7 mhada_train backward", K7B, SRC + "mhada_train.cu",
+     "mhada_tpu/ops/mhada_pallas.py:468"),
+    ("K8 decoder_tail_train forward", K8, SRC + "decoder_tail.cu",
+     "mhada_tpu/ops/decoder_tail_pallas.py:519"),
 ]
 # gate -> (its row, kind of inputs, token count); the first gate of a row
 # fills the row.
@@ -85,9 +119,65 @@ GATES = [
      16384),
 ]
 # Launches of each path (C entry point -> count).
-FULL = {ATTN: 6, LN: 12, K3: 0, K4: 6, TAIL: 1}
-STYLE = {ATTN: 3, LN: 6, K3: 0, K4: 0, TAIL: 0}   # encode + precompute K/V
-FRAME = {ATTN: 3, LN: 6, K3: 6, K4: 0, TAIL: 1}   # one streaming frame
+# The inference paths launch none of the training kernels.
+NO_TRAIN = {K6F: 0, K6B: 0, K7F: 0, K7B: 0, K8: 0}
+FULL = {ATTN: 6, LN: 12, K3: 0, K4: 6, TAIL: 1, **NO_TRAIN}
+STYLE = {ATTN: 3, LN: 6, K3: 0, K4: 0, TAIL: 0, **NO_TRAIN}  # style set-up
+FRAME = {ATTN: 3, LN: 6, K3: 6, K4: 0, TAIL: 1, **NO_TRAIN}  # one frame
+# One image training step (4 ViT applies x 3 blocks, 3 AdaFormer applies x
+# 6 MHAda blocks, 3 decoder tails); the forward-only K1-K5 launch nothing.
+TRAIN = {ATTN: 0, LN: 0, K3: 0, K4: 0, TAIL: 0, K6F: 12, K6B: 12, K7F: 18,
+         K7B: 18, K8: 3}
+# The training gates and step: (gate, row of its forward, row of its
+# backward or None, kind).  Shapes: the image step's, B = 8 at 256^2.
+TRAIN_GATES = [
+    ("K6 L=1024", "K6 attention_train forward", "K6 attention_train backward",
+     "attention"),
+    ("K7 N=M=1024", "K7 mhada_train forward", "K7 mhada_train backward",
+     "mhada"),
+    ("K8 128^2->256^2", "K8 decoder_tail_train forward", None, "tail"),
+]
+TRAIN_B, TRAIN_SIZE = 8, 256
+# Training bounds on max |kernel - plain| / max |plain| of each output,
+# residual and input gradient, each against its own largest value: forward
+# as the forward gates; gradients sum over 1024 rows in another order
+# (float32) or round P and dS to bf16 at the same points but after sums in
+# another order (bfloat16).
+TRAIN_REL = {"float32": (1e-4, 1e-3), "bfloat16": (3e-2, 5e-2)}
+# K8: the share of rgb, y1 and c5 positions whose ReLU masks may differ
+# between the kernel and plain forwards (pre-activations within rounding of
+# 0; see tail_aligned_grads); 2.1e-7 and 8.1e-4 on an H100.
+TAIL_FLIPS = {"float32": 1e-4, "bfloat16": 1e-2}
+# One step, kernel build against plain build in the same dtype: relative
+# loss bound.  Many gradients are zero in exact arithmetic (the key biases:
+# softmax is shift-invariant; the value and output biases and the last
+# vit_c block's output biases: the next instance norm removes a per-channel
+# constant); the plain float32 build gives them 1e-13 to 1e-9 of the
+# network's largest gradient and every other tensor at least 1e-5.  Tensors
+# below LIVE_FLOOR there are rounding noise, held to NOISE_BOUND x the
+# network's largest gradient.
+STEP_LOSS_REL = {"float32": 1e-4, "bfloat16": 3e-2}
+LIVE_FLOOR = 1e-6
+NOISE_BOUND = {"float32": 1e-5, "bfloat16": 1e-3}
+# Every live tensor's gradient is held against its own largest value, to
+# the larger of TRAIN_REL's gradient bound and ROUNDING_FACTOR x the error
+# that a rounding-level change gives the plain build (the same step on
+# inputs moved by one unit in the last place; the larger of two such
+# controls): a gradient that sums nearly cancelling terms, or crosses ReLU
+# masks flipped at pre-activations within rounding of 0, moves that far
+# under any correct kernel.  On an H100 the kernel build's float32 errors
+# reached 3.3x the controls' larger error (adaFormer.ada3.f_kernel, a
+# projection next to K7, whose rounding differs from the plain version's
+# by ~1e-6; two runs), so the factor 6 leaves room of 1.8x.
+ROUNDING_FACTOR = 6.0
+# Controls the step gate must report as not correct: the kernel build with
+# K7's dq scaled by 1 + PLANTED_DQ, and the plain build in bfloat16 held to
+# the float32 bounds.  A fault of 1 + BELOW_DQ is also planted and its
+# count printed, not gated: it shows the gate's resolution, since faults
+# that small sit inside the step's rounding spread (phase 6 holds K7's dq
+# to 1e-3 / 5e-2 of its own scale on the same inputs).
+PLANTED_DQ = {"float32": 1e-2, "bfloat16": 1.0}
+BELOW_DQ = {"float32": 1e-3, "bfloat16": 1e-1}
 # Gate bounds on max |kernel - plain| / max |plain|.  float32: the two
 # differ only in summation order (TF32 is off), ~1e-6 expected.  bfloat16:
 # both round intermediates to bf16 (2^-8 relative) at different points.
@@ -266,6 +356,446 @@ def run_gate(gate, kind, n, dname, card):
         f"{card}); peak memory {peak_gb:.2f} GB"), rec
 
 
+def train_gate_inputs(kind, dtype, g):
+    """Seeded inputs of one training kernel at the image step's shapes ->
+    dict: ``run(backend, *inputs)`` through the autograd Function, the
+    ``inputs`` and output cotangent ``cot``; ``fwd`` / ``bwd``: backend ->
+    call of the forward (outputs and residuals) and of the backward alone on
+    the plain forward's residuals (None where the backward has no kernel);
+    ``names``: part -> the name of each output of ``fwd``, ``bwd`` and of
+    the input gradients (``grad``; K6's packed d qkv is split into dq, dk,
+    dv); flops and bytes of each; the library yardsticks or None."""
+    import torch
+    import torch.nn.functional as F
+
+    from mhada_tpu_torch.ops import attention_train as at
+    from mhada_tpu_torch.ops import decoder_tail as dtl
+    from mhada_tpu_torch.ops import mhada_train as mt
+
+    dev, b, c, heads = "cuda", TRAIN_B, 512, 8
+    es = torch.tensor([], dtype=dtype).element_size()
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    if kind == "attention":
+        n, scale = (TRAIN_SIZE // 8) ** 2, 0.125
+        qkv, cot = rnd(b, n, 3 * c), rnd(b, n, c)
+        out, lse = at.attention_train_fwd_plain(qkv, heads, scale)
+        delta = at.row_delta(cot, out, heads)
+        lib_in = qkv.detach().requires_grad_()
+        q, k, v = (t.unflatten(-1, (heads, 64)).transpose(1, 2)
+                   for t in lib_in.split(c, dim=-1))
+        lib_out = F.scaled_dot_product_attention(q, k, v)
+        lib_cot = cot.unflatten(-1, (heads, 64)).transpose(1, 2)
+        return dict(
+            run=lambda be, x: at.attention_train(x, heads, scale, be),
+            inputs=[qkv], cot=cot,
+            fwd={"kernel": lambda: at._fwd_kernel(qkv, heads, scale),
+                 "plain": lambda: at.attention_train_fwd_plain(
+                     qkv, heads, scale)},
+            bwd={"kernel": lambda: at._bwd_kernel(
+                qkv, lse, delta, cot, heads, scale).chunk(3, dim=-1),
+                 "plain": lambda: at.attention_train_bwd_plain(
+                     qkv, lse, delta, cot, heads, scale).chunk(3, dim=-1)},
+            names={"fwd": ["out", "lse"], "bwd": ["dq", "dk", "dv"],
+                   "grad": ["dq", "dk", "dv"]},
+            flops=(4 * b * n * n * c, 10 * b * n * n * c),
+            bytes=(4 * b * n * c * es + 4 * b * heads * n,
+                   7 * b * n * c * es + 8 * b * heads * n),
+            lib=(lambda: F.scaled_dot_product_attention(q, k, v),
+                 lambda: torch.autograd.grad(lib_out, lib_in, lib_cot,
+                                             retain_graph=True)))
+    if kind == "mhada":
+        n = (TRAIN_SIZE // 8) ** 2
+        q, k = rnd(b, n, c, scale=0.35), rnd(b, n, c, scale=0.35)
+        v, f, cot = rnd(b, n, c), rnd(b, n, c), rnd(b, n, c)
+        _, m1, e2, lse = mt.mhada_train_fwd_plain(q, k, v, f, heads)
+        dm1, de2, delta, _ = mt.mhada_train_prologue(cot, f, m1, e2, heads,
+                                                     dtype)
+        return dict(
+            run=lambda be, *a: mt.mhada_train(*a, heads, be),
+            inputs=[q, k, v, f], cot=cot,
+            fwd={"kernel": lambda: mt._fwd_kernel(q, k, v, f, heads),
+                 "plain": lambda: mt.mhada_train_fwd_plain(q, k, v, f,
+                                                           heads)},
+            bwd={"kernel": lambda: mt._bwd_kernel(q, k, v, dm1, de2, lse,
+                                                  delta, heads),
+                 "plain": lambda: mt.mhada_train_bwd_plain(
+                     q, k, v, dm1, de2, lse, delta, heads)},
+            names={"fwd": ["out", "M1", "E2", "lse"],
+                   "bwd": ["dq", "dk", "dv"],
+                   "grad": ["dq", "dk", "dv", "dfcs_n"]},
+            flops=(6 * b * n * n * c, 14 * b * n * n * c),
+            bytes=(5 * b * n * c * es + 8 * b * n * c + 4 * b * heads * n,
+                   8 * b * n * c * es + 8 * b * heads * n),
+            lib=(None, None))
+    if kind == "tail":
+        h = TRAIN_SIZE // 2
+        x = rnd(b, h, h, 128).abs()
+
+        def conv(co, ci):
+            # biases shifted positive, as in tests/test_torch_cuda.py: few
+            # pre-activations sit at 0, where the ReLU masks of any two
+            # roundings disagree and the gradients with them
+            bound_ = 1 / (ci * 9) ** 0.5
+            w = (torch.rand(co, ci, 3, 3, generator=g) * 2 - 1) * bound_
+            bb = torch.rand(co, generator=g) * 2 * bound_
+            return w.to(dev, dtype), bb.to(dev, dtype)
+
+        ws = [*conv(64, 128), *conv(64, 64), *conv(3, 64)]
+        cot = rnd(b, 2 * h, 2 * h, 3)
+        hi = b * (2 * h) ** 2
+        return dict(
+            run=lambda be, *a: dtl.decoder_tail_train(*a, backend=be),
+            inputs=[x, *ws], cot=cot,
+            fwd={"kernel": lambda: dtl._launch_tail(
+                "mhada_decoder_tail_res", x, *ws),
+                 "plain": lambda: dtl.decoder_tail_res_plain(x, *ws)},
+            bwd=None,
+            names={"fwd": ["rgb", "y1", "c5"],
+                   "grad": ["dx", "dw_up", "db_up", "dw5", "db5", "dw6",
+                            "db6"]},
+            flops=(2 * 9 * (b * h * h * 128 * 64 + hi * 64 * 64
+                            + hi * 64 * 3), None),
+            bytes=((b * h * h * (128 + 64) + hi * (3 + 64)) * es
+                   + 9 * 64 * (128 + 64 + 3) * es, None),
+            lib=(None, None))
+    raise KeyError(kind)
+
+
+def _errs(names, got, ref):
+    """{output name: (max |got - ref|, that over max |ref|)}: each output is
+    held against its own scale (an attention output of ~0.05 is not
+    measured against an lse of ~8)."""
+    errs = {}
+    for name, a, r in zip(names, got, ref):
+        mx = (a.float() - r.float()).abs().max().item()
+        errs[name] = (mx, mx / max(r.float().abs().max().item(), 1e-30))
+    return errs
+
+
+def _worst(errs):
+    """(largest max |d|, largest relative error) of an ``_errs`` dict."""
+    return (max(e[0] for e in errs.values()),
+            max(e[1] for e in errs.values()))
+
+
+def _errs_txt(errs):
+    return " ".join(f"{n} {rel:.2e}" for n, (_, rel) in errs.items())
+
+
+def tail_aligned_grads(d):
+    """K8's plain backward on the plain forward's residuals with the kernel
+    forward's ReLU masks -> (input gradients, share of the rgb, y1 and c5
+    positions where the two forwards' masks differ).
+
+    A mask flips where a pre-activation lies within rounding of 0, and each
+    flip moves the gradients by one whole term (87 % of the 1e-3 bound at
+    float32 on an H100).  Aligning the masks leaves the flips out of the
+    gradient comparison; their share is bounded apart."""
+    import torch
+
+    from mhada_tpu_torch.ops import decoder_tail as dtl
+
+    got, ref = d["fwd"]["kernel"](), d["fwd"]["plain"]()
+    tiny = torch.finfo(ref[0].dtype).tiny
+    flips = sum(int(((a > 0) != (r > 0)).sum()) for a, r in zip(got, ref))
+    aligned = [torch.where(a > 0, r.clamp_min(tiny), 0)
+               for a, r in zip(got, ref)]
+    x, wu, _, w5, _, w6, _ = d["inputs"]
+    return (list(dtl.decoder_tail_bwd(d["cot"], x, wu, w5, w6, *aligned)),
+            flips / sum(r.numel() for r in ref))
+
+
+def run_train_gate(gate, kind, dname, card):
+    """A training kernel against its plain versions on the same seeded
+    inputs, each output against its own scale: the forward's outputs and
+    residuals, the backward alone, and the input gradients through the
+    autograd Function -> (ok, {"fwd": rec, "bwd": rec or None, ...})."""
+    import torch
+
+    dtype = getattr(torch, dname)
+    g = torch.Generator().manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    d = train_gate_inputs(kind, dtype, g)
+    rel_fwd, rel_grad = TRAIN_REL[dname]
+
+    def grads(backend):
+        leaves = [t.detach().requires_grad_() for t in d["inputs"]]
+        d["run"](backend, *leaves).backward(d["cot"])
+        got = [t.grad for t in leaves]
+        return list(got[0].chunk(3, dim=-1)) if kind == "attention" else got
+
+    good, recs, lines = True, {}, []
+    for part in ("fwd", "bwd"):
+        calls = d[part]
+        if calls is None:
+            recs[part] = None
+            continue
+        got, ref = calls["kernel"](), calls["plain"]()
+        torch.cuda.synchronize()
+        errs = _errs(d["names"][part], got, ref)
+        mx, rel = _worst(errs)
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        limit = rel_fwd if part == "fwd" else rel_grad
+        del got, ref
+        ms = cuda_ms(calls["kernel"], 2, 5)
+        plain_ms = cuda_ms(calls["plain"], 1, 3)
+        lib = d["lib"][0 if part == "fwd" else 1]
+        library_ms = cuda_ms(lib, 2, 5) if lib else None
+        i = 0 if part == "fwd" else 1
+        bound_ms, bound_by = bound(d["flops"][i], d["bytes"][i], dname)
+        recs[part] = dict(max_abs_err=mx, rel_err=rel,
+                          rel_each={n: e[1] for n, e in errs.items()}, ms=ms,
+                          plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms,
+                          gflop=d["flops"][i] / 1e9,
+                          mbytes=d["bytes"][i] / 1e6)
+        good = good and finite and rel <= limit
+        lib_txt = f"{library_ms:.3f} ms" if lib else "none"
+        lines.append(f"{part}: rel {_errs_txt(errs)} (bound {limit:.0e} "
+                     f"each; max|d| {mx:.3e}); kernel {ms:.3f} ms, plain "
+                     f"{plain_ms:.3f} ms, library {lib_txt}, bound "
+                     f"{bound_ms:.3f} ms ({bound_by})")
+    got, ref = grads("kernel"), grads("plain")
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    names = d["names"]["grad"]
+    if kind == "tail":
+        flip_txt = f"plain masks: {_errs_txt(_errs(names, got, ref))}; "
+        ref, flips = tail_aligned_grads(d)
+        good = good and flips <= TAIL_FLIPS[dname]
+        flip_txt += (f"masks differ at {flips:.2e} of the positions (bound "
+                     f"{TAIL_FLIPS[dname]:.0e}); ")
+        recs["mask_flip_share"] = flips
+    errs = _errs(names, got, ref)
+    mx, rel = _worst(errs)
+    good = good and finite and rel <= rel_grad
+    torch.cuda.synchronize()
+    recs["grad_rel_each"] = {n: e[1] for n, e in errs.items()}
+    del got, ref
+    if kind == "tail":   # K8's backward is plain PyTorch on the residuals
+        from mhada_tpu_torch.ops import decoder_tail as dtl
+
+        rgb, y1, c5 = d["fwd"]["kernel"]()
+        x, wu, _, w5, _, w6, _ = d["inputs"]
+        recs["bwd_plain_ms"] = cuda_ms(lambda: dtl.decoder_tail_bwd(
+            d["cot"], x, wu, w5, w6, rgb, y1, c5), 1, 3)
+        lines.append(f"bwd (plain PyTorch) {recs['bwd_plain_ms']:.3f} ms")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del d
+    torch.cuda.empty_cache()
+    aligned = ("with the kernel's masks " if kind == "tail" else "")
+    return phase(
+        f"train gate {gate} {dname}", good,
+        "; ".join(lines) + f"; input gradients through autograd: "
+        f"{flip_txt if kind == 'tail' else ''}against the plain build "
+        f"{aligned}rel {_errs_txt(errs)} (bound {rel_grad:.0e} each; max|d| "
+        f"{mx:.3e}); peak memory {peak_gb:.2f} GB ({card})"), recs
+
+
+def step_grads(models, cfg, content, style):
+    """One forward and backward of the image loss -> (metrics as floats,
+    {network: {parameter: grad}})."""
+    from mhada_tpu_torch.ops.pad_conv import no_tf32
+    from mhada_tpu_torch.train.train_image import TRAINABLE, image_loss_fn
+
+    for net in TRAINABLE:
+        models[net].zero_grad(set_to_none=True)
+    with no_tf32():
+        loss, metrics = image_loss_fn(models, content, style, cfg)
+        loss.backward()
+    return ({k: float(v.detach()) for k, v in metrics.items()},
+            {net: {k: p.grad for k, p in models[net].named_parameters()}
+             for net in TRAINABLE})
+
+
+def live_tensors(grads):
+    """{(network, parameter)} whose gradient exceeds LIVE_FLOOR x its
+    network's largest one."""
+    live = set()
+    for net, want in grads.items():
+        top = max(r.abs().max().item() for r in want.values())
+        live |= {(net, k) for k, r in want.items()
+                 if r.abs().max().item() > LIVE_FLOOR * top}
+    return live
+
+
+def grad_errors(got, ref, live):
+    """({(network, parameter): max |got - ref| / max |ref|} over the live
+    tensors, the largest error of the others over its network's largest
+    gradient)."""
+    errs, noise = {}, 0.0
+    for net, want in ref.items():
+        top = max(r.abs().max().item() for r in want.values())
+        for key, r in want.items():
+            err = (got[net][key].float() - r.float()).abs().max().item()
+            if (net, key) in live:
+                errs[net, key] = err / r.abs().max().item()
+            else:
+                noise = max(noise, err / top)
+    return errs, noise
+
+
+def over_bound(errs, bounds):
+    """The tensors whose error exceeds their bound."""
+    return [t for t in errs if errs[t] > bounds[t]]
+
+
+def worst_txt(errs, bounds, n=3):
+    """The n tensors nearest their bounds, as 'name error of bound'."""
+    top = sorted(errs, key=lambda t: errs[t] / bounds[t], reverse=True)[:n]
+    return ", ".join(f"{net}.{key} {errs[net, key]:.2e} of "
+                     f"{bounds[net, key]:.1e}" for net, key in top)
+
+
+def nudged(x, dtype, gen):
+    """x rounded to ``dtype``, each element then moved by one unit in its
+    last place, up or down at random (in float64, where 1 + 2^-24 exists)."""
+    import torch
+
+    sign = torch.randint(0, 2, x.shape, generator=gen) * 2 - 1
+    half_ulp = torch.finfo(dtype).eps / 2
+    return (x.to(dtype).double() * (1 + half_ulp * sign.to(x.device))).to(
+        dtype).float()
+
+
+@contextlib.contextmanager
+def planted_dq_fault(scale):
+    """K7's backward kernel with its dq scaled by ``scale``: a fault that
+    the step gate must report."""
+    from mhada_tpu_torch.ops import mhada_train as mt
+
+    real = mt._bwd_kernel
+
+    def faulty(*args):
+        dq, dk, dv = real(*args)
+        return dq * scale, dk, dv
+
+    mt._bwd_kernel = faulty
+    try:
+        yield
+    finally:
+        mt._bwd_kernel = real
+
+
+def train_step_gates(kcfg, ktrain, pcfg, ptrain, tc, ts):
+    """Phase 7's gate, per dtype: one step on the kernel build (its launches
+    counted) and one on the plain build from the same weights and batch;
+    losses and every gradient held together, each live tensor against its
+    own largest value; the rounding control that sets the bounds; the
+    controls the gate must report.  -> (ok, {dtype: record with the
+    launches}, {dtype: {tensor: errors and bound}})."""
+    from dataclasses import replace
+
+    import torch
+
+    from mhada_tpu_torch import _build
+
+    ok, records, grad_tables = True, {}, {}
+    # the plain float32 build's gradients, its live tensors and the float32
+    # gate's bounds (float32 runs first)
+    pg32 = live = bounds32 = None
+    nudge_gen = torch.Generator().manual_seed(SEED)
+    for dname in DTYPE_NAMES:
+        dtype = getattr(torch, dname)
+        kc, pc = (replace(c, compute_dtype=dname) for c in (kcfg, pcfg))
+        rel_grad = TRAIN_REL[dname][1]
+        try:
+            _build.reset_launches()
+            km, kg = step_grads(ktrain, kc, tc, ts)
+            torch.cuda.synchronize()
+            counts = dict(_build.LAUNCHES)
+            pm, pg = step_grads(ptrain, pc, tc, ts)
+            rgs = [step_grads(ptrain, pc, nudged(tc, dtype, nudge_gen),
+                              nudged(ts, dtype, nudge_gen))[1]
+                   for _ in range(2)]
+            fgs = []
+            for size in (PLANTED_DQ[dname], BELOW_DQ[dname]):
+                with planted_dq_fault(1 + size):
+                    fgs.append(step_grads(ktrain, kc, tc, ts)[1])
+            torch.cuda.synchronize()
+        except Exception as e:
+            ok = phase(f"train step {dname}", False,
+                       f"{type(e).__name__}: {e}")
+            continue
+        if pg32 is None:
+            pg32, live = pg, live_tensors(pg)
+        loss_rel = abs(km["loss"] - pm["loss"]) / abs(pm["loss"])
+        errs, noise = grad_errors(kg, pg, live)
+        controls = [grad_errors(rg, pg, live)[0] for rg in rgs]
+        rounding = {t: max(c[t] for c in controls) for t in live}
+        bounds = {t: max(rel_grad, ROUNDING_FACTOR * rounding[t])
+                  for t in live}
+        fault, below = (grad_errors(fg, pg, live)[0] for fg in fgs)
+        over, caught = over_bound(errs, bounds), over_bound(fault, bounds)
+        widened = [bounds[t] for t in live if bounds[t] > rel_grad]
+        grad_tables[dname] = {
+            f"{net}.{key}": dict(kernel=errs[net, key],
+                                 rounding=rounding[net, key],
+                                 bound=bounds[net, key],
+                                 fault=fault[net, key],
+                                 below=below[net, key])
+            for net, key in sorted(live)}
+        control_txt, controls_ok = "", bool(caught)
+        if bounds32 is None:
+            bounds32 = bounds
+        else:   # the plain bfloat16 build held to the float32 gate
+            lower = grad_errors(pg, pg32, live)[0]
+            lower_caught = over_bound(lower, bounds32)
+            controls_ok = controls_ok and bool(lower_caught)
+            control_txt = (f"; the plain bfloat16 build against the float32"
+                           f" gate: {len(lower_caught)} tensors over their "
+                           f"bounds (nearest: "
+                           f"{worst_txt(lower, bounds32)})")
+        good = (all(np.isfinite(v) for v in km.values()) and counts == TRAIN
+                and loss_rel <= STEP_LOSS_REL[dname] and not over
+                and noise <= NOISE_BOUND[dname])
+        records[dname] = dict(
+            loss_kernel=km, loss_plain=pm, loss_rel=loss_rel,
+            grad_rel_worst=max(errs.values()),
+            grad_rounding_worst=max(rounding.values()),
+            grad_bounds_widened=len(widened), grad_tensors_live=len(errs),
+            grad_noise_worst=noise, fault_tensors_over=len(caught),
+            below_fault_tensors_over=len(over_bound(below, bounds)),
+            launches=counts)
+        ok = phase(f"train step {dname}", good,
+                   f"kernel build {km}; plain build {pm}; loss rel "
+                   f"{loss_rel:.3e} (bound {STEP_LOSS_REL[dname]:.0e}); "
+                   f"gradients of {len(errs)} live tensors, each against its"
+                   f" own largest value: {len(over)} over max({rel_grad:.0e},"
+                   f" {ROUNDING_FACTOR:g} x the rounding controls' larger "
+                   f"error) (nearest: {worst_txt(errs, bounds)}); the "
+                   f"controls' worst {max(rounding.values()):.3e}, widening"
+                   f" {len(widened)} bounds up to "
+                   f"{max(widened, default=0):.2e}"
+                   f"; the others (zero in exact arithmetic) within "
+                   f"{noise:.3e} of their network's largest gradient (bound "
+                   f"{NOISE_BOUND[dname]:.0e}); launches {counts} (want "
+                   f"{TRAIN})") and ok
+        ok = phase(f"train step gate controls {dname}", controls_ok,
+                   f"K7's dq x (1 + {PLANTED_DQ[dname]:g}): "
+                   f"{len(caught)} tensors over their "
+                   f"bounds (nearest: {worst_txt(fault, bounds)})"
+                   f"{control_txt}; a smaller fault, counted, not gated: K7's "
+                   f"dq x (1 + {BELOW_DQ[dname]:g}): "
+                   f"{len(over_bound(below, bounds))} tensors over (nearest:"
+                   f" {worst_txt(below, bounds)})") and ok
+        del kg, pg, rgs, fgs
+    return ok, records, grad_tables
+
+
+def synthetic_folders(root, n, rng):
+    """``n`` random 300 x 340 PNGs in each of root/coco and root/wikiart."""
+    from PIL import Image
+
+    for d in ("coco", "wikiart"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+        for i in range(n):
+            pixels = rng.integers(0, 256, (300, 340, 3), np.uint8)
+            Image.fromarray(pixels).save(os.path.join(root, d, f"{i}.png"))
+
+
 def test_images(size, rng):
     """A smooth content picture with noise and a noise style, HWC 0-255."""
     yy, xx = np.mgrid[0:size, 0:size] / size
@@ -277,6 +807,10 @@ def test_images(size, rng):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--dump", help="write the step gate's per-tensor "
+                    "gradient errors and bounds to this JSON file")
+    args = ap.parse_args()
     t_start = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -314,7 +848,8 @@ def main() -> int:
           f"ptxas: {ptxas_summary(lib.with_suffix('.log').read_text())}")
 
     ok = True
-    gates = {}   # gate -> dtype name -> record
+    gates = {}   # gate (training kernels: row) -> dtype name -> record
+    train_extra, step_ms = {}, {}
 
     # ---- 3. per-kernel gates, kernel against plain on the card
     for gate, _, kind, n in GATES:
@@ -489,14 +1024,112 @@ def main() -> int:
     sk, sp = (make_stylize_with_kv_fn(m, bf) for m in (kmodels, pmodels))
     interleaved("stream1024_b1", "bfloat16", lambda: sk(c1k, kv_k),
                 lambda: sp(c1k, kv_p), 1, reps=(1, 3))
+    del kmodels, pmodels, kv_k, kv_p, sk, sp, frames8
+    torch.cuda.empty_cache()
+
+    # ---- 6. training gates at the image step's shapes
+    for gate, row_f, row_b, kind in TRAIN_GATES:
+        for dname in DTYPE_NAMES:
+            try:
+                good, recs = run_train_gate(gate, kind, dname, card)
+            except Exception as e:  # report every kernel, then fail
+                ok = phase(f"train gate {gate} {dname}", False,
+                           f"{type(e).__name__}: {e}")
+                continue
+            gates.setdefault(row_f, {})[dname] = recs["fwd"]
+            if row_b is not None:
+                gates.setdefault(row_b, {})[dname] = recs["bwd"]
+            train_extra.setdefault(gate, {})[dname] = {
+                k: v for k, v in recs.items() if k not in ("fwd", "bwd")}
+            ok = good and ok
+
+    # ---- 7. the training path: ModelConfig() at full width, 256^2, B = 8
+    from dataclasses import replace
+
+    from mhada_tpu_torch.config import ImageTrainConfig
+    from mhada_tpu_torch.train import run_image
+    from mhada_tpu_torch.train.train_image import (init_params,
+                                                   make_image_train_step,
+                                                   make_optimizers)
+
+    def train_models(backend):
+        cfg = ImageTrainConfig(model=ModelConfig(mhada_backend=backend))
+        return cfg, init_params(cfg, "cuda",
+                                torch.Generator().manual_seed(SEED))
+
+    (kcfg, ktrain), (pcfg, ptrain) = train_models("auto"), train_models(
+        "plain")
+    shape = (TRAIN_B, TRAIN_SIZE, TRAIN_SIZE, 3)
+    tc, ts = (torch.from_numpy(rng.uniform(0, 255, shape).astype(
+        np.float32)).cuda() for _ in range(2))
+    good, records, grad_tables = train_step_gates(kcfg, ktrain, pcfg, ptrain,
+                                                  tc, ts)
+    ok = good and ok
+    train_extra["step"] = records
+    if "float32" in records:
+        launches["train"] = records["float32"]["launches"]
+    if args.dump:
+        with open(args.dump, "w") as f:
+            json.dump(grad_tables, f, indent=0)
+
+    try:
+        step = make_image_train_step(kcfg, ktrain,
+                                     make_optimizers(ktrain, kcfg))
+        losses = [float(step(tc, ts)["loss"]) for _ in range(5)]
+        good = all(np.isfinite(losses)) and losses[-1] < losses[0]
+    except Exception as e:
+        good, losses = False, f"{type(e).__name__}: {e}"
+    train_extra["five_steps_float32"] = losses
+    ok = phase("train 5 steps float32", good, f"losses {losses}") and ok
+
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            synthetic_folders(tmp, 16, rng)
+            common = ["--coco", f"{tmp}/coco", "--wikiart",
+                      f"{tmp}/wikiart", "--models-dir", f"{tmp}/models",
+                      "--batch-size", str(TRAIN_B), "--seed", str(SEED),
+                      "--log-every", "1", "--metrics-jsonl",
+                      f"{tmp}/m.jsonl"]
+            run_image.main(common + ["--epochs", "1", "--steps-per-epoch",
+                                     "2"])
+            run_image.main(common + ["--epoch-start", "2", "--epochs", "2",
+                                     "--steps-per-epoch", "1"])
+            rows = [json.loads(ln) for ln in open(f"{tmp}/m.jsonl")]
+            files = sorted(os.listdir(f"{tmp}/models"))
+        good = ([r["epoch"] for r in rows] == [1, 1, 2]
+                and all(np.isfinite(r["loss"]) for r in rows)
+                and "checkpoint_epoch_2_batchSize_8.pth" in files)
+        detail = (f"losses {[r['loss'] for r in rows]} epochs "
+                  f"{[r['epoch'] for r in rows]}; files {files}")
+    except Exception as e:
+        good, detail = False, f"{type(e).__name__}: {e}"
+    ok = phase("train run_image 2 steps + 1 resumed", good, detail) and ok
+
+    for dname in DTYPE_NAMES:
+        steps = {b: make_image_train_step(replace(c, compute_dtype=dname), m,
+                                          make_optimizers(m, c))
+                 for b, c, m in (("kernel", kcfg, ktrain),
+                                 ("plain", pcfg, ptrain))}
+        t = {"kernel": [], "plain": []}
+        for build in ("plain", "kernel", "kernel", "plain"):
+            t[build].append(cuda_ms(lambda: steps[build](tc, ts), 1, 3))
+        step_ms[dname] = {b: sum(v) / len(v) for b, v in t.items()}
+        phase(f"times train step {dname}", True,
+              f"ms/step kernel build {t['kernel']} plain build {t['plain']}"
+              f" (256^2, B = 8; {card})")
 
     # ---- the kernels' summary: one row per TPU kernel the path replaces
     path_of = {"K1": "full512", "K2": "full512", "K3": "stream512",
                "K4": "full512", "K5": "full512", "K9": "stream1024",
-               "K10": "full1024"}
+               "K10": "full1024", "K6": "train", "K7": "train",
+               "K8": "train"}
     first_gate = {}
     for gate, row, *_ in GATES:
         first_gate.setdefault(row, gate)
+    for _, row_f, row_b, _ in TRAIN_GATES:   # recorded under the row
+        first_gate[row_f] = row_f
+        if row_b is not None:
+            first_gate[row_b] = row_b
     summary = []
     for name, entry, source, replaces in ROWS:
         first = first_gate[name]
@@ -512,6 +1145,9 @@ def main() -> int:
             row[key + "_bf16"] = r16.get(key)
         if row["library_ms"] is None:
             row["library"] = "no single PyTorch call computes this function"
+        elif "backward" in name:
+            row["library"] = ("backward of torch.nn.functional."
+                              "scaled_dot_product_attention")
         else:
             row["library"] = "torch.nn.functional.scaled_dot_product_attention"
         summary.append(row)
@@ -521,6 +1157,7 @@ def main() -> int:
     phase("run time", True, f"{seconds:.1f} s from start to summary")
     print(json.dumps({"kernels": summary, "extra_gates": extra,
                       "launches": launches, "frame_ms": frame_ms,
+                      "train": train_extra, "step_ms": step_ms,
                       "card": card, "seconds": seconds}), flush=True)
     if not ok:
         print("chip_smoke: FAILED", file=sys.stderr)

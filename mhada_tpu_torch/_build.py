@@ -9,6 +9,8 @@ source rebuilds and an unchanged one is reused.
 
 ``launch`` is the only place a kernel is launched from: it counts the
 launch in ``LAUNCHES`` and raises if the C entry point returns a CUDA error.
+``check_forward_only`` is the guard of the forward-only wrappers (K1-K5):
+their outputs carry no ``grad_fn``.
 """
 
 import ctypes
@@ -37,6 +39,12 @@ SIGNATURES = {
     "mhada_ln_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "mhada_decoder_tail": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _P],
+    "mhada_attention_train_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "mhada_attention_train_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                                  _P],
+    "mhada_mhada_train_fwd": [_P] * 8 + [_I] * 6 + [_P],
+    "mhada_mhada_train_bwd": [_P] * 10 + [_I] * 6 + [_P],
+    "mhada_decoder_tail_res": [_P] * 10 + [_I] * 4 + [_P],
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -166,3 +174,15 @@ def check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
             raise TypeError(f"{name}: mixed dtypes {t.dtype} and {dt}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def check_forward_only(name: str, training_route: str,
+                       *tensors: torch.Tensor) -> None:
+    """Raise before a forward-only kernel launches on a CUDA tensor while
+    grad mode is on and an input requires grad: the kernel's output would
+    silently lose its link to the parameters upstream."""
+    if torch.is_grad_enabled() and any(
+            t.is_cuda and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward-only: its kernel output carries no grad_fn, "
+            f"so gradients would be lost; {training_route}")

@@ -1,7 +1,7 @@
-"""Model configuration (mhada_tpu/config.py:12-34), the kernel switch and
-the device rule."""
+"""Model and image-training configuration (mhada_tpu/config.py:12-63), the
+kernel switch and the device rule."""
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -29,6 +29,28 @@ class ModelConfig:
         if self.mhada_backend not in BACKENDS:
             raise ValueError(f"unknown mhada_backend {self.mhada_backend!r}; "
                              f"expected one of {BACKENDS}")
+
+
+@dataclass(frozen=True)
+class ImageTrainConfig:
+    """The reference image recipe (reference train_image.py:14-28): 256^2,
+    B = 8, Adam 1e-4 over the three networks, 20 epochs."""
+    model: ModelConfig = field(default_factory=ModelConfig)
+    epoch_start: int = 1
+    epoch_end: int = 20
+    batch_size: int = 8
+    lr: float = 1e-4
+    lambda_gs: float = 70.0
+    lambda_lf: float = 15.0
+    lambda_id1: float = 5e-2
+    lambda_id2: float = 1e-1
+    image_size: tuple[int, int] = (256, 256)
+    # recompute the encoder, AdaFormer and VGG forwards in the backward
+    # (torch.utils.checkpoint): activation memory for FLOPs
+    remat: bool = False
+    # forward and backward in this dtype ("float32" | "bfloat16"); master
+    # weights, gradients and Adam state stay float32
+    compute_dtype: str = "float32"
 
 
 def use_kernel(backend: str, x: torch.Tensor) -> bool:

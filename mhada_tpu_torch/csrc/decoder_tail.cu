@@ -24,6 +24,14 @@
 // Each stage rounds its output to T where the plain PyTorch path stores it
 // in T; accumulation is float32.
 //
+// K8 (`mhada_decoder_tail_res`) is this kernel writing the residuals of
+// the training backward as well, as
+// decoder_tail_pallas.py::tail3_fused(with_residuals=True) does
+// (pallas_call at decoder_tail_pallas.py:519): y1 (B, H, W, 64) and c5
+// (B, 2H, 2W, 64), NHWC, post-ReLU, each pixel written once by the block
+// that owns it (no halo duplicates).  The backward is plain PyTorch
+// (ops/decoder_tail.py), as the JAX package's is XLA.
+//
 // What bounds it on the card: about 47 GFLOP per 512^2 frame including the
 // halo recompute (up3 is evaluated on 12 x 12 low-res positions for each
 // 8 x 8 it owns, c5 on 18 x 18 for 16 x 16), as float32 FMAs on the CUDA
@@ -110,13 +118,14 @@ __device__ __forceinline__ void conv3x3_relu(const S* in, int in_plane,
   }
 }
 
-template <typename T>
+template <typename T, bool kRes>
 __global__ void __launch_bounds__(kThreads, 1)
     decoder_tail_kernel(const T* __restrict__ x, const T* __restrict__ w_up,
                         const float* __restrict__ b_up,
                         const T* __restrict__ w5, const float* __restrict__ b5,
                         const T* __restrict__ w6, const float* __restrict__ b6,
-                        T* __restrict__ out, int hl, int wl) {
+                        T* __restrict__ out, T* __restrict__ y1_out,
+                        T* __restrict__ c5_out, int hl, int wl) {
   extern __shared__ float smem[];
   float* w6s = smem;                                     // [tap][ci][co]
   T* region_a = reinterpret_cast<T*>(w6s + kW6);
@@ -149,6 +158,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   conv3x3_relu<kYW * kYW, kXW, kYW>(xs, kXPlane, kCin, w_up, b_up, ys,
                                     kYPlane);
   __syncthreads();
+
+  // K8: the block's own 8 x 8 low-res y1 pixels, window offset 2.
+  if (kRes) {
+    for (int idx = tid; idx < kTile * kTile / 4 * kCmid; idx += kThreads) {
+      const int co = idx % kCmid, p = idx / kCmid;
+      const int r = p / (kTile / 2), c = p % (kTile / 2);
+      const int gy = ly0 + r, gx = lx0 + c;
+      if (gy < hl && gx < wl)
+        y1_out[((b * hl + gy) * wl + gx) * kCmid + co] =
+            ys[co * kYPlane + (r + 2) * kYW + c + 2];
+    }
+  }
 
   // up window: high-res rows/cols [o0 - 2, o0 + 18), each evaluated at its
   // reflected coordinate (c5's input padding).
@@ -194,6 +215,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
+  // K8: the block's own 16 x 16 c5 pixels, window offset 1.
+  if (kRes) {
+    for (int idx = tid; idx < kTile * kTile * kCmid; idx += kThreads) {
+      const int co = idx % kCmid, p = idx / kCmid;
+      const int gy = oy0 + p / kTile, gx = ox0 + p % kTile;
+      if (gy < hh && gx < wh)
+        c5_out[((b * hh + gy) * wh + gx) * kCmid + co] =
+            cs[co * kCPlane + (p / kTile + 1) * kCW + p % kTile + 1];
+    }
+  }
+
   // c6: one output pixel per thread, three channels.
   const int r = tid / kTile, c = tid % kTile;
   const int gy = oy0 + r, gx = ox0 + c;
@@ -218,20 +250,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <typename T>
+template <typename T, bool kRes>
 cudaError_t decoder_tail(const void* x, const void* w_up, const float* b_up,
                          const void* w5, const float* b5, const void* w6,
-                         const float* b6, void* out, int batch, int hl,
-                         int wl, cudaStream_t stream) {
+                         const float* b6, void* out, void* y1, void* c5,
+                         int batch, int hl, int wl, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * kW6 + sizeof(T) * ((size_t)kRegionA + kRegionB);
   const dim3 grid((2 * wl + kTile - 1) / kTile, (2 * hl + kTile - 1) / kTile,
                   batch);
   return mhada::launch_with_smem(
-      decoder_tail_kernel<T>, grid, dim3(kThreads), smem, stream,
+      decoder_tail_kernel<T, kRes>, grid, dim3(kThreads), smem, stream,
       static_cast<const T*>(x), static_cast<const T*>(w_up), b_up,
       static_cast<const T*>(w5), b5, static_cast<const T*>(w6), b6,
-      static_cast<T*>(out), hl, wl);
+      static_cast<T*>(out), static_cast<T*>(y1), static_cast<T*>(c5), hl,
+      wl);
 }
 
 }  // namespace
@@ -245,8 +278,24 @@ extern "C" int mhada_decoder_tail(const void* x, const void* w_up,
                                   int hl, int wl, int dtype, void* stream) {
   MHADA_DISPATCH_DTYPE(
       dtype, T,
-      return (int)decoder_tail<T>(x, w_up, static_cast<const float*>(b_up),
-                                  w5, static_cast<const float*>(b5), w6,
-                                  static_cast<const float*>(b6), out, batch,
-                                  hl, wl, (cudaStream_t)stream));
+      return (int)(decoder_tail<T, false>)(
+          x, w_up, static_cast<const float*>(b_up), w5,
+          static_cast<const float*>(b5), w6, static_cast<const float*>(b6),
+          out, nullptr, nullptr, batch, hl, wl, (cudaStream_t)stream));
+}
+
+// K8: as mhada_decoder_tail, plus the residuals y1 (B, H, W, 64) and c5
+// (B, 2H, 2W, 64) in T.
+extern "C" int mhada_decoder_tail_res(const void* x, const void* w_up,
+                                      const void* b_up, const void* w5,
+                                      const void* b5, const void* w6,
+                                      const void* b6, void* out, void* y1,
+                                      void* c5, int batch, int hl, int wl,
+                                      int dtype, void* stream) {
+  MHADA_DISPATCH_DTYPE(
+      dtype, T,
+      return (int)(decoder_tail<T, true>)(
+          x, w_up, static_cast<const float*>(b_up), w5,
+          static_cast<const float*>(b5), w6, static_cast<const float*>(b6),
+          out, y1, c5, batch, hl, wl, (cudaStream_t)stream));
 }

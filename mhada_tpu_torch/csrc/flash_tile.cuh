@@ -1,7 +1,8 @@
 // Single-head, 64-wide attention tile with an online softmax, shared by the
 // ViT self-attention kernel (attention_fwd.cu, K1), the MHAda core
-// (mhada_fwd.cu, K4) and the MHAda core with the fused prologue
-// (mhada_prologue.cu, K3).
+// (mhada_fwd.cu, K4), the MHAda core with the fused prologue
+// (mhada_prologue.cu, K3) and the training forwards (attention_train.cu,
+// K6; mhada_train.cu, K7), which also write the backward's residuals.
 //
 // One block owns (batch b, head h, a tile of kBQ = 64 queries) and loops
 // over the keys in tiles of kBK = 64 held in shared memory; nothing of the
@@ -42,6 +43,12 @@ struct FlashArgs {
   int n, m;       // query rows, key rows
   long long q_bs, q_rs, kv_bs, kv_rs, f_bs, f_rs, o_bs, o_rs;  // strides
   float scale;
+  // Training forwards only (kRes): the row log-sum-exp of the scaled
+  // logits, (B, heads, n) float32; MHAda also M1 and E2, float32 at the
+  // output's strides.
+  float* lse;
+  float* m1;
+  float* e2;
 };
 
 struct FlashSmem {
@@ -176,7 +183,8 @@ __device__ __forceinline__ void flash_keys(const FlashArgs& a,
 // kMhada = false: out = softmax(scale Q K^T) V.
 // kMhada = true:  A = softmax(Q K^T) (scale 1), M1 = A V, E2 = A V^2,
 //                 out = sqrt(max(E2 - M1^2, 1e-6)) * f + M1.
-template <typename T, bool kMhada>
+// kRes = true also writes lse (and M1, E2) for the backward.
+template <typename T, bool kMhada, bool kRes = false>
 __global__ void __launch_bounds__(kFlashThreads)
     flash_tile_kernel(FlashArgs a) {
   extern __shared__ float smem[];
@@ -207,26 +215,34 @@ __global__ void __launch_bounds__(kFlashThreads)
     const int row = q0 + ty + 16 * i;
     if (row >= a.n) continue;
     const float inv = 1.f / acc.lrow[i];
+    if (kRes && tx == 0)
+      a.lse[(b * gridDim.y + blockIdx.y) * a.n + row] =
+          acc.mrow[i] + logf(acc.lrow[i]);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int d = tx + 16 * j;
+      const long long o = b * a.o_bs + row * a.o_rs + hoff + d;
       float y = acc.o1[i][j] * inv;
       if (kMhada) {
         // E2 - M1^2 cancels: both stay float32 until the clamp.
         const float e2 = acc.o2[i][j] * inv;
+        if (kRes) {
+          a.m1[o] = y;
+          a.e2[o] = e2;
+        }
         const float var = fmaxf(e2 - y * y, 1e-6f);
         y = sqrtf(var) * to_f32(f[b * a.f_bs + row * a.f_rs + hoff + d]) + y;
       }
-      out[b * a.o_bs + row * a.o_rs + hoff + d] = from_f32<T>(y);
+      out[o] = from_f32<T>(y);
     }
   }
 }
 
-template <typename T, bool kMhada>
+template <typename T, bool kMhada, bool kRes = false>
 cudaError_t launch_flash_tile(const FlashArgs& a, int heads, int batch,
                               cudaStream_t stream) {
   const dim3 grid((a.n + kBQ - 1) / kBQ, heads, batch);
-  return launch_with_smem(flash_tile_kernel<T, kMhada>, grid,
+  return launch_with_smem(flash_tile_kernel<T, kMhada, kRes>, grid,
                           dim3(kFlashThreads), kFlashSmemBytes, stream, a);
 }
 

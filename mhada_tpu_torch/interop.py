@@ -8,9 +8,10 @@ kernel stacks and the position grid keep the JAX layouts.
 
 A reference ``.pth`` triple is read with ``torch.load(weights_only=True)``
 and mapped onto the JAX tree by this module's own copy of the JAX
-package's importers (mhada_tpu/interop/torch_import.py:22-131: the ViT,
-the MHAda block, the decoder and AdaFormer), then goes through the same
-bridge.
+package's importers (mhada_tpu/interop/torch_import.py:22-176: the ViT,
+the MHAda block, the decoder, AdaFormer and torchvision's VGG19), then goes
+through the same bridge.  The way back, port modules -> reference-format
+state_dicts, is its copy of the exporters (torch_export.py:23-98).
 """
 
 import numpy as np
@@ -150,3 +151,133 @@ def load_pth_params(ada_path: str, vitc_path: str, vits_path: str,
         "adaFormer": import_adaformer(load_pth(ada_path), num_layers,
                                       num_heads),
     })
+
+
+# torchvision VGG19 ``features`` indices of the convs up to conv5_1
+# (mhada_tpu/interop/torch_import.py:149-154).
+_VGG19_IDX = {
+    "conv1_1": 0, "conv1_2": 2, "conv2_1": 5, "conv2_2": 7,
+    "conv3_1": 10, "conv3_2": 12, "conv3_3": 14, "conv3_4": 16,
+    "conv4_1": 19, "conv4_2": 21, "conv4_3": 23, "conv4_4": 25,
+    "conv5_1": 28,
+}
+
+
+def import_vgg19(sd: dict) -> dict:
+    """torchvision VGG19 ``features.*`` weights, or the reference VGG19's
+    ``sliceN.*`` naming (reference vgg19.py:20-44), -> the JAX-layout tree
+    of ``VGG19Features`` (torch_import.py:157-176); ``params_from_jax``
+    turns it into the port's state_dict."""
+    if any(k.startswith("slice") for k in sd):
+        sd = {f"features.{k.split('.')[1]}.{k.split('.')[2]}": v
+              for k, v in sd.items() if k.startswith("slice")}
+    p = {}
+    for name, idx in _VGG19_IDX.items():
+        key = f"features.{idx}.weight"
+        if key not in sd:
+            raise KeyError(f"missing VGG19 weight {key}")
+        p[name] = {"kernel": _conv(np.asarray(sd[key])),
+                   "bias": np.asarray(sd[f"features.{idx}.bias"])}
+    return p
+
+
+def load_vgg19(path: str) -> dict[str, torch.Tensor]:
+    """A torchvision VGG19 ``.pth`` -> the state_dict of ``VGG19Features``."""
+    return params_from_jax(import_vgg19(load_pth(path)))
+
+
+def state_dict_to_jax(sd: dict) -> dict:
+    """The inverse of ``params_from_jax``: a port state_dict -> one
+    network's JAX-layout tree of float32 numpy arrays."""
+    tree = {}
+    for key, value in sd.items():
+        *path, name = key.split(".")
+        a = value.detach().cpu().float().numpy()
+        if name == "weight" and a.ndim == 4:
+            name, a = "kernel", a.transpose(2, 3, 1, 0)
+        elif name == "weight" and a.ndim == 2:
+            name, a = "kernel", a.T
+        elif name == "qkv_weight":
+            name, a = "qkv_kernel", a.T
+        elif name == "weight" and path[-1].startswith("ln"):
+            name = "scale"
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(a)
+    return tree
+
+
+def _conv_out(k: np.ndarray) -> np.ndarray:
+    """HWIO -> torch OIHW."""
+    return np.ascontiguousarray(k.transpose(3, 2, 0, 1))
+
+
+def export_vit(p: dict, num_layers: int = 3) -> dict[str, np.ndarray]:
+    """A ViT's JAX-layout tree -> the reference state_dict
+    (mhada_tpu/interop/torch_export.py:23-55)."""
+    sd = {"patch_embedding.conv_proj.weight":
+          _conv_out(p["patch_embedding"]["proj"]["kernel"]),
+          "patch_embedding.conv_proj.bias":
+          p["patch_embedding"]["proj"]["bias"]}
+    if "pos_embedding" in p:
+        sd["pos_embedding.pos_embed"] = np.ascontiguousarray(
+            p["pos_embedding"]["pos_embed"].transpose(0, 3, 1, 2))
+    for i in range(num_layers):
+        b, t = p[f"block{i}"], f"encoder.{i}."
+        sd[t + "ln1.weight"] = b["ln1"]["scale"]
+        sd[t + "ln1.bias"] = b["ln1"]["bias"]
+        sd[t + "ln2.weight"] = b["ln2"]["scale"]
+        sd[t + "ln2.bias"] = b["ln2"]["bias"]
+        sd[t + "attention.in_proj_weight"] = _lin(b["attention"]["qkv_kernel"])
+        sd[t + "attention.in_proj_bias"] = b["attention"]["qkv_bias"]
+        sd[t + "attention.out_proj.weight"] = _lin(
+            b["attention"]["out_proj"]["kernel"])
+        sd[t + "attention.out_proj.bias"] = b["attention"]["out_proj"]["bias"]
+        sd[t + "mlp.0.weight"] = _lin(b["mlp_fc1"]["kernel"])
+        sd[t + "mlp.0.bias"] = b["mlp_fc1"]["bias"]
+        sd[t + "mlp.2.weight"] = _lin(b["mlp_fc2"]["kernel"])
+        sd[t + "mlp.2.bias"] = b["mlp_fc2"]["bias"]
+    return sd
+
+
+def export_adaformer(p: dict, num_layers: int = 3,
+                     num_heads: int = 8) -> dict[str, np.ndarray]:
+    """AdaFormer's JAX-layout tree -> the reference state_dict
+    (torch_export.py:58-97): per-head 1x1 convs and the decoder."""
+    sd = {}
+    for j in range(2 * num_layers):
+        b, t = p[f"ada{j}"], f"adaAttnHead.{j}."
+        for name in ("f", "g", "h"):
+            for h in range(num_heads):
+                sd[f"{t}{name}_list.{h}.weight"] = np.ascontiguousarray(
+                    b[f"{name}_kernel"][h].T[:, :, None, None])
+                sd[f"{t}{name}_list.{h}.bias"] = b[f"{name}_bias"][h]
+        sd[t + "out_conv.weight"] = np.ascontiguousarray(
+            b["out_kernel"].T[:, :, None, None])
+        sd[t + "out_conv.bias"] = b["out_bias"]
+    for ours, theirs in _DECODER_MAP.items():
+        conv = p["decoder"][ours]["conv"]
+        sd[f"decoder.{theirs}.conv.conv.weight"] = _conv_out(conv["kernel"])
+        sd[f"decoder.{theirs}.conv.conv.bias"] = conv["bias"]
+    return sd
+
+
+def export_state_dicts(models: dict, num_layers: int = 3,
+                       num_heads: int = 8) -> dict[str, dict]:
+    """{vit_c, vit_s, adaFormer} modules -> reference-format state_dicts of
+    tensors, as the reference saves them."""
+
+    def tensors(sd):
+        return {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in sd.items()}
+
+    return {
+        "vit_c": tensors(export_vit(
+            state_dict_to_jax(models["vit_c"].state_dict()), num_layers)),
+        "vit_s": tensors(export_vit(
+            state_dict_to_jax(models["vit_s"].state_dict()), num_layers)),
+        "adaFormer": tensors(export_adaformer(
+            state_dict_to_jax(models["adaFormer"].state_dict()), num_layers,
+            num_heads)),
+    }

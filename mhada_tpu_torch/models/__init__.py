@@ -1,4 +1,5 @@
-"""Model modules and the inference build (mhada_tpu/train/train_image.py:45-93)."""
+"""Model modules and the inference and training builds
+(mhada_tpu/train/train_image.py:45-93)."""
 
 import torch
 
@@ -6,17 +7,24 @@ from ..config import ModelConfig, resolve_device
 from .adaformer import AdaAttnMultiHead, AdaFormer
 from .decoder import Decoder
 from .layers import init_parameters
+from .vgg19 import VGG19Features
 from .vit import VisionTransformer
 
-__all__ = ["AdaAttnMultiHead", "AdaFormer", "Decoder", "VisionTransformer",
-           "build_models"]
+__all__ = ["AdaAttnMultiHead", "AdaFormer", "Decoder", "VGG19Features",
+           "VisionTransformer", "build_models"]
 
 
 def build_models(cfg=None, device="cuda",
-                 generator: torch.Generator | None = None) -> dict:
-    """The inference networks {vit_c, vit_s, adaFormer} in eval mode on
-    ``device``: the card by default; raises without one unless ``device``
-    is the CPU.
+                 generator: torch.Generator | None = None,
+                 for_training: bool = False) -> dict:
+    """The networks {vit_c, vit_s, adaFormer} on ``device``: the card by
+    default; raises without one unless ``device`` is the CPU.
+
+    The inference build is in eval mode and runs the forward-only kernels
+    K1-K5.  ``for_training`` gives the training build in training mode, as
+    the JAX package's does: LayerNorms unfused, attention through K6, the
+    MHAda cores through K7 and the decoder tail through K8, every one
+    differentiable.
 
     ``cfg``: a ModelConfig, or anything with a ``.model`` ModelConfig.
     Weights are drawn on the CPU from ``generator`` (seed 0 if None), so a
@@ -39,5 +47,5 @@ def build_models(cfg=None, device="cuda",
     }
     for net in models.values():
         init_parameters(net, generator)
-        net.to(device).eval()
+        net.to(device).train(for_training)
     return models

@@ -10,9 +10,12 @@ once over the full channel axis.
 
 The streaming path caches each block's style keys and values
 (``AdaAttnMultiHead.style_kv``, mhada_tpu/infer/image.py:153-190); a block
-given them runs the fused-prologue core K3 (ops/mhada_prologue.py) for the
-softmax activation, at every key count (the JAX package's M <= 4096 guard
-at mhada_tpu/models/adaformer.py:82 is a TPU VMEM limit).
+in eval mode given them runs the fused-prologue core K3
+(ops/mhada_prologue.py) for the softmax activation, at every key count (the
+JAX package's M <= 4096 guard at mhada_tpu/models/adaformer.py:82 is a TPU
+VMEM limit).  Otherwise the softmax core is K4 in eval mode and the
+differentiable K7 (ops/mhada_train.py) in training mode; K3 and K4 are
+forward-only, as the JAX training build turns the fused prologue off.
 """
 
 import math
@@ -25,6 +28,7 @@ from .layers import uniform_
 from ..ops.instance_norm import instance_norm_stats, instance_norm_tokens
 from ..ops.mhada_kernel import mhada_tm, mhada_tm_plain
 from ..ops.mhada_prologue import mhada_fused_prologue
+from ..ops.mhada_train import mhada_train
 
 
 class AdaAttnMultiHead(nn.Module):
@@ -80,7 +84,8 @@ class AdaAttnMultiHead(nn.Module):
         ``(k, v)`` from ``style_kv(fs)``."""
         k, v = self.style_kv(fs) if style_kv is None else style_kv
         dt = fc.dtype
-        if style_kv is not None and self.activation == "softmax":
+        if (style_kv is not None and self.activation == "softmax"
+                and not self.training):
             mean_fc, rstd_fc = instance_norm_stats(fc)
             mean_fcs, rstd_fcs = instance_norm_stats(fcs)
             stats = torch.stack([mean_fc, rstd_fc, mean_fcs, rstd_fcs], 1)
@@ -91,8 +96,9 @@ class AdaAttnMultiHead(nn.Module):
             q = self._project(instance_norm_tokens(fc), "f").contiguous()
             fcs_n = instance_norm_tokens(fcs).contiguous()
             if self.activation == "softmax":
-                out = mhada_tm(q, k, v, fcs_n, self.num_heads,
-                               backend=self.backend)
+                core = mhada_train if self.training else mhada_tm
+                out = core(q, k, v, fcs_n, self.num_heads,
+                           backend=self.backend)
             else:
                 out = mhada_tm_plain(q, k, v, fcs_n, self.num_heads,
                                      self.activation)

@@ -5,8 +5,9 @@ reference network/conv.py:75-100).
 128 -> 64 (+2x) -> 64 -> 64 -> 64 -> 3, all reflection-padded 3x3 convs
 with ReLU.  The last layer is conv + ReLU, not tanh (reference
 conv.py:93).  The tail up3 -> c5 -> c6 runs as one call of
-``ops.decoder_tail.decoder_tail`` (K5 on CUDA, the same plain chain on
-CPU); none of the JAX package's TPU re-layouts (2x2, col, col_tail,
+``ops.decoder_tail.decoder_tail`` in eval mode (K5 on CUDA, the same plain
+chain on CPU) and of the differentiable ``decoder_tail_train`` in training
+mode (K8); none of the JAX package's TPU re-layouts (2x2, col, col_tail,
 mega_min_grid) exist here.
 """
 
@@ -14,7 +15,7 @@ import torch
 import torch.nn as nn
 
 from .layers import Conv2d
-from ..ops.decoder_tail import decoder_tail
+from ..ops.decoder_tail import decoder_tail, decoder_tail_train
 from ..ops.pad_conv import reflect_pad2d
 from ..ops.resize import upsample2x
 
@@ -55,5 +56,6 @@ class Decoder(nn.Module):
         x = self.c3(self.c2(self.c1(x)))
         x = self.c4(self.up2(x))
         up3, c5, c6 = self.up3.conv, self.c5.conv, self.c6.conv
-        return decoder_tail(x.contiguous(), up3.weight, up3.bias, c5.weight,
-                            c5.bias, c6.weight, c6.bias, backend=self.backend)
+        tail = decoder_tail_train if self.training else decoder_tail
+        return tail(x.contiguous(), up3.weight, up3.bias, c5.weight, c5.bias,
+                    c6.weight, c6.bias, backend=self.backend)

@@ -17,6 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention_kernel import attention_tm
+from ..ops.attention_train import attention_train
 from ..ops.ln_matmul import layer_norm, ln_matmul
 from ..ops.pad_conv import conv2d
 
@@ -100,9 +101,11 @@ class MultiHeadSelfAttention(nn.Module):
     """``nn.MultiheadAttention``-compatible self-attention over axis 1 of a
     (B, L, E) input, on the packed qkv projection.
 
-    ``ln``: the caller's pre-LN, fused into the qkv projection (K2); ``x``
-    is then the un-normalised residual stream.  The attention itself is
-    K1 (``attention_tm``) under ``backend``.
+    ``ln``: the caller's pre-LN; ``x`` is then the un-normalised residual
+    stream.  In eval mode the LN is fused into the qkv projection (K2) and
+    the attention is K1 (``attention_tm``), both forward-only; in training
+    mode the LN runs unfused and the attention is K6 (``attention_train``),
+    as in the JAX package's training build (train_image.py:45-93).
     """
 
     def __init__(self, embed_dim: int, num_heads: int, backend: str = "auto"):
@@ -120,13 +123,15 @@ class MultiHeadSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, ln: LayerNorm | None = None
                 ) -> torch.Tensor:
-        if ln is not None:
+        if ln is not None and not self.training:
             qkv = ln_matmul(x, ln.weight, ln.bias, self.qkv_weight,
                             self.qkv_bias, ln.eps, backend=self.backend)
         else:
-            qkv = F.linear(x, self.qkv_weight.to(x.dtype),
+            h = x if ln is None else ln(x)
+            qkv = F.linear(h, self.qkv_weight.to(x.dtype),
                            self.qkv_bias.to(x.dtype))
         hd = x.shape[-1] // self.num_heads
-        o = attention_tm(qkv.contiguous(), self.num_heads,
-                         scale=1.0 / math.sqrt(hd), backend=self.backend)
+        attend = attention_train if self.training else attention_tm
+        o = attend(qkv.contiguous(), self.num_heads,
+                   scale=1.0 / math.sqrt(hd), backend=self.backend)
         return self.out_proj(o)

@@ -57,9 +57,10 @@ class PosEmbedding(nn.Module):
 class EncoderBlock(nn.Module):
     """Pre-LN transformer block (reference vit.py:45-64).
 
-    ln1 -> qkv and ln2 -> fc1 go through the fused LN + matmul (K2) and the
-    attention through K1, except that ``batch_coupled`` takes the plain
-    ln1 and attention, as the JAX package does.
+    In eval mode ln1 -> qkv and ln2 -> fc1 go through the fused LN +
+    matmul (K2) and the attention through K1; in training mode the LNs run
+    unfused and the attention through K6.  ``batch_coupled`` takes the
+    plain ln1 and attention either way, as the JAX package does.
     """
 
     def __init__(self, hidden_dim: int, num_heads: int, mlp_dim: int,
@@ -84,8 +85,12 @@ class EncoderBlock(nn.Module):
             # sequence axis = image batch, batch axis = tokens
             h = self.attention(self.ln1(x).transpose(0, 1)).transpose(0, 1)
         x = x + h
-        y = ln_matmul(x, self.ln2.weight, self.ln2.bias, self.mlp_fc1.weight,
-                      self.mlp_fc1.bias, self.ln2.eps, backend=self.backend)
+        if self.training:
+            y = self.mlp_fc1(self.ln2(x))
+        else:
+            y = ln_matmul(x, self.ln2.weight, self.ln2.bias,
+                          self.mlp_fc1.weight, self.mlp_fc1.bias,
+                          self.ln2.eps, backend=self.backend)
         y = self.mlp_fc2(torch.relu(y))
         return x + y
 

@@ -32,7 +32,10 @@ def attention_plain(qkv: torch.Tensor, num_heads: int,
 def attention_tm(qkv: torch.Tensor, num_heads: int,
                  scale: float | None = None,
                  backend: str = "auto") -> torch.Tensor:
-    """Token-major self-attention; the K1 kernel for CUDA tensors."""
+    """Token-major self-attention; the K1 kernel for CUDA tensors.
+
+    Forward-only: its training counterpart is K6,
+    ``ops.attention_train.attention_train``."""
     if not use_kernel(backend, qkv):
         return attention_plain(qkv, num_heads, scale)
     if qkv.dim() != 3 or qkv.shape[2] % (3 * num_heads):
@@ -44,6 +47,9 @@ def attention_tm(qkv: torch.Tensor, num_heads: int,
         raise ValueError(f"attention_tm: the kernel takes head dim "
                          f"{HEAD_DIM}, got {c // num_heads}")
     _build.check_cuda_inputs("attention_tm", qkv)
+    _build.check_forward_only(
+        "attention_tm", "train through K6, ops.attention_train."
+        "attention_train", qkv)
     scale = 1.0 / math.sqrt(HEAD_DIM) if scale is None else scale
     out = torch.empty((b, l, c), device=qkv.device, dtype=qkv.dtype)
     _build.launch("mhada_attention_fwd", qkv.device, qkv, out, b, l, c,

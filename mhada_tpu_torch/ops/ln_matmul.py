@@ -37,7 +37,10 @@ def ln_matmul(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
               backend: str = "auto") -> torch.Tensor:
     """``LayerNorm(x) @ w.T + b`` with the LN in the matmul's prologue; the
     K2 kernel for CUDA tensors.  Weights may be float32 for a bf16 ``x``:
-    ``w`` and ``b`` are cast to x's dtype as the twin casts them."""
+    ``w`` and ``b`` are cast to x's dtype as the twin casts them.
+
+    Forward-only, and no training route exists yet (K2's VJP): the
+    training build runs ``layer_norm`` and ``F.linear`` instead."""
     if not use_kernel(backend, x):
         return ln_matmul_plain(x, ln_w, ln_b, w, b, eps)
     if x.dim() < 2 or w.dim() != 2 or w.shape[1] != x.shape[-1] \
@@ -53,6 +56,10 @@ def ln_matmul(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     _build.check_cuda_inputs("ln_matmul", x, wt)
     f32 = [t.float().contiguous() for t in (ln_w, ln_b, b.to(x.dtype))]
     _build.check_cuda_inputs("ln_matmul", *f32)
+    _build.check_forward_only(
+        "ln_matmul", "no training route exists yet: use layer_norm and "
+        "F.linear, as build_models(for_training=True) does",
+        x, ln_w, ln_b, w, b)
     rows = x.numel() // e
     out = torch.empty((*x.shape[:-1], f), device=x.device, dtype=x.dtype)
     _build.launch("mhada_ln_matmul", x.device, x, f32[0], f32[1], wt, f32[2],

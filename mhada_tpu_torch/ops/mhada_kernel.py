@@ -34,7 +34,10 @@ def mhada_tm_plain(q, k, v, fcs_n, num_heads: int,
 def mhada_tm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              fcs_n: torch.Tensor, num_heads: int,
              backend: str = "auto") -> torch.Tensor:
-    """Softmax MHAda core; the K4 kernel for CUDA tensors."""
+    """Softmax MHAda core; the K4 kernel for CUDA tensors.
+
+    Forward-only: its training counterpart is K7,
+    ``ops.mhada_train.mhada_train``."""
     if not use_kernel(backend, q):
         return mhada_tm_plain(q, k, v, fcs_n, num_heads)
     if q.dim() != 3 or k.dim() != 3 or q.shape != fcs_n.shape \
@@ -49,6 +52,9 @@ def mhada_tm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"mhada_tm: the kernel takes head dim {HEAD_DIM}, "
                          f"got C={c} over {num_heads} heads")
     _build.check_cuda_inputs("mhada_tm", q, k, v, fcs_n)
+    _build.check_forward_only(
+        "mhada_tm", "train through K7, ops.mhada_train.mhada_train",
+        q, k, v, fcs_n)
     out = torch.empty_like(q)
     _build.launch("mhada_mhada_fwd", q.device, q, k, v, fcs_n, out, b, n, m,
                   c, num_heads, _build.dtype_code(q))

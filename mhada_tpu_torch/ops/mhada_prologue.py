@@ -43,7 +43,10 @@ def mhada_fused_prologue(fc: torch.Tensor, fcs: torch.Tensor,
                          backend: str = "auto") -> torch.Tensor:
     """The fused MHAda block core; the K3 kernel for CUDA tensors.  ``wf``
     and ``fb`` may be float32 for a bf16 ``fc``: they are cast to k's dtype
-    as the plain version casts them."""
+    as the plain version casts them.
+
+    Forward-only, and no training route exists yet: a block in training
+    mode runs the unfused projections and K7 on the same K/V instead."""
     if not use_kernel(backend, fc):
         return mhada_fused_prologue_plain(fc, fcs, stats, wf, fb, k, v)
     if fc.dim() != 3 or fcs.shape != fc.shape or k.dim() != 3 \
@@ -68,6 +71,10 @@ def mhada_fused_prologue(fc: torch.Tensor, fcs: torch.Tensor,
     if f32[0].device != fc.device:
         raise ValueError("mhada_fused_prologue: all tensors must be on one "
                          "CUDA device")
+    _build.check_forward_only(
+        "mhada_fused_prologue", "no training route exists yet: run the "
+        "block in training mode (unfused projections and K7)",
+        fc, fcs, stats, wf, fb, k, v)
     out = torch.empty_like(fc)
     _build.launch("mhada_mhada_prologue", fc.device, fc, fcs, f32[0], wt,
                   f32[1], k, v, out, b, n, k.shape[1], c, heads,

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain twins on the card, at small
 and ragged shapes (partial query/key tiles, partial decoder tiles, tiny
 images) that the 512^2 path never produces, and K1 / K4 just past the TPU
-kernels' single-pass limit of 4096 keys.
+kernels' single-pass limit of 4096 keys.  The training kernels K6, K7 and
+K8 are held forward and backward (outputs and input gradients), and the
+forward-only wrappers must refuse tensors that require grad.
 
 Marked ``cuda``: each test skips without a card.  On a machine with one (the
 repo conftest imports jax, which that machine need not have):
@@ -13,9 +15,11 @@ import torch
 
 from mhada_tpu_torch import _build
 from mhada_tpu_torch.ops.attention_kernel import attention_tm
-from mhada_tpu_torch.ops.decoder_tail import decoder_tail
+from mhada_tpu_torch.ops.attention_train import attention_train
+from mhada_tpu_torch.ops.decoder_tail import decoder_tail, decoder_tail_train
 from mhada_tpu_torch.ops.ln_matmul import ln_matmul
 from mhada_tpu_torch.ops.mhada_kernel import mhada_tm
+from mhada_tpu_torch.ops.mhada_train import mhada_train
 from mhada_tpu_torch.ops.instance_norm import instance_norm_stats
 from mhada_tpu_torch.ops.mhada_prologue import mhada_fused_prologue
 
@@ -28,6 +32,8 @@ DTYPES = [torch.float32, torch.bfloat16]
 # float32 twin on the same (bf16-valued) inputs and may be at most twice as
 # far from it as the bf16 twin is.
 REL_F32 = 1e-4
+# Gradients sum over every row in another order than the twin's: 1e-3.
+REL_F32_GRAD = 1e-3
 
 
 @pytest.fixture
@@ -142,3 +148,102 @@ def test_kernel_rejects_bad_input(gen):
         attention_tm(qkv[:, ::2], 2)
     with pytest.raises(TypeError):
         attention_tm(qkv.half(), 2)
+
+
+def _fwd_bwd(run, backend, dtype, inputs, cot):
+    """[output, d input for each input] of run(backend, *inputs in dtype),
+    back-propagated from the cotangent ``cot``; all float32."""
+    leaves = [t.to(dtype).detach().requires_grad_() for t in inputs]
+    out = run(backend, *leaves)
+    out.backward(cot.to(out.dtype))
+    return [out.detach().float()] + [t.grad.float() for t in leaves]
+
+
+def _check_train(entries, run, dtype, inputs, cot):
+    """A training kernel pair against its plain versions, forward and
+    backward, with each C entry point launched exactly once."""
+    before = [_build.LAUNCHES[e] for e in entries]
+    got = _fwd_bwd(run, "kernel", dtype, inputs, cot)
+    assert [_build.LAUNCHES[e] for e in entries] == [n + 1 for n in before]
+    ref = _fwd_bwd(run, "plain", dtype, inputs, cot)
+    ref32 = _fwd_bwd(run, "plain", torch.float32, inputs, cot)
+    assert [_build.LAUNCHES[e] for e in entries] == [n + 1 for n in before]
+    torch.cuda.synchronize()
+    for i, (g, r, r32) in enumerate(zip(got, ref, ref32)):
+        assert torch.isfinite(g).all(), i
+        if dtype == torch.float32:
+            rel = (g - r).abs().max().item() / r.abs().max().item()
+            assert rel <= (REL_F32 if i == 0 else REL_F32_GRAD), (i, rel)
+        else:
+            err = (g - r32).abs().max().item()
+            err_plain = (r - r32).abs().max().item()
+            assert err <= 2 * err_plain + 1e-6 * r32.abs().max().item(), (
+                i, err, err_plain)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,l,heads", [(2, 100, 2), (1, 7, 1), (1, 130, 2)])
+def test_attention_train_kernels(gen, dtype, b, l, heads):
+    qkv = _rnd(gen, dtype, b, l, 3 * 64 * heads, scale=0.5)
+    cot = _rnd(gen, dtype, b, l, 64 * heads)
+    _check_train(["mhada_attention_train_fwd", "mhada_attention_train_bwd"],
+                 lambda be, x: attention_train(x, heads, backend=be), dtype,
+                 [qkv], cot)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,n,m", [(2, 70, 130), (1, 1, 200), (1, 64, 64),
+                                   (1, 150, 33)])
+def test_mhada_train_kernels(gen, dtype, b, n, m):
+    q = _rnd(gen, dtype, b, n, 128, scale=0.35)
+    k = _rnd(gen, dtype, b, m, 128, scale=0.35)
+    v, f = _rnd(gen, dtype, b, m, 128), _rnd(gen, dtype, b, n, 128)
+    cot = _rnd(gen, dtype, b, n, 128)
+    _check_train(["mhada_mhada_train_fwd", "mhada_mhada_train_bwd"],
+                 lambda be, *a: mhada_train(*a, 2, backend=be), dtype,
+                 [q, k, v, f], cot)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(1, 8, 12, 128), (2, 6, 10, 128),
+                                   (1, 2, 3, 128)])
+def test_decoder_tail_train_kernel(gen, dtype, shape):
+    x = _rnd(gen, dtype, *shape).abs()
+
+    def conv(co, ci):
+        bound = 1 / (ci * 9) ** 0.5
+        w = (torch.rand(co, ci, 3, 3, generator=gen) * 2 - 1) * bound
+        b = (torch.rand(co, generator=gen) * 2 - 1) * bound + bound
+        return w.to("cuda", dtype).float(), b.to("cuda", dtype).float()
+
+    (wu, bu), (w5, b5), (w6, b6) = conv(64, 128), conv(64, 64), conv(3, 64)
+    cot = _rnd(gen, dtype, shape[0], 2 * shape[1], 2 * shape[2], 3)
+    _check_train(["mhada_decoder_tail_res"],
+                 lambda be, *a: decoder_tail_train(*a, backend=be), dtype,
+                 [x, wu, bu, w5, b5, w6, b6], cot)
+
+
+def test_forward_only_wrappers_refuse_grad(gen):
+    """K1, K4 and K5 launch no kernel for an input that requires grad while
+    grad mode is on, and name their training route; under no_grad they
+    run."""
+    qkv = _rnd(gen, torch.float32, 1, 16, 384).requires_grad_()
+    q = _rnd(gen, torch.float32, 1, 16, 128).requires_grad_()
+    x = _rnd(gen, torch.float32, 1, 4, 4, 128)
+    w_up = torch.zeros(64, 128, 3, 3, device="cuda", requires_grad=True)
+    tail = (x, w_up, torch.zeros(64, device="cuda"),
+            torch.zeros(64, 64, 3, 3, device="cuda"),
+            torch.zeros(64, device="cuda"),
+            torch.zeros(3, 64, 3, 3, device="cuda"),
+            torch.zeros(3, device="cuda"))
+    calls = [(lambda: attention_tm(qkv, 2), "K6"),
+             (lambda: mhada_tm(q, q, q, q, 2), "K7"),
+             (lambda: decoder_tail(*tail), "K8")]
+    before = dict(_build.LAUNCHES)
+    for call, route in calls:
+        with pytest.raises(RuntimeError, match=f"forward-only.*{route}"):
+            call()
+    assert _build.LAUNCHES == before
+    with torch.no_grad():
+        for call, _ in calls:
+            call()
