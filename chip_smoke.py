@@ -29,19 +29,29 @@
    backward), K7 (MHAda, forward and backward) and K8 (the decoder tail
    writing its residuals) against their plain versions at the image
    training step's shapes (B = 8, 256^2: L = N = M = 1024 tokens, the tail
-   from 128^2 to 256^2), float32 and bfloat16: each output, residual and
-   input gradient against its own scale, with times, bounds and the library
-   yardstick;
-7. the training path: one step (``train.train_image``) on the kernel build
+   from 128^2 to 256^2); K6 and K7 also beyond the TPU's token-major
+   training windows, as the ports of K12, K10's residuals and K11 (B = 4 at
+   4096 tokens, the 512^2 step's shapes, and B = 1 at 16384), K8 from 256^2
+   to 512^2 (B = 4), and K2 under its VJP at the fused-LN step's shapes
+   (B = 8, 1024 tokens, 512 -> 1536 and 2048) against autograd of the
+   unfused LayerNorm and linear; float32 and bfloat16: each output,
+   residual and input gradient against its own scale, with times, bounds
+   and the library yardstick;
+7. the training paths: one step (``train.train_image``) on the kernel build
    and one on the plain build from the same weights and batch, losses and
    every gradient held together (each tensor against its own scale, to a
    bound widened only where a rounding-level change of the inputs moves
    the plain build as far), launch counts exact; controls that the
    gradient gate must report (a planted fault in K7's dq; the plain build
-   in bfloat16 against the float32 bounds); 5 steps on a fixed batch with
-   a falling loss; ``train.run_image`` for 2 steps over 16 synthetic PNGs
-   and one resumed step; ms/step of both builds, interleaved, float32 and
-   bfloat16.
+   in bfloat16 against the float32 bounds); at 256^2, B = 8: that step, 5
+   steps on a fixed batch with a falling loss, ``train.run_image`` for 2
+   steps over 16 synthetic PNGs and one resumed step, ms/step of both
+   builds interleaved; the fused-LN build (``ModelConfig(fuse_ln=True)``,
+   K2 and its VJP) at 256^2, B = 8: that step and ms/step interleaved with
+   the unfused kernel build; 512^2 (4096 tokens), B = 4: that step with
+   each build's peak memory and ms/step interleaved; ``train.run_image
+   --image-size 512 512 --batch-size 8`` for 2 steps; float32 and bfloat16
+   throughout.
 
 Each phase prints one line; any failure exits non-zero without the final
 result line.  The model is the full-width ``ModelConfig()`` with random
@@ -75,32 +85,56 @@ K6F, K6B, K7F, K7B, K8 = ("mhada_attention_train_fwd",
                           "mhada_attention_train_bwd", "mhada_mhada_train_fwd",
                           "mhada_mhada_train_bwd", "mhada_decoder_tail_res")
 SRC = "mhada_tpu_torch/csrc/"
+K12_SINGLE = "K12 single-pass forward, by K1's kernel"
+K12_FWD = "K12 streaming forward with lse, by K6's forward"
+K12_BWD = "K12 flash backward, by K6's backward"
+K10_RES = "K10 streaming forward with M1/E2/lse, by K7's forward"
+K11_BWD = "K11 flash backward, by K7's backward"
+K2_VJP = "K2 ln_matmul under its VJP (fused-LN training)"
 ROWS = [
-    # row, C entry point, source, TPU kernel it replaces (pallas_call line)
+    # row, C entry point, source, TPU kernel it replaces (pallas_call line),
+    # the path whose launches the row reports
     ("K1 attention_tm", ATTN, SRC + "attention_fwd.cu",
-     "mhada_tpu/ops/attention_pallas.py:154"),
+     "mhada_tpu/ops/attention_pallas.py:154", "full512"),
     ("K2 ln_matmul", LN, SRC + "ln_matmul.cu",
-     "mhada_tpu/ops/ln_matmul_pallas.py:44"),
+     "mhada_tpu/ops/ln_matmul_pallas.py:44", "full512"),
     ("K3 mhada_fused_prologue", K3, SRC + "mhada_prologue.cu",
-     "mhada_tpu/ops/mhada_pallas.py:239"),
+     "mhada_tpu/ops/mhada_pallas.py:239", "stream512"),
     ("K4 mhada_tm", K4, SRC + "mhada_fwd.cu",
-     "mhada_tpu/ops/mhada_pallas.py:114"),
+     "mhada_tpu/ops/mhada_pallas.py:114", "full512"),
     ("K5 decoder_tail", TAIL, SRC + "decoder_tail.cu",
-     "mhada_tpu/ops/decoder_tail_pallas.py:546"),
+     "mhada_tpu/ops/decoder_tail_pallas.py:546", "full512"),
     ("K9 attention_stream_wide, by K1's kernel", ATTN,
-     SRC + "attention_fwd.cu", "mhada_tpu/ops/attention_pallas.py:624"),
+     SRC + "attention_fwd.cu", "mhada_tpu/ops/attention_pallas.py:624",
+     "stream1024"),
     ("K10 mhada streaming forward, by K4's kernel", K4,
-     SRC + "mhada_fwd.cu", "mhada_tpu/ops/mhada_pallas.py:622"),
+     SRC + "mhada_fwd.cu", "mhada_tpu/ops/mhada_pallas.py:622", "full1024"),
     ("K6 attention_train forward", K6F, SRC + "attention_train.cu",
-     "mhada_tpu/ops/attention_pallas.py:236"),
+     "mhada_tpu/ops/attention_pallas.py:236", "train"),
     ("K6 attention_train backward", K6B, SRC + "attention_train.cu",
-     "mhada_tpu/ops/attention_pallas.py:351"),
+     "mhada_tpu/ops/attention_pallas.py:351", "train"),
     ("K7 mhada_train forward", K7F, SRC + "mhada_train.cu",
-     "mhada_tpu/ops/mhada_pallas.py:336"),
+     "mhada_tpu/ops/mhada_pallas.py:336", "train"),
     ("K7 mhada_train backward", K7B, SRC + "mhada_train.cu",
-     "mhada_tpu/ops/mhada_pallas.py:468"),
+     "mhada_tpu/ops/mhada_pallas.py:468", "train"),
     ("K8 decoder_tail_train forward", K8, SRC + "decoder_tail.cu",
-     "mhada_tpu/ops/decoder_tail_pallas.py:519"),
+     "mhada_tpu/ops/decoder_tail_pallas.py:519", "train"),
+    # K12 (head-major attention): its single-pass forward at L = 4096 is
+    # K1's gate; training above 2048 tokens takes K6 (the 512^2 step)
+    (K12_SINGLE, ATTN, SRC + "attention_fwd.cu",
+     "mhada_tpu/ops/attention_pallas.py:62", "full512"),
+    (K12_FWD, K6F, SRC + "attention_train.cu",
+     "mhada_tpu/ops/attention_pallas.py:488", "train512"),
+    (K12_BWD, K6B, SRC + "attention_train.cu",
+     "mhada_tpu/ops/attention_pallas.py:868", "train512"),
+    # K10 under grad (its residuals) and K11 take K7 (the 512^2 step)
+    (K10_RES, K7F, SRC + "mhada_train.cu",
+     "mhada_tpu/ops/mhada_pallas.py:622", "train512"),
+    (K11_BWD, K7B, SRC + "mhada_train.cu",
+     "mhada_tpu/ops/mhada_pallas.py:903", "train512"),
+    # K2's forward kernel inside its autograd Function (the fused-LN step)
+    (K2_VJP, LN, SRC + "ln_matmul.cu",
+     "mhada_tpu/ops/ln_matmul_pallas.py:44", "train_fuseln"),
 ]
 # gate -> (its row, kind of inputs, token count); the first gate of a row
 # fills the row.
@@ -125,19 +159,34 @@ FULL = {ATTN: 6, LN: 12, K3: 0, K4: 6, TAIL: 1, **NO_TRAIN}
 STYLE = {ATTN: 3, LN: 6, K3: 0, K4: 0, TAIL: 0, **NO_TRAIN}  # style set-up
 FRAME = {ATTN: 3, LN: 6, K3: 6, K4: 0, TAIL: 1, **NO_TRAIN}  # one frame
 # One image training step (4 ViT applies x 3 blocks, 3 AdaFormer applies x
-# 6 MHAda blocks, 3 decoder tails); the forward-only K1-K5 launch nothing.
+# 6 MHAda blocks, 3 decoder tails); K1-K5 launch nothing.
+# The counts count sites, so 512^2 launches as 256^2 does.  The fused-LN
+# build adds K2 at both pre-LN sites of every block (4 x 3 x 2).
 TRAIN = {ATTN: 0, LN: 0, K3: 0, K4: 0, TAIL: 0, K6F: 12, K6B: 12, K7F: 18,
          K7B: 18, K8: 3}
-# The training gates and step: (gate, row of its forward, row of its
-# backward or None, kind).  Shapes: the image step's, B = 8 at 256^2.
+TRAIN_FUSED = {**TRAIN, LN: 24}
+# The training gates: (gate, row of its forward or None, row of its backward
+# or None, kind, batch, tokens; K8: the input's side).  A gate without a row
+# is recorded under its own name.  The first three are the 256^2 step's
+# shapes; K6 and K7 at 4096 tokens are the 512^2 step's, and there they
+# stand for the TPU's head-major K12, K10 and K11.
 TRAIN_GATES = [
     ("K6 L=1024", "K6 attention_train forward", "K6 attention_train backward",
-     "attention"),
+     "attention", 8, 1024),
     ("K7 N=M=1024", "K7 mhada_train forward", "K7 mhada_train backward",
-     "mhada"),
-    ("K8 128^2->256^2", "K8 decoder_tail_train forward", None, "tail"),
+     "mhada", 8, 1024),
+    ("K8 128^2->256^2", "K8 decoder_tail_train forward", None, "tail", 8,
+     128),
+    ("K6 B=4 L=4096", K12_FWD, K12_BWD, "attention", 4, 4096),
+    ("K6 B=1 L=16384", None, None, "attention", 1, 16384),
+    ("K7 B=4 N=M=4096", K10_RES, K11_BWD, "mhada", 4, 4096),
+    ("K7 B=1 N=M=16384", None, None, "mhada", 1, 16384),
+    ("K8 256^2->512^2 B=4", None, None, "tail", 4, 256),
+    ("K2 VJP B=8 L=1024", K2_VJP, None, "ln_matmul", 8, 1024),
 ]
 TRAIN_B, TRAIN_SIZE = 8, 256
+# The 512^2 step (4096 tokens at every attention and MHAda site).
+BIG_B, BIG_SIZE = 4, 512
 # Training bounds on max |kernel - plain| / max |plain| of each output,
 # residual and input gradient, each against its own largest value: forward
 # as the forward gates; gradients sum over 1024 rows in another order
@@ -356,12 +405,15 @@ def run_gate(gate, kind, n, dname, card):
         f"{card}); peak memory {peak_gb:.2f} GB"), rec
 
 
-def train_gate_inputs(kind, dtype, g):
-    """Seeded inputs of one training kernel at the image step's shapes ->
-    dict: ``run(backend, *inputs)`` through the autograd Function, the
-    ``inputs`` and output cotangent ``cot``; ``fwd`` / ``bwd``: backend ->
-    call of the forward (outputs and residuals) and of the backward alone on
-    the plain forward's residuals (None where the backward has no kernel);
+def train_gate_inputs(kind, dtype, g, b, n):
+    """Seeded inputs of one training kernel at batch ``b`` and ``n`` tokens
+    (K8: an n x n input) -> dict: ``run(backend, *inputs)`` through the
+    autograd Function (K2: against autograd of the unfused plain LayerNorm
+    and linear), the ``inputs`` and output cotangent ``cot``; ``fwd`` /
+    ``bwd``: backend -> call of the forward (outputs and residuals) and of
+    the backward alone on the plain forward's residuals (None where the
+    backward has no kernel); ``bwd_plain``: None, or a call that prepares
+    the plain PyTorch backward of a kernel that has none and returns it;
     ``names``: part -> the name of each output of ``fwd``, ``bwd`` and of
     the input gradients (``grad``; K6's packed d qkv is split into dq, dk,
     dv); flops and bytes of each; the library yardsticks or None."""
@@ -370,16 +422,17 @@ def train_gate_inputs(kind, dtype, g):
 
     from mhada_tpu_torch.ops import attention_train as at
     from mhada_tpu_torch.ops import decoder_tail as dtl
+    from mhada_tpu_torch.ops import ln_matmul as lm
     from mhada_tpu_torch.ops import mhada_train as mt
 
-    dev, b, c, heads = "cuda", TRAIN_B, 512, 8
+    dev, c, heads = "cuda", 512, 8
     es = torch.tensor([], dtype=dtype).element_size()
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
 
     if kind == "attention":
-        n, scale = (TRAIN_SIZE // 8) ** 2, 0.125
+        scale = 0.125
         qkv, cot = rnd(b, n, 3 * c), rnd(b, n, c)
         out, lse = at.attention_train_fwd_plain(qkv, heads, scale)
         delta = at.row_delta(cot, out, heads)
@@ -398,6 +451,7 @@ def train_gate_inputs(kind, dtype, g):
                 qkv, lse, delta, cot, heads, scale).chunk(3, dim=-1),
                  "plain": lambda: at.attention_train_bwd_plain(
                      qkv, lse, delta, cot, heads, scale).chunk(3, dim=-1)},
+            bwd_plain=None,
             names={"fwd": ["out", "lse"], "bwd": ["dq", "dk", "dv"],
                    "grad": ["dq", "dk", "dv"]},
             flops=(4 * b * n * n * c, 10 * b * n * n * c),
@@ -407,7 +461,6 @@ def train_gate_inputs(kind, dtype, g):
                  lambda: torch.autograd.grad(lib_out, lib_in, lib_cot,
                                              retain_graph=True)))
     if kind == "mhada":
-        n = (TRAIN_SIZE // 8) ** 2
         q, k = rnd(b, n, c, scale=0.35), rnd(b, n, c, scale=0.35)
         v, f, cot = rnd(b, n, c), rnd(b, n, c), rnd(b, n, c)
         _, m1, e2, lse = mt.mhada_train_fwd_plain(q, k, v, f, heads)
@@ -423,6 +476,7 @@ def train_gate_inputs(kind, dtype, g):
                                                   delta, heads),
                  "plain": lambda: mt.mhada_train_bwd_plain(
                      q, k, v, dm1, de2, lse, delta, heads)},
+            bwd_plain=None,
             names={"fwd": ["out", "M1", "E2", "lse"],
                    "bwd": ["dq", "dk", "dv"],
                    "grad": ["dq", "dk", "dv", "dfcs_n"]},
@@ -431,7 +485,7 @@ def train_gate_inputs(kind, dtype, g):
                    8 * b * n * c * es + 8 * b * heads * n),
             lib=(None, None))
     if kind == "tail":
-        h = TRAIN_SIZE // 2
+        h = n
         x = rnd(b, h, h, 128).abs()
 
         def conv(co, ci):
@@ -446,13 +500,20 @@ def train_gate_inputs(kind, dtype, g):
         ws = [*conv(64, 128), *conv(64, 64), *conv(3, 64)]
         cot = rnd(b, 2 * h, 2 * h, 3)
         hi = b * (2 * h) ** 2
+
+        def tail_bwd():
+            # K8's backward is plain PyTorch on the kernel's residuals
+            res = dtl._launch_tail("mhada_decoder_tail_res", x, *ws)
+            return lambda: dtl.decoder_tail_bwd(cot, x, ws[0], ws[2], ws[4],
+                                                *res)
+
         return dict(
             run=lambda be, *a: dtl.decoder_tail_train(*a, backend=be),
             inputs=[x, *ws], cot=cot,
             fwd={"kernel": lambda: dtl._launch_tail(
                 "mhada_decoder_tail_res", x, *ws),
                  "plain": lambda: dtl.decoder_tail_res_plain(x, *ws)},
-            bwd=None,
+            bwd=None, bwd_plain=tail_bwd,
             names={"fwd": ["rgb", "y1", "c5"],
                    "grad": ["dx", "dw_up", "db_up", "dw5", "db5", "dw6",
                             "db6"]},
@@ -460,6 +521,48 @@ def train_gate_inputs(kind, dtype, g):
                             + hi * 64 * 3), None),
             bytes=((b * h * h * (128 + 64) + hi * (3 + 64)) * es
                    + 9 * 64 * (128 + 64 + 3) * es, None),
+            lib=(None, None))
+    if kind == "ln_matmul":
+        # one LN affine in front of both of a block's widths (ln1 -> qkv,
+        # ln2 -> fc1), every input in the compute dtype as the fused step
+        # casts them
+        fs = (3 * c, 2048)
+        x = rnd(b, n, c)
+        lw, lb = 1 + rnd(c, scale=0.1), rnd(c, scale=0.1)
+        wbs = [t for f in fs for t in (rnd(f, c, scale=c ** -0.5),
+                                       rnd(f, scale=0.1))]
+        cot = rnd(b, n, sum(fs))
+        pairs = list(zip(wbs[::2], wbs[1::2]))
+
+        def run(be, x, lw, lb, *wb):
+            wb = list(zip(wb[::2], wb[1::2]))
+            if be == "kernel":
+                outs = [lm.ln_matmul(x, lw, lb, w, bb, backend=be)
+                        for w, bb in wb]
+            else:
+                h = lm.layer_norm(x, lw, lb)
+                outs = [F.linear(h, w, bb) for w, bb in wb]
+            return torch.cat(outs, dim=-1)
+
+        def ln_bwd():
+            gs = cot.split(fs, dim=-1)
+            return lambda: [lm.ln_matmul_bwd(x, lw, lb, w, gi)
+                            for (w, _), gi in zip(pairs, gs)]
+
+        return dict(
+            run=run, inputs=[x, lw, lb, *wbs], cot=cot,
+            fwd={"kernel": lambda: [lm._ln_matmul_kernel(x, lw, lb, w, bb,
+                                                         1e-6)
+                                    for w, bb in pairs],
+                 "plain": lambda: [lm.ln_matmul_plain(x, lw, lb, w, bb)
+                                   for w, bb in pairs]},
+            bwd=None, bwd_plain=ln_bwd,
+            names={"fwd": ["qkv", "fc1"],
+                   "grad": ["dx", "d_ln_w", "d_ln_b", "dw_qkv", "db_qkv",
+                            "dw_fc1", "db_fc1"]},
+            flops=(sum(2 * b * n * c * f for f in fs), None),
+            bytes=(sum((b * n * c + f * c + b * n * f + 2 * c + f) * es
+                       for f in fs), None),
             lib=(None, None))
     raise KeyError(kind)
 
@@ -508,7 +611,7 @@ def tail_aligned_grads(d):
             flips / sum(r.numel() for r in ref))
 
 
-def run_train_gate(gate, kind, dname, card):
+def run_train_gate(gate, kind, dname, card, b, n):
     """A training kernel against its plain versions on the same seeded
     inputs, each output against its own scale: the forward's outputs and
     residuals, the backward alone, and the input gradients through the
@@ -518,7 +621,7 @@ def run_train_gate(gate, kind, dname, card):
     dtype = getattr(torch, dname)
     g = torch.Generator().manual_seed(SEED)
     torch.cuda.reset_peak_memory_stats()
-    d = train_gate_inputs(kind, dtype, g)
+    d = train_gate_inputs(kind, dtype, g, b, n)
     rel_fwd, rel_grad = TRAIN_REL[dname]
 
     def grads(backend):
@@ -547,7 +650,7 @@ def run_train_gate(gate, kind, dname, card):
         i = 0 if part == "fwd" else 1
         bound_ms, bound_by = bound(d["flops"][i], d["bytes"][i], dname)
         recs[part] = dict(max_abs_err=mx, rel_err=rel,
-                          rel_each={n: e[1] for n, e in errs.items()}, ms=ms,
+                          rel_each={k: e[1] for k, e in errs.items()}, ms=ms,
                           plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=library_ms,
                           gflop=d["flops"][i] / 1e9,
@@ -572,15 +675,10 @@ def run_train_gate(gate, kind, dname, card):
     mx, rel = _worst(errs)
     good = good and finite and rel <= rel_grad
     torch.cuda.synchronize()
-    recs["grad_rel_each"] = {n: e[1] for n, e in errs.items()}
+    recs["grad_rel_each"] = {k: e[1] for k, e in errs.items()}
     del got, ref
-    if kind == "tail":   # K8's backward is plain PyTorch on the residuals
-        from mhada_tpu_torch.ops import decoder_tail as dtl
-
-        rgb, y1, c5 = d["fwd"]["kernel"]()
-        x, wu, _, w5, _, w6, _ = d["inputs"]
-        recs["bwd_plain_ms"] = cuda_ms(lambda: dtl.decoder_tail_bwd(
-            d["cot"], x, wu, w5, w6, rgb, y1, c5), 1, 3)
+    if d["bwd_plain"] is not None:   # a backward in plain PyTorch (K2, K8)
+        recs["bwd_plain_ms"] = cuda_ms(d["bwd_plain"](), 1, 3)
         lines.append(f"bwd (plain PyTorch) {recs['bwd_plain_ms']:.3f} ms")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del d
@@ -679,13 +777,14 @@ def planted_dq_fault(scale):
         mt._bwd_kernel = real
 
 
-def train_step_gates(kcfg, ktrain, pcfg, ptrain, tc, ts):
+def train_step_gates(label, want, kcfg, ktrain, pcfg, ptrain, tc, ts):
     """Phase 7's gate, per dtype: one step on the kernel build (its launches
-    counted) and one on the plain build from the same weights and batch;
-    losses and every gradient held together, each live tensor against its
-    own largest value; the rounding control that sets the bounds; the
-    controls the gate must report.  -> (ok, {dtype: record with the
-    launches}, {dtype: {tensor: errors and bound}})."""
+    counted, to equal ``want``) and one on the plain build from the same
+    weights and batch, each build's peak device memory; losses and every
+    gradient held together, each live tensor against its own largest value;
+    the rounding control that sets the bounds; the controls the gate must
+    report.  -> (ok, {dtype: record with the launches}, {dtype: {tensor:
+    errors and bound}})."""
     from dataclasses import replace
 
     import torch
@@ -702,11 +801,17 @@ def train_step_gates(kcfg, ktrain, pcfg, ptrain, tc, ts):
         kc, pc = (replace(c, compute_dtype=dname) for c in (kcfg, pcfg))
         rel_grad = TRAIN_REL[dname][1]
         try:
+            peaks = {}
+            torch.cuda.reset_peak_memory_stats()
             _build.reset_launches()
             km, kg = step_grads(ktrain, kc, tc, ts)
             torch.cuda.synchronize()
             counts = dict(_build.LAUNCHES)
+            peaks["kernel"] = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
             pm, pg = step_grads(ptrain, pc, tc, ts)
+            torch.cuda.synchronize()
+            peaks["plain"] = torch.cuda.max_memory_allocated() / 1e9
             rgs = [step_grads(ptrain, pc, nudged(tc, dtype, nudge_gen),
                               nudged(ts, dtype, nudge_gen))[1]
                    for _ in range(2)]
@@ -716,7 +821,7 @@ def train_step_gates(kcfg, ktrain, pcfg, ptrain, tc, ts):
                     fgs.append(step_grads(ktrain, kc, tc, ts)[1])
             torch.cuda.synchronize()
         except Exception as e:
-            ok = phase(f"train step {dname}", False,
+            ok = phase(f"train step {label} {dname}", False,
                        f"{type(e).__name__}: {e}")
             continue
         if pg32 is None:
@@ -748,7 +853,7 @@ def train_step_gates(kcfg, ktrain, pcfg, ptrain, tc, ts):
                            f" gate: {len(lower_caught)} tensors over their "
                            f"bounds (nearest: "
                            f"{worst_txt(lower, bounds32)})")
-        good = (all(np.isfinite(v) for v in km.values()) and counts == TRAIN
+        good = (all(np.isfinite(v) for v in km.values()) and counts == want
                 and loss_rel <= STEP_LOSS_REL[dname] and not over
                 and noise <= NOISE_BOUND[dname])
         records[dname] = dict(
@@ -758,8 +863,8 @@ def train_step_gates(kcfg, ktrain, pcfg, ptrain, tc, ts):
             grad_bounds_widened=len(widened), grad_tensors_live=len(errs),
             grad_noise_worst=noise, fault_tensors_over=len(caught),
             below_fault_tensors_over=len(over_bound(below, bounds)),
-            launches=counts)
-        ok = phase(f"train step {dname}", good,
+            launches=counts, peak_gb=peaks)
+        ok = phase(f"train step {label} {dname}", good,
                    f"kernel build {km}; plain build {pm}; loss rel "
                    f"{loss_rel:.3e} (bound {STEP_LOSS_REL[dname]:.0e}); "
                    f"gradients of {len(errs)} live tensors, each against its"
@@ -772,8 +877,9 @@ def train_step_gates(kcfg, ktrain, pcfg, ptrain, tc, ts):
                    f"; the others (zero in exact arithmetic) within "
                    f"{noise:.3e} of their network's largest gradient (bound "
                    f"{NOISE_BOUND[dname]:.0e}); launches {counts} (want "
-                   f"{TRAIN})") and ok
-        ok = phase(f"train step gate controls {dname}", controls_ok,
+                   f"{want}); peak memory kernel build {peaks['kernel']:.2f}"
+                   f" GB, plain build {peaks['plain']:.2f} GB") and ok
+        ok = phase(f"train step gate controls {label} {dname}", controls_ok,
                    f"K7's dq x (1 + {PLANTED_DQ[dname]:g}): "
                    f"{len(caught)} tensors over their "
                    f"bounds (nearest: {worst_txt(fault, bounds)})"
@@ -1027,23 +1133,26 @@ def main() -> int:
     del kmodels, pmodels, kv_k, kv_p, sk, sp, frames8
     torch.cuda.empty_cache()
 
-    # ---- 6. training gates at the image step's shapes
-    for gate, row_f, row_b, kind in TRAIN_GATES:
+    # ---- 6. training gates at the training steps' shapes
+    for gate, row_f, row_b, kind, b, n in TRAIN_GATES:
         for dname in DTYPE_NAMES:
             try:
-                good, recs = run_train_gate(gate, kind, dname, card)
+                good, recs = run_train_gate(gate, kind, dname, card, b, n)
             except Exception as e:  # report every kernel, then fail
                 ok = phase(f"train gate {gate} {dname}", False,
                            f"{type(e).__name__}: {e}")
                 continue
-            gates.setdefault(row_f, {})[dname] = recs["fwd"]
-            if row_b is not None:
-                gates.setdefault(row_b, {})[dname] = recs["bwd"]
-            train_extra.setdefault(gate, {})[dname] = {
-                k: v for k, v in recs.items() if k not in ("fwd", "bwd")}
+            if row_f is None:   # recorded whole under the gate's name
+                train_extra.setdefault(gate, {})[dname] = recs
+            else:
+                gates.setdefault(row_f, {})[dname] = recs["fwd"]
+                if row_b is not None:
+                    gates.setdefault(row_b, {})[dname] = recs["bwd"]
+                train_extra.setdefault(gate, {})[dname] = {
+                    k: v for k, v in recs.items() if k not in ("fwd", "bwd")}
             ok = good and ok
 
-    # ---- 7. the training path: ModelConfig() at full width, 256^2, B = 8
+    # ---- 7. the training paths: ModelConfig() at full width
     from dataclasses import replace
 
     from mhada_tpu_torch.config import ImageTrainConfig
@@ -1052,25 +1161,64 @@ def main() -> int:
                                                    make_image_train_step,
                                                    make_optimizers)
 
-    def train_models(backend):
-        cfg = ImageTrainConfig(model=ModelConfig(mhada_backend=backend))
+    def train_models(backend, size=TRAIN_SIZE, batch=TRAIN_B,
+                     fuse_ln="auto"):
+        cfg = ImageTrainConfig(
+            model=ModelConfig(mhada_backend=backend, fuse_ln=fuse_ln),
+            batch_size=batch, image_size=(size, size))
         return cfg, init_params(cfg, "cuda",
                                 torch.Generator().manual_seed(SEED))
 
-    (kcfg, ktrain), (pcfg, ptrain) = train_models("auto"), train_models(
-        "plain")
-    shape = (TRAIN_B, TRAIN_SIZE, TRAIN_SIZE, 3)
-    tc, ts = (torch.from_numpy(rng.uniform(0, 255, shape).astype(
-        np.float32)).cuda() for _ in range(2))
-    good, records, grad_tables = train_step_gates(kcfg, ktrain, pcfg, ptrain,
-                                                  tc, ts)
-    ok = good and ok
-    train_extra["step"] = records
-    if "float32" in records:
-        launches["train"] = records["float32"]["launches"]
-    if args.dump:
-        with open(args.dump, "w") as f:
-            json.dump(grad_tables, f, indent=0)
+    def batch(b, size):
+        return [torch.from_numpy(rng.uniform(0, 255, (b, size, size, 3))
+                                 .astype(np.float32)).cuda()
+                for _ in range(2)]
+
+    def interleaved_steps(key, builds, tc, ts, reps, note):
+        """ms/step of two builds {name: (cfg, models)} in turns (a, b, b,
+        a), float32 and bfloat16, with the caching allocator's retries
+        (frees and re-allocations after a failed cudaMalloc) in each round
+        -> ok."""
+        a, b = builds
+
+        def retries():
+            return torch.cuda.memory_stats().get("num_alloc_retries", 0)
+
+        for dname in DTYPE_NAMES:
+            try:
+                steps = {k: make_image_train_step(
+                    replace(c, compute_dtype=dname), m, make_optimizers(m, c))
+                    for k, (c, m) in builds.items()}
+                t, tries = {a: [], b: []}, []
+                for k in (a, b, b, a):
+                    r0 = retries()
+                    t[k].append(cuda_ms(lambda: steps[k](tc, ts), *reps))
+                    tries.append(retries() - r0)
+            except Exception as e:
+                return phase(f"times {key} {dname}", False,
+                             f"{type(e).__name__}: {e}")
+            step_ms.setdefault(key, {})[dname] = {
+                k: sum(v) / len(v) for k, v in t.items()}
+            phase(f"times {key} {dname}", True,
+                  f"ms/step {a} build {t[a]} {b} build {t[b]} ({note}; "
+                  f"allocator retries per round {tries}; {card})")
+        return True
+
+    def step_gate(label, want, kernel, plain, tc, ts, path):
+        good, records, tables = train_step_gates(label, want, *kernel,
+                                                 *plain, tc, ts)
+        train_extra[f"step {label}"] = records
+        grad_tables[label] = tables
+        if "float32" in records:
+            launches[path] = records["float32"]["launches"]
+        return good
+
+    grad_tables = {}
+    # a. the recipe: 256^2, B = 8
+    kernel, plain = train_models("auto"), train_models("plain")
+    (kcfg, ktrain), (pcfg, ptrain) = kernel, plain
+    tc, ts = batch(TRAIN_B, TRAIN_SIZE)
+    ok = step_gate("256^2", TRAIN, kernel, plain, tc, ts, "train") and ok
 
     try:
         step = make_image_train_step(kcfg, ktrain,
@@ -1082,20 +1230,24 @@ def main() -> int:
     train_extra["five_steps_float32"] = losses
     ok = phase("train 5 steps float32", good, f"losses {losses}") and ok
 
+    def run_image_main(tmp, size, b, *extra):
+        run_image.main(["--coco", f"{tmp}/coco", "--wikiart",
+                        f"{tmp}/wikiart", "--models-dir", f"{tmp}/models",
+                        "--image-size", str(size), str(size),
+                        "--batch-size", str(b), "--seed", str(SEED),
+                        "--log-every", "1", "--metrics-jsonl",
+                        f"{tmp}/m.jsonl", *extra])
+        return ([json.loads(ln) for ln in open(f"{tmp}/m.jsonl")],
+                sorted(os.listdir(f"{tmp}/models")))
+
     try:
         with tempfile.TemporaryDirectory() as tmp:
             synthetic_folders(tmp, 16, rng)
-            common = ["--coco", f"{tmp}/coco", "--wikiart",
-                      f"{tmp}/wikiart", "--models-dir", f"{tmp}/models",
-                      "--batch-size", str(TRAIN_B), "--seed", str(SEED),
-                      "--log-every", "1", "--metrics-jsonl",
-                      f"{tmp}/m.jsonl"]
-            run_image.main(common + ["--epochs", "1", "--steps-per-epoch",
-                                     "2"])
-            run_image.main(common + ["--epoch-start", "2", "--epochs", "2",
-                                     "--steps-per-epoch", "1"])
-            rows = [json.loads(ln) for ln in open(f"{tmp}/m.jsonl")]
-            files = sorted(os.listdir(f"{tmp}/models"))
+            run_image_main(tmp, TRAIN_SIZE, TRAIN_B, "--epochs", "1",
+                           "--steps-per-epoch", "2")
+            rows, files = run_image_main(
+                tmp, TRAIN_SIZE, TRAIN_B, "--epoch-start", "2", "--epochs",
+                "2", "--steps-per-epoch", "1")
         good = ([r["epoch"] for r in rows] == [1, 1, 2]
                 and all(np.isfinite(r["loss"]) for r in rows)
                 and "checkpoint_epoch_2_batchSize_8.pth" in files)
@@ -1105,40 +1257,71 @@ def main() -> int:
         good, detail = False, f"{type(e).__name__}: {e}"
     ok = phase("train run_image 2 steps + 1 resumed", good, detail) and ok
 
-    for dname in DTYPE_NAMES:
-        steps = {b: make_image_train_step(replace(c, compute_dtype=dname), m,
-                                          make_optimizers(m, c))
-                 for b, c, m in (("kernel", kcfg, ktrain),
-                                 ("plain", pcfg, ptrain))}
-        t = {"kernel": [], "plain": []}
-        for build in ("plain", "kernel", "kernel", "plain"):
-            t[build].append(cuda_ms(lambda: steps[build](tc, ts), 1, 3))
-        step_ms[dname] = {b: sum(v) / len(v) for b, v in t.items()}
-        phase(f"times train step {dname}", True,
-              f"ms/step kernel build {t['kernel']} plain build {t['plain']}"
-              f" (256^2, B = 8; {card})")
+    ok = interleaved_steps("train256", {"plain": plain, "kernel": kernel},
+                           tc, ts, (1, 3), "256^2, B = 8") and ok
+
+    # b. the fused-LN build (K2 and its VJP at every pre-LN), 256^2, B = 8
+    fused = train_models("auto", fuse_ln=True)
+    ok = step_gate("fused-LN 256^2", TRAIN_FUSED, fused,
+                   train_models("plain", fuse_ln=True), tc, ts,
+                   "train_fuseln") and ok
+    ok = interleaved_steps("fuseln256", {"unfused": kernel, "fused": fused},
+                           tc, ts, (1, 3), "kernel builds, 256^2, B = 8") \
+        and ok
+    del kernel, plain, fused, ktrain, ptrain, tc, ts
+    torch.cuda.empty_cache()
+
+    # c. 512^2, B = 4: 4096 tokens at every attention and MHAda site
+    kernel = train_models("auto", BIG_SIZE, BIG_B)
+    plain = train_models("plain", BIG_SIZE, BIG_B)
+    tc, ts = batch(BIG_B, BIG_SIZE)
+    ok = step_gate("512^2", TRAIN, kernel, plain, tc, ts, "train512") and ok
+    ok = interleaved_steps("train512", {"plain": plain, "kernel": kernel},
+                           tc, ts, (1, 2), f"512^2, B = {BIG_B}") and ok
+    del kernel, plain, tc, ts
+    torch.cuda.empty_cache()
+    if args.dump:
+        with open(args.dump, "w") as f:
+            json.dump(grad_tables, f, indent=0)
+
+    # d. the CLI at 512^2, B = 8
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            synthetic_folders(tmp, 16, rng)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rows, files = run_image_main(tmp, BIG_SIZE, 8, "--epochs", "1",
+                                         "--steps-per-epoch", "2")
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 1e9
+        good = ([r["epoch"] for r in rows] == [1, 1]
+                and all(np.isfinite(r["loss"]) for r in rows)
+                and "checkpoint_epoch_1_batchSize_8.pth" in files)
+        train_extra["run_image_512_b8"] = dict(
+            losses=[r["loss"] for r in rows], peak_gb=peak, seconds=seconds)
+        detail = (f"losses {[r['loss'] for r in rows]}; files {files}; "
+                  f"peak memory {peak:.2f} GB; {seconds:.1f} s with set-up")
+    except Exception as e:
+        good, detail = False, f"{type(e).__name__}: {e}"
+    ok = phase("train run_image 512^2 B=8 2 steps", good, detail) and ok
 
     # ---- the kernels' summary: one row per TPU kernel the path replaces
-    path_of = {"K1": "full512", "K2": "full512", "K3": "stream512",
-               "K4": "full512", "K5": "full512", "K9": "stream1024",
-               "K10": "full1024", "K6": "train", "K7": "train",
-               "K8": "train"}
     first_gate = {}
     for gate, row, *_ in GATES:
         first_gate.setdefault(row, gate)
-    for _, row_f, row_b, _ in TRAIN_GATES:   # recorded under the row
-        first_gate[row_f] = row_f
-        if row_b is not None:
-            first_gate[row_b] = row_b
+    first_gate[K12_SINGLE] = first_gate["K1 attention_tm"]
+    for _, row_f, row_b, *_ in TRAIN_GATES:   # recorded under the row
+        for row in (row_f, row_b):
+            if row is not None:
+                first_gate[row] = row
     summary = []
-    for name, entry, source, replaces in ROWS:
+    for name, entry, source, replaces, path in ROWS:
         first = first_gate[name]
         rec = gates.get(first, {})
         r32, r16 = rec.get("float32", {}), rec.get("bfloat16", {})
         row = dict(name=name, route="cuda", source=source,
                    replaces=replaces, gate=first,
-                   launches=launches.get(path_of[name.split()[0]], {})
-                   .get(entry, 0))
+                   launches=launches.get(path, {}).get(entry, 0))
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):
             row[key] = r32.get(key)

@@ -9,8 +9,8 @@ source rebuilds and an unchanged one is reused.
 
 ``launch`` is the only place a kernel is launched from: it counts the
 launch in ``LAUNCHES`` and raises if the C entry point returns a CUDA error.
-``check_forward_only`` is the guard of the forward-only wrappers (K1-K5):
-their outputs carry no ``grad_fn``.
+``check_forward_only`` is the guard of the forward-only wrappers (K1, K3,
+K4, K5): their outputs carry no ``grad_fn``.
 """
 
 import ctypes

@@ -6,6 +6,7 @@ from dataclasses import dataclass, field
 import torch
 
 BACKENDS = ("auto", "plain", "kernel")
+FUSE_LN = ("auto", True, False)
 
 
 @dataclass(frozen=True)
@@ -24,11 +25,25 @@ class ModelConfig:
     # CPU tensors; "plain": the twins everywhere; "kernel": the kernels
     # only (a CPU tensor raises).
     mhada_backend: str = "auto"
+    # each ViT pre-LN fused into the matmul after it (K2, differentiable;
+    # mhada_tpu/config.py:24-29): "auto" = the inference build only;
+    # True / False = both builds / neither.
+    fuse_ln: str | bool = "auto"
 
     def __post_init__(self):
         if self.mhada_backend not in BACKENDS:
             raise ValueError(f"unknown mhada_backend {self.mhada_backend!r}; "
                              f"expected one of {BACKENDS}")
+        if self.fuse_ln not in FUSE_LN:
+            raise ValueError(f"unknown fuse_ln {self.fuse_ln!r}; expected "
+                             f"one of {FUSE_LN}")
+
+    def resolve_fuse_ln(self, for_training: bool) -> bool:
+        """Whether the build fuses each pre-LN into its matmul
+        (mhada_tpu/train/train_image.py:51-53)."""
+        if self.fuse_ln == "auto":
+            return not for_training
+        return bool(self.fuse_ln)
 
 
 @dataclass(frozen=True)

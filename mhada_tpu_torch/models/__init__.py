@@ -20,11 +20,13 @@ def build_models(cfg=None, device="cuda",
     """The networks {vit_c, vit_s, adaFormer} on ``device``: the card by
     default; raises without one unless ``device`` is the CPU.
 
-    The inference build is in eval mode and runs the forward-only kernels
-    K1-K5.  ``for_training`` gives the training build in training mode, as
-    the JAX package's does: LayerNorms unfused, attention through K6, the
-    MHAda cores through K7 and the decoder tail through K8, every one
-    differentiable.
+    The inference build is in eval mode and runs the kernels K1-K5.
+    ``for_training`` gives the training build in training mode, as the JAX
+    package's does: attention through K6, the MHAda cores through K7 and
+    the decoder tail through K8, every one differentiable.  Each build
+    fuses the ViT's pre-LNs into their matmuls (K2) where
+    ``ModelConfig.fuse_ln`` resolves to True for it: by default the
+    inference build only.
 
     ``cfg``: a ModelConfig, or anything with a ``.model`` ModelConfig.
     Weights are drawn on the CPU from ``generator`` (seed 0 if None), so a
@@ -38,7 +40,8 @@ def build_models(cfg=None, device="cuda",
     vit = dict(patch_size=m.patch_size, num_layers=m.num_layers,
                num_heads=m.num_heads, hidden_dim=m.hidden_dim,
                mlp_dim=m.mlp_dim, attn_mode=m.attn_mode,
-               backend=m.mhada_backend)
+               backend=m.mhada_backend,
+               fuse_ln=m.resolve_fuse_ln(for_training))
     models = {
         "vit_c": VisionTransformer(pos_embedding=True, **vit),
         "vit_s": VisionTransformer(pos_embedding=False, **vit),

@@ -101,11 +101,12 @@ class MultiHeadSelfAttention(nn.Module):
     """``nn.MultiheadAttention``-compatible self-attention over axis 1 of a
     (B, L, E) input, on the packed qkv projection.
 
-    ``ln``: the caller's pre-LN; ``x`` is then the un-normalised residual
-    stream.  In eval mode the LN is fused into the qkv projection (K2) and
-    the attention is K1 (``attention_tm``), both forward-only; in training
-    mode the LN runs unfused and the attention is K6 (``attention_train``),
-    as in the JAX package's training build (train_image.py:45-93).
+    ``ln``: the caller's pre-LN, fused into the qkv projection (K2,
+    differentiable); ``x`` is then the un-normalised residual stream.  The
+    caller passes it where the build fuses (``ModelConfig.fuse_ln``).  In
+    eval mode the attention is the forward-only K1 (``attention_tm``); in
+    training mode it is K6 (``attention_train``), as in the JAX package's
+    training build (train_image.py:45-93).
     """
 
     def __init__(self, embed_dim: int, num_heads: int, backend: str = "auto"):
@@ -123,12 +124,11 @@ class MultiHeadSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, ln: LayerNorm | None = None
                 ) -> torch.Tensor:
-        if ln is not None and not self.training:
+        if ln is not None:
             qkv = ln_matmul(x, ln.weight, ln.bias, self.qkv_weight,
                             self.qkv_bias, ln.eps, backend=self.backend)
         else:
-            h = x if ln is None else ln(x)
-            qkv = F.linear(h, self.qkv_weight.to(x.dtype),
+            qkv = F.linear(x, self.qkv_weight.to(x.dtype),
                            self.qkv_bias.to(x.dtype))
         hd = x.shape[-1] // self.num_heads
         attend = attention_train if self.training else attention_tm

@@ -57,19 +57,22 @@ class PosEmbedding(nn.Module):
 class EncoderBlock(nn.Module):
     """Pre-LN transformer block (reference vit.py:45-64).
 
-    In eval mode ln1 -> qkv and ln2 -> fc1 go through the fused LN +
-    matmul (K2) and the attention through K1; in training mode the LNs run
-    unfused and the attention through K6.  ``batch_coupled`` takes the
-    plain ln1 and attention either way, as the JAX package does.
+    With ``fuse_ln`` (the build's resolved ``ModelConfig.fuse_ln``) ln1 ->
+    qkv and ln2 -> fc1 go through the fused, differentiable LN + matmul
+    (K2); without it the LNs run unfused.  The attention is K1 in eval mode
+    and K6 in training mode.  ``batch_coupled`` takes the plain ln1 and
+    attention either way, as the JAX package does (vit.py:132-140).
     """
 
     def __init__(self, hidden_dim: int, num_heads: int, mlp_dim: int,
-                 attn_mode: str = "spatial", backend: str = "auto"):
+                 attn_mode: str = "spatial", backend: str = "auto",
+                 fuse_ln: bool = False):
         super().__init__()
         if attn_mode not in ATTN_MODES:
             raise ValueError(f"unknown attn_mode: {attn_mode}")
         self.attn_mode = attn_mode
         self.backend = backend
+        self.fuse_ln = fuse_ln
         self.ln1 = LayerNorm(hidden_dim)
         self.attention = MultiHeadSelfAttention(
             hidden_dim, num_heads,
@@ -79,18 +82,20 @@ class EncoderBlock(nn.Module):
         self.mlp_fc2 = Linear(mlp_dim, hidden_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.attn_mode == "spatial":
-            h = self.attention(x, ln=self.ln1)
-        else:
+        if self.attn_mode == "batch_coupled":
             # sequence axis = image batch, batch axis = tokens
             h = self.attention(self.ln1(x).transpose(0, 1)).transpose(0, 1)
-        x = x + h
-        if self.training:
-            y = self.mlp_fc1(self.ln2(x))
+        elif self.fuse_ln:
+            h = self.attention(x, ln=self.ln1)
         else:
+            h = self.attention(self.ln1(x))
+        x = x + h
+        if self.fuse_ln:
             y = ln_matmul(x, self.ln2.weight, self.ln2.bias,
                           self.mlp_fc1.weight, self.mlp_fc1.bias,
                           self.ln2.eps, backend=self.backend)
+        else:
+            y = self.mlp_fc1(self.ln2(x))
         y = self.mlp_fc2(torch.relu(y))
         return x + y
 
@@ -102,7 +107,8 @@ class VisionTransformer(nn.Module):
     def __init__(self, patch_size: int = 8, num_layers: int = 3,
                  num_heads: int = 8, hidden_dim: int = 512,
                  mlp_dim: int = 2048, pos_embedding: bool = True,
-                 attn_mode: str = "spatial", backend: str = "auto"):
+                 attn_mode: str = "spatial", backend: str = "auto",
+                 fuse_ln: bool = False):
         super().__init__()
         self.num_layers = num_layers
         self.hidden_dim = hidden_dim
@@ -110,7 +116,7 @@ class VisionTransformer(nn.Module):
         self.pos_embedding = PosEmbedding(hidden_dim) if pos_embedding else None
         for i in range(num_layers):
             self.add_module(f"block{i}", EncoderBlock(
-                hidden_dim, num_heads, mlp_dim, attn_mode, backend))
+                hidden_dim, num_heads, mlp_dim, attn_mode, backend, fuse_ln))
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         tokens, (h, w) = self.patch_embedding(x)

@@ -1,13 +1,21 @@
 """K6: differentiable ViT self-attention from the packed qkv
 (csrc/attention_train.cu).
 
-Port of mhada_tpu/ops/attention_pallas.py::attention_tm_train.  Forward:
-K1's tile also writing the row log-sum-exp, (B, heads, L) float32.
-Backward: dQ, dK and dV written straight into the packed (B, L, 3C)
-gradient, P rebuilt from lse, dO in the storage dtype, float32
-accumulation; the row term delta = rowsum(dO * O) per head is computed here,
-as attention_pallas.py:322-327 does in XLA.  The plain versions follow the
-JAX forward and backward math step by step, with the same rounding points.
+Port of mhada_tpu/ops/attention_pallas.py::attention_tm_train (L <= 2048)
+and, above 2048 tokens, of the head-major K12 that the JAX package routes
+training to there (mhada_tpu/models/layers.py:209-214): its streaming
+forward with lse, ``_attn_stream_fwd_impl`` (pallas_call at
+attention_pallas.py:488), and its flash backward,
+``_attn_stream_bwd_impl`` (dQ at :868, dK/dV at :888).  Both compute the
+same function in another layout; the kernels stream 64-key tiles, so one
+pair serves every length.  Forward: K1's tile also writing the row
+log-sum-exp, (B, heads, L) float32.  Backward: dQ, dK and dV written
+straight into the packed (B, L, 3C) gradient, P rebuilt from lse, dO in
+the storage dtype, float32 accumulation; the row term delta = rowsum(dO *
+O) per head is computed here, as attention_pallas.py:322-327 and :807 do in
+XLA.  The plain versions follow the JAX forward and backward math step by
+step, with the same rounding points, one head at a time, so that at 16384
+tokens only one head's (L, L) float32 scores are live.
 """
 
 import math
@@ -25,42 +33,52 @@ def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
     return t.float().reshape(b, l, num_heads, c // num_heads).transpose(1, 2)
 
 
-def _tokens(t: torch.Tensor) -> torch.Tensor:
-    """(B, H, L, d) -> (B, L, H * d)."""
-    b, h, l, d = t.shape
-    return t.transpose(1, 2).reshape(b, l, h * d)
-
-
 def row_delta(g: torch.Tensor, out: torch.Tensor,
               num_heads: int) -> torch.Tensor:
     """delta = rowsum(dO * O) per head: (B, L, C) -> (B, H, L) float32."""
     return (_heads(g, num_heads) * _heads(out, num_heads)).sum(-1).contiguous()
 
 
+def _head(t: torch.Tensor, h: int, d: int) -> torch.Tensor:
+    """Head h of a (B, L, C) token-major tensor -> (B, L, d) float32."""
+    return t[..., h * d:(h + 1) * d].float()
+
+
 def attention_train_fwd_plain(qkv: torch.Tensor, num_heads: int,
                               scale: float):
     """(B, L, 3C) -> (out (B, L, C) in qkv's dtype, lse (B, H, L) float32)."""
-    q, k, v = (_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
-    s = q @ k.transpose(-1, -2) * scale
-    lse = torch.logsumexp(s, dim=-1)
-    o = torch.exp(s - lse[..., None]) @ v
-    return _tokens(o).to(qkv.dtype), lse
+    q, k, v = qkv.chunk(3, dim=-1)
+    d = q.shape[-1] // num_heads
+    outs, lses = [], []
+    for h in range(num_heads):
+        s = _head(q, h, d) @ _head(k, h, d).transpose(-1, -2) * scale
+        lse = torch.logsumexp(s, dim=-1)
+        outs.append(torch.exp(s - lse[..., None]) @ _head(v, h, d))
+        lses.append(lse)
+        del s
+    return torch.cat(outs, dim=-1).to(qkv.dtype), torch.stack(lses, 1)
 
 
 def attention_train_bwd_plain(qkv: torch.Tensor, lse: torch.Tensor,
                               delta: torch.Tensor, g: torch.Tensor,
                               num_heads: int, scale: float) -> torch.Tensor:
-    """_tm_bwd_kernel's math (attention_pallas.py:256-312) for all heads:
-    g = dO in qkv's dtype -> d qkv (B, L, 3C) in qkv's dtype."""
+    """_tm_bwd_kernel's math (attention_pallas.py:256-312), one head at a
+    time: g = dO in qkv's dtype -> d qkv (B, L, 3C) in qkv's dtype."""
     dt = qkv.dtype
-    q, k, v = (_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
-    gh = _heads(g, num_heads)
-    p = torch.exp(q @ k.transpose(-1, -2) * scale - lse[..., None])
-    dv = p.to(dt).float().transpose(-1, -2) @ gh
-    ds = p * (gh @ v.transpose(-1, -2) - delta[..., None]) * scale
-    ds = ds.to(dt).float()
-    dq, dk = ds @ k, ds.transpose(-1, -2) @ q
-    return torch.cat([_tokens(t) for t in (dq, dk, dv)], dim=-1).to(dt)
+    q, k, v = qkv.chunk(3, dim=-1)
+    d = q.shape[-1] // num_heads
+    grads = [[], [], []]
+    for h in range(num_heads):
+        qh, kh, vh, gh = (_head(t, h, d) for t in (q, k, v, g))
+        p = torch.exp(qh @ kh.transpose(-1, -2) * scale - lse[:, h, :, None])
+        grads[2].append(p.to(dt).float().transpose(-1, -2) @ gh)
+        ds = p * (gh @ vh.transpose(-1, -2) - delta[:, h, :, None]) * scale
+        del p
+        ds = ds.to(dt).float()
+        grads[0].append(ds @ kh)
+        grads[1].append(ds.transpose(-1, -2) @ qh)
+        del ds
+    return torch.cat([torch.cat(gs, dim=-1) for gs in grads], dim=-1).to(dt)
 
 
 def _fwd_kernel(qkv, num_heads, scale):

@@ -1,9 +1,17 @@
-"""K2: LayerNorm fused into the following matmul (csrc/ln_matmul.cu).
+"""K2: LayerNorm fused into the following matmul (csrc/ln_matmul.cu), and
+its VJP.
 
 Port of mhada_tpu/ops/ln_matmul_pallas.py::ln_matmul for the ViT's
 ln1 -> qkv and ln2 -> fc1 sites.  ``layer_norm`` is the LayerNorm math of
 mhada_tpu/models/layers.py:117-124 (float32 statistics, eps 1e-6); the twin
 is that LayerNorm followed by ``F.linear``.
+
+The gradient is ``_ln_matmul_bwd``'s closed form
+(ln_matmul_pallas.py:96-121) in plain PyTorch, as the JAX backward is plain
+XLA: the LN is recomputed from x in float32 (the normalised tensor is never
+saved), dW = h^T g in the compute dtype with float32 accumulation, dh = g W
+kept in float32, and the LN gradients in float32, each cast to its input's
+dtype.
 """
 
 import torch
@@ -16,13 +24,18 @@ from ..config import use_kernel
 MAX_E = 768
 
 
+def _ln_stats(x: torch.Tensor, eps: float):
+    """(x - mean) / std in float32, and 1 / std."""
+    xf = x.float()
+    xc = xf - xf.mean(dim=-1, keepdim=True)
+    rsig = torch.rsqrt(xc.square().mean(dim=-1, keepdim=True) + eps)
+    return xc * rsig, rsig
+
+
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm over the last axis with float32 statistics, in x's dtype."""
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = _ln_stats(x, eps)[0]
     return (y * weight.float() + bias.float()).to(x.dtype)
 
 
@@ -32,36 +45,72 @@ def ln_matmul_plain(x, ln_w, ln_b, w, b, eps: float = 1e-6) -> torch.Tensor:
     return F.linear(h, w.to(h.dtype), b.to(h.dtype))
 
 
+def _ln_matmul_kernel(x, ln_w, ln_b, w, b, eps):
+    e, f = x.shape[-1], w.shape[0]
+    _build.check_cuda_inputs("ln_matmul", x, w)
+    f32 = [t.float().contiguous() for t in (ln_w, ln_b, b)]
+    _build.check_cuda_inputs("ln_matmul", *f32)
+    out = torch.empty((*x.shape[:-1], f), device=x.device, dtype=x.dtype)
+    _build.launch("mhada_ln_matmul", x.device, x, f32[0], f32[1], w, f32[2],
+                  out, x.numel() // e, e, f, float(eps), _build.dtype_code(x))
+    return out
+
+
+def ln_matmul_bwd(x, ln_w, ln_b, w, g, eps: float = 1e-6):
+    """_ln_matmul_bwd (ln_matmul_pallas.py:96-121) for x (..., E), w (F, E)
+    and the output cotangent g (..., F) -> (dx, d ln_w, d ln_b, dw, db),
+    each in its input's dtype (db in w's)."""
+    e = x.shape[-1]
+    hn, rsig = _ln_stats(x, eps)
+    h = (hn * ln_w.float() + ln_b.float()).to(x.dtype)
+    g2 = g.to(x.dtype).reshape(-1, g.shape[-1])
+    # the compute dtype's product, float32 accumulation, rounded once
+    dw = (g2.transpose(0, 1) @ h.reshape(-1, e)).to(w.dtype)
+    db = g2.float().sum(0).to(w.dtype)
+    # preferred_element_type=f32: dh is not rounded to the compute dtype
+    dh = (g2.float() @ w.float()).reshape(hn.shape)
+    dims = tuple(range(hn.dim() - 1))
+    d_lnw = (dh * hn).sum(dims).to(ln_w.dtype)
+    d_lnb = dh.sum(dims).to(ln_b.dtype)
+    dhn = dh * ln_w.float()
+    dx = rsig * (dhn - dhn.mean(-1, keepdim=True)
+                 - hn * (dhn * hn).mean(-1, keepdim=True))
+    return dx.to(x.dtype), d_lnw, d_lnb, dw, db
+
+
+class _LnMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w, b, eps, kernel):
+        fwd = _ln_matmul_kernel if kernel else ln_matmul_plain
+        ctx.save_for_backward(x, ln_w, ln_b, w)
+        ctx.eps = eps
+        return fwd(x, ln_w, ln_b, w, b, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*ln_matmul_bwd(*ctx.saved_tensors, g, ctx.eps), None, None)
+
+
 def ln_matmul(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
               w: torch.Tensor, b: torch.Tensor, eps: float = 1e-6,
               backend: str = "auto") -> torch.Tensor:
-    """``LayerNorm(x) @ w.T + b`` with the LN in the matmul's prologue; the
-    K2 kernel for CUDA tensors.  Weights may be float32 for a bf16 ``x``:
-    ``w`` and ``b`` are cast to x's dtype as the twin casts them.
+    """``LayerNorm(x) @ w.T + b`` with the LN in the matmul's prologue, and
+    differentiable in all five inputs: the K2 kernel for CUDA tensors, the
+    plain version for CPU tensors; the backward is ``ln_matmul_bwd``.
 
-    Forward-only, and no training route exists yet (K2's VJP): the
-    training build runs ``layer_norm`` and ``F.linear`` instead."""
-    if not use_kernel(backend, x):
-        return ln_matmul_plain(x, ln_w, ln_b, w, b, eps)
+    The LN affine, ``w`` and ``b`` may be float32 for a bf16 ``x``: all four
+    are cast to x's dtype here, outside the autograd Function, as the JAX
+    bf16 step casts its whole parameter tree, so their gradients come back
+    through the casts in their own dtypes."""
+    kernel = use_kernel(backend, x)
     if x.dim() < 2 or w.dim() != 2 or w.shape[1] != x.shape[-1] \
             or b.shape != (w.shape[0],) or ln_w.shape != (x.shape[-1],) \
             or ln_b.shape != ln_w.shape:
         raise ValueError(
             f"ln_matmul: bad shapes x {tuple(x.shape)} w {tuple(w.shape)} "
             f"b {tuple(b.shape)} ln {tuple(ln_w.shape)}")
-    e, f = x.shape[-1], w.shape[0]
-    if e > MAX_E:
-        raise ValueError(f"ln_matmul: the kernel takes E <= {MAX_E}, got {e}")
-    wt = w.to(x.dtype).contiguous()
-    _build.check_cuda_inputs("ln_matmul", x, wt)
-    f32 = [t.float().contiguous() for t in (ln_w, ln_b, b.to(x.dtype))]
-    _build.check_cuda_inputs("ln_matmul", *f32)
-    _build.check_forward_only(
-        "ln_matmul", "no training route exists yet: use layer_norm and "
-        "F.linear, as build_models(for_training=True) does",
-        x, ln_w, ln_b, w, b)
-    rows = x.numel() // e
-    out = torch.empty((*x.shape[:-1], f), device=x.device, dtype=x.dtype)
-    _build.launch("mhada_ln_matmul", x.device, x, f32[0], f32[1], wt, f32[2],
-                  out, rows, e, f, float(eps), _build.dtype_code(x))
-    return out
+    if kernel and x.shape[-1] > MAX_E:
+        raise ValueError(
+            f"ln_matmul: the kernel takes E <= {MAX_E}, got {x.shape[-1]}")
+    params = [t.to(x.dtype).contiguous() for t in (ln_w, ln_b, w, b)]
+    return _LnMatmul.apply(x, *params, float(eps), kernel)

@@ -1,34 +1,50 @@
 """K7: the differentiable MHAda core on token-major tensors
 (csrc/mhada_train.cu).
 
-Port of mhada_tpu/ops/mhada_pallas.py::mhada_tm_train.  Forward: K4's tile
-also writing M1 and E2 (float32, (B, N, C)) and the row log-sum-exp
-((B, heads, N) float32).  Backward: the elementwise prologue of
-``_mhada_tm_bwd_impl`` (mhada_pallas.py:431-448) in plain torch, then the
-K7 backward kernels for dQ, dK and dV = P^T dM1 + 2 V * (P^T dE2).  The
+Port of mhada_tpu/ops/mhada_pallas.py::mhada_tm_train (M <= 2048) and,
+above 2048 keys, of the head-major kernels the JAX package routes training
+to there (mhada_tpu/models/adaformer.py:133): K10's streaming forward with
+its M1/E2/lse residuals (``_mhada_stream_fwd_impl(with_res=True)``,
+pallas_call at mhada_pallas.py:622) and K11, the flash backward
+``_mhada_stream_bwd_impl`` (dQ at :903, dK/dV at :925).  Both compute the
+same function in another layout; the kernels stream 64-key tiles, so one
+pair serves every length.  Forward: K4's tile also writing M1 and E2
+(float32, (B, N, C)) and the row log-sum-exp ((B, heads, N) float32).
+Backward: the elementwise prologue of ``_mhada_tm_bwd_impl``
+(mhada_pallas.py:431-448, the same as :821-834) in plain torch, then the K7
+backward kernels for dQ, dK and dV = P^T dM1 + 2 V * (P^T dE2).  The
 softmax is unscaled (reference network/adaDecoder.py:11-17); the Var
 clamp's gradient is zero below 1e-6.  The plain versions follow the JAX
-math step by step, with the same rounding points.
+math step by step, with the same rounding points, one head at a time, so
+that at 16384 tokens only one head's (N, M) float32 scores are live.
 """
 
 import torch
 
 from .. import _build
 from ..config import use_kernel
-from .attention_train import _heads, _tokens
+from .attention_train import _head, _heads
 from .mhada_kernel import HEAD_DIM
 
 
 def mhada_train_fwd_plain(q, k, v, fcs_n, num_heads: int):
     """q, fcs_n (B, N, C); k, v (B, M, C) -> (out in q's dtype, M1, E2
     (B, N, C) float32, lse (B, H, N) float32)."""
-    qh, kh, vh = (_heads(t, num_heads) for t in (q, k, v))
-    s = qh @ kh.transpose(-1, -2)
-    lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - lse[..., None])
-    m1, e2 = _tokens(p @ vh), _tokens(p @ vh.square())
+    d = q.shape[-1] // num_heads
+    m1s, e2s, lses = [], [], []
+    for h in range(num_heads):
+        s = _head(q, h, d) @ _head(k, h, d).transpose(-1, -2)
+        lse = torch.logsumexp(s, dim=-1)
+        p = torch.exp(s - lse[..., None])
+        del s
+        vh = _head(v, h, d)
+        m1s.append(p @ vh)
+        e2s.append(p @ vh.square())
+        lses.append(lse)
+        del p
+    m1, e2 = torch.cat(m1s, dim=-1), torch.cat(e2s, dim=-1)
     sd = torch.sqrt(torch.clamp(e2 - m1.square(), min=1e-6))
-    return (sd * fcs_n.float() + m1).to(q.dtype), m1, e2, lse
+    return (sd * fcs_n.float() + m1).to(q.dtype), m1, e2, torch.stack(lses, 1)
 
 
 def mhada_train_prologue(g, fcs_n, m1, e2, num_heads: int, dtype):
@@ -48,17 +64,24 @@ def mhada_train_prologue(g, fcs_n, m1, e2, num_heads: int, dtype):
 
 
 def mhada_train_bwd_plain(q, k, v, dm1, de2, lse, delta, num_heads: int):
-    """_mhada_tm_bwd_kernel's math (mhada_pallas.py:362-421) for all heads
-    -> (dq, dk, dv) in q's dtype."""
+    """_mhada_tm_bwd_kernel's math (mhada_pallas.py:362-421), one head at a
+    time -> (dq, dk, dv) in q's dtype."""
     dt = q.dtype
-    qh, kh, vh, g1, g2 = (_heads(t, num_heads) for t in (q, k, v, dm1, de2))
-    p = torch.exp(qh @ kh.transpose(-1, -2) - lse[..., None])
-    pt = p.to(dt).float().transpose(-1, -2)
-    dv = pt @ g1 + 2.0 * vh * (pt @ g2)
-    da = g1 @ vh.transpose(-1, -2) + g2 @ vh.square().transpose(-1, -2)
-    ds = (p * (da - delta[..., None])).to(dt).float()
-    dq, dk = ds @ kh, ds.transpose(-1, -2) @ qh
-    return tuple(_tokens(t).to(dt) for t in (dq, dk, dv))
+    d = q.shape[-1] // num_heads
+    grads = [[], [], []]
+    for h in range(num_heads):
+        qh, kh, vh, g1, g2 = (_head(t, h, d) for t in (q, k, v, dm1, de2))
+        p = torch.exp(qh @ kh.transpose(-1, -2) - lse[:, h, :, None])
+        pt = p.to(dt).float().transpose(-1, -2)
+        grads[2].append(pt @ g1 + 2.0 * vh * (pt @ g2))
+        del pt
+        da = g1 @ vh.transpose(-1, -2) + g2 @ vh.square().transpose(-1, -2)
+        ds = (p * (da - delta[:, h, :, None])).to(dt).float()
+        del p, da
+        grads[0].append(ds @ kh)
+        grads[1].append(ds.transpose(-1, -2) @ qh)
+        del ds
+    return tuple(torch.cat(gs, dim=-1).to(dt) for gs in grads)
 
 
 def _fwd_kernel(q, k, v, fcs_n, num_heads):

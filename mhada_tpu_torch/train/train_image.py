@@ -9,7 +9,10 @@ three Adam optimizers with one learning rate, so this is exactly the JAX
 package's single ``optax.adam`` over the combined tree (Adam is per leaf).
 
 The training build routes the ViT attention through K6, the MHAda cores
-through K7 and the decoder tail through K8 (``models.build_models``).
+through K7 and the decoder tail through K8 (``models.build_models``) at
+every image size (K6 and K7 stream keys, so 512^2, 4096 tokens, takes the
+same kernels as 256^2); ``ModelConfig(fuse_ln=True)`` also fuses the ViT's
+pre-LNs into their matmuls (K2 and its VJP).
 bfloat16 is the JAX package's: the inputs are cast and each module casts
 its float32 weights at use, so gradients and Adam state stay float32.
 ``remat`` recomputes the encoder, AdaFormer and VGG forwards in the

@@ -2,7 +2,9 @@
 and ragged shapes (partial query/key tiles, partial decoder tiles, tiny
 images) that the 512^2 path never produces, and K1 / K4 just past the TPU
 kernels' single-pass limit of 4096 keys.  The training kernels K6, K7 and
-K8 are held forward and backward (outputs and input gradients), and the
+K8 are held forward and backward (outputs and input gradients), K6 and K7
+also at ragged lengths past the TPU training kernels' 2048-key window,
+K2's VJP against autograd of the unfused LayerNorm and linear, and the
 forward-only wrappers must refuse tensors that require grad.
 
 Marked ``cuda``: each test skips without a card.  On a machine with one (the
@@ -12,12 +14,13 @@ repo conftest imports jax, which that machine need not have):
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from mhada_tpu_torch import _build
 from mhada_tpu_torch.ops.attention_kernel import attention_tm
 from mhada_tpu_torch.ops.attention_train import attention_train
 from mhada_tpu_torch.ops.decoder_tail import decoder_tail, decoder_tail_train
-from mhada_tpu_torch.ops.ln_matmul import ln_matmul
+from mhada_tpu_torch.ops.ln_matmul import layer_norm, ln_matmul
 from mhada_tpu_torch.ops.mhada_kernel import mhada_tm
 from mhada_tpu_torch.ops.mhada_train import mhada_train
 from mhada_tpu_torch.ops.instance_norm import instance_norm_stats
@@ -182,7 +185,8 @@ def _check_train(entries, run, dtype, inputs, cot):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,l,heads", [(2, 100, 2), (1, 7, 1), (1, 130, 2)])
+@pytest.mark.parametrize("b,l,heads", [(2, 100, 2), (1, 7, 1), (1, 130, 2),
+                                       (1, 4100, 2)])
 def test_attention_train_kernels(gen, dtype, b, l, heads):
     qkv = _rnd(gen, dtype, b, l, 3 * 64 * heads, scale=0.5)
     cot = _rnd(gen, dtype, b, l, 64 * heads)
@@ -193,7 +197,7 @@ def test_attention_train_kernels(gen, dtype, b, l, heads):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,n,m", [(2, 70, 130), (1, 1, 200), (1, 64, 64),
-                                   (1, 150, 33)])
+                                   (1, 150, 33), (1, 2100, 4100)])
 def test_mhada_train_kernels(gen, dtype, b, n, m):
     q = _rnd(gen, dtype, b, n, 128, scale=0.35)
     k = _rnd(gen, dtype, b, m, 128, scale=0.35)
@@ -221,6 +225,29 @@ def test_decoder_tail_train_kernel(gen, dtype, shape):
     _check_train(["mhada_decoder_tail_res"],
                  lambda be, *a: decoder_tail_train(*a, backend=be), dtype,
                  [x, wu, bu, w5, b5, w6, b6], cot)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,f", [((2, 100, 128), 200), ((3, 5, 40), 7)])
+def test_ln_matmul_vjp(gen, dtype, shape, f):
+    """K2 under autograd: the kernel forward and the closed-form backward
+    against autograd of the unfused plain LayerNorm and F.linear, all five
+    input gradients."""
+    e = shape[-1]
+    inputs = [_rnd(gen, dtype, *shape),
+              (1 + 0.1 * torch.randn(e, generator=gen)).to("cuda", dtype)
+              .float(),
+              (0.1 * torch.randn(e, generator=gen)).to("cuda", dtype).float(),
+              _rnd(gen, dtype, f, e, scale=e ** -0.5),
+              _rnd(gen, dtype, f, scale=0.1)]
+    cot = _rnd(gen, dtype, *shape[:-1], f)
+
+    def run(backend, x, lw, lb, w, b):
+        if backend == "kernel":
+            return ln_matmul(x, lw, lb, w, b, backend=backend)
+        return F.linear(layer_norm(x, lw.to(x.dtype), lb.to(x.dtype)), w, b)
+
+    _check_train(["mhada_ln_matmul"], run, dtype, inputs, cot)
 
 
 def test_forward_only_wrappers_refuse_grad(gen):

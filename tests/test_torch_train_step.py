@@ -2,7 +2,9 @@
 from the same params, VGG params and batch at ModelConfig(hidden_dim=64,
 mlp_dim=128, num_heads=4), B = 2, 32^2 (tests/test_train_step.py:21-36);
 then the port alone: the loss falls, bfloat16 runs, remat keeps the
-gradients."""
+gradients; and the fused-LN training build (ModelConfig(fuse_ln=True), K2's
+VJP) against the same JAX step, which computes the same function unfused
+(JAX resolves fuse_ln to off on the CPU)."""
 
 from dataclasses import replace
 
@@ -29,6 +31,7 @@ from mhada_tpu_torch.train.train_image import (TRAINABLE, init_params,
 TINY = dict(hidden_dim=64, mlp_dim=128, num_heads=4)
 CFG = ImageTrainConfig(model=ModelConfig(**TINY), batch_size=2,
                        image_size=(32, 32))
+FUSED_CFG = replace(CFG, model=ModelConfig(fuse_ln=True, **TINY))
 LR = CFG.lr
 
 
@@ -60,25 +63,71 @@ def reference():
                 grads=to_np(grads), new=to_np(new))
 
 
-def _port_models(ref):
-    models = init_params(CFG, "cpu")
+def _port_models(ref, cfg=CFG):
+    models = init_params(cfg, "cpu")
     load_params(models, jax_params_to_state_dicts(ref["params"]["trainable"]))
     models["vgg19"].load_state_dict(params_from_jax(ref["params"]["vgg19"]),
                                     strict=True)
     return models
 
 
-@pytest.fixture(scope="module")
-def port_step(reference):
-    """One port step from the same weights: (metrics, grads, new weights)."""
-    models = _port_models(reference)
-    step = make_image_train_step(CFG, models, make_optimizers(models, CFG))
-    metrics = step(torch.from_numpy(reference["c"]),
-                   torch.from_numpy(reference["s"]))
+def _run_port_step(ref, cfg):
+    """One port step from the JAX weights: (metrics, grads, new weights)."""
+    models = _port_models(ref, cfg)
+    step = make_image_train_step(cfg, models, make_optimizers(models, cfg))
+    metrics = step(torch.from_numpy(ref["c"]), torch.from_numpy(ref["s"]))
     grads = {net: {k: p.grad.clone() for k, p in
                    models[net].named_parameters()} for net in TRAINABLE}
     new = {net: models[net].state_dict() for net in TRAINABLE}
     return {k: float(v) for k, v in metrics.items()}, grads, new
+
+
+@pytest.fixture(scope="module")
+def port_step(reference):
+    """One port step from the same weights: (metrics, grads, new weights)."""
+    return _run_port_step(reference, CFG)
+
+
+@pytest.fixture(scope="module")
+def fused_port_step(reference):
+    """The same step with each ViT pre-LN fused into its matmul."""
+    return _run_port_step(reference, FUSED_CFG)
+
+
+def _check_metrics(metrics, ref):
+    assert metrics.keys() == ref["metrics"].keys()
+    assert ref["metrics"]["loss_lf"] > 0   # every loss is live
+    for k, want in ref["metrics"].items():
+        assert metrics[k] == pytest.approx(want, rel=5e-5), k
+
+
+def _check_grads(grads, ref):
+    live = 0
+    for net in TRAINABLE:
+        want = params_from_jax(ref["grads"][net])
+        assert grads[net].keys() == want.keys()
+        floor = 1e-6 * max(r.abs().max().item() for r in want.values())
+        for key, r in want.items():
+            scale = r.abs().max().item()
+            err = (grads[net][key] - r).abs().max().item()
+            if scale > floor:
+                live += 1
+                assert err <= 1e-3 * scale, (net, key, err, scale)
+            else:
+                assert err <= 10 * floor, (net, key, err, floor)
+    assert live > 0.8 * sum(len(g) for g in grads.values())
+
+
+def _check_adam_update(new, ref):
+    diffs = []
+    for net in TRAINABLE:
+        want = params_from_jax(ref["new"][net])
+        for key, r in want.items():
+            d = (new[net][key] - r).abs().flatten()
+            assert d.max().item() <= 2 * LR, (net, key)
+            diffs.append(d)
+    d = torch.cat(diffs)
+    assert (d <= 1e-6).float().mean().item() >= 0.999
 
 
 def test_step_loss_and_metrics_match_jax(reference, port_step):
@@ -87,10 +136,7 @@ def test_step_loss_and_metrics_match_jax(reference, port_step):
     (torch sums pairwise), which is what loss_id2 shows; the others agree
     within 1e-5."""
     metrics, _, _ = port_step
-    assert metrics.keys() == reference["metrics"].keys()
-    assert reference["metrics"]["loss_lf"] > 0   # every loss is live
-    for k, want in reference["metrics"].items():
-        assert metrics[k] == pytest.approx(want, rel=5e-5), k
+    _check_metrics(metrics, reference)
 
 
 def test_step_grads_match_jax(reference, port_step):
@@ -101,35 +147,32 @@ def test_step_grads_match_jax(reference, port_step):
     Below 1e-6 of the network's largest gradient a tensor counts as such
     rounding noise, and both sides must stay at that level."""
     _, grads, _ = port_step
-    live = 0
-    for net in TRAINABLE:
-        want = params_from_jax(reference["grads"][net])
-        assert grads[net].keys() == want.keys()
-        floor = 1e-6 * max(r.abs().max().item() for r in want.values())
-        for key, ref in want.items():
-            scale = ref.abs().max().item()
-            err = (grads[net][key] - ref).abs().max().item()
-            if scale > floor:
-                live += 1
-                assert err <= 1e-3 * scale, (net, key, err, scale)
-            else:
-                assert err <= 10 * floor, (net, key, err, floor)
-    assert live > 0.8 * sum(len(g) for g in grads.values())
+    _check_grads(grads, reference)
 
 
 def test_step_adam_update_matches_jax(reference, port_step):
     """The first Adam step moves each weight by about +-lr * sign(g): within
     2 lr everywhere, within 1e-6 in at least 99.9 % of the elements."""
     _, _, new = port_step
-    diffs = []
-    for net in TRAINABLE:
-        want = params_from_jax(reference["new"][net])
-        for key, ref in want.items():
-            d = (new[net][key] - ref).abs().flatten()
-            assert d.max().item() <= 2 * LR, (net, key)
-            diffs.append(d)
-    d = torch.cat(diffs)
-    assert (d <= 1e-6).float().mean().item() >= 0.999
+    _check_adam_update(new, reference)
+
+
+def test_fused_ln_step_loss_and_metrics_match_jax(reference, fused_port_step):
+    """The fused-LN build's step (K2's plain forward, its closed-form
+    backward) holds the unfused step's bound on every metric."""
+    metrics, _, _ = fused_port_step
+    _check_metrics(metrics, reference)
+
+
+def test_fused_ln_step_grads_match_jax(reference, fused_port_step):
+    """The unfused step's gradient bounds, every tensor."""
+    _, grads, _ = fused_port_step
+    _check_grads(grads, reference)
+
+
+def test_fused_ln_step_adam_update_matches_jax(reference, fused_port_step):
+    _, _, new = fused_port_step
+    _check_adam_update(new, reference)
 
 
 def test_loss_falls_and_uint8_batches(reference):
