@@ -10,9 +10,13 @@
    card, in float32 and bfloat16, at the 512^2 path's shapes and at the
    1024^2 shapes (K2 at N = 16384; K3 at M = 16384; K5 from 512^2 to
    1024^2; K1 at L = 16384 for the TPU's K9; K4 at N = M = 16384 for the
-   TPU's K10), each with its time, the plain
-   version's, one PyTorch library call's where one computes the same
-   function, and the least time the card could take (its bound);
+   TPU's K10); K13 (c6) at 512^2 with B = 1 and 8 and at 1024^2; K14 (c1
+   -> c3) at 128^2 with B = 1 and 8 and at 256^2; P2 at B = 8, N = M =
+   4096, also against K3; P1 at its 8 shapes (bfloat16), each with its
+   time, the plain version's, the PyTorch library call's where one
+   computes the same function (named in the record), and the least time
+   the card could take (its bound); then the probes' CLIs, their launches
+   counted;
 4. main paths, each driven with the launch counts set to 0 just before it
    and read just after, and held against the plain path on the same
    weights:
@@ -21,10 +25,17 @@
       then one ``make_stylize_with_kv_fn`` frame, also held against (a);
    c. 1024^2: one streaming frame in float32 and bfloat16, one full-path
       frame in float32;
+   d. the c6 tail (``build_models(..., decoder_tail="c6")``, K13 in place
+      of K5) at 512^2: one full-path and one streaming frame, also held
+      against the fused-tail kernel path's;
+   e. K14 on the 512^2 decoder's own activations (B = 1 and 8): up1's
+      output through ``mid3_fused``, then up2, c4 and K5, the c3
+      activation and the pixels against the plain decoder;
 5. times: ms per frame of the kernel and plain paths, interleaved: the full
    path at 512^2; the streaming path at 512^2 with B = 1 and 8 (one B = 8
-   batch held against the plain path first); the streaming path at
-   1024^2, B = 1, bfloat16;
+   batch of each tail held against the plain path first), the c6-tail
+   path timed in the same turns; the streaming path at 1024^2, B = 1,
+   bfloat16;
 6. training gates: the training kernels K6 (attention, forward and
    backward), K7 (MHAda, forward and backward) and K8 (the decoder tail
    writing its residuals) against their plain versions at the image
@@ -84,6 +95,8 @@ ATTN, LN, K3, K4, TAIL = ("mhada_attention_fwd", "mhada_ln_matmul",
 K6F, K6B, K7F, K7B, K8 = ("mhada_attention_train_fwd",
                           "mhada_attention_train_bwd", "mhada_mhada_train_fwd",
                           "mhada_mhada_train_bwd", "mhada_decoder_tail_res")
+C6, MID, MM, PIPE = ("mhada_decoder_c6", "mhada_decoder_mid_conv",
+                     "mhada_mm_probe", "mhada_mhada_prologue_pipe")
 SRC = "mhada_tpu_torch/csrc/"
 K12_SINGLE = "K12 single-pass forward, by K1's kernel"
 K12_FWD = "K12 streaming forward with lse, by K6's forward"
@@ -135,35 +148,74 @@ ROWS = [
     # K2's forward kernel inside its autograd Function (the fused-LN step)
     (K2_VJP, LN, SRC + "ln_matmul.cu",
      "mhada_tpu/ops/ln_matmul_pallas.py:44", "train_fuseln"),
+    # the c6-tail path (4d); K14 has no path (4e drives it); the probes
+    ("K13 c6_transposed", C6, SRC + "decoder_c6.cu",
+     "mhada_tpu/ops/decoder_tail_pallas.py:146", "c6full512"),
+    ("K14 mid3_fused", MID, SRC + "decoder_mid.cu",
+     "mhada_tpu/ops/decoder_mid_pallas.py:169", "mid512"),
+    ("P1 mm_probe", MM, SRC + "mm_probe.cu", "scripts/mxu_probe.py:42",
+     "probe_mm"),
+    ("P2 mhada_prologue_pipe", PIPE, SRC + "mhada_prologue_pipe.cu",
+     "scripts/mhada_pipe_probe.py:112", "probe_pipe"),
 ]
-# gate -> (its row, kind of inputs, token count); the first gate of a row
-# fills the row.
+# Rows whose launches come from a run that no inference or training entry
+# point makes: launches key -> (the row's path, why).
+PATH_NOTES = {
+    "mid512": (None, "nothing calls mid3_fused in either package; the "
+               "launches are phase 4e's: the 512^2 decoder's own up1 output "
+               "through K14, 3 per call"),
+    "probe_mm": ("probe", "python -m mhada_tpu_torch.probes.mm_probe"),
+    "probe_pipe": ("probe",
+                   "python -m mhada_tpu_torch.probes.mhada_pipe_probe"),
+}
+# The library call each gate times beside its kernel, by name.
+SDPA = "torch.nn.functional.scaled_dot_product_attention"
+MM_REPS = 100   # P1's products per launch in its gate (and cuBLAS calls)
+NO_LIB = "no single PyTorch call computes this function"
+# gate -> (its row, kind of inputs, token count, batch); the first gate of
+# a row fills the row.  K13: the c5 side; K14: the up1 output's side; P1:
+# the index of the probe's shape (bfloat16 only); P2: tokens.
 GATES = [
-    ("K1 L=4096", "K1 attention_tm", "attention", 4096),
-    ("K2 N=4096", "K2 ln_matmul", "ln_matmul", 4096),
-    ("K3 N=M=4096", "K3 mhada_fused_prologue", "prologue", 4096),
-    ("K4 N=M=4096", "K4 mhada_tm", "mhada", 4096),
-    ("K5 256^2->512^2", "K5 decoder_tail", "tail", 256),
-    ("K2 N=16384", "K2 ln_matmul", "ln_matmul", 16384),
-    ("K3 N=M=16384", "K3 mhada_fused_prologue", "prologue", 16384),
-    ("K5 512^2->1024^2", "K5 decoder_tail", "tail", 512),
+    ("K1 L=4096", "K1 attention_tm", "attention", 4096, 1),
+    ("K2 N=4096", "K2 ln_matmul", "ln_matmul", 4096, 1),
+    ("K3 N=M=4096", "K3 mhada_fused_prologue", "prologue", 4096, 1),
+    ("K4 N=M=4096", "K4 mhada_tm", "mhada", 4096, 1),
+    ("K5 256^2->512^2", "K5 decoder_tail", "tail", 256, 1),
+    ("K2 N=16384", "K2 ln_matmul", "ln_matmul", 16384, 1),
+    ("K3 N=M=16384", "K3 mhada_fused_prologue", "prologue", 16384, 1),
+    ("K5 512^2->1024^2", "K5 decoder_tail", "tail", 512, 1),
     ("K1 L=16384", "K9 attention_stream_wide, by K1's kernel", "attention",
-     16384),
+     16384, 1),
     ("K4 N=M=16384", "K10 mhada streaming forward, by K4's kernel", "mhada",
-     16384),
+     16384, 1),
+    ("K13 512^2", "K13 c6_transposed", "c6", 512, 1),
+    ("K13 512^2 B=8", "K13 c6_transposed", "c6", 512, 8),
+    ("K13 1024^2", "K13 c6_transposed", "c6", 1024, 1),
+    ("K14 128^2", "K14 mid3_fused", "mid", 128, 1),
+    ("K14 128^2 B=8", "K14 mid3_fused", "mid", 128, 8),
+    ("K14 256^2", "K14 mid3_fused", "mid", 256, 1),
+    ("P2 B=8 N=M=4096", "P2 mhada_prologue_pipe", "pipe", 4096, 8),
 ]
+BF16_ONLY = {"mm"}
+
 # Launches of each path (C entry point -> count).
-# The inference paths launch none of the training kernels.
-NO_TRAIN = {K6F: 0, K6B: 0, K7F: 0, K7B: 0, K8: 0}
+# The inference paths launch none of the training kernels, and no path
+# launches K14 or the probes.
+NO_TRAIN = {K6F: 0, K6B: 0, K7F: 0, K7B: 0, K8: 0, C6: 0, MID: 0, MM: 0,
+            PIPE: 0}
 FULL = {ATTN: 6, LN: 12, K3: 0, K4: 6, TAIL: 1, **NO_TRAIN}
 STYLE = {ATTN: 3, LN: 6, K3: 0, K4: 0, TAIL: 0, **NO_TRAIN}  # style set-up
 FRAME = {ATTN: 3, LN: 6, K3: 6, K4: 0, TAIL: 1, **NO_TRAIN}  # one frame
+# The c6 tail (4d): K13 in place of K5.
+FULL_C6, FRAME_C6 = ({**p, TAIL: 0, C6: 1} for p in (FULL, FRAME))
+# 4e: the decoder with K14 for c1 -> c3 and K5 for the tail.
+MID_DECODER = {**{k: 0 for k in FULL}, MID: 3, TAIL: 1}
 # One image training step (4 ViT applies x 3 blocks, 3 AdaFormer applies x
 # 6 MHAda blocks, 3 decoder tails); K1-K5 launch nothing.
 # The counts count sites, so 512^2 launches as 256^2 does.  The fused-LN
 # build adds K2 at both pre-LN sites of every block (4 x 3 x 2).
 TRAIN = {ATTN: 0, LN: 0, K3: 0, K4: 0, TAIL: 0, K6F: 12, K6B: 12, K7F: 18,
-         K7B: 18, K8: 3}
+         K7B: 18, K8: 3, C6: 0, MID: 0, MM: 0, PIPE: 0}
 TRAIN_FUSED = {**TRAIN, LN: 24}
 # The training gates: (gate, row of its forward or None, row of its backward
 # or None, kind, batch, tokens; K8: the input's side).  A gate without a row
@@ -231,6 +283,9 @@ BELOW_DQ = {"float32": 1e-3, "bfloat16": 1e-1}
 # differ only in summation order (TF32 is off), ~1e-6 expected.  bfloat16:
 # both round intermediates to bf16 (2^-8 relative) at different points.
 REL_BOUND = {"float32": 1e-4, "bfloat16": 3e-2}
+# P2 against K3: the same arithmetic in the same order; at bf16 a float32
+# difference in the last place may move one output by a bf16 step.
+PIPE_K3_REL = {"float32": 1e-6, "bfloat16": 2 ** -7}
 # Main-path bound on max |pixel difference| (0-255) against the plain path.
 # float32: the repo's reference gate (scripts/reference_gate.py:63); 0.0016
 # measured on an H100.  bfloat16: pixels of 128-255 are stored with a
@@ -241,6 +296,14 @@ PIXEL_BOUND = {"float32": 0.1, "bfloat16": 4.0}
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 DTYPE_NAMES = ("float32", "bfloat16")
+
+
+def all_gates():
+    """GATES and one P1 gate per shape of the probe (bfloat16 only)."""
+    from mhada_tpu_torch.probes.mm_probe import SHAPES
+
+    return GATES + [(f"P1 {m}x{k}x{n}", "P1 mm_probe", "mm", i, 1)
+                    for i, (m, k, n) in enumerate(SHAPES)]
 
 
 def phase(name, ok, detail):
@@ -287,18 +350,22 @@ def bound(flops, nbytes, dname):
                                        else "bytes")
 
 
-def gate_inputs(kind, n, dtype, g):
-    """Seeded inputs of one kernel at ``n`` tokens (K5: an n x n input) ->
-    (call(backend), flops, bytes moved, one library call or None).
+def gate_inputs(kind, n, dtype, g, b=1):
+    """Seeded inputs of one kernel at ``n`` tokens (K5, K13, K14: an n x n
+    input; P1: the probe's shape number n) and batch ``b`` -> (call(backend),
+    flops, bytes moved, (name, call) of one library call or None).
 
     Bytes count each input read once and each output written once; flops
     count the products (and the projection of K3)."""
     import torch
     import torch.nn.functional as F
 
-    from mhada_tpu_torch.ops import (attention_kernel, decoder_tail,
-                                     ln_matmul, mhada_kernel, mhada_prologue)
+    from mhada_tpu_torch.ops import (attention_kernel, decoder_c6,
+                                     decoder_mid, decoder_tail, ln_matmul,
+                                     mhada_kernel, mhada_prologue)
     from mhada_tpu_torch.ops.instance_norm import instance_norm_stats
+    from mhada_tpu_torch.ops.pad_conv import conv2d_reflect
+    from mhada_tpu_torch.probes import mhada_pipe_probe, mm_probe
 
     dev, c, heads = "cuda", 512, 8
     es = torch.tensor([], dtype=dtype).element_size()
@@ -314,8 +381,9 @@ def gate_inputs(kind, n, dtype, g):
                        for t in qkv.split(c, dim=-1))
             return F.scaled_dot_product_attention(q, k, v)
 
-        return (lambda b: attention_kernel.attention_tm(qkv, heads, backend=b),
-                4 * n * n * c, 4 * n * c * es, sdpa)
+        return (lambda be: attention_kernel.attention_tm(qkv, heads,
+                                                         backend=be),
+                4 * n * n * c, 4 * n * c * es, (SDPA, sdpa))
     if kind == "ln_matmul":
         x = rnd(1, n, c)
         lw = (1 + 0.1 * torch.randn(c, generator=g)).to(dev)
@@ -324,8 +392,9 @@ def gate_inputs(kind, n, dtype, g):
         ws = [(torch.randn(f, c, generator=g) / c ** 0.5).to(dev) for f in fs]
         bs = [(0.1 * torch.randn(f, generator=g)).to(dev) for f in fs]
 
-        def run(b):
-            return torch.cat([ln_matmul.ln_matmul(x, lw, lb, w, bb, backend=b)
+        def run(be):
+            return torch.cat([ln_matmul.ln_matmul(x, lw, lb, w, bb,
+                                                  backend=be)
                               for w, bb in zip(ws, bs)], dim=-1)
         return (run, sum(2 * n * c * f for f in fs),
                 sum((n * c + f * c + n * f) * es + (2 * c + f) * 4
@@ -339,41 +408,93 @@ def gate_inputs(kind, n, dtype, g):
         wf = ((torch.rand(heads, 64, 64, generator=g) * 2 - 1) / 8).to(dev)
         fb = ((torch.rand(heads, 64, generator=g) * 2 - 1) / 8).to(dev)
         k, v = rnd(1, n, c, scale=0.35), rnd(1, n, c)
-        return (lambda b: mhada_prologue.mhada_fused_prologue(
-            fc, fcs, stats, wf, fb, k, v, backend=b),
+        return (lambda be: mhada_prologue.mhada_fused_prologue(
+            fc, fcs, stats, wf, fb, k, v, backend=be),
             6 * n * n * c + 2 * n * c * 64,
             5 * n * c * es + 4 * c * 4 + heads * 64 * (64 * es + 4), None)
     if kind == "mhada":
         q, k = rnd(1, n, c, scale=0.35), rnd(1, n, c, scale=0.35)
         v, f = rnd(1, n, c), rnd(1, n, c)
-        return (lambda b: mhada_kernel.mhada_tm(q, k, v, f, heads, backend=b),
+        return (lambda be: mhada_kernel.mhada_tm(q, k, v, f, heads,
+                                                 backend=be),
                 6 * n * n * c, 5 * n * c * es, None)
+    def conv(co, ci):
+        """A conv's init U(-1/sqrt(fan_in), 1/sqrt(fan_in)), float32."""
+        bound_ = 1 / (ci * 9) ** 0.5
+        w = (torch.rand(co, ci, 3, 3, generator=g) * 2 - 1) * bound_
+        bias = (torch.rand(co, generator=g) * 2 - 1) * bound_
+        return w.to(dev), bias.to(dev)
+
     if kind == "tail":
         x = rnd(1, n, n, 128).abs()
-
-        def conv(co, ci):
-            bound = 1 / (ci * 9) ** 0.5
-            w = (torch.rand(co, ci, 3, 3, generator=g) * 2 - 1) * bound
-            b = (torch.rand(co, generator=g) * 2 - 1) * bound
-            return w.to(dev), b.to(dev)
 
         (wu, bu), (w5, b5), (w6, b6) = conv(64, 128), conv(64, 64), conv(3, 64)
         hi = (2 * n) ** 2
         flops = 2 * 9 * (n * n * 128 * 64 + hi * 64 * 64 + hi * 64 * 3)
         nbytes = (n * n * 128 + hi * 3) * es + 9 * 64 * (128 + 64 + 3) * es
-        return (lambda b: decoder_tail.decoder_tail(
-            x, wu, bu, w5, b5, w6, b6, backend=b), flops, nbytes, None)
+        return (lambda be: decoder_tail.decoder_tail(
+            x, wu, bu, w5, b5, w6, b6, backend=be), flops, nbytes, None)
+    if kind == "c6":
+        y = rnd(b, n, n, 64).abs()   # c5 is post-ReLU
+        w6, b6 = conv(3, 64)
+        # the yardstick: one cuDNN conv on the reflect-padded c5 (padded
+        # outside the timing), NCHW view of the NHWC tensor, TF32 off
+        yp = F.pad(y.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+        w6t, b6t = w6.to(dtype), b6.to(dtype)
+        return (lambda be: decoder_c6.c6_conv(y, w6, b6, backend=be),
+                2 * 9 * 64 * 3 * b * n * n,
+                b * n * n * (64 + 3) * es + 9 * 64 * 3 * es + 3 * 4,
+                ("torch.nn.functional.conv2d on the reflect-padded c5, TF32 "
+                 "off", lambda: F.conv2d(yp, w6t, b6t)))
+    if kind == "mid":
+        c = 256
+        x = rnd(b, n, n, c).abs()   # up1's output is post-ReLU
+        params = [t for _ in range(3) for t in conv(c, c)]
+
+        def convrelu3():
+            h = x
+            for w, bias in zip(params[::2], params[1::2]):
+                h = torch.relu(conv2d_reflect(h, w.to(dtype), bias.to(dtype)))
+            return h
+
+        return (lambda be: decoder_mid.mid3_fused(x, *params, backend=be),
+                3 * 2 * 9 * c * c * b * n * n,
+                (2 * b * n * n * c + 3 * 9 * c * c + 3 * c) * es,
+                ("three cuDNN ConvReLUs (ops.pad_conv.conv2d_reflect + relu, "
+                 "TF32 off)", convrelu3))
+    if kind == "pipe":
+        inputs = mhada_pipe_probe.probe_inputs(b, n, n, c, heads, dtype, dev)
+        return (lambda be: mhada_pipe_probe.mhada_fused_prologue_pipe(
+            *inputs, backend=be),
+            b * (6 * n * n * c + 2 * n * c * 64),
+            b * 5 * n * c * es + b * 4 * c * 4 + heads * 64 * (64 * es + 4),
+            None)
+    if kind == "mm":
+        m, k, nn = mm_probe.SHAPES[n]
+        a, bm = mm_probe.operands(m, k, nn, dev)
+
+        def plain():
+            for _ in range(MM_REPS):
+                out = mm_probe.mm_plain(a, bm)
+            return out
+
+        return (lambda be: (mm_probe.mm(a, bm, MM_REPS) if be == "kernel"
+                            else plain()),
+                2 * m * k * nn * MM_REPS, (m * k + k * nn + m * nn) * es,
+                (f"torch.matmul (cuBLAS), {MM_REPS} calls replayed from a "
+                 "CUDA graph", mm_probe.cublas_loop(a, bm, MM_REPS)))
     raise KeyError(kind)
 
 
-def run_gate(gate, kind, n, dname, card):
+def run_gate(gate, kind, n, b, dname, card):
     """Kernel against plain on the same seeded inputs -> (ok, record)."""
     import torch
 
     dtype = getattr(torch, dname)
     g = torch.Generator().manual_seed(SEED)
     torch.cuda.reset_peak_memory_stats()
-    run, flops, nbytes, lib = gate_inputs(kind, n, dtype, g)
+    run, flops, nbytes, lib = gate_inputs(kind, n, dtype, g, b)
+    lib_name, lib = lib or (NO_LIB, None)
     reps = (3, 10) if n <= 4096 else (1, 3)
     with torch.inference_mode():
         got = run("kernel").float()
@@ -393,8 +514,9 @@ def run_gate(gate, kind, n, dname, card):
     torch.cuda.empty_cache()
     rec = dict(max_abs_err=mx, mean_abs_err=mean, ms=ms, plain_ms=plain_ms,
                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-               gflop=flops / 1e9, mbytes=nbytes / 1e6)
-    lib_txt = f"{library_ms:.3f} ms" if lib else "none (no single call)"
+               library=lib_name, gflop=flops / 1e9, mbytes=nbytes / 1e6)
+    lib_txt = (f"{library_ms:.3f} ms ({lib_name})" if lib
+               else "none (no single call)")
     return phase(
         f"gate {gate} {dname}", good,
         f"max|d| {mx:.3e} mean|d| {mean:.3e} max|ref| {scale:.3e} rel "
@@ -403,6 +525,57 @@ def run_gate(gate, kind, n, dname, card):
         f"{bound_ms:.3f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP, "
         f"{nbytes / 1e6:.1f} MB at the published 700 W peaks; this card: "
         f"{card}); peak memory {peak_gb:.2f} GB"), rec
+
+
+def pipe_against_k3(dname):
+    """P2 against K3 on the same inputs at the probe's shape (B = 8, N = M
+    = 4096): the same float32 arithmetic in the same order -> ok."""
+    import torch
+
+    from mhada_tpu_torch.ops.mhada_prologue import mhada_fused_prologue
+    from mhada_tpu_torch.probes import mhada_pipe_probe as pp
+
+    label = f"P2 against K3 {dname}"
+    try:
+        inputs = pp.probe_inputs(**pp.SHAPE, dtype=getattr(torch, dname),
+                                 device="cuda")
+        with torch.inference_mode():
+            pipe = pp.mhada_fused_prologue_pipe(*inputs).float()
+            k3 = mhada_fused_prologue(*inputs).float()
+            rel = (pipe - k3).abs().max().item() / k3.abs().max().item()
+    except Exception as e:
+        return phase(label, False, f"{type(e).__name__}: {e}")
+    limit = PIPE_K3_REL[dname]
+    return phase(label, rel <= limit,
+                 f"max|P2 - K3| / max|K3| {rel:.3e} (bound {limit:.1e})")
+
+
+def run_probes(launches):
+    """The probes' CLIs at their shapes (P1 with fewer repetitions), each
+    with the launch counts set to 0 just before and read just after into
+    ``launches`` -> ok."""
+    import torch
+
+    from mhada_tpu_torch import _build
+    from mhada_tpu_torch.probes import mhada_pipe_probe, mm_probe
+
+    ok = True
+    for key, entry, main, argv in (
+            ("probe_mm", MM, mm_probe.main, ["--reps", "40", "--iters", "2"]),
+            ("probe_pipe", PIPE, mhada_pipe_probe.main, ["--iters", "3"]),
+            ("probe_pipe_f32", PIPE, mhada_pipe_probe.main,
+             ["--iters", "3", "--dtype", "float32"])):
+        try:
+            _build.reset_launches()
+            main(argv)
+            torch.cuda.synchronize()
+            launches[key] = dict(_build.LAUNCHES)
+        except Exception as e:
+            ok = phase(f"probe {key}", False, f"{type(e).__name__}: {e}")
+            continue
+        ok = phase(f"probe {key}", launches[key][entry] > 0,
+                   f"{entry} launched {launches[key][entry]} times") and ok
+    return ok
 
 
 def train_gate_inputs(kind, dtype, g, b, n):
@@ -457,9 +630,10 @@ def train_gate_inputs(kind, dtype, g, b, n):
             flops=(4 * b * n * n * c, 10 * b * n * n * c),
             bytes=(4 * b * n * c * es + 4 * b * heads * n,
                    7 * b * n * c * es + 8 * b * heads * n),
-            lib=(lambda: F.scaled_dot_product_attention(q, k, v),
-                 lambda: torch.autograd.grad(lib_out, lib_in, lib_cot,
-                                             retain_graph=True)))
+            lib=((SDPA, lambda: F.scaled_dot_product_attention(q, k, v)),
+                 (f"backward of {SDPA} (torch.autograd.grad)",
+                  lambda: torch.autograd.grad(lib_out, lib_in, lib_cot,
+                                              retain_graph=True))))
     if kind == "mhada":
         q, k = rnd(b, n, c, scale=0.35), rnd(b, n, c, scale=0.35)
         v, f, cot = rnd(b, n, c), rnd(b, n, c), rnd(b, n, c)
@@ -646,13 +820,14 @@ def run_train_gate(gate, kind, dname, card, b, n):
         ms = cuda_ms(calls["kernel"], 2, 5)
         plain_ms = cuda_ms(calls["plain"], 1, 3)
         lib = d["lib"][0 if part == "fwd" else 1]
-        library_ms = cuda_ms(lib, 2, 5) if lib else None
+        library_ms = cuda_ms(lib[1], 2, 5) if lib else None
         i = 0 if part == "fwd" else 1
         bound_ms, bound_by = bound(d["flops"][i], d["bytes"][i], dname)
         recs[part] = dict(max_abs_err=mx, rel_err=rel,
                           rel_each={k: e[1] for k, e in errs.items()}, ms=ms,
                           plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=library_ms,
+                          library=lib[0] if lib else NO_LIB,
                           gflop=d["flops"][i] / 1e9,
                           mbytes=d["bytes"][i] / 1e6)
         good = good and finite and rel <= limit
@@ -958,16 +1133,23 @@ def main() -> int:
     train_extra, step_ms = {}, {}
 
     # ---- 3. per-kernel gates, kernel against plain on the card
-    for gate, _, kind, n in GATES:
+    gate_list = all_gates()
+    for gate, _, kind, n, b in gate_list:
         for dname in DTYPE_NAMES:
+            if kind in BF16_ONLY and dname != "bfloat16":
+                continue
             try:
-                good, rec = run_gate(gate, kind, n, dname, card)
+                good, rec = run_gate(gate, kind, n, b, dname, card)
             except Exception as e:  # report every kernel, then fail
                 ok = phase(f"gate {gate} {dname}", False,
                            f"{type(e).__name__}: {e}")
                 continue
             gates.setdefault(gate, {})[dname] = rec
             ok = good and ok
+    for dname in DTYPE_NAMES:
+        ok = pipe_against_k3(dname) and ok
+    launches = {}   # path -> launch counts of its float32 run
+    ok = run_probes(launches) and ok
 
     # ---- 4. the main paths, full width
     from mhada_tpu_torch.config import ModelConfig
@@ -977,10 +1159,13 @@ def main() -> int:
                                              precompute_style_kv,
                                              stylize_image)
     from mhada_tpu_torch.models import build_models
+    from mhada_tpu_torch.ops.decoder_mid import mid3_fused
+    from mhada_tpu_torch.ops.decoder_tail import decoder_tail
 
-    def models_for(backend):
+    def models_for(backend, tail="fused"):
         cfg = ModelConfig(mhada_backend=backend)
-        m = build_models(cfg, "cuda", torch.Generator().manual_seed(SEED))
+        m = build_models(cfg, "cuda", torch.Generator().manual_seed(SEED),
+                         decoder_tail=tail)
         c6 = m["adaFormer"].decoder.c6.conv
         with torch.no_grad():
             c6.weight.mul_(C6_GAIN)
@@ -1032,7 +1217,7 @@ def main() -> int:
     content, style = test_images(512, rng)
     c_t, s_t = to_dev(content), to_dev(style)
     kmodels, pmodels = models_for("auto"), models_for("plain")
-    launches = {}   # path -> launch counts of its float32 run
+    full_outs, stream_outs = {}, {}   # the kernel paths' frames, per dtype
     for dname in DTYPE_NAMES:
         dtype = getattr(torch, dname)
         # a. the full path at 512^2 (style re-encoded)
@@ -1041,6 +1226,7 @@ def main() -> int:
             lambda: stylize_image(kmodels, content, style, dtype),
             lambda: stylize_image(pmodels, content, style, dtype))
         ok = good and ok
+        full_outs[dname] = full_out
         launches.setdefault("full512", counts)
         # b. the streaming path at 512^2, B = 1: the style work once (its
         #    launches counted apart), then one frame
@@ -1058,6 +1244,7 @@ def main() -> int:
             lambda: make_stylize_with_kv_fn(pmodels, dtype)(
                 c_t, style_kv(pmodels, s_t, dtype)))
         ok = good and ok
+        stream_outs[dname] = out
         launches.setdefault("stream512", counts)
         if out is not None and full_out is not None:
             good, detail = check_image(out, full_out, (1, 512, 512, 3),
@@ -1088,49 +1275,149 @@ def main() -> int:
     ok = good and ok
     torch.cuda.empty_cache()
 
-    # ---- 5. times per frame, kernel and plain paths interleaved
-    frame_ms = {}
+    def mid_on_decoder(frames, dtype, dname):
+        """Phase 4e at one batch and dtype: the kernel decoder with K14 for
+        c1 -> c3 against the plain decoder, on one AdaFormer output -> ok."""
+        b = frames.shape[0]
+        label = f"K14 on the decoder's activations B={b} {dname}"
+        dec, pdec = (m["adaFormer"].decoder for m in (kmodels, pmodels))
+        mids = [t for i in (1, 2, 3)
+                for t in (getattr(dec, f"c{i}").conv.weight,
+                          getattr(dec, f"c{i}").conv.bias)]
+        tail = [t for cv in (dec.up3.conv, dec.c5.conv, dec.c6.conv)
+                for t in (cv.weight, cv.bias)]
 
-    def interleaved(key, dname, fk, fp, batch, reps=(1, 5)):
-        t = {"kernel": [], "plain": []}
-        for path, fn in (("plain", fp), ("kernel", fk), ("kernel", fk),
-                         ("plain", fp)):
-            t[path].append(cuda_ms(fn, *reps) / batch)
-        frame_ms.setdefault(key, {})[dname] = {
-            p: sum(v) / len(v) for p, v in t.items()}
-        phase(f"times {key} {dname}", True,
-              f"ms/frame kernel path {t['kernel']} plain path {t['plain']} "
-              f"({card})")
+        def kernel_decoder():
+            c3 = mid3_fused(x, *mids)
+            return c3, decoder_tail(dec.c4(dec.up2(c3)).contiguous(), *tail)
 
+        try:
+            with torch.inference_mode():
+                fc = kmodels["vit_c"](frames.to(dtype))
+                fs = kmodels["vit_s"](s_t.repeat(b, 1, 1, 1).to(dtype))
+                fcs_map, _ = kmodels["adaFormer"](fc, fs)
+                x = dec.up1(fcs_map).contiguous()
+                (c3, rgb), counts = counted(kernel_decoder)
+                ref_c3 = pdec.c3(pdec.c2(pdec.c1(x))).float()
+                ref = pdec(fcs_map)
+                rel = ((c3.float() - ref_c3).abs().max().item()
+                       / ref_c3.abs().max().item())
+                finite = bool(torch.isfinite(c3).all())
+        except Exception as e:
+            return phase(label, False, f"{type(e).__name__}: {e}")
+        if b == 1 and dname == "float32":
+            launches["mid512"] = counts
+        good, detail = check_image(to_np(rgb.float().clamp(0, 255)),
+                                   to_np(ref.float().clamp(0, 255)),
+                                   (b, 512, 512, 3), dname, counts,
+                                   MID_DECODER)
+        return phase(label, good and finite and rel <= REL_BOUND[dname],
+                     f"c3 {tuple(c3.shape)} max|K14 - plain| / max|plain| "
+                     f"{rel:.3e} (bound {REL_BOUND[dname]:.0e}); pixels: "
+                     f"{detail}")
+
+    # d. the c6 tail (K13 in place of K5) at 512^2 on the same weights:
+    #    one full-path and one streaming frame per dtype, each against the
+    #    plain path and against the fused-tail kernel path's frame
+    cmodels = models_for("auto", "c6")
+    for dname in DTYPE_NAMES:
+        dtype = getattr(torch, dname)
+        good, out, counts = drive(
+            f"c6-tail full path {dname}", (1, 512, 512, 3), dname, FULL_C6,
+            lambda: stylize_image(cmodels, content, style, dtype),
+            lambda: stylize_image(pmodels, content, style, dtype))
+        ok = good and ok
+        launches.setdefault("c6full512", counts)
+        if out is not None and full_outs.get(dname) is not None:
+            good, detail = check_image(out, full_outs[dname],
+                                       (1, 512, 512, 3), dname, counts,
+                                       FULL_C6)
+            ok = phase(f"c6-tail vs fused-tail full path {dname}", good,
+                       detail) and ok
+        try:
+            kv, setup = counted(lambda: style_kv(cmodels, s_t, dtype))
+        except Exception as e:
+            ok = phase(f"c6-tail style setup {dname}", False,
+                       f"{type(e).__name__}: {e}")
+            continue
+        ok = phase(f"c6-tail style setup {dname}", setup == STYLE,
+                   f"launches {setup} (want {STYLE})") and ok
+        good, out, counts = drive(
+            f"c6-tail streaming path {dname}", (1, 512, 512, 3), dname,
+            FRAME_C6, lambda: make_stylize_with_kv_fn(cmodels, dtype)(c_t, kv),
+            lambda: make_stylize_with_kv_fn(pmodels, dtype)(
+                c_t, style_kv(pmodels, s_t, dtype)))
+        ok = good and ok
+        launches.setdefault("c6stream512", counts)
+        if out is not None and stream_outs.get(dname) is not None:
+            good, detail = check_image(out, stream_outs[dname],
+                                       (1, 512, 512, 3), dname, counts,
+                                       FRAME_C6)
+            ok = phase(f"c6-tail vs fused-tail streaming path {dname}", good,
+                       detail) and ok
+        del kv
+
+    # e. K14 on the 512^2 decoder's own activations: up1's output through
+    #    mid3_fused with c1-c3's weights, then up2, c4 and the fused tail
+    #    (K5), against the plain decoder on the same AdaFormer output
     frames8 = torch.from_numpy(
         rng.uniform(0, 255, (8, 512, 512, 3)).astype(np.float32)).cuda()
     for dname in DTYPE_NAMES:
         dtype = getattr(torch, dname)
+        for frames in (c_t, frames8):
+            ok = mid_on_decoder(frames, dtype, dname) and ok
+    torch.cuda.empty_cache()
+
+    # ---- 5. times per frame, the paths interleaved
+    frame_ms = {}
+
+    def interleaved(key, dname, fns, batch, reps=(1, 5)):
+        """ms/frame of each path {name: fn}, timed in the order of ``fns``
+        and then back (plain, kernel, kernel, plain)."""
+        t = {name: [] for name in fns}
+        for name in [*fns, *reversed(fns)]:
+            t[name].append(cuda_ms(fns[name], *reps) / batch)
+        frame_ms.setdefault(key, {})[dname] = {
+            p: sum(v) / len(v) for p, v in t.items()}
+        phase(f"times {key} {dname}", True,
+              "ms/frame " + ", ".join(f"{name} path {v}"
+                                      for name, v in t.items())
+              + f" ({card})")
+
+    paths = {"plain": pmodels, "kernel": kmodels, "c6": cmodels}
+    for dname in DTYPE_NAMES:
+        dtype = getattr(torch, dname)
         fk, fp = make_stylize_fn(kmodels, dtype), make_stylize_fn(pmodels,
                                                                    dtype)
-        interleaved("full512_b1", dname, lambda: fk(c_t, s_t),
-                    lambda: fp(c_t, s_t), 1)
-        # the style K/V tiled for a batch of frames (bench.py:664-668)
-        kv_k, kv_p = (style_kv(m, s_t, dtype) for m in (kmodels, pmodels))
-        kv8_k, kv8_p = ([(k.repeat(8, 1, 1), v.repeat(8, 1, 1))
-                         for k, v in kv] for kv in (kv_k, kv_p))
-        sk, sp = (make_stylize_with_kv_fn(m, dtype)
-                  for m in (kmodels, pmodels))
-        interleaved("stream512_b1", dname, lambda: sk(c_t, kv_k),
-                    lambda: sp(c_t, kv_p), 1)
-        good, _, launches[f"stream512_b8_{dname}"] = drive(
-            f"streaming path B=8 {dname}", (8, 512, 512, 3), dname, FRAME,
-            lambda: sk(frames8, kv8_k), lambda: sp(frames8, kv8_p))
-        ok = good and ok
-        interleaved("stream512_b8", dname, lambda: sk(frames8, kv8_k),
-                    lambda: sp(frames8, kv8_p), 8)
-        del kv_k, kv_p, kv8_k, kv8_p
+        interleaved("full512_b1", dname, {"plain": lambda: fp(c_t, s_t),
+                                          "kernel": lambda: fk(c_t, s_t)}, 1)
+        # the style K/V tiled for a batch of frames (bench.py:664-668); the
+        # c6-tail path (K13) timed beside the fused-tail kernel path
+        kv = {p: style_kv(m, s_t, dtype) for p, m in paths.items()}
+        kv8 = {p: [(k.repeat(8, 1, 1), v.repeat(8, 1, 1)) for k, v in pkv]
+               for p, pkv in kv.items()}
+        fns = {p: make_stylize_with_kv_fn(m, dtype) for p, m in paths.items()}
+        interleaved("stream512_b1", dname,
+                    {p: (lambda p=p: fns[p](c_t, kv[p])) for p in paths}, 1)
+        for p, want in (("kernel", FRAME), ("c6", FRAME_C6)):
+            key = ("c6" if p == "c6" else "") + f"stream512_b8_{dname}"
+            good, _, launches[key] = drive(
+                f"{'c6-tail ' if p == 'c6' else ''}streaming path B=8 "
+                f"{dname}", (8, 512, 512, 3), dname, want,
+                lambda: fns[p](frames8, kv8[p]),
+                lambda: fns["plain"](frames8, kv8["plain"]))
+            ok = good and ok
+        interleaved("stream512_b8", dname,
+                    {p: (lambda p=p: fns[p](frames8, kv8[p])) for p in paths},
+                    8)
+        del kv, kv8, fns
     bf = torch.bfloat16
     kv_k, kv_p = (style_kv(m, s1k, bf) for m in (kmodels, pmodels))
     sk, sp = (make_stylize_with_kv_fn(m, bf) for m in (kmodels, pmodels))
-    interleaved("stream1024_b1", "bfloat16", lambda: sk(c1k, kv_k),
-                lambda: sp(c1k, kv_p), 1, reps=(1, 3))
-    del kmodels, pmodels, kv_k, kv_p, sk, sp, frames8
+    interleaved("stream1024_b1", "bfloat16",
+                {"plain": lambda: sp(c1k, kv_p),
+                 "kernel": lambda: sk(c1k, kv_k)}, 1, reps=(1, 3))
+    del kmodels, pmodels, cmodels, paths, kv_k, kv_p, sk, sp, frames8
     torch.cuda.empty_cache()
 
     # ---- 6. training gates at the training steps' shapes
@@ -1307,7 +1594,7 @@ def main() -> int:
 
     # ---- the kernels' summary: one row per TPU kernel the path replaces
     first_gate = {}
-    for gate, row, *_ in GATES:
+    for gate, row, *_ in gate_list:
         first_gate.setdefault(row, gate)
     first_gate[K12_SINGLE] = first_gate["K1 attention_tm"]
     for _, row_f, row_b, *_ in TRAIN_GATES:   # recorded under the row
@@ -1319,22 +1606,22 @@ def main() -> int:
         first = first_gate[name]
         rec = gates.get(first, {})
         r32, r16 = rec.get("float32", {}), rec.get("bfloat16", {})
+        row_path, note = PATH_NOTES.get(path, (path, None))
         row = dict(name=name, route="cuda", source=source,
-                   replaces=replaces, gate=first,
+                   replaces=replaces, gate=first, path=row_path,
                    launches=launches.get(path, {}).get(entry, 0))
+        if note:
+            row["path_note"] = note
+        if not r32:   # a bfloat16-only kernel (P1): its numbers stand first
+            r32, row["dtype"] = r16, "bfloat16 only"
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):
             row[key] = r32.get(key)
             row[key + "_bf16"] = r16.get(key)
-        if row["library_ms"] is None:
-            row["library"] = "no single PyTorch call computes this function"
-        elif "backward" in name:
-            row["library"] = ("backward of torch.nn.functional."
-                              "scaled_dot_product_attention")
-        else:
-            row["library"] = "torch.nn.functional.scaled_dot_product_attention"
+        # the call that was timed, as the gate recorded it
+        row["library"] = r32.get("library") or r16.get("library") or NO_LIB
         summary.append(row)
-    extra = {g: gates.get(g) for g, *_ in GATES
+    extra = {g: gates.get(g) for g, *_ in gate_list
              if g not in first_gate.values()}
     seconds = time.perf_counter() - t_start
     phase("run time", True, f"{seconds:.1f} s from start to summary")

@@ -10,7 +10,7 @@ source rebuilds and an unchanged one is reused.
 ``launch`` is the only place a kernel is launched from: it counts the
 launch in ``LAUNCHES`` and raises if the C entry point returns a CUDA error.
 ``check_forward_only`` is the guard of the forward-only wrappers (K1, K3,
-K4, K5): their outputs carry no ``grad_fn``.
+K4, K5, K13, K14): their outputs carry no ``grad_fn``.
 """
 
 import ctypes
@@ -45,6 +45,10 @@ SIGNATURES = {
     "mhada_mhada_train_fwd": [_P] * 8 + [_I] * 6 + [_P],
     "mhada_mhada_train_bwd": [_P] * 10 + [_I] * 6 + [_P],
     "mhada_decoder_tail_res": [_P] * 10 + [_I] * 4 + [_P],
+    "mhada_decoder_c6": [_P] * 4 + [_I] * 4 + [_P],
+    "mhada_decoder_mid_conv": [_P] * 4 + [_I] * 5 + [_P],
+    "mhada_mm_probe": [_P] * 3 + [_I] * 4 + [_P],
+    "mhada_mhada_prologue_pipe": [_P] * 8 + [_I] * 6 + [_P],
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -37,6 +37,14 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
 }
 
+// Mirror index i into [0, n) (ReflectionPad2d for an overshoot < n), then
+// clamp: positions that no in-image output reads only need to stay finite.
+__device__ __forceinline__ int reflect_index(int i, int n) {
+  if (i < 0) i = -i;
+  if (i >= n) i = 2 * n - 2 - i;
+  return max(0, min(n - 1, i));
+}
+
 // Opt a kernel into more than 48 KB of dynamic shared memory, then launch.
 template <typename Kernel, typename... Args>
 inline cudaError_t launch_with_smem(Kernel kernel, dim3 grid, dim3 block,

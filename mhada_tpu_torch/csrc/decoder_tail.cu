@@ -60,13 +60,7 @@ constexpr int kRegionB = (kCmid * kYPlane > kCmid * kCPlane) ? kCmid * kYPlane
                                                              : kCmid * kCPlane;
 constexpr int kW6 = 9 * kCmid * kCout;
 
-// Mirror index i into [0, n) (ReflectionPad2d for an overshoot < n), then
-// clamp: positions that no in-image output reads only need to stay finite.
-__device__ __forceinline__ int reflect_index(int i, int n) {
-  if (i < 0) i = -i;
-  if (i >= n) i = 2 * n - 2 - i;
-  return max(0, min(n - 1, i));
-}
+using mhada::reflect_index;
 
 // 3x3 valid conv from a planar window `in` (cin planes of kInW columns) into
 // the planar window `out` (kCmid planes, positions p = r * kOutW + c, p <

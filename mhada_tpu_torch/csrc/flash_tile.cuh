@@ -2,7 +2,9 @@
 // ViT self-attention kernel (attention_fwd.cu, K1), the MHAda core
 // (mhada_fwd.cu, K4), the MHAda core with the fused prologue
 // (mhada_prologue.cu, K3) and the training forwards (attention_train.cu,
-// K6; mhada_train.cu, K7), which also write the backward's residuals.
+// K6; mhada_train.cu, K7), which also write the backward's residuals.  The
+// probe P2 (mhada_prologue_pipe.cu) runs the key loop's steps
+// (flash_scores, flash_softmax, flash_pv) on tiles it loads itself.
 //
 // One block owns (batch b, head h, a tile of kBQ = 64 queries) and loops
 // over the keys in tiles of kBK = 64 held in shared memory; nothing of the
@@ -73,6 +75,106 @@ struct FlashAcc {
   float o1[4][4], o2[4][4], mrow[4], lrow[4];
 };
 
+__device__ __forceinline__ void flash_init(FlashAcc& acc) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc.mrow[i] = -INFINITY;
+    acc.lrow[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc.o1[i][j] = acc.o2[i][j] = 0.f;
+  }
+}
+
+// This thread's scores of one key tile: sc[i][j] = q(ty + 16 i) .
+// k(tx + 16 j), from Q^T in qs and key c's channel d at
+// ks[c * kKeyStride + d * kDStride] (K^T in float32, or K as stored).
+template <int kKeyStride, int kDStride, typename K>
+__device__ __forceinline__ void flash_scores(const float* qs, const K* ks,
+                                             float (&sc)[4][4]) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < kHeadDim; ++d) {
+    float qv[4], kv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qv[i] = qs[d * kTPad + ty + 16 * i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      kv[j] = to_f32(ks[(tx + 16 * j) * kKeyStride + d * kDStride]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+  }
+}
+
+// The online softmax over the key tile at k0: keys past a.m are masked,
+// P^T goes to ps (key-major), and the running max, sum and accumulators
+// are rescaled.
+template <bool kMhada>
+__device__ __forceinline__ void flash_softmax(const FlashArgs& a, int k0,
+                                              float (&sc)[4][4], float* ps,
+                                              FlashAcc& acc) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (k0 + tx + 16 * j >= a.m) sc[i][j] = -INFINITY;
+      mx = fmaxf(mx, sc[i][j]);
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(acc.mrow[i], mx);  // finite: key k0 is valid
+    const float alpha = expf(acc.mrow[i] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float p = expf(sc[i][j] - m_new);
+      sum += p;
+      ps[(tx + 16 * j) * kTPad + ty + 16 * i] = p;
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    acc.lrow[i] = acc.lrow[i] * alpha + sum;
+    acc.mrow[i] = m_new;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      acc.o1[i][j] *= alpha;
+      if (kMhada) acc.o2[i][j] *= alpha;
+    }
+  }
+}
+
+// acc += P V (and P V^2) over one key tile: P^T in ps, V key-major at
+// vs[c * kHeadDim + d] (float32, or as stored).
+template <bool kMhada, typename V>
+__device__ __forceinline__ void flash_pv(const float* ps, const V* vs,
+                                         FlashAcc& acc) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll 4
+  for (int c = 0; c < kBK; ++c) {
+    float pv[4], vv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pv[i] = ps[c * kTPad + ty + 16 * i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) vv[j] = to_f32(vs[c * kHeadDim + tx + 16 * j]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc.o1[i][j] = fmaf(pv[i], vv[j], acc.o1[i][j]);
+        if (kMhada) acc.o2[i][j] = fmaf(pv[i], vv[j] * vv[j], acc.o2[i][j]);
+      }
+  }
+}
+
 // The key loop.  On entry s.qs holds the block's query tile, scale applied
 // (written before this call; the loop's first __syncthreads publishes it).
 // kMhada = false accumulates softmax(Q K^T) V; kMhada = true also A V^2.
@@ -83,18 +185,10 @@ __device__ __forceinline__ void flash_keys(const FlashArgs& a,
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
   const int hoff = blockIdx.y * kHeadDim;
   const long long b = blockIdx.z;
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    acc.mrow[i] = -INFINITY;
-    acc.lrow[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc.o1[i][j] = acc.o2[i][j] = 0.f;
-  }
-
+  flash_init(acc);
   for (int k0 = 0; k0 < a.m; k0 += kBK) {
     for (int idx = tid; idx < kBK * kHeadDim; idx += kFlashThreads) {
       const int c = idx / kHeadDim, d = idx % kHeadDim;
@@ -109,73 +203,11 @@ __device__ __forceinline__ void flash_keys(const FlashArgs& a,
       s.vs[c * kHeadDim + d] = vx;
     }
     __syncthreads();
-
     float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < kHeadDim; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = s.qs[d * kTPad + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = s.ks[d * kTPad + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (k0 + tx + 16 * j >= a.m) sc[i][j] = -INFINITY;
-        mx = fmaxf(mx, sc[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(acc.mrow[i], mx);  // finite: key k0 is valid
-      const float alpha = expf(acc.mrow[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(sc[i][j] - m_new);
-        sum += p;
-        s.ps[(tx + 16 * j) * kTPad + ty + 16 * i] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      acc.lrow[i] = acc.lrow[i] * alpha + sum;
-      acc.mrow[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc.o1[i][j] *= alpha;
-        if (kMhada) acc.o2[i][j] *= alpha;
-      }
-    }
+    flash_scores<1, kTPad>(s.qs, s.ks, sc);
+    flash_softmax<kMhada>(a, k0, sc, s.ps, acc);
     __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float pv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = s.ps[c * kTPad + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) vv[j] = s.vs[c * kHeadDim + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc.o1[i][j] = fmaf(pv[i], vv[j], acc.o1[i][j]);
-          if (kMhada) acc.o2[i][j] = fmaf(pv[i], vv[j] * vv[j], acc.o2[i][j]);
-        }
-    }
+    flash_pv<kMhada>(s.ps, s.vs, acc);
     __syncthreads();
   }
 }

@@ -8,7 +8,9 @@ infer_image.py:47-94).
   ``make_stylize_with_fs_fn`` with the style features alone.
 
 Weights live in the modules, so each function takes the models dict from
-``models.build_models``.  The CLI runs vit_c / vit_s / AdaFormer on one
+``models.build_models``; the dict also carries the decoder's tail, so
+``build_models(..., decoder_tail="c6")`` gives every function here the c6
+tail (K13) with no change to it.  The CLI runs vit_c / vit_s / AdaFormer on one
 content and style pair, clamps to [0, 255] and saves a PNG.  Weights: a
 reference ``.pth`` triple (``--ada/--vitc/--vits``), or random weights
 from seed 0 (smoke mode).

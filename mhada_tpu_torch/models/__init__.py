@@ -16,7 +16,8 @@ __all__ = ["AdaAttnMultiHead", "AdaFormer", "Decoder", "VGG19Features",
 
 def build_models(cfg=None, device="cuda",
                  generator: torch.Generator | None = None,
-                 for_training: bool = False) -> dict:
+                 for_training: bool = False,
+                 decoder_tail: str = "fused") -> dict:
     """The networks {vit_c, vit_s, adaFormer} on ``device``: the card by
     default; raises without one unless ``device`` is the CPU.
 
@@ -28,11 +29,21 @@ def build_models(cfg=None, device="cuda",
     ``ModelConfig.fuse_ln`` resolves to True for it: by default the
     inference build only.
 
+    ``decoder_tail``: "fused" runs the decoder's up3 -> c5 -> c6 as K5 (K8
+    in training); "c6" runs up3 and c5 as plain convs and c6 as K13, the
+    JAX package's ``packed_decoder="col_tail"`` (scripts/tpu_probe.py:79-81).
+    Both have the same weights.  "c6" is forward-only: with
+    ``for_training`` it raises.
+
     ``cfg``: a ModelConfig, or anything with a ``.model`` ModelConfig.
     Weights are drawn on the CPU from ``generator`` (seed 0 if None), so a
     seed gives the same weights on every device; load trained weights with
     ``interop.load_params``.
     """
+    if for_training and decoder_tail == "c6":
+        raise ValueError(
+            f"decoder_tail={decoder_tail!r} is forward-only (K13, as the JAX "
+            "package's col_tail); the training build runs the fused tail K8")
     device = resolve_device(device)
     m = getattr(cfg, "model", cfg) or ModelConfig()
     if generator is None:
@@ -46,7 +57,7 @@ def build_models(cfg=None, device="cuda",
         "vit_c": VisionTransformer(pos_embedding=True, **vit),
         "vit_s": VisionTransformer(pos_embedding=False, **vit),
         "adaFormer": AdaFormer(m.num_layers, m.num_heads, m.hidden_dim,
-                               m.activation, m.mhada_backend),
+                               m.activation, m.mhada_backend, decoder_tail),
     }
     for net in models.values():
         init_parameters(net, generator)

@@ -107,17 +107,19 @@ class AdaAttnMultiHead(nn.Module):
 
 class AdaFormer(nn.Module):
     """The trained decoder-transformer (reference AdaAttnTransformerMultiHead);
-    returns (fcs_map, cs)."""
+    returns (fcs_map, cs).  ``decoder_tail``: the decoder's ``tail``,
+    "fused" (K5 / K8) or "c6" (K13; the JAX package's
+    ``packed_decoder="col_tail"``)."""
 
     def __init__(self, num_layers: int = 3, num_heads: int = 8,
                  hidden_dim: int = 512, activation: str = "softmax",
-                 backend: str = "auto"):
+                 backend: str = "auto", decoder_tail: str = "fused"):
         super().__init__()
         self.num_layers = num_layers
         for j in range(2 * num_layers):
             self.add_module(f"ada{j}", AdaAttnMultiHead(
                 hidden_dim, num_heads, activation, backend))
-        self.decoder = Decoder(hidden_dim, backend)
+        self.decoder = Decoder(hidden_dim, backend, decoder_tail)
 
     def forward(self, fc: list[torch.Tensor], fs: list[torch.Tensor] | None,
                 style_kv=None):

@@ -4,17 +4,27 @@ reference network/conv.py:75-100).
 512 -> 256 (+2x) -> 3 x (256 -> 256) -> 256 -> 128 (+2x) -> 128 -> 128 ->
 128 -> 64 (+2x) -> 64 -> 64 -> 64 -> 3, all reflection-padded 3x3 convs
 with ReLU.  The last layer is conv + ReLU, not tanh (reference
-conv.py:93).  The tail up3 -> c5 -> c6 runs as one call of
-``ops.decoder_tail.decoder_tail`` in eval mode (K5 on CUDA, the same plain
-chain on CPU) and of the differentiable ``decoder_tail_train`` in training
-mode (K8); none of the JAX package's TPU re-layouts (2x2, col, col_tail,
-mega_min_grid) exist here.
+conv.py:93).  ``tail`` picks how up3 -> c5 -> c6 runs:
+
+- ``"fused"``: one call of ``ops.decoder_tail.decoder_tail`` in eval mode
+  (K5 on CUDA, the same plain chain on CPU) and of the differentiable
+  ``decoder_tail_train`` in training mode (K8); the JAX package's
+  ``packed="mega"`` / ``"mega_train"``;
+- ``"c6"``: up3 and c5 as plain ConvReLUs, then c6 as its own kernel,
+  ``ops.decoder_c6.c6_conv`` (K13); the JAX package's
+  ``packed="col_tail"``.  Forward-only, as there: a decoder in training
+  mode raises.
+
+The state_dict is the same for both.  The JAX package's TPU re-layouts
+(column packing, 2x2 packing, ``mega_min_grid``) do not exist here: the
+c6 tail runs ``col_tail``'s function on plain NHWC tensors.
 """
 
 import torch
 import torch.nn as nn
 
 from .layers import Conv2d
+from ..ops.decoder_c6 import c6_conv
 from ..ops.decoder_tail import decoder_tail, decoder_tail_train
 from ..ops.pad_conv import reflect_pad2d
 from ..ops.resize import upsample2x
@@ -36,10 +46,18 @@ class ConvReluUp(ConvReLU):
         return upsample2x(super().forward(x))
 
 
+TAILS = ("fused", "c6")
+
+
 class Decoder(nn.Module):
-    def __init__(self, in_channels: int = 512, backend: str = "auto"):
+    def __init__(self, in_channels: int = 512, backend: str = "auto",
+                 tail: str = "fused"):
         super().__init__()
+        if tail not in TAILS:
+            raise ValueError(f"unknown decoder tail {tail!r}; expected one "
+                             f"of {TAILS}")
         self.backend = backend
+        self.tail = tail
         self.up1 = ConvReluUp(in_channels, 256)
         self.c1 = ConvReLU(256, 256)
         self.c2 = ConvReLU(256, 256)
@@ -55,6 +73,14 @@ class Decoder(nn.Module):
         x = self.up1(fcs)
         x = self.c3(self.c2(self.c1(x)))
         x = self.c4(self.up2(x))
+        if self.tail == "c6":
+            if self.training:
+                raise RuntimeError(
+                    "the c6 tail (K13) is forward-only: train with "
+                    "tail='fused' (K8)")
+            y = self.c5(self.up3(x)).contiguous()
+            return c6_conv(y, self.c6.conv.weight, self.c6.conv.bias,
+                           backend=self.backend)
         up3, c5, c6 = self.up3.conv, self.c5.conv, self.c6.conv
         tail = decoder_tail_train if self.training else decoder_tail
         return tail(x.contiguous(), up3.weight, up3.bias, c5.weight, c5.bias,

@@ -49,6 +49,18 @@ def mhada_fused_prologue(fc: torch.Tensor, fcs: torch.Tensor,
     mode runs the unfused projections and K7 on the same K/V instead."""
     if not use_kernel(backend, fc):
         return mhada_fused_prologue_plain(fc, fcs, stats, wf, fb, k, v)
+    _build.check_forward_only(
+        "mhada_fused_prologue", "no training route exists yet: run the "
+        "block in training mode (unfused projections and K7)",
+        fc, fcs, stats, wf, fb, k, v)
+    return launch_prologue("mhada_mhada_prologue", fc, fcs, stats, wf, fb, k,
+                           v)
+
+
+def launch_prologue(entry: str, fc, fcs, stats, wf, fb, k, v) -> torch.Tensor:
+    """Check the inputs and launch C entry point ``entry``, K3
+    (``mhada_mhada_prologue``) or the probe P2 of the same function and
+    arguments (``mhada_mhada_prologue_pipe``)."""
     if fc.dim() != 3 or fcs.shape != fc.shape or k.dim() != 3 \
             or v.shape != k.shape or k.shape[0] != fc.shape[0] \
             or k.shape[2] != fc.shape[2] \
@@ -71,12 +83,7 @@ def mhada_fused_prologue(fc: torch.Tensor, fcs: torch.Tensor,
     if f32[0].device != fc.device:
         raise ValueError("mhada_fused_prologue: all tensors must be on one "
                          "CUDA device")
-    _build.check_forward_only(
-        "mhada_fused_prologue", "no training route exists yet: run the "
-        "block in training mode (unfused projections and K7)",
-        fc, fcs, stats, wf, fb, k, v)
     out = torch.empty_like(fc)
-    _build.launch("mhada_mhada_prologue", fc.device, fc, fcs, f32[0], wt,
-                  f32[1], k, v, out, b, n, k.shape[1], c, heads,
-                  _build.dtype_code(fc))
+    _build.launch(entry, fc.device, fc, fcs, f32[0], wt, f32[1], k, v, out,
+                  b, n, k.shape[1], c, heads, _build.dtype_code(fc))
     return out

@@ -1,0 +1,101 @@
+"""P2: K3 with its key and value tiles double-buffered by ``cp.async``
+(csrc/mhada_prologue_pipe.cu), timed against K3.
+
+Counterpart of scripts/mhada_pipe_probe.py, which A/B-tested a
+software-pipelined variant of the fused-prologue MHAda kernel
+(``_pipe_kernel``) against the one in use.  The function is K3's, so its
+plain version is ``ops.mhada_prologue.mhada_fused_prologue_plain``.
+
+    python -m mhada_tpu_torch.probes.mhada_pipe_probe [--iters 30]
+
+runs the JAX probe's shape (B = 8, N = M = 4096, C = 512, 8 heads of 64,
+bfloat16) with the inputs of K3's gate (keys at scale 0.35, so the
+unscaled logits stay near std 1.6 and elementwise errors mean something)
+and prints K3's and the pipelined kernel's ms per dispatch and per frame,
+interleaved (K3, pipe, pipe, K3), each with its max error against the
+plain version.
+"""
+
+import argparse
+
+import torch
+
+from .. import _build
+from ..config import resolve_device, use_kernel
+from ..infer.image import DTYPES
+from ..infer.timing import _elapsed_ms
+from ..ops.instance_norm import instance_norm_stats
+from ..ops.mhada_prologue import (launch_prologue, mhada_fused_prologue,
+                                  mhada_fused_prologue_plain)
+
+SHAPE = dict(b=8, n=4096, m=4096, c=512, heads=8)   # mhada_pipe_probe.py:146
+
+
+def mhada_fused_prologue_pipe(fc, fcs, stats, wf, fb, k, v,
+                              backend: str = "auto") -> torch.Tensor:
+    """K3's function; the P2 kernel for CUDA tensors (arguments as
+    ``ops.mhada_prologue.mhada_fused_prologue``)."""
+    if not use_kernel(backend, fc):
+        return mhada_fused_prologue_plain(fc, fcs, stats, wf, fb, k, v)
+    _build.check_forward_only("mhada_fused_prologue_pipe", "it is a probe",
+                              fc, fcs, stats, wf, fb, k, v)
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("mhada_fused_prologue_pipe: k and v must be 16-byte "
+                         "aligned")
+    return launch_prologue("mhada_mhada_prologue_pipe", fc, fcs, stats, wf,
+                           fb, k, v)
+
+
+def probe_inputs(b, n, m, c, heads, dtype, device, seed=0):
+    """Seeded inputs of K3's gate: fc, fcs (B, N, C) raw tokens, their
+    float32 stats, wf and fb from the block's init U(-1/8, 1/8), k at
+    scale 0.35 and v (B, M, C)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=g) * scale + shift).to(
+            device, dtype)
+
+    fc, fcs = rnd(b, n, c, scale=2.0, shift=1.0), rnd(b, n, c, scale=3.0,
+                                                      shift=-1.0)
+    stats = torch.stack([*instance_norm_stats(fc), *instance_norm_stats(fcs)],
+                        1)
+    d = c // heads
+    wf = ((torch.rand(heads, d, d, generator=g) * 2 - 1) / 8).to(device)
+    fb = ((torch.rand(heads, d, generator=g) * 2 - 1) / 8).to(device)
+    return fc, fcs, stats, wf, fb, rnd(b, m, c, scale=0.35), rnd(b, m, c)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--iters", type=int, default=30)
+    ap.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES))
+    ap.add_argument("--device", default="cuda",
+                    help="the card unless 'cpu' (the plain version only, "
+                         "host clock)")
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+    inputs = probe_inputs(**SHAPE, dtype=DTYPES[args.dtype], device=device)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu (plain version, host clock)"
+    b, n, c = SHAPE["b"], SHAPE["n"], SHAPE["c"]
+    print(f"# {name}; B={b} N=M={n} C={c} {args.dtype}", flush=True)
+    with torch.inference_mode():
+        ref = mhada_fused_prologue_plain(*inputs).float()
+        runs = {"K3": lambda: mhada_fused_prologue(*inputs),
+                "pipe": lambda: mhada_fused_prologue_pipe(*inputs)}
+        for label in ("K3", "pipe", "pipe", "K3"):
+            fn = runs[label]
+            err = (fn().float() - ref).abs().max().item()
+
+            def loop():
+                for _ in range(args.iters):
+                    fn()
+
+            ms = _elapsed_ms(device, loop) / args.iters
+            print(f"{label:5s}: {ms:8.3f} ms/dispatch ({ms / b:7.4f} "
+                  f"ms/frame)  max|err| against plain {err:.2e}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

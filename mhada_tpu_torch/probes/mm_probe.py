@@ -1,0 +1,148 @@
+"""P1: a bf16 matmul probe on the tensor cores (csrc/mm_probe.cu).
+
+Counterpart of scripts/mxu_probe.py: the TPU probe timed a bare Pallas
+matmul (``_mm_kernel``) at the attention tile shapes with its operands
+resident in VMEM, to map which dimensions quantize on the matrix unit.
+Here ``mm(a, b, reps)`` launches a hand-written ``wmma`` (``mma.sync``)
+kernel whose grid repeats the whole product ``reps`` times on the same
+operands, so after the first rep they come from L2; ``torch.matmul``
+(cuBLAS) at the same shape, ``reps`` calls replayed from a CUDA graph, is
+the yardstick.  It measures what a simple tensor-core kernel reaches at
+the flash kernels' shapes.
+
+    python -m mhada_tpu_torch.probes.mm_probe [--reps 400] [--iters 8]
+
+prints one line per shape: us per product, useful TFLOP/s, cuBLAS's
+TFLOP/s and the max error against ``mm_plain``.
+"""
+
+import argparse
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..config import resolve_device, use_kernel
+from ..infer.timing import _elapsed_ms
+
+# (m, k, n) of scripts/mxu_probe.py:75-88
+SHAPES = [
+    (512, 2048, 512),    # baseline: every dimension >= 128
+    (512, 2048, 64),     # P V head-major: output width d = 64
+    (512, 2048, 128),
+    (64, 2048, 512),     # P V transposed: 64 streamed rows
+    (128, 2048, 512),
+    (256, 2048, 512),
+    (512, 64, 2048),     # Q K^T: contraction depth d = 64
+    (512, 128, 2048),
+]
+BM, BN, BK = 64, 64, 32   # the kernel's tile (m, n multiples of 64, k of 32)
+
+
+def mm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The float32 product of bf16 a (m, k) and b (k, n), rounded to bf16,
+    as ``_mm_kernel`` computes it."""
+    return (a.float() @ b.float()).to(torch.bfloat16)
+
+
+def mm(a: torch.Tensor, b: torch.Tensor, reps: int = 1,
+       backend: str = "auto") -> torch.Tensor:
+    """a b; the P1 kernel for CUDA tensors, the product computed ``reps``
+    times (1 <= reps <= 65535) into the same output."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"mm: bad shapes a {tuple(a.shape)} b "
+                         f"{tuple(b.shape)}")
+    if not use_kernel(backend, a):
+        return mm_plain(a, b)
+    (m, k), n = a.shape, b.shape[1]
+    if a.dtype != torch.bfloat16:
+        raise TypeError(f"mm: the kernel takes bfloat16, got {a.dtype}")
+    if m % BM or n % BN or k % BK or not 1 <= reps <= 65535:
+        raise ValueError(f"mm: the kernel takes m, n multiples of {BM}, k "
+                         f"of {BK} and 1 <= reps <= 65535; got ({m}, {k}, "
+                         f"{n}), reps {reps}")
+    _build.check_cuda_inputs("mm", a, b)
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("mm: a and b must be 16-byte aligned")
+    out = a.new_empty((m, n))
+    _build.launch("mhada_mm_probe", a.device, a, b, out, m, k, n, reps)
+    return out
+
+
+def operands(m, k, n, device, seed=0):
+    """The probe's seeded bf16 operands (scale 0.1, as mxu_probe.py)."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s) * 0.1).to(
+        device, torch.bfloat16) for s in ((m, k), (k, n))]
+
+
+def cublas_loop(a: torch.Tensor, b: torch.Tensor, reps: int):
+    """A call that runs ``reps`` ``torch.matmul`` (cuBLAS) products of a and
+    b.  On the card they are replayed from a CUDA graph, so that their time
+    is the device's and not the host's rate of launches."""
+    if a.device.type != "cuda":
+        def loop():
+            for _ in range(reps):
+                torch.matmul(a, b)
+        return loop
+    out = a.new_empty((a.shape[0], b.shape[1]))
+    side = torch.cuda.Stream(a.device)
+    side.wait_stream(torch.cuda.current_stream(a.device))
+    with torch.cuda.stream(side):   # cuBLAS's workspace, outside the graph
+        torch.matmul(a, b, out=out)
+    torch.cuda.current_stream(a.device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            torch.matmul(a, b, out=out)
+    return graph.replay
+
+
+def bench_shape(m, k, n, reps, iters, device) -> dict:
+    """Time P1 and cuBLAS at one shape on ``device`` -> us per product,
+    useful TFLOP/s of both, the max error against ``mm_plain``."""
+    a, b = operands(m, k, n, device)
+    err = (mm(a, b).float() - mm_plain(a, b).float()).abs().max().item()
+    mm(a, b, reps)   # warm-up
+
+    def kernel():
+        for _ in range(iters):
+            mm(a, b, reps)
+
+    cublas = cublas_loop(a, b, reps)
+    cublas()   # warm-up
+
+    def library():
+        for _ in range(iters):
+            cublas()
+
+    us = _elapsed_ms(device, kernel) * 1e3 / (iters * reps)
+    lib_us = _elapsed_ms(device, library) * 1e3 / (iters * reps)
+    flops = 2 * m * k * n
+    return dict(m=m, k=k, n=n, us=us, tflops=flops / us / 1e6,
+                library_us=lib_us, library_tflops=flops / lib_us / 1e6,
+                max_abs_err=err)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--reps", type=int, default=400)
+    ap.add_argument("--iters", type=int, default=8)
+    ap.add_argument("--device", default="cuda",
+                    help="the card unless 'cpu' (the plain product, host "
+                         "clock)")
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu (plain product, host clock)"
+    print(f"# {name}", flush=True)
+    for m, k, n in SHAPES:
+        r = bench_shape(m, k, n, args.reps, args.iters, device)
+        print(f"({m:5d},{k:5d}) @ ({k:5d},{n:5d}) bfloat16 "
+              f"{r['us']:8.2f} us/mm {r['tflops']:7.1f} TF/s  cuBLAS "
+              f"{r['library_tflops']:7.1f} TF/s  max|err| "
+              f"{r['max_abs_err']:.2e}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

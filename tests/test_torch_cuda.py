@@ -5,7 +5,9 @@ kernels' single-pass limit of 4096 keys.  The training kernels K6, K7 and
 K8 are held forward and backward (outputs and input gradients), K6 and K7
 also at ragged lengths past the TPU training kernels' 2048-key window,
 K2's VJP against autograd of the unfused LayerNorm and linear, and the
-forward-only wrappers must refuse tensors that require grad.
+forward-only wrappers must refuse tensors that require grad.  K13 (c6)
+and K14 (c1 -> c3) are held at small and path shapes, the probes P1 (a
+tensor-core matmul) and P2 (K3 with a cp.async ring, also against K3).
 
 Marked ``cuda``: each test skips without a card.  On a machine with one (the
 repo conftest imports jax, which that machine need not have):
@@ -19,12 +21,16 @@ import torch.nn.functional as F
 from mhada_tpu_torch import _build
 from mhada_tpu_torch.ops.attention_kernel import attention_tm
 from mhada_tpu_torch.ops.attention_train import attention_train
+from mhada_tpu_torch.ops.decoder_c6 import c6_conv
+from mhada_tpu_torch.ops.decoder_mid import mid3_fused
 from mhada_tpu_torch.ops.decoder_tail import decoder_tail, decoder_tail_train
 from mhada_tpu_torch.ops.ln_matmul import layer_norm, ln_matmul
 from mhada_tpu_torch.ops.mhada_kernel import mhada_tm
 from mhada_tpu_torch.ops.mhada_train import mhada_train
 from mhada_tpu_torch.ops.instance_norm import instance_norm_stats
 from mhada_tpu_torch.ops.mhada_prologue import mhada_fused_prologue
+from mhada_tpu_torch.probes.mhada_pipe_probe import mhada_fused_prologue_pipe
+from mhada_tpu_torch.probes.mm_probe import mm, mm_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -53,14 +59,15 @@ def _rnd(g, dtype, *shape, scale=1.0):
     return (torch.randn(*shape, generator=g) * scale).to("cuda", dtype).float()
 
 
-def _check(entry, run, dtype):
-    """run(backend, dtype) -> output; the inputs it closes over are float32."""
+def _check(entry, run, dtype, launches=1):
+    """run(backend, dtype) -> output; the inputs it closes over are float32.
+    The kernel call launches ``entry`` ``launches`` times."""
     before = _build.LAUNCHES[entry]
     got = run("kernel", dtype).float()
-    assert _build.LAUNCHES[entry] == before + 1
+    assert _build.LAUNCHES[entry] == before + launches
     ref = run("plain", dtype).float()
     ref32 = run("plain", torch.float32)
-    assert _build.LAUNCHES[entry] == before + 1  # the twin launches nothing
+    assert _build.LAUNCHES[entry] == before + launches  # the twin: none
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     if dtype == torch.float32:
@@ -93,8 +100,16 @@ def test_mhada_kernel(gen, dtype, b, n, m):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,n,m", [(2, 70, 130), (1, 1, 200), (1, 64, 64)])
-def test_mhada_prologue_kernel(gen, dtype, b, n, m):
+@pytest.mark.parametrize("b,n,m", [(2, 70, 130), (1, 1, 200), (1, 64, 64),
+                                   (1, 300, 4100)])
+@pytest.mark.parametrize("entry", ["mhada_mhada_prologue",
+                                   "mhada_mhada_prologue_pipe"])
+def test_mhada_prologue_kernel(gen, dtype, b, n, m, entry):
+    """K3, and the probe P2 of the same function, against the plain
+    version; P2 also against K3: the same float32 arithmetic in the same
+    order, so equal up to the output's rounding."""
+    fn = {"mhada_mhada_prologue": mhada_fused_prologue,
+          "mhada_mhada_prologue_pipe": mhada_fused_prologue_pipe}[entry]
     fc = _rnd(gen, dtype, b, n, 128, scale=2.0) + 1
     fcs = _rnd(gen, dtype, b, n, 128, scale=3.0) - 1
     mc, rc = instance_norm_stats(fc)
@@ -104,10 +119,16 @@ def test_mhada_prologue_kernel(gen, dtype, b, n, m):
     fb = _rnd(gen, dtype, 2, 64, scale=1 / 8)
     k = _rnd(gen, dtype, b, m, 128, scale=0.35)
     v = _rnd(gen, dtype, b, m, 128)
-    _check("mhada_mhada_prologue",
-           lambda be, dt: mhada_fused_prologue(
-               fc.to(dt), fcs.to(dt), stats, wf, fb, k.to(dt), v.to(dt),
-               backend=be), dtype)
+
+    def args(dt):
+        return fc.to(dt), fcs.to(dt), stats, wf, fb, k.to(dt), v.to(dt)
+
+    _check(entry, lambda be, dt: fn(*args(dt), backend=be), dtype)
+    if entry == "mhada_mhada_prologue_pipe":
+        pipe = fn(*args(dtype)).float()
+        k3 = mhada_fused_prologue(*args(dtype)).float()
+        rel = (pipe - k3).abs().max().item() / k3.abs().max().item()
+        assert rel <= (1e-6 if dtype == torch.float32 else 2 ** -7), rel
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -143,6 +164,45 @@ def test_decoder_tail_kernel(gen, dtype, shape):
                                        backend=be), dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(1, 2, 3, 64), (2, 17, 33, 64),
+                                   (1, 512, 512, 64)])
+def test_decoder_c6_kernel(gen, dtype, shape):
+    y = _rnd(gen, dtype, *shape).abs()
+    w6 = _rnd(gen, dtype, 3, 64, 3, 3, scale=1 / 24)
+    b6 = (torch.rand(3, generator=gen) / 24).cuda()
+    _check("mhada_decoder_c6",
+           lambda be, dt: c6_conv(y.to(dt), w6, b6, backend=be), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(1, 2, 3, 128), (2, 9, 20, 128),
+                                   (1, 128, 128, 256)])
+def test_decoder_mid_kernel(gen, dtype, shape):
+    c = shape[-1]
+    x = _rnd(gen, dtype, *shape)
+    params = [t for _ in range(3)
+              for t in (_rnd(gen, dtype, c, c, 3, 3, scale=0.5 / c ** 0.5),
+                        _rnd(gen, dtype, c, scale=0.1))]
+    _check("mhada_decoder_mid_conv",
+           lambda be, dt: mid3_fused(x.to(dt), *params, backend=be), dtype,
+           launches=3)
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 32, 64), (128, 2048, 192)])
+def test_mm_probe_kernel(gen, m, k, n):
+    a = _rnd(gen, torch.bfloat16, m, k, scale=0.1).to(torch.bfloat16)
+    b = _rnd(gen, torch.bfloat16, k, n, scale=0.1).to(torch.bfloat16)
+    before = _build.LAUNCHES["mhada_mm_probe"]
+    got = mm(a, b, reps=3).float()
+    assert _build.LAUNCHES["mhada_mm_probe"] == before + 1
+    ref = mm_plain(a, b).float()
+    torch.cuda.synchronize()
+    # both round one float32 sum to bf16: at most one bf16 step apart
+    assert ((got - ref).abs() <= ref.abs() * 2 ** -7
+            + 1e-3 * ref.abs().max()).all()
+
+
 def test_kernel_rejects_bad_input(gen):
     qkv = _rnd(gen, torch.float32, 1, 16, 384)
     with pytest.raises(ValueError, match="head dim"):
@@ -151,6 +211,21 @@ def test_kernel_rejects_bad_input(gen):
         attention_tm(qkv[:, ::2], 2)
     with pytest.raises(TypeError):
         attention_tm(qkv.half(), 2)
+    y = _rnd(gen, torch.float32, 1, 8, 8, 64)
+    w6, b6 = torch.zeros(3, 64, 3, 3, device="cuda"), torch.zeros(3).cuda()
+    with pytest.raises(ValueError, match="contiguous"):
+        c6_conv(y.transpose(1, 2), w6, b6)
+    with pytest.raises(TypeError):
+        c6_conv(y.half(), w6, b6)
+    x = _rnd(gen, torch.float32, 1, 4, 4, 128)
+    w, b = torch.zeros(128, 128, 3, 3, device="cuda"), torch.zeros(128).cuda()
+    with pytest.raises(TypeError):
+        mid3_fused(x.half(), w, b, w, b, w, b)
+    a = torch.zeros(65, 32, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples"):
+        mm(a, torch.zeros(32, 64, device="cuda", dtype=torch.bfloat16))
+    with pytest.raises(TypeError):
+        mm(a.float(), torch.zeros(32, 64, device="cuda"))
 
 
 def _fwd_bwd(run, backend, dtype, inputs, cot):
@@ -251,9 +326,9 @@ def test_ln_matmul_vjp(gen, dtype, shape, f):
 
 
 def test_forward_only_wrappers_refuse_grad(gen):
-    """K1, K4 and K5 launch no kernel for an input that requires grad while
-    grad mode is on, and name their training route; under no_grad they
-    run."""
+    """K1, K4, K5, K13 and K14 launch no kernel for an input that requires
+    grad while grad mode is on, and name their training route; under
+    no_grad they run."""
     qkv = _rnd(gen, torch.float32, 1, 16, 384).requires_grad_()
     q = _rnd(gen, torch.float32, 1, 16, 128).requires_grad_()
     x = _rnd(gen, torch.float32, 1, 4, 4, 128)
@@ -263,9 +338,16 @@ def test_forward_only_wrappers_refuse_grad(gen):
             torch.zeros(64, device="cuda"),
             torch.zeros(3, 64, 3, 3, device="cuda"),
             torch.zeros(3, device="cuda"))
+    y = _rnd(gen, torch.float32, 1, 4, 4, 64)
+    w6 = torch.zeros(3, 64, 3, 3, device="cuda", requires_grad=True)
+    xm = _rnd(gen, torch.float32, 1, 4, 4, 128)
+    wm = torch.zeros(128, 128, 3, 3, device="cuda", requires_grad=True)
+    bm = torch.zeros(128, device="cuda")
     calls = [(lambda: attention_tm(qkv, 2), "K6"),
              (lambda: mhada_tm(q, q, q, q, 2), "K7"),
-             (lambda: decoder_tail(*tail), "K8")]
+             (lambda: decoder_tail(*tail), "K8"),
+             (lambda: c6_conv(y, w6, torch.zeros(3, device="cuda")), "K8"),
+             (lambda: mid3_fused(xm, wm, bm, wm, bm, wm, bm), "ConvReLU")]
     before = dict(_build.LAUNCHES)
     for call, route in calls:
         with pytest.raises(RuntimeError, match=f"forward-only.*{route}"):

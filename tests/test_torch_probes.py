@@ -1,0 +1,119 @@
+"""The probes' plain versions against the JAX package's TPU probe kernels
+(interpret mode), CPU: P1's ``mm_plain`` against ``_mm_kernel`` through
+``pl.pallas_call``, P2's plain version against ``_pipe_kernel`` through the
+probe's ``call_variant``; the probes' CLIs on the CPU and their guards.
+The probe scripts are not a package, so they are imported by path."""
+
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from mhada_tpu_torch.ops.instance_norm import instance_norm_stats
+from mhada_tpu_torch.probes import mhada_pipe_probe, mm_probe
+
+SCRIPTS = Path(__file__).resolve().parents[1] / "scripts"
+
+
+def _script(name):
+    spec = importlib.util.spec_from_file_location(name, SCRIPTS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 128, 64), (128, 64, 256)])
+def test_mm_plain_matches_mm_kernel(m, k, n):
+    """One grid step of mxu_probe.py's call (its block specs, whole
+    operands).  Both sum bf16 products in float32 and round once to bf16:
+    equal up to one bf16 step (2^-8 relative) where the order of the sums
+    moves a value across a rounding boundary."""
+    probe = _script("mxu_probe")
+    rng = np.random.default_rng(81)
+    a = (rng.standard_normal((m, k)) * 0.1).astype(np.float32)
+    b = (rng.standard_normal((k, n)) * 0.1).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        call = pl.pallas_call(
+            probe._mm_kernel, grid=(1,),
+            in_specs=[pl.BlockSpec((m, k), lambda i: (0, 0),
+                                   memory_space=pltpu.VMEM),
+                      pl.BlockSpec((k, n), lambda i: (0, 0),
+                                   memory_space=pltpu.VMEM)],
+            out_specs=pl.BlockSpec((m, n), lambda i: (0, 0),
+                                   memory_space=pltpu.VMEM),
+            out_shape=jax.ShapeDtypeStruct((m, n), jnp.bfloat16))
+        ref = np.asarray(call(jnp.asarray(a, jnp.bfloat16),
+                              jnp.asarray(b, jnp.bfloat16)), np.float32)
+    at, bt = (torch.from_numpy(t).to(torch.bfloat16) for t in (a, b))
+    got = mm_probe.mm_plain(at, bt)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=1e-3,
+                               rtol=2 ** -8)
+    assert torch.equal(mm_probe.mm(at, bt, reps=3), got)
+
+
+def test_pipe_plain_matches_pipe_kernel():
+    """K3's plain version against mhada_pipe_probe.py::_pipe_kernel at B = 1,
+    N = M = 256, C = 128, 2 heads, tn = 128, float32; k at scale 0.35 keeps
+    the unscaled logits' std near 1.6 (tests/test_torch_streaming.py:56-83),
+    with that test's bound."""
+    probe = _script("mhada_pipe_probe")
+    rng = np.random.default_rng(82)
+    b, n, c, h = 1, 256, 128, 2
+    fc = (rng.standard_normal((b, n, c)) * 2 + 1).astype(np.float32)
+    fcs = (rng.standard_normal((b, n, c)) * 3 - 1).astype(np.float32)
+    wf = rng.uniform(-1 / 8, 1 / 8, (h, 64, 64)).astype(np.float32)
+    fb = rng.uniform(-1 / 8, 1 / 8, (h, 64)).astype(np.float32)
+    k = (rng.standard_normal((b, n, c)) * 0.35).astype(np.float32)
+    v = rng.standard_normal((b, n, c)).astype(np.float32)
+    t = [torch.from_numpy(x) for x in (fc, fcs, wf, fb, k, v)]
+    stats = torch.stack([*instance_norm_stats(t[0]),
+                         *instance_norm_stats(t[1])], 1)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(probe.call_variant(
+            probe._pipe_kernel, *map(jnp.asarray, (fc, fcs, stats.numpy(),
+                                                   wf, fb, k, v)), 128))
+    got = mhada_pipe_probe.mhada_fused_prologue_pipe(t[0], t[1], stats,
+                                                     *t[2:]).numpy()
+    assert got.shape == ref.shape == (b, n, c)
+    np.testing.assert_allclose(got, ref, atol=5e-5, rtol=0)
+
+
+def test_probe_clis_cpu(capsys, monkeypatch):
+    """Both CLIs run the plain versions on the CPU when asked, and say so
+    (P2 at 64 tokens: its B = 8, 4096-token shape needs 8 GB of scores)."""
+    mm_probe.main(["--reps", "1", "--iters", "1", "--device", "cpu"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert "cpu" in lines[0] and len(lines) == 1 + len(mm_probe.SHAPES)
+    assert all("max|err| 0.00e+00" in ln for ln in lines[1:])
+    monkeypatch.setattr(mhada_pipe_probe, "SHAPE",
+                        dict(mhada_pipe_probe.SHAPE, n=64, m=64))
+    mhada_pipe_probe.main(["--iters", "1", "--device", "cpu"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert "cpu" in lines[0] and [ln.split(":")[0].strip()
+                                  for ln in lines[1:]] == ["K3", "pipe",
+                                                           "pipe", "K3"]
+
+
+def test_probe_guards(monkeypatch):
+    a = torch.zeros(64, 32, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="needs a CUDA tensor"):
+        mm_probe.mm(a, a.T.contiguous(), backend="kernel")
+    with pytest.raises(ValueError, match="bad shapes"):
+        mm_probe.mm(a, a)
+    x = torch.zeros(1, 8, 128)
+    with pytest.raises(RuntimeError, match="needs a CUDA tensor"):
+        mhada_pipe_probe.mhada_fused_prologue_pipe(
+            x, x, torch.zeros(1, 4, 128), torch.zeros(2, 64, 64),
+            torch.zeros(2, 64), x, x, backend="kernel")
+    # without a card the CLIs raise and name the way to the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main in (mm_probe.main, mhada_pipe_probe.main):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            main([])
