@@ -5,7 +5,10 @@
 
 1. environment: torch / CUDA versions, the card's name and power limit;
 2. build: compile mhada_tpu_torch/csrc/*.cu with nvcc (one per source, in
-   parallel);
+   parallel); the bf16 tensor-core kernels of K1 and K6 must each hold
+   HMMA.16816.F32.BF16 in their SASS (cuobjdump) and spill nothing (ptxas),
+   and no bf16 instantiation of the CUDA-core attention tile or backward
+   may exist;
 3. gates: each hand-written kernel against its plain PyTorch version on the
    card, in float32 and bfloat16, at the 512^2 path's shapes and at the
    1024^2 shapes (K2 at N = 16384; K3 at M = 16384; K5 from 512^2 to
@@ -296,6 +299,11 @@ PIXEL_BOUND = {"float32": 0.1, "bfloat16": 4.0}
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 DTYPE_NAMES = ("float32", "bfloat16")
+# The bf16 tensor-core kernels of K1 and K6 (csrc/attention_mma.cuh,
+# csrc/attention_bwd_mma.cuh) and the instruction each must contain.
+MMA_KERNELS = ("attention_mma_fwd_kernel", "attention_mma_dkv_kernel",
+               "attention_mma_dq_kernel")
+HMMA = "HMMA.16816.F32.BF16"
 
 
 def all_gates():
@@ -325,6 +333,46 @@ def ptxas_summary(log: str) -> str:
         if m and m.group(1) != "0":
             out.append(f"{name}: {m.group(1)} B spilled")
     return "; ".join(out)
+
+
+def mma_report(lib):
+    """The bf16 tensor-core kernels in the built library -> (ok, text): each
+    kernel's registers and spilled bytes (ptxas), its count of HMMA in the
+    SASS (cuobjdump), and any bf16 instantiation of the CUDA-core attention
+    tile or backward (flash_tile.cuh, flash_bwd.cuh with kMhada = false),
+    which no path may reach."""
+    from mhada_tpu_torch import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300).stdout
+    funcs = {c.split(None, 1)[0]: c for c in sass.split("Function : ")[1:]}
+    ptxas, name = {}, None
+    for ln in lib.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and name:
+            ptxas.setdefault(name, {})["spill"] = int(m[1]) + int(m[2])
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            ptxas.setdefault(name, {})["regs"] = int(m[1])
+    ok, out = True, []
+    for kernel in MMA_KERNELS:
+        found = [f for f in funcs if kernel in f]
+        ok = ok and bool(found)
+        for f in found:
+            hmma = funcs[f].count(HMMA)
+            info = ptxas.get(f, {})
+            ok = ok and hmma > 0 and info.get("spill") == 0
+            out.append(f"{f}: {info.get('regs')} regs, {info.get('spill')} "
+                       f"B spilled, {hmma} x {HMMA}")
+    old = [f for f in funcs if re.search(
+        r"flash_(tile|bwd_dkv|bwd_dq)_kernelI13__nv_bfloat16Lb0E", f)]
+    out.append(f"bf16 CUDA-core attention instantiations: {old or 'none'}")
+    return ok and not old, "; ".join(out)
 
 
 def cuda_ms(fn, warmup=2, iters=5):
@@ -1128,7 +1176,7 @@ def main() -> int:
     phase("build", True, f"{time.perf_counter() - t0:.1f} s -> {lib.name}; "
           f"ptxas: {ptxas_summary(lib.with_suffix('.log').read_text())}")
 
-    ok = True
+    ok = phase("tensor cores", *mma_report(lib))
     gates = {}   # gate (training kernels: row) -> dtype name -> record
     train_extra, step_ms = {}, {}
 

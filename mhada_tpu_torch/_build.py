@@ -180,6 +180,15 @@ def check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
+def check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """The tensor-core kernels copy 16 bytes at a time: raise unless each
+    bfloat16 CUDA tensor starts on a 16-byte boundary."""
+    for t in tensors:
+        if t.is_cuda and t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name}: bfloat16 tensors must be 16-byte "
+                             f"aligned, got data_ptr {t.data_ptr():#x}")
+
+
 def check_forward_only(name: str, training_route: str,
                        *tensors: torch.Tensor) -> None:
     """Raise before a forward-only kernel launches on a CUDA tensor while

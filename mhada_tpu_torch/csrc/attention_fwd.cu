@@ -9,19 +9,20 @@
 //
 // What bounds it on the card: 4 L^2 d flops per head (34 GFLOP per call at
 // L = 4096, 8 heads) against 2 L (3C + C) element reads, so it is
-// compute-bound.  This first version runs the two products as float32 FMAs
-// on the CUDA cores (flash_tile.cuh), not on the tensor cores; the scores
-// never leave shared memory and registers.
+// compute-bound.  bfloat16 runs on the tensor cores (attention_mma.cuh:
+// mma.sync with bf16 operands, float32 accumulators, a cp.async K/V ring);
+// float32 keeps computing in float32, as FMAs on the CUDA cores
+// (flash_tile.cuh).  The scores never leave shared memory and registers.
 
+#include "attention_mma.cuh"
 #include "flash_tile.cuh"
 
 namespace {
 
-template <typename T>
-cudaError_t attention_fwd(const void* qkv, void* out, int batch, int seq,
-                          int channels, int heads, float scale,
-                          cudaStream_t stream) {
-  const T* base = static_cast<const T*>(qkv);
+cudaError_t attention_fwd_f32(const void* qkv, void* out, int batch,
+                              int seq, int channels, int heads, float scale,
+                              cudaStream_t stream) {
+  const float* base = static_cast<const float*>(qkv);
   mhada::FlashArgs a{};
   a.q = base;
   a.k = base + channels;
@@ -36,18 +37,24 @@ cudaError_t attention_fwd(const void* qkv, void* out, int batch, int seq,
   a.o_bs = (long long)seq * channels;
   a.o_rs = channels;
   a.scale = scale;
-  return mhada::launch_flash_tile<T, false>(a, heads, batch, stream);
+  return mhada::launch_flash_tile<float, false>(a, heads, batch, stream);
 }
 
 }  // namespace
 
+// bfloat16: qkv and out 16-byte aligned, channels a multiple of 8.
 extern "C" int mhada_attention_fwd(const void* qkv, void* out, int batch,
                                    int seq, int channels, int heads,
                                    float scale, int dtype, void* stream) {
-  MHADA_DISPATCH_DTYPE(
-      dtype, T,
-      return (int)attention_fwd<T>(qkv, out, batch, seq, channels, heads,
-                                   scale, (cudaStream_t)stream));
+  if (dtype == mhada::kF32)
+    return (int)attention_fwd_f32(qkv, out, batch, seq, channels, heads,
+                                  scale, (cudaStream_t)stream);
+  mhada::AttnMmaArgs a{};
+  if (dtype != mhada::kBF16 ||
+      !mhada::make_mma_args(a, qkv, qkv, out, seq, channels, scale))
+    return (int)cudaErrorInvalidValue;
+  return (int)mhada::launch_attention_mma_fwd<false>(a, heads, batch,
+                                                     (cudaStream_t)stream);
 }
 
 extern "C" const char* mhada_error_string(int err) {

@@ -1,10 +1,12 @@
-// Single-head, 64-wide attention tile with an online softmax, shared by the
-// ViT self-attention kernel (attention_fwd.cu, K1), the MHAda core
-// (mhada_fwd.cu, K4), the MHAda core with the fused prologue
-// (mhada_prologue.cu, K3) and the training forwards (attention_train.cu,
-// K6; mhada_train.cu, K7), which also write the backward's residuals.  The
-// probe P2 (mhada_prologue_pipe.cu) runs the key loop's steps
-// (flash_scores, flash_softmax, flash_pv) on tiles it loads itself.
+// Single-head, 64-wide attention tile with an online softmax on the CUDA
+// cores, shared by the MHAda core (mhada_fwd.cu, K4), the MHAda core with
+// the fused prologue (mhada_prologue.cu, K3) and the MHAda training forward
+// (mhada_train.cu, K7) at float32 and bfloat16, and by the ViT
+// self-attention (attention_fwd.cu, K1; attention_train.cu, K6's forward)
+// at float32 only: at bfloat16 those run on the tensor cores
+// (attention_mma.cuh).  The training forwards also write the backward's
+// residuals.  The probe P2 (mhada_prologue_pipe.cu) runs the key loop's
+// steps (flash_scores, flash_softmax, flash_pv) on tiles it loads itself.
 //
 // One block owns (batch b, head h, a tile of kBQ = 64 queries) and loops
 // over the keys in tiles of kBK = 64 held in shared memory; nothing of the

@@ -28,10 +28,15 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def default_attn_mode(ada_path) -> str:
-    """Reference .pth triples were trained with the batch-coupled quirk;
-    random weights are spatial."""
-    return "batch_coupled" if (
-        ada_path and str(ada_path).endswith(".pth")) else "spatial"
+    """The mode in the sidecar that ``train.checkpoint.save_weights`` writes
+    beside this package's own AdaFormer ``.pth``; reference .pth triples
+    (no sidecar) were trained with the batch-coupled quirk; random weights
+    are spatial."""
+    from ..train.checkpoint import read_attn_mode
+
+    if not (ada_path and str(ada_path).endswith(".pth")):
+        return "spatial"
+    return read_attn_mode(str(ada_path)) or "batch_coupled"
 
 
 def make_stylize_fn(models: dict, dtype: torch.dtype = torch.float32):
@@ -128,7 +133,9 @@ def add_model_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
     ap.add_argument("--attn-mode", default=None,
                     choices=["spatial", "batch_coupled"],
-                    help="default: batch_coupled when loading .pth weights")
+                    help="default: the mode in the AdaFormer .pth's sidecar "
+                    "(this package's training writes one); batch_coupled for "
+                    "reference .pth weights")
     ap.add_argument("--device", default="cuda",
                     help="default: cuda; without a card pass --device cpu")
 

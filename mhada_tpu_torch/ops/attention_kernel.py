@@ -52,6 +52,7 @@ def attention_tm(qkv: torch.Tensor, num_heads: int,
         "attention_train", qkv)
     scale = 1.0 / math.sqrt(HEAD_DIM) if scale is None else scale
     out = torch.empty((b, l, c), device=qkv.device, dtype=qkv.dtype)
+    _build.check_aligned("attention_tm", qkv, out)
     _build.launch("mhada_attention_fwd", qkv.device, qkv, out, b, l, c,
                   num_heads, float(scale), _build.dtype_code(qkv))
     return out

@@ -86,6 +86,7 @@ def _fwd_kernel(qkv, num_heads, scale):
     out = qkv.new_empty((b, l, c3 // 3))
     lse = torch.empty((b, num_heads, l), device=qkv.device,
                       dtype=torch.float32)
+    _build.check_aligned("attention_train", qkv, out)
     _build.launch("mhada_attention_train_fwd", qkv.device, qkv, out, lse, b,
                   l, c3 // 3, num_heads, float(scale), _build.dtype_code(qkv))
     return out, lse
@@ -95,6 +96,7 @@ def _bwd_kernel(qkv, lse, delta, g, num_heads, scale):
     b, l, c3 = qkv.shape
     _build.check_cuda_inputs("attention_train", qkv, g)
     dqkv = torch.empty_like(qkv)
+    _build.check_aligned("attention_train", qkv, g, dqkv)
     _build.launch("mhada_attention_train_bwd", qkv.device, qkv, g, lse,
                   delta, dqkv, b, l, c3 // 3, num_heads, float(scale),
                   _build.dtype_code(qkv))

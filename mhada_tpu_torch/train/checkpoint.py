@@ -4,7 +4,10 @@
 - per-network weights ``{AdaFormer,ViT_C,ViT_S}{suffix}.pth``: reference
   state_dicts, so the reference and ``interop.load_pth_params`` read them;
   the suffix is ``_epoch_{E}_batchSize_{B}`` at an epoch's end and empty for
-  the rolling snapshots;
+  the rolling snapshots.  Beside the AdaFormer file a sidecar
+  ``AdaFormer{suffix}.pth.json`` names the attention mode the weights were
+  trained with (``read_attn_mode``), since a reference state_dict cannot
+  carry it and reference weights need the batch-coupled mode;
 - ``checkpoint_epoch_{E}_batchSize_{B}.pth`` holding {epoch, batch_size,
   model_state {adaFormer, vit_c, vit_s}, optim_state}: the filename is
   load-bearing, as video training resumes from the image run's epoch-20
@@ -16,6 +19,7 @@ checkpoint's Adam state belongs to other modules, so resuming from one
 restarts Adam, as the JAX package does (checkpoint.py:61-83).
 """
 
+import json
 import os
 import re
 
@@ -29,12 +33,27 @@ FILE_NAMES = {"adaFormer": "AdaFormer", "vit_c": "ViT_C", "vit_s": "ViT_S"}
 
 
 def save_weights(directory: str, models: dict, num_layers: int = 3,
-                 num_heads: int = 8, suffix: str = "") -> None:
-    """The three networks as reference ``.pth`` state_dicts."""
+                 num_heads: int = 8, suffix: str = "",
+                 attn_mode: str = "spatial") -> None:
+    """The three networks as reference ``.pth`` state_dicts, and the
+    AdaFormer file's sidecar naming ``attn_mode``."""
     os.makedirs(directory, exist_ok=True)
     sds = export_state_dicts(models, num_layers, num_heads)
     for key, fname in FILE_NAMES.items():
         torch.save(sds[key], os.path.join(directory, f"{fname}{suffix}.pth"))
+    ada = os.path.join(directory, f"{FILE_NAMES['adaFormer']}{suffix}.pth")
+    with open(ada + ".json", "w") as f:
+        json.dump({"attn_mode": attn_mode, "writer": WRITER}, f)
+
+
+def read_attn_mode(ada_path: str) -> str | None:
+    """The attention mode in the sidecar of an AdaFormer ``.pth`` this
+    package wrote, or None (a reference file has no sidecar)."""
+    try:
+        with open(f"{ada_path}.json") as f:
+            return json.load(f)["attn_mode"]
+    except FileNotFoundError:
+        return None
 
 
 def save_checkpoint(directory: str, epoch: int, batch_size: int,

@@ -102,10 +102,11 @@ def main(argv=None):
                         + f" ({rate:.1f} img/s)", flush=True)
                 if idx % 100 == 0:
                     ckpt.save_weights(args.models_dir, models, m.num_layers,
-                                      m.num_heads)
+                                      m.num_heads, attn_mode=m.attn_mode)
             ckpt.save_weights(
                 args.models_dir, models, m.num_layers, m.num_heads,
-                suffix=f"_epoch_{epoch}_batchSize_{cfg.batch_size}")
+                suffix=f"_epoch_{epoch}_batchSize_{cfg.batch_size}",
+                attn_mode=m.attn_mode)
             ckpt.save_checkpoint(args.models_dir, epoch, cfg.batch_size,
                                  models, optimizers, m.num_layers,
                                  m.num_heads)

@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain twins on the card, at small
 and ragged shapes (partial query/key tiles, partial decoder tiles, tiny
 images) that the 512^2 path never produces, and K1 / K4 just past the TPU
-kernels' single-pass limit of 4096 keys.  The training kernels K6, K7 and
+kernels' single-pass limit of 4096 keys.  K1 and K6 (at bf16 on the tensor
+cores) also at lengths that are no multiple of 16, with 1, 2 and 8 heads;
+a second call must repeat the first bit for bit, and a bfloat16 tensor
+that is not 16-byte aligned must raise.  The training kernels K6, K7 and
 K8 are held forward and backward (outputs and input gradients), K6 and K7
 also at ragged lengths past the TPU training kernels' 2048-key window,
 K2's VJP against autograd of the unfused LayerNorm and linear, and the
@@ -19,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from mhada_tpu_torch import _build
+from mhada_tpu_torch.ops import attention_train as attention_train_ops
 from mhada_tpu_torch.ops.attention_kernel import attention_tm
 from mhada_tpu_torch.ops.attention_train import attention_train
 from mhada_tpu_torch.ops.decoder_c6 import c6_conv
@@ -79,12 +83,21 @@ def _check(entry, run, dtype, launches=1):
         assert err <= 2 * err_plain, (err, err_plain)
 
 
+# (batch, tokens, heads) of the attention kernels: ragged lengths (not a
+# multiple of 16 or 64), 1, 2 and 8 heads, and past 4096 keys.
+ATTN_SHAPES = [(2, 100, 2), (1, 64, 2), (1, 7, 2), (1, 80, 1), (2, 1000, 8),
+               (1, 2049, 8)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,l", [(2, 100), (1, 64), (1, 7), (1, 4160)])
-def test_attention_kernel(gen, dtype, b, l):
-    qkv = _rnd(gen, dtype, b, l, 384)
+@pytest.mark.parametrize("b,l,heads", ATTN_SHAPES + [(1, 4160, 2)])
+def test_attention_kernel(gen, dtype, b, l, heads):
+    """K1 against its twin; a second call repeats the first bit for bit."""
+    qkv = _rnd(gen, dtype, b, l, 3 * 64 * heads)
     _check("mhada_attention_fwd",
-           lambda be, dt: attention_tm(qkv.to(dt), 2, backend=be), dtype)
+           lambda be, dt: attention_tm(qkv.to(dt), heads, backend=be), dtype)
+    first, again = (attention_tm(qkv.to(dtype), heads) for _ in range(2))
+    assert torch.equal(first, again)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -204,6 +217,27 @@ def test_mm_probe_kernel(gen, m, k, n):
 
 
 def test_kernel_rejects_bad_input(gen):
+    """Bad shapes, strides and dtypes raise; so does a bfloat16 qkv or dO
+    that does not start on a 16-byte boundary (a contiguous view one element
+    into a buffer), before any launch."""
+    b, l, c = 1, 16, 128
+
+    def off(*shape):
+        buf = torch.zeros(torch.Size(shape).numel() + 1, device="cuda",
+                          dtype=torch.bfloat16)
+        return buf[1:].view(shape)
+
+    qkv, g = off(b, l, 3 * c), off(b, l, c)
+    good = torch.zeros(b, l, 3 * c, device="cuda", dtype=torch.bfloat16)
+    stats = torch.zeros(b, 2, l, device="cuda")
+    before = dict(_build.LAUNCHES)
+    for call in (lambda: attention_tm(qkv, 2),
+                 lambda: attention_train(qkv, 2),
+                 lambda: attention_train_ops._bwd_kernel(
+                     good, stats, stats, g, 2, 0.125)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            call()
+    assert _build.LAUNCHES == before
     qkv = _rnd(gen, torch.float32, 1, 16, 384)
     with pytest.raises(ValueError, match="head dim"):
         attention_tm(qkv, 4)
@@ -260,14 +294,23 @@ def _check_train(entries, run, dtype, inputs, cot):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,l,heads", [(2, 100, 2), (1, 7, 1), (1, 130, 2),
-                                       (1, 4100, 2)])
+@pytest.mark.parametrize("b,l,heads", ATTN_SHAPES + [(1, 130, 2),
+                                                     (1, 4100, 2)])
 def test_attention_train_kernels(gen, dtype, b, l, heads):
+    """K6 forward and backward against the twins; a second call repeats the
+    output and all three gradients bit for bit (no atomics)."""
     qkv = _rnd(gen, dtype, b, l, 3 * 64 * heads, scale=0.5)
     cot = _rnd(gen, dtype, b, l, 64 * heads)
+
+    def run(be, x):
+        return attention_train(x, heads, backend=be)
+
     _check_train(["mhada_attention_train_fwd", "mhada_attention_train_bwd"],
-                 lambda be, x: attention_train(x, heads, backend=be), dtype,
-                 [qkv], cot)
+                 run, dtype, [qkv], cot)
+    first, again = (_fwd_bwd(run, "kernel", dtype, [qkv], cot)
+                    for _ in range(2))
+    for i, (x, y) in enumerate(zip(first, again)):
+        assert torch.equal(x, y), i
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
