@@ -3,23 +3,25 @@
 
     python3 chip_smoke.py        # from the root of the repository
 
-1. environment: torch / CUDA versions, the card's name and power limit;
+1. environment: torch / CUDA versions, the card's name and power limit,
+   whether cv2 imports (reported, never failed);
 2. build: compile mhada_tpu_torch/csrc/*.cu with nvcc (one per source, in
-   parallel); the bf16 tensor-core kernels of K1 and K6 must each hold
-   HMMA.16816.F32.BF16 in their SASS (cuobjdump) and spill nothing (ptxas),
-   and no bf16 instantiation of the CUDA-core attention tile or backward
-   may exist;
+   parallel); the bf16 tensor-core kernels of K1, K6, K3 and K7 (forward,
+   dQ and dK/dV) must each hold HMMA.16816.F32.BF16 in their SASS
+   (cuobjdump) and spill nothing (ptxas), and no bf16 instantiation of the
+   CUDA-core tiles they replaced may exist (K4's stays, named);
 3. gates: each hand-written kernel against its plain PyTorch version on the
    card, in float32 and bfloat16, at the 512^2 path's shapes and at the
    1024^2 shapes (K2 at N = 16384; K3 at M = 16384; K5 from 512^2 to
    1024^2; K1 at L = 16384 for the TPU's K9; K4 at N = M = 16384 for the
    TPU's K10); K13 (c6) at 512^2 with B = 1 and 8 and at 1024^2; K14 (c1
    -> c3) at 128^2 with B = 1 and 8 and at 256^2; P2 at B = 8, N = M =
-   4096, also against K3; P1 at its 8 shapes (bfloat16), each with its
-   time, the plain version's, the PyTorch library call's where one
-   computes the same function (named in the record), and the least time
-   the card could take (its bound); then the probes' CLIs, their launches
-   counted;
+   4096, also against K3 at float32; P1 at its 8 shapes (bfloat16), each
+   with its time, the plain version's, the PyTorch library call's where one
+   computes the same function or, for K3, K4, K7 and P2, their products (SDPA
+   on [V | V^2] with scale 1; named in the record with its backend), and
+   the least time the card could take (its bound); then the probes' CLIs,
+   their launches counted;
 4. main paths, each driven with the launch counts set to 0 just before it
    and read just after, and held against the plain path on the same
    weights:
@@ -175,6 +177,8 @@ PATH_NOTES = {
 SDPA = "torch.nn.functional.scaled_dot_product_attention"
 MM_REPS = 100   # P1's products per launch in its gate (and cuBLAS calls)
 NO_LIB = "no single PyTorch call computes this function"
+# The MHAda core's yardstick: SDPA on [V | V^2] with scale 1 gives M1 | E2.
+MHADA_SDPA = f"{SDPA} on [V | V^2], scale 1"
 # gate -> (its row, kind of inputs, token count, batch); the first gate of
 # a row fills the row.  K13: the c5 side; K14: the up1 output's side; P1:
 # the index of the probe's shape (bfloat16 only); P2: tokens.
@@ -286,9 +290,10 @@ BELOW_DQ = {"float32": 1e-3, "bfloat16": 1e-1}
 # differ only in summation order (TF32 is off), ~1e-6 expected.  bfloat16:
 # both round intermediates to bf16 (2^-8 relative) at different points.
 REL_BOUND = {"float32": 1e-4, "bfloat16": 3e-2}
-# P2 against K3: the same arithmetic in the same order; at bf16 a float32
-# difference in the last place may move one output by a bf16 step.
-PIPE_K3_REL = {"float32": 1e-6, "bfloat16": 2 ** -7}
+# P2 against K3 at float32: the same arithmetic in the same order.  At
+# bfloat16 K3 runs on the tensor cores and P2 stays on the CUDA cores, so
+# P2 is held to its own plain version only (its gate).
+PIPE_K3_REL = 1e-6
 # Main-path bound on max |pixel difference| (0-255) against the plain path.
 # float32: the repo's reference gate (scripts/reference_gate.py:63); 0.0016
 # measured on an H100.  bfloat16: pixels of 128-255 are stored with a
@@ -300,10 +305,22 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 DTYPE_NAMES = ("float32", "bfloat16")
 # The bf16 tensor-core kernels of K1 and K6 (csrc/attention_mma.cuh,
-# csrc/attention_bwd_mma.cuh) and the instruction each must contain.
+# csrc/attention_bwd_mma.cuh), K3 and K7 (csrc/mhada_mma.cuh: K3 and K7's
+# forward; csrc/mhada_bwd_mma.cuh) and the instruction each must contain.
 MMA_KERNELS = ("attention_mma_fwd_kernel", "attention_mma_dkv_kernel",
-               "attention_mma_dq_kernel")
+               "attention_mma_dq_kernel", "mhada_mma_fwd_kernel",
+               "mhada_mma_dkv_kernel", "mhada_mma_dq_kernel")
 HMMA = "HMMA.16816.F32.BF16"
+# bf16 instantiations of the CUDA-core tiles that no path may reach any
+# more (mangled names): the attention tile and backward (kMhada = false),
+# K7's forward tile (kMhada, kRes) and backward (kMhada), K3's tile (a
+# float32-only kernel now; the pattern catches a bf16 template of it).
+OLD_BF16 = (r"flash_tile_kernelI13__nv_bfloat16Lb0E"
+            r"|flash_tile_kernelI13__nv_bfloat16Lb1ELb1E"
+            r"|flash_bwd_(dkv|dq)_kernelI13__nv_bfloat16"
+            r"|mhada_prologue_kernelI13__nv_bfloat16")
+# ... and the one that stays: K4's tile (kMhada, not kRes), not redesigned.
+K4_BF16 = r"flash_tile_kernelI13__nv_bfloat16Lb1ELb0E"
 
 
 def all_gates():
@@ -338,9 +355,9 @@ def ptxas_summary(log: str) -> str:
 def mma_report(lib):
     """The bf16 tensor-core kernels in the built library -> (ok, text): each
     kernel's registers and spilled bytes (ptxas), its count of HMMA in the
-    SASS (cuobjdump), and any bf16 instantiation of the CUDA-core attention
-    tile or backward (flash_tile.cuh, flash_bwd.cuh with kMhada = false),
-    which no path may reach."""
+    SASS (cuobjdump), and any bf16 instantiation of a CUDA-core tile that
+    the tensor-core kernels replaced (OLD_BF16), which no path may reach;
+    K4's, which stays, is named."""
     from mhada_tpu_torch import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -369,9 +386,10 @@ def mma_report(lib):
             ok = ok and hmma > 0 and info.get("spill") == 0
             out.append(f"{f}: {info.get('regs')} regs, {info.get('spill')} "
                        f"B spilled, {hmma} x {HMMA}")
-    old = [f for f in funcs if re.search(
-        r"flash_(tile|bwd_dkv|bwd_dq)_kernelI13__nv_bfloat16Lb0E", f)]
-    out.append(f"bf16 CUDA-core attention instantiations: {old or 'none'}")
+    old = [f for f in funcs if re.search(OLD_BF16, f)]
+    out.append(f"replaced bf16 CUDA-core instantiations: {old or 'none'}")
+    out.append("bf16 CUDA-core tile left (K4): "
+               f"{[f for f in funcs if re.search(K4_BF16, f)] or 'none'}")
     return ok and not old, "; ".join(out)
 
 
@@ -396,6 +414,68 @@ def bound(flops, nbytes, dname):
     t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def mhada_sdpa(q, k, v, heads):
+    """The MHAda core's products as one library call, from token-major q
+    (B, N, C) and k, v (B, M, C): a call of SDPA on (B, H, L, 64) views and
+    the (B, H, M, 128) [V | V^2] (V^2 squared in v's dtype, made here), with
+    scale 1 -> (B, H, N, 128), M1 | E2.  It leaves out the MHAda epilogue
+    (and K3's instance norm and projection)."""
+    import torch
+    import torch.nn.functional as F
+
+    qh, kh, vh = (t.unflatten(-1, (heads, -1)).transpose(1, 2)
+                  for t in (q, k, v))
+    vv = torch.cat([vh, vh * vh], dim=-1)
+    return lambda: F.scaled_dot_product_attention(qh, kh, vv, scale=1.0)
+
+
+def sdpa_backend(run):
+    """The first SDPA backend (flash, cuDNN, memory-efficient, math) under
+    which ``run()`` completes -> (its name, ``run`` under it): flash may
+    refuse a value head dim unlike the query's, and float32."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    names = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION",
+             "MATH")
+    for be in (getattr(SDPBackend, n) for n in names if hasattr(SDPBackend,
+                                                                 n)):
+        try:
+            with warnings.catch_warnings(), sdpa_kernel(be):
+                warnings.simplefilter("ignore")
+                run()
+        except RuntimeError:
+            continue
+
+        def forced(be=be):
+            with sdpa_kernel(be):
+                return run()
+        return be.name.lower(), forced
+    raise RuntimeError("no SDPA backend takes the MHAda yardstick")
+
+
+def mhada_library(q, k, v, heads, what):
+    """(name, call) of the MHAda yardstick on the gate's inputs."""
+    backend, call = sdpa_backend(mhada_sdpa(q, k, v, heads))
+    return (f"{MHADA_SDPA} ({backend} backend); leaves out {what}", call)
+
+
+def prologue_library(fc, stats, wf, fb, k, v, heads):
+    """(name, call) of the MHAda yardstick for K3 and P2: its q is the
+    prologue's (IN(fc) Wf_h + fb_h, rounded as the plain version rounds),
+    made outside the timing."""
+    import torch
+
+    dtype = fc.dtype
+    qn = ((fc.float() - stats[:, None, 0]) * stats[:, None, 1]).to(dtype)
+    q = (torch.einsum("bnhd,hde->bnhe", qn.float().unflatten(-1, (heads, 64)),
+                      wf.to(dtype).float())
+         + fb.to(dtype).float()).flatten(2).to(dtype)
+    return mhada_library(q, k, v, heads, "K3's instance norm and projection "
+                         "and the MHAda epilogue")
 
 
 def gate_inputs(kind, n, dtype, g, b=1):
@@ -459,13 +539,15 @@ def gate_inputs(kind, n, dtype, g, b=1):
         return (lambda be: mhada_prologue.mhada_fused_prologue(
             fc, fcs, stats, wf, fb, k, v, backend=be),
             6 * n * n * c + 2 * n * c * 64,
-            5 * n * c * es + 4 * c * 4 + heads * 64 * (64 * es + 4), None)
+            5 * n * c * es + 4 * c * 4 + heads * 64 * (64 * es + 4),
+            prologue_library(fc, stats, wf, fb, k, v, heads))
     if kind == "mhada":
         q, k = rnd(1, n, c, scale=0.35), rnd(1, n, c, scale=0.35)
         v, f = rnd(1, n, c), rnd(1, n, c)
         return (lambda be: mhada_kernel.mhada_tm(q, k, v, f, heads,
                                                  backend=be),
-                6 * n * n * c, 5 * n * c * es, None)
+                6 * n * n * c, 5 * n * c * es,
+                mhada_library(q, k, v, heads, "the MHAda epilogue"))
     def conv(co, ci):
         """A conv's init U(-1/sqrt(fan_in), 1/sqrt(fan_in)), float32."""
         bound_ = 1 / (ci * 9) ** 0.5
@@ -512,11 +594,12 @@ def gate_inputs(kind, n, dtype, g, b=1):
                  "TF32 off)", convrelu3))
     if kind == "pipe":
         inputs = mhada_pipe_probe.probe_inputs(b, n, n, c, heads, dtype, dev)
+        fc, _, stats, wf, fb, k, v = inputs
         return (lambda be: mhada_pipe_probe.mhada_fused_prologue_pipe(
             *inputs, backend=be),
             b * (6 * n * n * c + 2 * n * c * 64),
             b * 5 * n * c * es + b * 4 * c * 4 + heads * 64 * (64 * es + 4),
-            None)
+            prologue_library(fc, stats, wf, fb, k, v, heads))
     if kind == "mm":
         m, k, nn = mm_probe.SHAPES[n]
         a, bm = mm_probe.operands(m, k, nn, dev)
@@ -575,17 +658,17 @@ def run_gate(gate, kind, n, b, dname, card):
         f"{card}); peak memory {peak_gb:.2f} GB"), rec
 
 
-def pipe_against_k3(dname):
-    """P2 against K3 on the same inputs at the probe's shape (B = 8, N = M
-    = 4096): the same float32 arithmetic in the same order -> ok."""
+def pipe_against_k3():
+    """P2 against K3 on the same float32 inputs at the probe's shape (B = 8,
+    N = M = 4096): the same arithmetic in the same order -> ok."""
     import torch
 
     from mhada_tpu_torch.ops.mhada_prologue import mhada_fused_prologue
     from mhada_tpu_torch.probes import mhada_pipe_probe as pp
 
-    label = f"P2 against K3 {dname}"
+    label = "P2 against K3 float32"
     try:
-        inputs = pp.probe_inputs(**pp.SHAPE, dtype=getattr(torch, dname),
+        inputs = pp.probe_inputs(**pp.SHAPE, dtype=torch.float32,
                                  device="cuda")
         with torch.inference_mode():
             pipe = pp.mhada_fused_prologue_pipe(*inputs).float()
@@ -593,9 +676,9 @@ def pipe_against_k3(dname):
             rel = (pipe - k3).abs().max().item() / k3.abs().max().item()
     except Exception as e:
         return phase(label, False, f"{type(e).__name__}: {e}")
-    limit = PIPE_K3_REL[dname]
-    return phase(label, rel <= limit,
-                 f"max|P2 - K3| / max|K3| {rel:.3e} (bound {limit:.1e})")
+    return phase(label, rel <= PIPE_K3_REL,
+                 f"max|P2 - K3| / max|K3| {rel:.3e} (bound "
+                 f"{PIPE_K3_REL:.1e})")
 
 
 def run_probes(launches):
@@ -688,6 +771,20 @@ def train_gate_inputs(kind, dtype, g, b, n):
         _, m1, e2, lse = mt.mhada_train_fwd_plain(q, k, v, f, heads)
         dm1, de2, delta, _ = mt.mhada_train_prologue(cot, f, m1, e2, heads,
                                                      dtype)
+        # the yardstick's backward: autograd of SDPA on [V | V^2] (and of
+        # the square and concatenation) from [dM1 | dE2], the graph built
+        # once under the first backend whose backward runs
+        lib_in = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_cot = torch.cat([t.unflatten(-1, (heads, 64)).transpose(1, 2)
+                             for t in (dm1, de2)], dim=-1)
+
+        def lib_graph():
+            out = mhada_sdpa(*lib_in, heads)()
+            torch.autograd.grad(out, lib_in, lib_cot, retain_graph=True)
+            return out
+
+        lib_backend, lib_graph = sdpa_backend(lib_graph)
+        lib_out = lib_graph()
         return dict(
             run=lambda be, *a: mt.mhada_train(*a, heads, be),
             inputs=[q, k, v, f], cot=cot,
@@ -705,7 +802,11 @@ def train_gate_inputs(kind, dtype, g, b, n):
             flops=(6 * b * n * n * c, 14 * b * n * n * c),
             bytes=(5 * b * n * c * es + 8 * b * n * c + 4 * b * heads * n,
                    8 * b * n * c * es + 8 * b * heads * n),
-            lib=(None, None))
+            lib=(mhada_library(q, k, v, heads, "the MHAda epilogue"),
+                 (f"backward of {MHADA_SDPA} ({lib_backend} backend; "
+                  "torch.autograd.grad); leaves out the MHAda prologue",
+                  lambda: torch.autograd.grad(lib_out, lib_in, lib_cot,
+                                              retain_graph=True))))
     if kind == "tail":
         h = n
         x = rnd(b, h, h, 128).abs()
@@ -1163,6 +1264,12 @@ def main() -> int:
           f"python {sys.version.split()[0]} device "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     print(card, flush=True)
+    try:   # reported for the video CLI's sake; never fails the run
+        import cv2
+        cv2_txt = f"cv2 {cv2.__version__} imports"
+    except ImportError as e:
+        cv2_txt = f"cv2 does not import ({e})"
+    phase("opencv", True, cv2_txt)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1194,8 +1301,7 @@ def main() -> int:
                 continue
             gates.setdefault(gate, {})[dname] = rec
             ok = good and ok
-    for dname in DTYPE_NAMES:
-        ok = pipe_against_k3(dname) and ok
+    ok = pipe_against_k3() and ok
     launches = {}   # path -> launch counts of its float32 run
     ok = run_probes(launches) and ok
 

@@ -42,13 +42,6 @@
 
 namespace mhada {
 
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kMmaRows = 16 * kMmaWarps;   // rows of a block: 64
-constexpr int kMmaStages = 2;              // depth of the cp.async rings
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
 struct AttnMmaArgs {
   const __nv_bfloat16* qkv;   // (B, L, 3C)
   const __nv_bfloat16* g;     // backward: dO (B, L, C)
@@ -65,8 +58,7 @@ struct AttnMmaArgs {
 // 8, as the 16-byte copies of the rows need.
 inline bool make_mma_args(AttnMmaArgs& a, const void* qkv, const void* g,
                           void* out, int seq, int channels, float scale) {
-  if (((uintptr_t)qkv | (uintptr_t)g | (uintptr_t)out) % 16 || channels % 8)
-    return false;
+  if (!mma_aligned({qkv, g, out}, channels)) return false;
   a.qkv = static_cast<const __nv_bfloat16*>(qkv);
   a.g = static_cast<const __nv_bfloat16*>(g);
   a.out = static_cast<__nv_bfloat16*>(out);

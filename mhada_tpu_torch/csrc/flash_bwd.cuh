@@ -1,7 +1,7 @@
 // Backward of the 64-wide attention tile on the CUDA cores, shared by the
-// MHAda core (mhada_train.cu, K7) at float32 and bfloat16 and the ViT
-// self-attention (attention_train.cu, K6) at float32 only: K6's bfloat16
-// backward runs on the tensor cores (attention_bwd_mma.cuh).
+// MHAda core (mhada_train.cu, K7) and the ViT self-attention
+// (attention_train.cu, K6) at float32 only: their bfloat16 backwards run on
+// the tensor cores (mhada_bwd_mma.cuh, attention_bwd_mma.cuh).
 //
 // Per head, with P rebuilt from the forward's row log-sum-exp:
 //

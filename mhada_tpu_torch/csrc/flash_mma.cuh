@@ -1,9 +1,11 @@
-// Warp-level building blocks of the tensor-core attention kernels
-// (attention_mma.cuh, attention_bwd_mma.cuh), written to be reused by the
-// MHAda tiles: the bf16 m16n8k16 product with float32 accumulators,
+// Warp-level building blocks of the tensor-core kernels (attention_mma.cuh,
+// attention_bwd_mma.cuh, mhada_mma.cuh, mhada_bwd_mma.cuh): the block
+// shape, the alignment check of their entry points, the bf16 m16n8k16
+// product with float32 accumulators,
 // ldmatrix (plain and transposed), 16-byte cp.async copies with zero fill,
 // the quad reductions over an accumulator fragment, and the conversion of a
-// float32 accumulator fragment into a bf16 A-operand fragment in registers.
+// float32 accumulator fragment into a bf16 A-operand fragment in registers,
+// and the bf16 square of a packed operand pair (MHAda's V^2).
 //
 // Fragment layouts of mma.sync.m16n8k16 (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), with g = lane / 4 and t = lane % 4:
@@ -24,7 +26,27 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 namespace mhada {
+
+// The block shape of every tensor-core kernel: 4 warps of 16 rows.
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kMmaRows = 16 * kMmaWarps;   // rows of a block: 64
+constexpr int kMmaStages = 2;              // depth of the cp.async rings
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// True when every pointer is 16-byte aligned and channels is a multiple of
+// 8, as the 16-byte copies of the rows of the bf16 kernels need.
+inline bool mma_aligned(std::initializer_list<const void*> ptrs,
+                        int channels) {
+  uintptr_t any = 0;
+  for (const void* p : ptrs) any |= reinterpret_cast<uintptr_t>(p);
+  return any % 16 == 0 && channels % 8 == 0;
+}
+
 namespace mma {
 
 constexpr int kMmaStride = 72;   // bf16 elements per shared row (144 bytes)
@@ -96,6 +118,21 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The two bf16 of a packed pair (lo in the low half) as float32.
+__device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
+  return make_float2(__uint_as_float(x << 16),
+                     __uint_as_float(x & 0xffff0000u));
+}
+
+// Both bf16 of a packed pair squared with one rounding to bf16 (the exact
+// product, then round to nearest even): what jnp.square gives on a bf16
+// array.  The -0 addend leaves x * x unchanged.
+__device__ __forceinline__ uint32_t square_bf16x2(uint32_t x) {
+  uint32_t y;
+  asm("fma.rn.bf16x2 %0, %1, %1, %2;\n" : "=r"(y) : "r"(x), "r"(0x80008000u));
+  return y;
 }
 
 // Max and sum over the four lanes of a quad (the lanes that share a

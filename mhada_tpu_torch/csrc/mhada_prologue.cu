@@ -17,12 +17,12 @@
 // fc, fcs and out are token-major (B, N, C), k and v (B, M, C), stats
 // (B, 4, C) float32, wf (H, 64, 64) as (in, out) in T, fb (H, 64) float32.
 //
-// Design: the block is K4's tile (flash_tile.cuh).  The prologue loads the
-// block's 64 raw fc rows of head h, normalises them with the stats into
-// the P^T buffer (unused until the first key tile) and multiplies them by
-// Wf_h, staged in shared memory (16 KB at float32 on top of the tile's
-// 65 KB), into the Q^T buffer.  The key loop is K4's, unscaled.  The
-// epilogue normalises raw fcs with the stats.  Neither q nor IN(fcs) ever
+// Design at float32: the block is K4's tile (flash_tile.cuh).  The
+// prologue loads the block's 64 raw fc rows of head h, normalises them with
+// the stats into the P^T buffer (unused until the first key tile) and
+// multiplies them by Wf_h, staged in shared memory (16 KB at float32 on top
+// of the tile's 65 KB), into the Q^T buffer.  The key loop is K4's,
+// unscaled.  The epilogue normalises raw fcs with the stats.  Neither q nor IN(fcs) ever
 // reaches device memory, which is what the TPU kernel kept out of HBM.
 // The TPU kernel packed two heads' Wf into 128 lanes and concatenated
 // [V | V^2] to fill its MXU; neither exists here (V^2 is formed in
@@ -32,9 +32,13 @@
 //
 // What bounds it on the card: 6 N M d flops per head for the attention and
 // 2 N d^2 for the projection (51.5 + 0.3 GFLOP at N = M = 4096, 8 heads)
-// against (3 N + 2 M) C element reads and writes: compute-bound.  This
-// first version runs float32 FMAs on the CUDA cores, not the tensor cores.
+// against (3 N + 2 M) C element reads and writes: compute-bound.  bfloat16
+// runs on the tensor cores (mhada_mma.cuh: the prologue's projection, Q
+// K^T and P [V | V^2] on mma.sync with bf16 operands and float32
+// accumulators, q kept in registers); float32 keeps computing in float32,
+// as FMAs on the CUDA cores (the tile above).
 
+#include "mhada_mma.cuh"
 #include "mhada_prologue.cuh"
 
 namespace {
@@ -47,53 +51,71 @@ using mhada::kHeadDim;
 constexpr size_t kSmemBytes =
     mhada::kFlashSmemBytes + sizeof(float) * kHeadDim * kHeadDim;
 
-template <typename T>
+// The float32 tile (bfloat16 runs mhada_mma.cuh's).
 __global__ void __launch_bounds__(kFlashThreads)
     mhada_prologue_kernel(mhada::FlashArgs a, const float* __restrict__ stats,
-                          const T* __restrict__ wf,
+                          const float* __restrict__ wf,
                           const float* __restrict__ fb, int channels) {
   extern __shared__ float smem[];
   const FlashSmem s = mhada::flash_smem(smem);
   float* wfs = s.ps + mhada::kBK * mhada::kTPad;  // [d_in][d_out]
 
   // qn^T goes through the P^T buffer, unused until the first key tile.
-  mhada::prologue_queries<T>(a, stats, wf, fb, channels, s.ps, wfs, s.qs);
+  mhada::prologue_queries<float>(a, stats, wf, fb, channels, s.ps, wfs,
+                                 s.qs);
   // No barrier here: flash_keys' first __syncthreads publishes Q^T, and it
   // writes P^T only after that barrier, when every qn read is done.
   FlashAcc acc;
-  mhada::flash_keys<T, true>(a, s, acc);
-  mhada::prologue_epilogue<T>(a, stats, channels, acc);
+  mhada::flash_keys<float, true>(a, s, acc);
+  mhada::prologue_epilogue<float>(a, stats, channels, acc);
 }
 
-template <typename T>
-cudaError_t mhada_prologue(const void* fc, const void* fcs,
-                           const float* stats, const void* wf,
-                           const float* fb, const void* k, const void* v,
-                           void* out, int batch, int n, int m, int channels,
-                           int heads, cudaStream_t stream) {
+cudaError_t mhada_prologue_f32(const void* fc, const void* fcs,
+                               const float* stats, const void* wf,
+                               const float* fb, const void* k, const void* v,
+                               void* out, int batch, int n, int m,
+                               int channels, int heads, cudaStream_t stream) {
   const mhada::FlashArgs a =
       mhada::prologue_args(fc, fcs, k, v, out, n, m, channels);
   const dim3 grid((n + mhada::kBQ - 1) / mhada::kBQ, heads, batch);
-  return mhada::launch_with_smem(mhada_prologue_kernel<T>, grid,
+  return mhada::launch_with_smem(mhada_prologue_kernel, grid,
                                  dim3(kFlashThreads), kSmemBytes, stream, a,
-                                 stats, static_cast<const T*>(wf), fb,
+                                 stats, static_cast<const float*>(wf), fb,
                                  channels);
 }
 
 }  // namespace
 
 // fc, fcs, out (B, N, C), k, v (B, M, C) and wf (H, 64, 64) in T; stats
-// (B, 4, C) and fb (H, 64) float32.
+// (B, 4, C) and fb (H, 64) float32.  bfloat16: every bf16 pointer 16-byte
+// aligned, channels a multiple of 8.
 extern "C" int mhada_mhada_prologue(const void* fc, const void* fcs,
                                     const void* stats, const void* wf,
                                     const void* fb, const void* k,
                                     const void* v, void* out, int batch,
                                     int n, int m, int channels, int heads,
                                     int dtype, void* stream) {
-  MHADA_DISPATCH_DTYPE(
-      dtype, T,
-      return (int)mhada_prologue<T>(fc, fcs, static_cast<const float*>(stats),
-                                    wf, static_cast<const float*>(fb), k, v,
-                                    out, batch, n, m, channels, heads,
-                                    (cudaStream_t)stream));
+  if (dtype == mhada::kF32)
+    return (int)mhada_prologue_f32(
+        fc, fcs, static_cast<const float*>(stats), wf,
+        static_cast<const float*>(fb), k, v, out, batch, n, m, channels,
+        heads, (cudaStream_t)stream);
+  if (dtype != mhada::kBF16 ||
+      !mhada::mma_aligned({fc, fcs, wf, k, v, out}, channels))
+    return (int)cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
+  mhada::MhadaMmaArgs a{};
+  a.q = static_cast<const bf16*>(fc);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.f = static_cast<const bf16*>(fcs);
+  a.out = static_cast<bf16*>(out);
+  a.stats = static_cast<const float*>(stats);
+  a.wf = static_cast<const bf16*>(wf);
+  a.fb = static_cast<const float*>(fb);
+  a.n = n;
+  a.m = m;
+  a.channels = channels;
+  return (int)mhada::launch_mhada_mma_fwd<true, false>(a, heads, batch,
+                                                       (cudaStream_t)stream);
 }

@@ -1,5 +1,6 @@
-// The fused prologue and epilogue of K3 (mhada_prologue.cu), shared with
-// the probe P2 (mhada_prologue_pipe.cu), which computes the same function
+// The fused prologue and epilogue of K3's CUDA-core tile
+// (mhada_prologue.cu, float32), shared with the probe P2
+// (mhada_prologue_pipe.cu, both dtypes), which computes the same function
 // with another key loop.  Per head h, with the float32 per-channel stats
 // [mean_fc, rstd_fc, mean_fcs, rstd_fcs] of batch b:
 //

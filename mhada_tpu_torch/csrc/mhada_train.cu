@@ -10,11 +10,11 @@
 //   A = softmax(Q K^T)              UNSCALED
 //   M1 = A V,  E2 = A V^2,  out = sqrt(max(E2 - M1^2, 1e-6)) * fcs_n + M1
 //
-// Forward: K4's tile (flash_tile.cuh) that also writes M1 and E2 (float32,
-// (B, N, C)) and the row log-sum-exp ((B, heads, N) float32).  Backward:
-// the wrapper runs the elementwise prologue of _mhada_tm_bwd_impl
-// (mhada_pallas.py:431-448: dfcs_n, the clamped dVar, dM1, dE2 and the row
-// term delta); the two kernels of flash_bwd.cuh then give dQ, dK and
+// Forward: the MHAda tile that also writes M1 and E2 (float32, (B, N, C))
+// and the row log-sum-exp ((B, heads, N) float32).  Backward: the wrapper
+// runs the elementwise prologue of _mhada_tm_bwd_impl (mhada_pallas.py:
+// 431-448: dfcs_n, the clamped dVar, dM1, dE2 and the row term delta); two
+// kernels (dK and dV per key tile, dQ per query tile) then give dQ, dK and
 // dV = P^T dM1 + 2 V * (P^T dE2).  q, fcs_n, dM1, dE2 and dQ are (B, N, C)
 // and k, v, dK, dV (B, M, C), head h at channels [h*64, (h+1)*64).
 //
@@ -22,18 +22,21 @@
 // backward 20 N M d (S and dP = dM1 V^T + dE2 (V^2)^T in both kernels, two
 // P^T products, dS^T Q, dS K; 14 N M d without the recompute), i.e. 26 and
 // 86 GFLOP per call at the training shape (B = 8, N = M = 1024, 8 heads):
-// compute-bound.  This first version runs float32 FMAs on the CUDA cores,
-// not the tensor cores.
+// compute-bound.  bfloat16 runs on the tensor cores (mhada_mma.cuh,
+// mhada_bwd_mma.cuh: mma.sync with bf16 operands and float32 accumulators,
+// V^2 squared in registers); float32 keeps computing in float32, as FMAs on
+// the CUDA cores (flash_tile.cuh, flash_bwd.cuh).
 
 #include "flash_bwd.cuh"
+#include "mhada_bwd_mma.cuh"
 
 namespace {
 
-template <typename T>
-cudaError_t mhada_train_fwd(const void* q, const void* k, const void* v,
-                            const void* fcs_n, void* out, float* m1,
-                            float* e2, float* lse, int batch, int n, int m,
-                            int channels, int heads, cudaStream_t stream) {
+cudaError_t mhada_train_fwd_f32(const void* q, const void* k, const void* v,
+                                const void* fcs_n, void* out, float* m1,
+                                float* e2, float* lse, int batch, int n,
+                                int m, int channels, int heads,
+                                cudaStream_t stream) {
   mhada::FlashArgs a{};
   a.q = q;
   a.k = k;
@@ -49,15 +52,16 @@ cudaError_t mhada_train_fwd(const void* q, const void* k, const void* v,
   a.lse = lse;
   a.m1 = m1;
   a.e2 = e2;
-  return mhada::launch_flash_tile<T, true, true>(a, heads, batch, stream);
+  return mhada::launch_flash_tile<float, true, true>(a, heads, batch,
+                                                     stream);
 }
 
-template <typename T>
-cudaError_t mhada_train_bwd(const void* q, const void* k, const void* v,
-                            const void* dm1, const void* de2,
-                            const float* lse, const float* delta, void* dq,
-                            void* dk, void* dv, int batch, int n, int m,
-                            int channels, int heads, cudaStream_t stream) {
+cudaError_t mhada_train_bwd_f32(const void* q, const void* k, const void* v,
+                                const void* dm1, const void* de2,
+                                const float* lse, const float* delta,
+                                void* dq, void* dk, void* dv, int batch,
+                                int n, int m, int channels, int heads,
+                                cudaStream_t stream) {
   mhada::FlashBwdArgs a{};
   a.q = q;
   a.k = k;
@@ -75,28 +79,47 @@ cudaError_t mhada_train_bwd(const void* q, const void* k, const void* v,
   a.kv_bs = a.dkv_bs = (long long)m * channels;
   a.q_rs = a.g_rs = a.dq_rs = a.kv_rs = a.dkv_rs = channels;
   a.scale = 1.f;
-  return mhada::launch_flash_bwd<T, true>(a, heads, batch, stream);
+  return mhada::launch_flash_bwd<float, true>(a, heads, batch, stream);
 }
 
 }  // namespace
 
 // q, fcs_n, out (B, N, C) and k, v (B, M, C) in T; m1, e2 (B, N, C) and lse
-// (B, heads, N) float32.
+// (B, heads, N) float32.  bfloat16: every bf16 pointer 16-byte aligned,
+// channels a multiple of 8.
 extern "C" int mhada_mhada_train_fwd(const void* q, const void* k,
                                      const void* v, const void* fcs_n,
                                      void* out, void* m1, void* e2, void* lse,
                                      int batch, int n, int m, int channels,
                                      int heads, int dtype, void* stream) {
-  MHADA_DISPATCH_DTYPE(
-      dtype, T,
-      return (int)mhada_train_fwd<T>(
-          q, k, v, fcs_n, out, static_cast<float*>(m1),
-          static_cast<float*>(e2), static_cast<float*>(lse), batch, n, m,
-          channels, heads, (cudaStream_t)stream));
+  if (dtype == mhada::kF32)
+    return (int)mhada_train_fwd_f32(
+        q, k, v, fcs_n, out, static_cast<float*>(m1),
+        static_cast<float*>(e2), static_cast<float*>(lse), batch, n, m,
+        channels, heads, (cudaStream_t)stream);
+  if (dtype != mhada::kBF16 ||
+      !mhada::mma_aligned({q, k, v, fcs_n, out}, channels))
+    return (int)cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
+  mhada::MhadaMmaArgs a{};
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.f = static_cast<const bf16*>(fcs_n);
+  a.out = static_cast<bf16*>(out);
+  a.m1 = static_cast<float*>(m1);
+  a.e2 = static_cast<float*>(e2);
+  a.lse = static_cast<float*>(lse);
+  a.n = n;
+  a.m = m;
+  a.channels = channels;
+  return (int)mhada::launch_mhada_mma_fwd<false, true>(a, heads, batch,
+                                                       (cudaStream_t)stream);
 }
 
 // dm1, de2 (B, N, C) in T; lse, delta (B, heads, N) float32; dq (B, N, C),
-// dk, dv (B, M, C) in T.
+// dk, dv (B, M, C) in T.  bfloat16: every bf16 pointer 16-byte aligned,
+// channels a multiple of 8.
 extern "C" int mhada_mhada_train_bwd(const void* q, const void* k,
                                      const void* v, const void* dm1,
                                      const void* de2, const void* lse,
@@ -104,10 +127,29 @@ extern "C" int mhada_mhada_train_bwd(const void* q, const void* k,
                                      void* dv, int batch, int n, int m,
                                      int channels, int heads, int dtype,
                                      void* stream) {
-  MHADA_DISPATCH_DTYPE(
-      dtype, T,
-      return (int)mhada_train_bwd<T>(
-          q, k, v, dm1, de2, static_cast<const float*>(lse),
-          static_cast<const float*>(delta), dq, dk, dv, batch, n, m, channels,
-          heads, (cudaStream_t)stream));
+  if (dtype == mhada::kF32)
+    return (int)mhada_train_bwd_f32(
+        q, k, v, dm1, de2, static_cast<const float*>(lse),
+        static_cast<const float*>(delta), dq, dk, dv, batch, n, m, channels,
+        heads, (cudaStream_t)stream);
+  if (dtype != mhada::kBF16 ||
+      !mhada::mma_aligned({q, k, v, dm1, de2, dq, dk, dv}, channels))
+    return (int)cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
+  mhada::MhadaBwdArgs a{};
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.g1 = static_cast<const bf16*>(dm1);
+  a.g2 = static_cast<const bf16*>(de2);
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.dq = static_cast<bf16*>(dq);
+  a.dk = static_cast<bf16*>(dk);
+  a.dv = static_cast<bf16*>(dv);
+  a.n = n;
+  a.m = m;
+  a.channels = channels;
+  return (int)mhada::launch_mhada_mma_bwd(a, heads, batch,
+                                          (cudaStream_t)stream);
 }

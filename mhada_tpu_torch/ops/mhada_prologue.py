@@ -1,10 +1,13 @@
 """K3: the MHAda block core on cached style K/V with the instance norm and
 the Q projection fused in (csrc/mhada_prologue.cu).
 
-Port of mhada_tpu/ops/mhada_pallas.py::mhada_fused_prologue.  The plain
-version follows its ``_fused_kernel`` (mhada_pallas.py:143-198) step by
-step, for all heads at once.  Everything stays token-major: head h is the
-channel slice [h*64, (h+1)*64) of fc, fcs, k, v and the output.
+Port of mhada_tpu/ops/mhada_pallas.py::mhada_fused_prologue.  At bfloat16
+the kernel runs on the tensor cores and raises on a tensor that is not
+16-byte aligned; at float32 it computes in float32.  The plain version
+follows its ``_fused_kernel`` (mhada_pallas.py:143-198) step by step, with
+its rounding points, for all heads at once.  Everything stays token-major:
+head h is the channel slice [h*64, (h+1)*64) of fc, fcs, k, v and the
+output.
 """
 
 import torch
@@ -28,10 +31,15 @@ def mhada_fused_prologue_plain(fc, fcs, stats, wf, fb, k, v) -> torch.Tensor:
                      wf.to(k.dtype).float()) + fb.to(k.dtype).float()
     q = q.to(k.dtype).float().transpose(1, 2)                 # (B, H, N, d)
     kh, vh = (_heads(t, h).float() for t in (k, v))          # (B, H, M, d)
-    p = torch.softmax(q @ kh.transpose(-1, -2), dim=-1)      # unscaled
+    s = q @ kh.transpose(-1, -2)                             # unscaled
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    del s
+    denom = p.sum(-1, keepdim=True)
+    # P and V^2 rounded to v's dtype as the product's operands, the product
+    # divided by the unrounded row sum (mhada_pallas.py:182-191)
     p = p.to(v.dtype).float()
-    m1 = p @ vh
-    e2 = p @ vh.square()
+    m1 = p @ vh / denom
+    e2 = p @ vh.square().to(v.dtype).float() / denom
     sd = torch.sqrt(torch.clamp(e2 - m1.square(), min=1e-6))
     fcs_n = _heads((fcs.float() - st[:, None, 2]) * st[:, None, 3], h)
     return (sd * fcs_n + m1).transpose(1, 2).reshape(b, n, c).to(fc.dtype)
@@ -84,6 +92,7 @@ def launch_prologue(entry: str, fc, fcs, stats, wf, fb, k, v) -> torch.Tensor:
         raise ValueError("mhada_fused_prologue: all tensors must be on one "
                          "CUDA device")
     out = torch.empty_like(fc)
+    _build.check_aligned("mhada_fused_prologue", fc, fcs, k, v, wt, out)
     _build.launch(entry, fc.device, fc, fcs, f32[0], wt, f32[1], k, v, out,
                   b, n, k.shape[1], c, heads, _build.dtype_code(fc))
     return out

@@ -8,15 +8,18 @@ its M1/E2/lse residuals (``_mhada_stream_fwd_impl(with_res=True)``,
 pallas_call at mhada_pallas.py:622) and K11, the flash backward
 ``_mhada_stream_bwd_impl`` (dQ at :903, dK/dV at :925).  Both compute the
 same function in another layout; the kernels stream 64-key tiles, so one
-pair serves every length.  Forward: K4's tile also writing M1 and E2
+pair serves every length.  Forward: the MHAda tile also writing M1 and E2
 (float32, (B, N, C)) and the row log-sum-exp ((B, heads, N) float32).
 Backward: the elementwise prologue of ``_mhada_tm_bwd_impl``
 (mhada_pallas.py:431-448, the same as :821-834) in plain torch, then the K7
-backward kernels for dQ, dK and dV = P^T dM1 + 2 V * (P^T dE2).  The
-softmax is unscaled (reference network/adaDecoder.py:11-17); the Var
-clamp's gradient is zero below 1e-6.  The plain versions follow the JAX
-math step by step, with the same rounding points, one head at a time, so
-that at 16384 tokens only one head's (N, M) float32 scores are live.
+backward kernels for dQ, dK and dV = P^T dM1 + 2 V * (P^T dE2).  At
+bfloat16 the kernels run on the tensor cores and raise on a tensor that is
+not 16-byte aligned; at float32 they compute in float32.  The softmax is
+unscaled (reference network/adaDecoder.py:11-17); the Var clamp's gradient
+is zero below 1e-6.  The plain versions follow the JAX math step by step,
+with the same rounding points (P and V^2 rounded to the storage dtype as
+the products' operands), one head at a time, so that at 16384 tokens only
+one head's (N, M) float32 scores are live.
 """
 
 import torch
@@ -29,22 +32,28 @@ from .mhada_kernel import HEAD_DIM
 
 def mhada_train_fwd_plain(q, k, v, fcs_n, num_heads: int):
     """q, fcs_n (B, N, C); k, v (B, M, C) -> (out in q's dtype, M1, E2
-    (B, N, C) float32, lse (B, H, N) float32)."""
+    (B, N, C) float32, lse (B, H, N) float32).  In the order of
+    _tm_res_kernel (mhada_pallas.py:281-301): P = exp(S - max) and V^2 are
+    rounded to q's dtype as the product's operands, and the product is
+    divided by the unrounded row sum."""
+    dt = q.dtype
     d = q.shape[-1] // num_heads
     m1s, e2s, lses = [], [], []
     for h in range(num_heads):
         s = _head(q, h, d) @ _head(k, h, d).transpose(-1, -2)
-        lse = torch.logsumexp(s, dim=-1)
-        p = torch.exp(s - lse[..., None])
+        mx = s.amax(-1, keepdim=True)
+        p = torch.exp(s - mx)
         del s
+        denom = p.sum(-1, keepdim=True)
+        p = p.to(dt).float()
         vh = _head(v, h, d)
-        m1s.append(p @ vh)
-        e2s.append(p @ vh.square())
-        lses.append(lse)
+        m1s.append(p @ vh / denom)
+        e2s.append(p @ vh.square().to(dt).float() / denom)
+        lses.append((mx + torch.log(denom))[..., 0])
         del p
     m1, e2 = torch.cat(m1s, dim=-1), torch.cat(e2s, dim=-1)
     sd = torch.sqrt(torch.clamp(e2 - m1.square(), min=1e-6))
-    return (sd * fcs_n.float() + m1).to(q.dtype), m1, e2, torch.stack(lses, 1)
+    return (sd * fcs_n.float() + m1).to(dt), m1, e2, torch.stack(lses, 1)
 
 
 def mhada_train_prologue(g, fcs_n, m1, e2, num_heads: int, dtype):
@@ -65,7 +74,8 @@ def mhada_train_prologue(g, fcs_n, m1, e2, num_heads: int, dtype):
 
 def mhada_train_bwd_plain(q, k, v, dm1, de2, lse, delta, num_heads: int):
     """_mhada_tm_bwd_kernel's math (mhada_pallas.py:362-421), one head at a
-    time -> (dq, dk, dv) in q's dtype."""
+    time, V^2 rounded to q's dtype as in its [V | V^2] -> (dq, dk, dv) in
+    q's dtype."""
     dt = q.dtype
     d = q.shape[-1] // num_heads
     grads = [[], [], []]
@@ -75,7 +85,8 @@ def mhada_train_bwd_plain(q, k, v, dm1, de2, lse, delta, num_heads: int):
         pt = p.to(dt).float().transpose(-1, -2)
         grads[2].append(pt @ g1 + 2.0 * vh * (pt @ g2))
         del pt
-        da = g1 @ vh.transpose(-1, -2) + g2 @ vh.square().transpose(-1, -2)
+        da = (g1 @ vh.transpose(-1, -2)
+              + g2 @ vh.square().to(dt).float().transpose(-1, -2))
         ds = (p * (da - delta[:, h, :, None])).to(dt).float()
         del p, da
         grads[0].append(ds @ kh)
@@ -90,6 +101,7 @@ def _fwd_kernel(q, k, v, fcs_n, num_heads):
     m1, e2 = (torch.empty((b, n, c), device=q.device, dtype=torch.float32)
               for _ in range(2))
     lse = torch.empty((b, num_heads, n), device=q.device, dtype=torch.float32)
+    _build.check_aligned("mhada_train", q, k, v, fcs_n, out)
     _build.launch("mhada_mhada_train_fwd", q.device, q, k, v, fcs_n, out, m1,
                   e2, lse, b, n, k.shape[1], c, num_heads,
                   _build.dtype_code(q))
@@ -100,6 +112,7 @@ def _bwd_kernel(q, k, v, dm1, de2, lse, delta, num_heads):
     b, n, c = q.shape
     _build.check_cuda_inputs("mhada_train", q, k, v, dm1, de2)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _build.check_aligned("mhada_train", q, k, v, dm1, de2, dq, dk, dv)
     _build.launch("mhada_mhada_train_bwd", q.device, q, k, v, dm1, de2, lse,
                   delta, dq, dk, dv, b, n, k.shape[1], c, num_heads,
                   _build.dtype_code(q))

@@ -9,6 +9,9 @@ from jax.experimental.pallas import tpu as pltpu
 from mhada_tpu.ops.attention_pallas import attention_pallas_tm
 from mhada_tpu_torch.ops.attention_kernel import attention_plain, attention_tm
 
+# Six test workers share the CPU: cap torch's intra-op threads.
+torch.set_num_threads(2)
+
 
 def test_attention_twin_matches_pallas_tm():
     qkv = np.random.default_rng(21).standard_normal((1, 512, 384)) \

@@ -18,6 +18,9 @@ from mhada_tpu_torch.infer import image
 from mhada_tpu_torch.interop import jax_params_to_state_dicts, load_params
 from mhada_tpu_torch.models import build_models
 
+# Six test workers share the CPU: cap torch's intra-op threads.
+torch.set_num_threads(2)
+
 SMALL = dict(num_layers=2, hidden_dim=128, num_heads=2, mlp_dim=256)
 # c6 is conv + ReLU, so this gain scales the random decoder's ~0.04 output
 # into a real picture on both sides (as in test_torch_slice.py).

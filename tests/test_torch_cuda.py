@@ -8,9 +8,13 @@ that is not 16-byte aligned must raise.  The training kernels K6, K7 and
 K8 are held forward and backward (outputs and input gradients), K6 and K7
 also at ragged lengths past the TPU training kernels' 2048-key window,
 K2's VJP against autograd of the unfused LayerNorm and linear, and the
-forward-only wrappers must refuse tensors that require grad.  K13 (c6)
-and K14 (c1 -> c3) are held at small and path shapes, the probes P1 (a
-tensor-core matmul) and P2 (K3 with a cp.async ring, also against K3).
+forward-only wrappers must refuse tensors that require grad.  K3 and K7
+(at bf16 on the tensor cores) also with V = 3 + 0.3 N(0, 1), where E2 -
+M1^2 cancels, K7 at the video-training shape (N = 2048, M = 1024) and
+repeating its gradients bit for bit; a misaligned bf16 input of K3 or K7
+raises too.  K13 (c6) and K14 (c1 -> c3) are held at small and path
+shapes, the probes P1 (a tensor-core matmul) and P2 (K3 with a cp.async
+ring on the CUDA cores, also against K3 at float32).
 
 Marked ``cuda``: each test skips without a card.  On a machine with one (the
 repo conftest imports jax, which that machine need not have):
@@ -30,11 +34,15 @@ from mhada_tpu_torch.ops.decoder_mid import mid3_fused
 from mhada_tpu_torch.ops.decoder_tail import decoder_tail, decoder_tail_train
 from mhada_tpu_torch.ops.ln_matmul import layer_norm, ln_matmul
 from mhada_tpu_torch.ops.mhada_kernel import mhada_tm
+from mhada_tpu_torch.ops import mhada_train as mhada_train_ops
 from mhada_tpu_torch.ops.mhada_train import mhada_train
 from mhada_tpu_torch.ops.instance_norm import instance_norm_stats
 from mhada_tpu_torch.ops.mhada_prologue import mhada_fused_prologue
 from mhada_tpu_torch.probes.mhada_pipe_probe import mhada_fused_prologue_pipe
 from mhada_tpu_torch.probes.mm_probe import mm, mm_plain
+
+# Six test workers share the CPU: cap torch's intra-op threads.
+torch.set_num_threads(2)
 
 pytestmark = pytest.mark.cuda
 
@@ -112,15 +120,26 @@ def test_mhada_kernel(gen, dtype, b, n, m):
                                    backend=be), dtype)
 
 
+# (batch, queries, keys, V's offset) of the MHAda kernels: ragged lengths,
+# N = 1, past 4096 keys; V = 3 + 0.3 N(0, 1) where V's offset is 3.
+MHADA_SHAPES = [(2, 70, 130, 0.0), (1, 1, 200, 0.0), (1, 64, 64, 0.0),
+                (1, 300, 4100, 0.0), (2, 70, 130, 3.0), (1, 300, 4100, 3.0)]
+
+
+def _v(gen, dtype, b, m, shift):
+    """V: N(0, 1), or 3 + 0.3 N(0, 1) when shifted."""
+    return _rnd(gen, dtype, b, m, 128, scale=0.3 if shift else 1.0) + shift
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,n,m", [(2, 70, 130), (1, 1, 200), (1, 64, 64),
-                                   (1, 300, 4100)])
+@pytest.mark.parametrize("b,n,m,shift", MHADA_SHAPES)
 @pytest.mark.parametrize("entry", ["mhada_mhada_prologue",
                                    "mhada_mhada_prologue_pipe"])
-def test_mhada_prologue_kernel(gen, dtype, b, n, m, entry):
+def test_mhada_prologue_kernel(gen, dtype, b, n, m, shift, entry):
     """K3, and the probe P2 of the same function, against the plain
-    version; P2 also against K3: the same float32 arithmetic in the same
-    order, so equal up to the output's rounding."""
+    version; P2 also against K3 at float32: the same arithmetic in the same
+    order, so equal up to the output's rounding (at bf16 K3 runs on the
+    tensor cores, P2 on the CUDA cores)."""
     fn = {"mhada_mhada_prologue": mhada_fused_prologue,
           "mhada_mhada_prologue_pipe": mhada_fused_prologue_pipe}[entry]
     fc = _rnd(gen, dtype, b, n, 128, scale=2.0) + 1
@@ -131,17 +150,17 @@ def test_mhada_prologue_kernel(gen, dtype, b, n, m, entry):
     wf = _rnd(gen, dtype, 2, 64, 64, scale=1 / 8)
     fb = _rnd(gen, dtype, 2, 64, scale=1 / 8)
     k = _rnd(gen, dtype, b, m, 128, scale=0.35)
-    v = _rnd(gen, dtype, b, m, 128)
+    v = _v(gen, dtype, b, m, shift)
 
     def args(dt):
         return fc.to(dt), fcs.to(dt), stats, wf, fb, k.to(dt), v.to(dt)
 
     _check(entry, lambda be, dt: fn(*args(dt), backend=be), dtype)
-    if entry == "mhada_mhada_prologue_pipe":
-        pipe = fn(*args(dtype)).float()
-        k3 = mhada_fused_prologue(*args(dtype)).float()
+    if entry == "mhada_mhada_prologue_pipe" and dtype == torch.float32:
+        pipe = fn(*args(dtype))
+        k3 = mhada_fused_prologue(*args(dtype))
         rel = (pipe - k3).abs().max().item() / k3.abs().max().item()
-        assert rel <= (1e-6 if dtype == torch.float32 else 2 ** -7), rel
+        assert rel <= 1e-6, rel
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -217,9 +236,10 @@ def test_mm_probe_kernel(gen, m, k, n):
 
 
 def test_kernel_rejects_bad_input(gen):
-    """Bad shapes, strides and dtypes raise; so does a bfloat16 qkv or dO
-    that does not start on a 16-byte boundary (a contiguous view one element
-    into a buffer), before any launch."""
+    """Bad shapes, strides and dtypes raise; so does a bfloat16 input of
+    K1, K6, K3 or K7 (qkv, dO, fc, v, k, dE2) that does not start on a
+    16-byte boundary (a contiguous view one element into a buffer), before
+    any launch."""
     b, l, c = 1, 16, 128
 
     def off(*shape):
@@ -230,11 +250,19 @@ def test_kernel_rejects_bad_input(gen):
     qkv, g = off(b, l, 3 * c), off(b, l, c)
     good = torch.zeros(b, l, 3 * c, device="cuda", dtype=torch.bfloat16)
     stats = torch.zeros(b, 2, l, device="cuda")
+    x = torch.zeros(b, l, c, device="cuda", dtype=torch.bfloat16)
+    wf = torch.zeros(2, 64, 64, device="cuda")
+    fb, st4 = torch.zeros(2, 64, device="cuda"), torch.ones(b, 4, c).cuda()
     before = dict(_build.LAUNCHES)
     for call in (lambda: attention_tm(qkv, 2),
                  lambda: attention_train(qkv, 2),
                  lambda: attention_train_ops._bwd_kernel(
-                     good, stats, stats, g, 2, 0.125)):
+                     good, stats, stats, g, 2, 0.125),
+                 lambda: mhada_fused_prologue(g, x, st4, wf, fb, x, x),
+                 lambda: mhada_fused_prologue(x, x, st4, wf, fb, x, g),
+                 lambda: mhada_train(x, g, x, x, 2),
+                 lambda: mhada_train_ops._bwd_kernel(
+                     x, x, x, x, g, stats, stats, 2)):
         with pytest.raises(ValueError, match="16-byte aligned"):
             call()
     assert _build.LAUNCHES == before
@@ -314,16 +342,28 @@ def test_attention_train_kernels(gen, dtype, b, l, heads):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,n,m", [(2, 70, 130), (1, 1, 200), (1, 64, 64),
-                                   (1, 150, 33), (1, 2100, 4100)])
-def test_mhada_train_kernels(gen, dtype, b, n, m):
+@pytest.mark.parametrize("b,n,m,shift", [
+    (2, 70, 130, 0.0), (1, 1, 200, 0.0), (1, 64, 64, 0.0), (1, 150, 33, 0.0),
+    (1, 2100, 4100, 0.0), (1, 2048, 1024, 0.0), (2, 70, 130, 3.0),
+    (1, 2048, 1024, 3.0)])
+def test_mhada_train_kernels(gen, dtype, b, n, m, shift):
+    """K7 forward and backward against the twins (N = 2048, M = 1024: video
+    training's frames against one style); a second call repeats the output
+    and all four gradients bit for bit (no atomics)."""
     q = _rnd(gen, dtype, b, n, 128, scale=0.35)
     k = _rnd(gen, dtype, b, m, 128, scale=0.35)
-    v, f = _rnd(gen, dtype, b, m, 128), _rnd(gen, dtype, b, n, 128)
+    v, f = _v(gen, dtype, b, m, shift), _rnd(gen, dtype, b, n, 128)
     cot = _rnd(gen, dtype, b, n, 128)
-    _check_train(["mhada_mhada_train_fwd", "mhada_mhada_train_bwd"],
-                 lambda be, *a: mhada_train(*a, 2, backend=be), dtype,
-                 [q, k, v, f], cot)
+
+    def run(be, *a):
+        return mhada_train(*a, 2, backend=be)
+
+    _check_train(["mhada_mhada_train_fwd", "mhada_mhada_train_bwd"], run,
+                 dtype, [q, k, v, f], cot)
+    first, again = (_fwd_bwd(run, "kernel", dtype, [q, k, v, f], cot)
+                    for _ in range(2))
+    for i, (x, y) in enumerate(zip(first, again)):
+        assert torch.equal(x, y), i
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -12,6 +12,9 @@ from mhada_tpu_torch.interop import params_from_jax
 from mhada_tpu_torch.models.decoder import Decoder
 from mhada_tpu_torch.ops.decoder_tail import decoder_tail
 
+# Six test workers share the CPU: cap torch's intra-op threads.
+torch.set_num_threads(2)
+
 
 def _oihw(w):
     return torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1)))

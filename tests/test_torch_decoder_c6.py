@@ -19,6 +19,9 @@ from mhada_tpu_torch.models import build_models
 from mhada_tpu_torch.models.decoder import Decoder
 from mhada_tpu_torch.ops.decoder_c6 import c6_conv, c6_conv_plain
 
+# Six test workers share the CPU: cap torch's intra-op threads.
+torch.set_num_threads(2)
+
 SMALL = dict(num_layers=2, hidden_dim=128, num_heads=2, mlp_dim=256)
 
 

@@ -11,6 +11,9 @@ from jax.experimental.pallas import tpu as pltpu
 from mhada_tpu.ops.decoder_mid_pallas import mid3_fused as jax_mid3_fused
 from mhada_tpu_torch.ops.decoder_mid import mid3_fused, mid3_fused_plain
 
+# Six test workers share the CPU: cap torch's intra-op threads.
+torch.set_num_threads(2)
+
 
 def _params(rng, c):
     """Three stages' HWIO weights and biases at test_decoder_mid.py's

@@ -10,6 +10,9 @@ from mhada_tpu.models.layers import layer_norm_fn
 from mhada_tpu.ops.ln_matmul_pallas import ln_matmul as jax_ln_matmul
 from mhada_tpu_torch.ops.ln_matmul import layer_norm, ln_matmul
 
+# Six test workers share the CPU: cap torch's intra-op threads.
+torch.set_num_threads(2)
+
 
 def _inputs(e, f):
     rng = np.random.default_rng((31, e, f))

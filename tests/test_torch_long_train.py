@@ -28,6 +28,9 @@ from mhada_tpu_torch.ops.attention_train import attention_train
 from mhada_tpu_torch.ops.ln_matmul import ln_matmul
 from mhada_tpu_torch.ops.mhada_train import mhada_train, mhada_train_fwd_plain
 
+# Six test workers share the CPU: cap torch's intra-op threads.
+torch.set_num_threads(2)
+
 # the JAX streaming tiles of tests/test_mhada_pallas.py:296-320: 640 keys
 # are three 256-key blocks with a masked tail, so the backward runs its two
 # passes (dQ; dK and dV)

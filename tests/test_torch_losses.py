@@ -16,6 +16,9 @@ from mhada_tpu_torch.models.vgg19 import VGG19Features
 from mhada_tpu_torch.train import losses as L
 from mhada_tpu_torch.utils.features import feature_down_sample
 
+# Six test workers share the CPU: cap torch's intra-op threads.
+torch.set_num_threads(2)
+
 LAYERS = L.LAYERS
 
 

@@ -16,6 +16,9 @@ from mhada_tpu_torch.models.adaformer import AdaAttnMultiHead
 from mhada_tpu_torch.ops.mhada import mhada_attention
 from mhada_tpu_torch.ops.mhada_kernel import mhada_tm
 
+# Six test workers share the CPU: cap torch's intra-op threads.
+torch.set_num_threads(2)
+
 
 def _inputs(b, h, n, m, d, scale):
     rng = np.random.default_rng((41, b, h, n, m, d))

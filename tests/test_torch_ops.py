@@ -9,6 +9,9 @@ import mhada_tpu.ops.pad_conv as jpc
 import mhada_tpu.ops.resize as jrs
 from mhada_tpu_torch.ops import instance_norm, pad_conv, resize
 
+# Six test workers share the CPU: cap torch's intra-op threads.
+torch.set_num_threads(2)
+
 
 def _rng(*key):
     return np.random.default_rng(key)

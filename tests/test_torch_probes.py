@@ -18,6 +18,9 @@ from jax.experimental.pallas import tpu as pltpu
 from mhada_tpu_torch.ops.instance_norm import instance_norm_stats
 from mhada_tpu_torch.probes import mhada_pipe_probe, mm_probe
 
+# Six test workers share the CPU: cap torch's intra-op threads.
+torch.set_num_threads(2)
+
 SCRIPTS = Path(__file__).resolve().parents[1] / "scripts"
 
 

@@ -23,6 +23,9 @@ from mhada_tpu_torch.interop import (jax_params_to_state_dicts, load_params,
                                      load_pth_params)
 from mhada_tpu_torch.models import build_models
 
+# Six test workers share the CPU: cap torch's intra-op threads.
+torch.set_num_threads(2)
+
 SMALL = dict(num_layers=2, hidden_dim=128, num_heads=2, mlp_dim=256)
 # Random decoders output ~0.04 in 0-255 units; c6 is conv + ReLU, so
 # scaling its weight and bias scales the picture exactly and makes the

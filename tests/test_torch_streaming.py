@@ -25,6 +25,9 @@ from mhada_tpu_torch.ops.instance_norm import instance_norm_stats
 from mhada_tpu_torch.ops.mhada_prologue import (mhada_fused_prologue,
                                                 mhada_fused_prologue_plain)
 
+# Six test workers share the CPU: cap torch's intra-op threads.
+torch.set_num_threads(2)
+
 SMALL = dict(num_layers=2, hidden_dim=128, num_heads=2, mlp_dim=256)
 # c6 is conv + ReLU, so this gain scales the random decoder's ~0.04 output
 # into a real picture on both sides (as in test_torch_slice.py).

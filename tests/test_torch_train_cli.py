@@ -17,6 +17,9 @@ from mhada_tpu_torch.train.train_image import (TRAINABLE, init_params,
                                                make_image_train_step,
                                                make_optimizers)
 
+# Six test workers share the CPU: cap torch's intra-op threads.
+torch.set_num_threads(2)
+
 SMALL = dict(num_layers=2, hidden_dim=128, num_heads=2, mlp_dim=256)
 CFG = ImageTrainConfig(model=ModelConfig(**SMALL), batch_size=2,
                        image_size=(32, 32))

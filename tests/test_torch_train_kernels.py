@@ -20,6 +20,9 @@ from mhada_tpu_torch.ops.decoder_tail import (decoder_tail_res_plain,
 from mhada_tpu_torch.ops.mhada_train import (mhada_train,
                                              mhada_train_fwd_plain)
 
+# Six test workers share the CPU: cap torch's intra-op threads.
+torch.set_num_threads(2)
+
 
 def _grad(fn, *args):
     """d sum(sin(fn(*args))) / d args, through torch autograd."""

@@ -28,6 +28,9 @@ from mhada_tpu_torch.train.train_image import (TRAINABLE, init_params,
                                                make_image_train_step,
                                                make_optimizers)
 
+# Six test workers share the CPU: cap torch's intra-op threads.
+torch.set_num_threads(2)
+
 TINY = dict(hidden_dim=64, mlp_dim=128, num_heads=4)
 CFG = ImageTrainConfig(model=ModelConfig(**TINY), batch_size=2,
                        image_size=(32, 32))

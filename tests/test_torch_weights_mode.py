@@ -17,6 +17,9 @@ from mhada_tpu_torch.interop import load_params, load_pth_params
 from mhada_tpu_torch.models import build_models
 from mhada_tpu_torch.train import run_image
 
+# Six test workers share the CPU: cap torch's intra-op threads.
+torch.set_num_threads(2)
+
 SIZE = 32
 
 
