@@ -21,10 +21,10 @@
 // c5 positions outside the image are overwritten by copies of their
 // in-image mirrors before c6 reads them.
 //
-// Each stage rounds its output to T where the plain PyTorch path stores it
-// in T; accumulation is float32.
+// The CUDA-core kernel below is the float32 build; bfloat16 runs
+// decoder_tail_mma.cuh.
 //
-// K8 (`mhada_decoder_tail_res`) is this kernel writing the residuals of
+// K8 (`mhada_decoder_tail_res`) is the same kernel writing the residuals of
 // the training backward as well, as
 // decoder_tail_pallas.py::tail3_fused(with_residuals=True) does
 // (pallas_call at decoder_tail_pallas.py:519): y1 (B, H, W, 64) and c5
@@ -34,11 +34,15 @@
 //
 // What bounds it on the card: about 47 GFLOP per 512^2 frame including the
 // halo recompute (up3 is evaluated on 12 x 12 low-res positions for each
-// 8 x 8 it owns, c5 on 18 x 18 for 16 x 16), as float32 FMAs on the CUDA
-// cores.  Shared memory (185 KB at float32) allows one block per SM at
-// float32 and two at bf16.
+// 8 x 8 it owns, c5 on 18 x 18 for 16 x 16), 29.9 GFLOP without it.
+// float32 runs them as FMAs on the CUDA cores (the kernel below; shared
+// memory 185 KB, one block per SM), computing in float32 with no TF32;
+// bfloat16 runs them on the tensor cores (decoder_tail_mma.cuh: each conv
+// an implicit GEMM on mma.sync, the windows pixel-major, the weights
+// streamed a tap at a time).
 
 #include "common.cuh"
+#include "decoder_tail_mma.cuh"
 
 namespace {
 
@@ -64,13 +68,14 @@ using mhada::reflect_index;
 
 // 3x3 valid conv from a planar window `in` (cin planes of kInW columns) into
 // the planar window `out` (kCmid planes, positions p = r * kOutW + c, p <
-// kNPos), + bias, rounded to S, ReLU.  Thread (tx, ty) = (tid % 8, tid / 8)
+// kNPos), + bias, ReLU.  Thread (tx, ty) = (tid % 8, tid / 8)
 // owns output channels tx + 8 j and positions ty + 32 i.
-template <int kNPos, int kInW, int kOutW, typename S, typename W>
-__device__ __forceinline__ void conv3x3_relu(const S* in, int in_plane,
-                                             int cin, const W* __restrict__ w,
+template <int kNPos, int kInW, int kOutW>
+__device__ __forceinline__ void conv3x3_relu(const float* in, int in_plane,
+                                             int cin,
+                                             const float* __restrict__ w,
                                              const float* __restrict__ bias,
-                                             S* out, int out_plane) {
+                                             float* out, int out_plane) {
   constexpr int kNP = (kNPos + 31) / 32;
   const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
   float acc[kNP][8];
@@ -84,16 +89,16 @@ __device__ __forceinline__ void conv3x3_relu(const S* in, int in_plane,
   }
   for (int tap = 0; tap < 9; ++tap) {
     const int toff = (tap / 3) * kInW + tap % 3;
-    const W* wt = w + (long long)tap * cin * kCmid + tx;
-    const S* it = in + toff;
+    const float* wt = w + (long long)tap * cin * kCmid + tx;
+    const float* it = in + toff;
     for (int ci = 0; ci < cin; ++ci) {
       float wv[8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) wv[j] = mhada::to_f32(wt[ci * kCmid + 8 * j]);
-      const S* ic = it + ci * in_plane;
+      for (int j = 0; j < 8; ++j) wv[j] = wt[ci * kCmid + 8 * j];
+      const float* ic = it + ci * in_plane;
 #pragma unroll
       for (int i = 0; i < kNP; ++i) {
-        const float xv = mhada::to_f32(ic[off[i]]);
+        const float xv = ic[off[i]];
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xv, wv[j], acc[i][j]);
       }
@@ -106,28 +111,30 @@ __device__ __forceinline__ void conv3x3_relu(const S* in, int in_plane,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int co = tx + 8 * j;
-      const float y = mhada::round_to<S>(acc[i][j] + bias[co]);
-      out[co * out_plane + p] = mhada::from_f32<S>(fmaxf(y, 0.f));
+      out[co * out_plane + p] = fmaxf(acc[i][j] + bias[co], 0.f);
     }
   }
 }
 
-template <typename T, bool kRes>
+template <bool kRes>
 __global__ void __launch_bounds__(kThreads, 1)
-    decoder_tail_kernel(const T* __restrict__ x, const T* __restrict__ w_up,
+    decoder_tail_kernel(const float* __restrict__ x,
+                        const float* __restrict__ w_up,
                         const float* __restrict__ b_up,
-                        const T* __restrict__ w5, const float* __restrict__ b5,
-                        const T* __restrict__ w6, const float* __restrict__ b6,
-                        T* __restrict__ out, T* __restrict__ y1_out,
-                        T* __restrict__ c5_out, int hl, int wl) {
+                        const float* __restrict__ w5,
+                        const float* __restrict__ b5,
+                        const float* __restrict__ w6,
+                        const float* __restrict__ b6, float* __restrict__ out,
+                        float* __restrict__ y1_out,
+                        float* __restrict__ c5_out, int hl, int wl) {
   extern __shared__ float smem[];
   float* w6s = smem;                                     // [tap][ci][co]
-  T* region_a = reinterpret_cast<T*>(w6s + kW6);
-  T* region_b = region_a + kRegionA;
-  T* xs = region_a;   // [kCin][kXPlane]
-  T* us = region_a;   // [kCmid][kUPlane]
-  T* ys = region_b;   // [kCmid][kYPlane]
-  T* cs = region_b;   // [kCmid][kCPlane]
+  float* region_a = w6s + kW6;
+  float* region_b = region_a + kRegionA;
+  float* xs = region_a;   // [kCin][kXPlane]
+  float* us = region_a;   // [kCmid][kUPlane]
+  float* ys = region_b;   // [kCmid][kYPlane]
+  float* cs = region_b;   // [kCmid][kCPlane]
 
   const int tid = threadIdx.x;
   const int hh = 2 * hl, wh = 2 * wl;
@@ -135,7 +142,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int oy0 = blockIdx.y * kTile, ox0 = blockIdx.x * kTile;
   const int ly0 = oy0 / 2, lx0 = ox0 / 2;
 
-  for (int i = tid; i < kW6; i += kThreads) w6s[i] = mhada::to_f32(w6[i]);
+  for (int i = tid; i < kW6; i += kThreads) w6s[i] = w6[i];
 
   // x window: low-res rows/cols [l0 - 3, l0 + 11), reflect-mapped (the
   // up3 conv's own input padding).  Channels are the fastest index, so
@@ -184,12 +191,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int rb = min(max(yb - (ly0 - 2), 0), kYW - 1);
     const int ca = min(max(xa - (lx0 - 2), 0), kYW - 1);
     const int cb = min(max(xb - (lx0 - 2), 0), kYW - 1);
-    const T* yp = ys + ci * kYPlane;
-    const float top = wxa * mhada::to_f32(yp[ra * kYW + ca]) +
-                      wxb * mhada::to_f32(yp[ra * kYW + cb]);
-    const float bot = wxa * mhada::to_f32(yp[rb * kYW + ca]) +
-                      wxb * mhada::to_f32(yp[rb * kYW + cb]);
-    us[ci * kUPlane + p] = mhada::from_f32<T>(wya * top + wyb * bot);
+    const float* yp = ys + ci * kYPlane;
+    const float top = wxa * yp[ra * kYW + ca] + wxb * yp[ra * kYW + cb];
+    const float bot = wxa * yp[rb * kYW + ca] + wxb * yp[rb * kYW + cb];
+    us[ci * kUPlane + p] = wya * top + wyb * bot;
   }
   __syncthreads();
 
@@ -225,71 +230,94 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int gy = oy0 + r, gx = ox0 + c;
   float acc[kCout] = {0.f, 0.f, 0.f};
   for (int tap = 0; tap < 9; ++tap) {
-    const T* cp = cs + (r + tap / 3) * kCW + c + tap % 3;
+    const float* cp = cs + (r + tap / 3) * kCW + c + tap % 3;
     const float* wt = w6s + tap * kCmid * kCout;
     for (int ci = 0; ci < kCmid; ++ci) {
-      const float v = mhada::to_f32(cp[ci * kCPlane]);
+      const float v = cp[ci * kCPlane];
 #pragma unroll
       for (int co = 0; co < kCout; ++co)
         acc[co] = fmaf(v, wt[ci * kCout + co], acc[co]);
     }
   }
   if (gy < hh && gx < wh) {
-    T* op = out + ((b * hh + gy) * wh + gx) * kCout;
+    float* op = out + ((b * hh + gy) * wh + gx) * kCout;
 #pragma unroll
-    for (int co = 0; co < kCout; ++co) {
-      const float y = mhada::round_to<T>(acc[co] + b6[co]);
-      op[co] = mhada::from_f32<T>(fmaxf(y, 0.f));
-    }
+    for (int co = 0; co < kCout; ++co) op[co] = fmaxf(acc[co] + b6[co], 0.f);
   }
 }
 
-template <typename T, bool kRes>
+template <bool kRes>
 cudaError_t decoder_tail(const void* x, const void* w_up, const float* b_up,
                          const void* w5, const float* b5, const void* w6,
                          const float* b6, void* out, void* y1, void* c5,
                          int batch, int hl, int wl, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * kW6 + sizeof(T) * ((size_t)kRegionA + kRegionB);
+  const size_t smem = sizeof(float) * ((size_t)kW6 + kRegionA + kRegionB);
   const dim3 grid((2 * wl + kTile - 1) / kTile, (2 * hl + kTile - 1) / kTile,
                   batch);
   return mhada::launch_with_smem(
-      decoder_tail_kernel<T, kRes>, grid, dim3(kThreads), smem, stream,
-      static_cast<const T*>(x), static_cast<const T*>(w_up), b_up,
-      static_cast<const T*>(w5), b5, static_cast<const T*>(w6), b6,
-      static_cast<T*>(out), static_cast<T*>(y1), static_cast<T*>(c5), hl,
-      wl);
+      decoder_tail_kernel<kRes>, grid, dim3(kThreads), smem, stream,
+      static_cast<const float*>(x), static_cast<const float*>(w_up), b_up,
+      static_cast<const float*>(w5), b5, static_cast<const float*>(w6), b6,
+      static_cast<float*>(out), static_cast<float*>(y1),
+      static_cast<float*>(c5), hl, wl);
+}
+
+template <bool kRes>
+int decoder_tail_entry(const void* x, const void* w_up, const void* b_up,
+                       const void* w5, const void* b5, const void* w6,
+                       const void* b6, void* out, void* y1, void* c5,
+                       int batch, int hl, int wl, int dtype,
+                       cudaStream_t stream) {
+  const auto* fb_up = static_cast<const float*>(b_up);
+  const auto* fb5 = static_cast<const float*>(b5);
+  const auto* fb6 = static_cast<const float*>(b6);
+  if (dtype == mhada::kF32)
+    return (int)decoder_tail<kRes>(x, w_up, fb_up, w5, fb5, w6, fb6, out,
+                                   y1, c5, batch, hl, wl, stream);
+  if (dtype != mhada::kBF16 ||
+      !mhada::mma_aligned({x, w_up, w5, y1, c5}, kCmid))
+    return (int)cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
+  mhada::tail::TailArgs a{};
+  a.x = static_cast<const bf16*>(x);
+  a.w_up = static_cast<const bf16*>(w_up);
+  a.b_up = fb_up;
+  a.w5 = static_cast<const bf16*>(w5);
+  a.b5 = fb5;
+  a.w6 = static_cast<const bf16*>(w6);
+  a.b6 = fb6;
+  a.out = static_cast<bf16*>(out);
+  a.y1 = static_cast<bf16*>(y1);
+  a.c5 = static_cast<bf16*>(c5);
+  a.hl = hl;
+  a.wl = wl;
+  return (int)mhada::tail::launch_decoder_tail_mma<kRes>(a, batch, stream);
 }
 
 }  // namespace
 
-// x (B, H, W, 128) NHWC in T; weights HWIO in T: w_up (3, 3, 128, 64),
-// w5 (3, 3, 64, 64), w6 (3, 3, 64, 3); biases float32; out (B, 2H, 2W, 3).
+// x (B, H, W, 128) NHWC in T (float32 or bfloat16); weights HWIO in T:
+// w_up (3, 3, 128, 64), w5 (3, 3, 64, 64), w6 (3, 3, 64, 3); biases
+// float32; out (B, 2H, 2W, 3).  bfloat16: x, w_up and w5 16-byte aligned.
 extern "C" int mhada_decoder_tail(const void* x, const void* w_up,
                                   const void* b_up, const void* w5,
                                   const void* b5, const void* w6,
                                   const void* b6, void* out, int batch,
                                   int hl, int wl, int dtype, void* stream) {
-  MHADA_DISPATCH_DTYPE(
-      dtype, T,
-      return (int)(decoder_tail<T, false>)(
-          x, w_up, static_cast<const float*>(b_up), w5,
-          static_cast<const float*>(b5), w6, static_cast<const float*>(b6),
-          out, nullptr, nullptr, batch, hl, wl, (cudaStream_t)stream));
+  return decoder_tail_entry<false>(x, w_up, b_up, w5, b5, w6, b6, out,
+                                   nullptr, nullptr, batch, hl, wl, dtype,
+                                   (cudaStream_t)stream);
 }
 
 // K8: as mhada_decoder_tail, plus the residuals y1 (B, H, W, 64) and c5
-// (B, 2H, 2W, 64) in T.
+// (B, 2H, 2W, 64) in T (bfloat16: 16-byte aligned).
 extern "C" int mhada_decoder_tail_res(const void* x, const void* w_up,
                                       const void* b_up, const void* w5,
                                       const void* b5, const void* w6,
                                       const void* b6, void* out, void* y1,
                                       void* c5, int batch, int hl, int wl,
                                       int dtype, void* stream) {
-  MHADA_DISPATCH_DTYPE(
-      dtype, T,
-      return (int)(decoder_tail<T, true>)(
-          x, w_up, static_cast<const float*>(b_up), w5,
-          static_cast<const float*>(b5), w6, static_cast<const float*>(b6),
-          out, y1, c5, batch, hl, wl, (cudaStream_t)stream));
+  return decoder_tail_entry<true>(x, w_up, b_up, w5, b5, w6, b6, out, y1,
+                                  c5, batch, hl, wl, dtype,
+                                  (cudaStream_t)stream);
 }

@@ -17,17 +17,24 @@
 // is taken in float32, where it cancels.
 //
 // What bounds it on the card: 6 N M d flops per head (51 GFLOP per call at
-// N = M = 4096, 8 heads), compute-bound; this first version runs them as
-// float32 FMAs on the CUDA cores (flash_tile.cuh).
+// N = M = 4096, 8 heads), compute-bound at the bf16 tensor-core rate.
+// bfloat16 runs the MHAda tile of mhada_mma.cuh without K3's prologue and
+// without K7's residuals (mhada_mma_fwd_kernel<false, false>: q read as
+// given, f = fcs_n, no M1, E2 or lse written): Q K^T and P [V | V^2] on
+// mma.sync with bf16 operands and float32 accumulators, P and V^2 rounded
+// to bf16 as the Pallas kernel rounds them (mhada_pallas.py:63-72).
+// float32 keeps computing in float32, as FMAs on the CUDA cores
+// (flash_tile.cuh), with no TF32.
 
 #include "flash_tile.cuh"
+#include "mhada_mma.cuh"
 
 namespace {
 
-template <typename T>
-cudaError_t mhada_fwd(const void* q, const void* k, const void* v,
-                      const void* fcs_n, void* out, int batch, int n, int m,
-                      int channels, int heads, cudaStream_t stream) {
+cudaError_t mhada_fwd_f32(const void* q, const void* k, const void* v,
+                          const void* fcs_n, void* out, int batch, int n,
+                          int m, int channels, int heads,
+                          cudaStream_t stream) {
   mhada::FlashArgs a{};
   a.q = q;
   a.k = k;
@@ -40,17 +47,33 @@ cudaError_t mhada_fwd(const void* q, const void* k, const void* v,
   a.kv_bs = (long long)m * channels;
   a.q_rs = a.kv_rs = a.f_rs = a.o_rs = channels;
   a.scale = 1.f;
-  return mhada::launch_flash_tile<T, true>(a, heads, batch, stream);
+  return mhada::launch_flash_tile<float, true>(a, heads, batch, stream);
 }
 
 }  // namespace
 
+// q, fcs_n, out (B, N, C) and k, v (B, M, C) in T.  bfloat16: every pointer
+// 16-byte aligned, channels a multiple of 8.
 extern "C" int mhada_mhada_fwd(const void* q, const void* k, const void* v,
                                const void* fcs_n, void* out, int batch, int n,
                                int m, int channels, int heads, int dtype,
                                void* stream) {
-  MHADA_DISPATCH_DTYPE(
-      dtype, T,
-      return (int)mhada_fwd<T>(q, k, v, fcs_n, out, batch, n, m, channels,
-                               heads, (cudaStream_t)stream));
+  if (dtype == mhada::kF32)
+    return (int)mhada_fwd_f32(q, k, v, fcs_n, out, batch, n, m, channels,
+                              heads, (cudaStream_t)stream);
+  if (dtype != mhada::kBF16 ||
+      !mhada::mma_aligned({q, k, v, fcs_n, out}, channels))
+    return (int)cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
+  mhada::MhadaMmaArgs a{};
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.f = static_cast<const bf16*>(fcs_n);
+  a.out = static_cast<bf16*>(out);
+  a.n = n;
+  a.m = m;
+  a.channels = channels;
+  return (int)mhada::launch_mhada_mma_fwd<false, false>(a, heads, batch,
+                                                        (cudaStream_t)stream);
 }

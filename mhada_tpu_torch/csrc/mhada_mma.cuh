@@ -1,22 +1,25 @@
 // The bf16 MHAda forward tile on the tensor cores: K3 (kPrologue, the block
 // core on cached style K/V with the instance norm and the Q projection
-// fused in) and K7's forward (kRes, also writing M1, E2 and the row
-// log-sum-exp for the backward).
+// fused in), K7's forward (kRes, also writing M1, E2 and the row
+// log-sum-exp for the backward) and K4 (neither: q and fcs_n given, only
+// out written).
 //
 // Replaces, at bf16, mhada_tpu/ops/mhada_pallas.py::_fused_kernel
-// (mhada_fused_prologue, pallas_call at mhada_pallas.py:239) and
-// _tm_res_kernel (_mhada_tm_fwd_impl, pallas_call at :336); through K7 also
-// the TPU's K10 forward with its residuals (:622).  Per (batch b, head h),
-// with every tensor token-major and head h at channels [h*64, (h+1)*64):
+// (mhada_fused_prologue, pallas_call at mhada_pallas.py:239),
+// _tm_res_kernel (_mhada_tm_fwd_impl, pallas_call at :336) and _kernel
+// (_mhada_pallas_fwd_impl, pallas_call at :114); through K7 and K4 also
+// the TPU's K10 forward, with its residuals and without (:622).  Per
+// (batch b, head h), with every tensor token-major and head h at channels
+// [h*64, (h+1)*64):
 //
 //   K3:  qn = (fc - mean_fc) * rstd_fc              float32, rounded to bf16
 //        q  = qn Wf_h + fb_h                        float32, rounded to bf16
-//   K7:  q given
+//   K4, K7:  q given
 //   A  = softmax(q K^T)                             UNSCALED
 //   M1 = A V,  E2 = A V^2                           float32
 //   out = sqrt(max(E2 - M1^2, 1e-6)) * f + M1       f = IN(fcs) (K3, from
 //                                                   raw fcs and the stats)
-//                                                   or fcs_n (K7)
+//                                                   or fcs_n (K4, K7)
 //
 // Bound: 6 N M d flops per head (51.5 GFLOP at N = M = 4096, 8 heads; K3
 // adds 2 N d^2 for the projection) against (3 N + 2 M) C bf16 values
@@ -61,10 +64,10 @@
 namespace mhada {
 
 struct MhadaMmaArgs {
-  const __nv_bfloat16* q;    // K7: q; K3: raw fc (B, N, C)
+  const __nv_bfloat16* q;    // K4, K7: q; K3: raw fc (B, N, C)
   const __nv_bfloat16* k;    // (B, M, C)
   const __nv_bfloat16* v;    // (B, M, C)
-  const __nv_bfloat16* f;    // K7: fcs_n; K3: raw fcs (B, N, C)
+  const __nv_bfloat16* f;    // K4, K7: fcs_n; K3: raw fcs (B, N, C)
   __nv_bfloat16* out;        // (B, N, C)
   float* m1;                 // K7: (B, N, C)
   float* e2;                 // K7: (B, N, C)

@@ -5,10 +5,17 @@ K5 ports mhada_tpu/ops/decoder_tail_pallas.py::tail3_fused, K8 its training
 form ``tail3_train``: the same kernel also writing the post-ReLU residuals
 y1 = relu(up3 conv) (B, H, W, 64) and c5 (B, 2H, 2W, 64), with a plain
 PyTorch backward written from ``_tail3_train_bwd``
-(decoder_tail_pallas.py:622-653), as the JAX package's is XLA.  The plain
-forward is the chain of mhada_tpu/models/decoder.py:215-217
-(reflect-padded convs, ReLU after each, ``upsample2x`` after up3).  Weights
-are torch OIHW.
+(decoder_tail_pallas.py:622-653), as the JAX package's is XLA.  At
+bfloat16 the kernel runs on the tensor cores (csrc/decoder_tail_mma.cuh)
+and raises on a tensor that is not 16-byte aligned; at float32 it computes
+in float32 on the CUDA cores.  The plain forward is the chain of
+mhada_tpu/models/decoder.py:215-217 (reflect-padded convs, ReLU after
+each, a 2x bilinear upsample after up3) with tail3_fused's rounding
+points, so that at bfloat16 it is the Pallas kernel's function: each
+conv's float32 sum is rounded to the dtype before the bias is added in the
+dtype (decoder_tail_pallas.py:328, 369, 563-564), and the upsample rounds
+as the kernel's row and packed-column blends do (``upsample2x_tail``).  At
+float32 the roundings vanish.  Weights are torch OIHW.
 """
 
 import torch
@@ -22,12 +29,57 @@ from .resize import upsample2x
 C_IN, C_MID, C_OUT = 128, 64, 3
 
 
+def _conv_relu(x, w, b):
+    """relu(reflect-padded conv + b), the conv's float32 sum rounded to x's
+    dtype before the bias is added in x's dtype."""
+    dt = x.dtype
+    return torch.relu(conv2d_reflect(x, w.to(dt), None) + b.to(dt))
+
+
+def upsample2x_tail(y: torch.Tensor) -> torch.Tensor:
+    """The exact 2x bilinear upsample of NHWC ``y`` (``align_corners=False``,
+    edges clamped), rounded to y's dtype as tail3_fused rounds it
+    (decoder_tail_pallas.py:331-361): rows first, each output row 0.75 near
+    + 0.25 far with 0.75 near rounded before the sum (jnp arithmetic on
+    bf16 arrays); then columns from the rounded rows, where the TPU kernel's
+    column packing (two columns a 128-lane row, blends as lane matmuls)
+    rounds 0.75 near apart only when the far column lies in another pair:
+    output columns 4j and 4j + 3.  A clamped edge blends a value with
+    itself and copies it.  At float32 nothing is rounded: torch's upsample
+    computes the same blends."""
+    dt = y.dtype
+    if dt == torch.float32:
+        return upsample2x(y)
+
+    def rnd(t):
+        return t.to(dt).float()
+
+    def up(t, dim, apart_even=None, apart_odd=None):
+        """Blend each position of t along ``dim`` with its clamped
+        neighbours into an even and an odd output position; 0.75 near is
+        rounded first where ``apart`` (everywhere when None)."""
+        n = t.shape[dim]
+        prev = torch.cat([t.narrow(dim, 0, 1), t.narrow(dim, 0, n - 1)], dim)
+        nxt = torch.cat([t.narrow(dim, 1, n - 1), t.narrow(dim, n - 1, 1)],
+                        dim)
+        q = 0.75 * t
+        out = []
+        for far, apart in ((prev, apart_even), (nxt, apart_odd)):
+            near = rnd(q) if apart is None else torch.where(apart, rnd(q), q)
+            out.append(rnd(near + 0.25 * far))
+        return torch.stack(out, dim + 1).flatten(dim, dim + 1)
+
+    c = torch.arange(y.shape[2], device=y.device).view(-1, 1)
+    u = up(y.float(), 1)
+    u = up(u, 2, (c % 2 == 0) & (c > 0), (c % 2 == 1) & (c < y.shape[2] - 1))
+    return u.to(dt)
+
+
 def decoder_tail_res_plain(x, w_up, b_up, w5, b5, w6, b6):
     """x (B, H, W, 128) NHWC -> (rgb (B, 2H, 2W, 3), y1, c5)."""
-    dt = x.dtype
-    y1 = torch.relu(conv2d_reflect(x, w_up.to(dt), b_up.to(dt)))
-    c5 = torch.relu(conv2d_reflect(upsample2x(y1), w5.to(dt), b5.to(dt)))
-    return torch.relu(conv2d_reflect(c5, w6.to(dt), b6.to(dt))), y1, c5
+    y1 = _conv_relu(x, w_up, b_up)
+    c5 = _conv_relu(upsample2x_tail(y1), w5, b5)
+    return _conv_relu(c5, w6, b6), y1, c5
 
 
 def decoder_tail_plain(x, w_up, b_up, w5, b5, w6, b6) -> torch.Tensor:
@@ -56,6 +108,7 @@ def _launch_tail(entry, x, w_up, b_up, w5, b5, w6, b6):
     if entry == "mhada_decoder_tail_res":
         outs += [x.new_empty((b, h, w, C_MID)),
                  x.new_empty((b, 2 * h, 2 * w, C_MID))]
+    _build.check_aligned("decoder_tail", x, *hwio, *outs)
     _build.launch(entry, x.device, x, hwio[0], bias[0], hwio[1], bias[1],
                   hwio[2], bias[2], *outs, b, h, w, _build.dtype_code(x))
     return outs

@@ -6,8 +6,10 @@ A = softmax(Q K^T) is UNSCALED (no 1/sqrt(d), adaDecoder.py:11-17), then
     M1 = A V,   E2 = A V^2,   S = sqrt(max(E2 - M1^2, 1e-6))
     out = S * IN(fcs) + M1
 
-This is the twin of the K4 kernel (ops/mhada_kernel.py) and the only path of
-the cosine activation.
+The cosine activation and the local feature loss's parameter-free AdaAttN
+(train/losses.py) run it; the kernels' softmax twins
+(ops/mhada_kernel.py::mhada_softmax_plain) round where the Pallas kernels
+round instead.
 """
 
 import torch

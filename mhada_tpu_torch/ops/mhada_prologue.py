@@ -14,7 +14,7 @@ import torch
 
 from .. import _build
 from ..config import use_kernel
-from .mhada_kernel import HEAD_DIM, _heads
+from .mhada_kernel import HEAD_DIM, _heads, mhada_softmax_plain
 
 
 def mhada_fused_prologue_plain(fc, fcs, stats, wf, fb, k, v) -> torch.Tensor:
@@ -31,18 +31,10 @@ def mhada_fused_prologue_plain(fc, fcs, stats, wf, fb, k, v) -> torch.Tensor:
                      wf.to(k.dtype).float()) + fb.to(k.dtype).float()
     q = q.to(k.dtype).float().transpose(1, 2)                 # (B, H, N, d)
     kh, vh = (_heads(t, h).float() for t in (k, v))          # (B, H, M, d)
-    s = q @ kh.transpose(-1, -2)                             # unscaled
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    del s
-    denom = p.sum(-1, keepdim=True)
-    # P and V^2 rounded to v's dtype as the product's operands, the product
-    # divided by the unrounded row sum (mhada_pallas.py:182-191)
-    p = p.to(v.dtype).float()
-    m1 = p @ vh / denom
-    e2 = p @ vh.square().to(v.dtype).float() / denom
-    sd = torch.sqrt(torch.clamp(e2 - m1.square(), min=1e-6))
     fcs_n = _heads((fcs.float() - st[:, None, 2]) * st[:, None, 3], h)
-    return (sd * fcs_n + m1).transpose(1, 2).reshape(b, n, c).to(fc.dtype)
+    # the core as _fused_kernel rounds it (mhada_pallas.py:182-191)
+    out = mhada_softmax_plain(q, kh, vh, fcs_n, v.dtype)
+    return out.transpose(1, 2).reshape(b, n, c).to(fc.dtype)
 
 
 def mhada_fused_prologue(fc: torch.Tensor, fcs: torch.Tensor,

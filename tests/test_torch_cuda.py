@@ -8,11 +8,14 @@ that is not 16-byte aligned must raise.  The training kernels K6, K7 and
 K8 are held forward and backward (outputs and input gradients), K6 and K7
 also at ragged lengths past the TPU training kernels' 2048-key window,
 K2's VJP against autograd of the unfused LayerNorm and linear, and the
-forward-only wrappers must refuse tensors that require grad.  K3 and K7
-(at bf16 on the tensor cores) also with V = 3 + 0.3 N(0, 1), where E2 -
-M1^2 cancels, K7 at the video-training shape (N = 2048, M = 1024) and
-repeating its gradients bit for bit; a misaligned bf16 input of K3 or K7
-raises too.  K13 (c6) and K14 (c1 -> c3) are held at small and path
+forward-only wrappers must refuse tensors that require grad.  K3, K4 and
+K7 (at bf16 on the tensor cores) also with V = 3 + 0.3 N(0, 1), where E2 -
+M1^2 cancels, K4 repeating its output and K7 its gradients bit for bit, K7
+at the video-training shape (N = 2048, M = 1024); the decoder tail (K5,
+K8; at bf16 on the tensor cores) also from 256^2 to 512^2, repeating its
+outputs bit for bit, K8's gradients against the plain backward on the
+kernel forward's ReLU masks with the share of flipped masks bounded
+apart; a misaligned bf16 input of K3, K4, K7 or the tail raises too.  K13 (c6) and K14 (c1 -> c3) are held at small and path
 shapes, the probes P1 (a tensor-core matmul) and P2 (K3 with a cp.async
 ring on the CUDA cores, also against K3 at float32).
 
@@ -31,6 +34,7 @@ from mhada_tpu_torch.ops.attention_kernel import attention_tm
 from mhada_tpu_torch.ops.attention_train import attention_train
 from mhada_tpu_torch.ops.decoder_c6 import c6_conv
 from mhada_tpu_torch.ops.decoder_mid import mid3_fused
+from mhada_tpu_torch.ops import decoder_tail as decoder_tail_ops
 from mhada_tpu_torch.ops.decoder_tail import decoder_tail, decoder_tail_train
 from mhada_tpu_torch.ops.ln_matmul import layer_norm, ln_matmul
 from mhada_tpu_torch.ops.mhada_kernel import mhada_tm
@@ -55,6 +59,9 @@ DTYPES = [torch.float32, torch.bfloat16]
 REL_F32 = 1e-4
 # Gradients sum over every row in another order than the twin's: 1e-3.
 REL_F32_GRAD = 1e-3
+# The decoder tail: the share of ReLU masks (rgb, y1, c5) that may differ
+# between the kernel and plain forwards, as chip_smoke.py's TAIL_FLIPS.
+TAIL_FLIPS = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
 @pytest.fixture
@@ -133,6 +140,24 @@ def _v(gen, dtype, b, m, shift):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,n,m,shift", MHADA_SHAPES)
+def test_mhada_kernel_v_offset(gen, dtype, b, n, m, shift):
+    """K4 against its twin over MHADA_SHAPES, V offset included (keys past
+    M masked, N = 1, N != M); a second call repeats the first bit for
+    bit."""
+    q = _rnd(gen, dtype, b, n, 128, scale=0.35)
+    k = _rnd(gen, dtype, b, m, 128, scale=0.35)
+    v, f = _v(gen, dtype, b, m, shift), _rnd(gen, dtype, b, n, 128)
+
+    def run(be, dt):
+        return mhada_tm(q.to(dt), k.to(dt), v.to(dt), f.to(dt), 2,
+                        backend=be)
+
+    _check("mhada_mhada_fwd", run, dtype)
+    assert torch.equal(run("kernel", dtype), run("kernel", dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,n,m,shift", MHADA_SHAPES)
 @pytest.mark.parametrize("entry", ["mhada_mhada_prologue",
                                    "mhada_mhada_prologue_pipe"])
 def test_mhada_prologue_kernel(gen, dtype, b, n, m, shift, entry):
@@ -180,8 +205,12 @@ def test_ln_matmul_kernel(gen, dtype, shape, f):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(1, 8, 12, 128), (2, 6, 10, 128),
-                                   (1, 2, 3, 128), (1, 16, 16, 128)])
+                                   (1, 2, 3, 128), (1, 16, 16, 128),
+                                   (1, 256, 256, 128)])
 def test_decoder_tail_kernel(gen, dtype, shape):
+    """K5 against its twin, from 2 x 3 to 256^2 low-res (partial output
+    tiles, reflected windows); a second call repeats the first bit for
+    bit."""
     x = _rnd(gen, dtype, *shape).abs()
 
     def conv(co, ci):
@@ -191,9 +220,11 @@ def test_decoder_tail_kernel(gen, dtype, shape):
         return w.to("cuda", dtype).float(), b.to("cuda", dtype).float()
 
     (wu, bu), (w5, b5), (w6, b6) = conv(64, 128), conv(64, 64), conv(3, 64)
-    _check("mhada_decoder_tail",
-           lambda be, dt: decoder_tail(x.to(dt), wu, bu, w5, b5, w6, b6,
-                                       backend=be), dtype)
+    def run(be, dt):
+        return decoder_tail(x.to(dt), wu, bu, w5, b5, w6, b6, backend=be)
+
+    _check("mhada_decoder_tail", run, dtype)
+    assert torch.equal(run("kernel", dtype), run("kernel", dtype))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -237,9 +268,9 @@ def test_mm_probe_kernel(gen, m, k, n):
 
 def test_kernel_rejects_bad_input(gen):
     """Bad shapes, strides and dtypes raise; so does a bfloat16 input of
-    K1, K6, K3 or K7 (qkv, dO, fc, v, k, dE2) that does not start on a
-    16-byte boundary (a contiguous view one element into a buffer), before
-    any launch."""
+    K1, K6, K3, K4, K7 or the decoder tail (qkv, dO, fc, v, k, dE2, x)
+    that does not start on a 16-byte boundary (a contiguous view one
+    element into a buffer), before any launch."""
     b, l, c = 1, 16, 128
 
     def off(*shape):
@@ -253,6 +284,9 @@ def test_kernel_rejects_bad_input(gen):
     x = torch.zeros(b, l, c, device="cuda", dtype=torch.bfloat16)
     wf = torch.zeros(2, 64, 64, device="cuda")
     fb, st4 = torch.zeros(2, 64, device="cuda"), torch.ones(b, 4, c).cuda()
+    xt = off(1, 4, 4, 128)
+    tail_w = [torch.zeros(shape, device="cuda") for shape in (
+        (64, 128, 3, 3), (64,), (64, 64, 3, 3), (64,), (3, 64, 3, 3), (3,))]
     before = dict(_build.LAUNCHES)
     for call in (lambda: attention_tm(qkv, 2),
                  lambda: attention_train(qkv, 2),
@@ -262,7 +296,10 @@ def test_kernel_rejects_bad_input(gen):
                  lambda: mhada_fused_prologue(x, x, st4, wf, fb, x, g),
                  lambda: mhada_train(x, g, x, x, 2),
                  lambda: mhada_train_ops._bwd_kernel(
-                     x, x, x, x, g, stats, stats, 2)):
+                     x, x, x, x, g, stats, stats, 2),
+                 lambda: mhada_tm(x, x, g, x, 2),
+                 lambda: decoder_tail(xt, *tail_w),
+                 lambda: decoder_tail_train(xt, *tail_w)):
         with pytest.raises(ValueError, match="16-byte aligned"):
             call()
     assert _build.LAUNCHES == before
@@ -299,14 +336,19 @@ def _fwd_bwd(run, backend, dtype, inputs, cot):
     return [out.detach().float()] + [t.grad.float() for t in leaves]
 
 
-def _check_train(entries, run, dtype, inputs, cot):
+def _check_train(entries, run, dtype, inputs, cot, plain=None):
     """A training kernel pair against its plain versions, forward and
-    backward, with each C entry point launched exactly once."""
+    backward, with each C entry point launched exactly once.  ``plain``:
+    dtype -> the plain [output, d input for each input], in place of
+    ``_fwd_bwd(run, "plain", ...)``."""
+    if plain is None:
+        def plain(dt):
+            return _fwd_bwd(run, "plain", dt, inputs, cot)
     before = [_build.LAUNCHES[e] for e in entries]
     got = _fwd_bwd(run, "kernel", dtype, inputs, cot)
     assert [_build.LAUNCHES[e] for e in entries] == [n + 1 for n in before]
-    ref = _fwd_bwd(run, "plain", dtype, inputs, cot)
-    ref32 = _fwd_bwd(run, "plain", torch.float32, inputs, cot)
+    ref = plain(dtype)
+    ref32 = plain(torch.float32)
     assert [_build.LAUNCHES[e] for e in entries] == [n + 1 for n in before]
     torch.cuda.synchronize()
     for i, (g, r, r32) in enumerate(zip(got, ref, ref32)):
@@ -380,9 +422,38 @@ def test_decoder_tail_train_kernel(gen, dtype, shape):
 
     (wu, bu), (w5, b5), (w6, b6) = conv(64, 128), conv(64, 64), conv(3, 64)
     cot = _rnd(gen, dtype, shape[0], 2 * shape[1], 2 * shape[2], 3)
+    inputs = [x, wu, bu, w5, b5, w6, b6]
+    args = [t.to(dtype) for t in inputs]
+    kernel_fwd = decoder_tail_ops._launch_tail("mhada_decoder_tail_res",
+                                               *args)
+    masks = [t > 0 for t in kernel_fwd]
+    plain_masks = [t > 0 for t in decoder_tail_ops.decoder_tail_res_plain(
+        *args)]
+    # A pre-activation within rounding of 0 may take the other side of a
+    # ReLU in the kernel than in the plain forward (the convs sum in
+    # another order), and a flip moves a bias gradient by a whole cotangent
+    # (one rgb flip at (1, 8, 12, 128), bf16, on an H100: db6 0.151 off).
+    # As chip_smoke.py's K8 gate does, the plain references take the
+    # kernel forward's masks, and the share of flips is bounded apart.
+    flips = sum(int((m != pm).sum()) for m, pm in zip(masks, plain_masks))
+    assert flips <= TAIL_FLIPS[dtype] * sum(m.numel() for m in masks), flips
+
+    def plain(dt):
+        a = [t.to(dt) for t in inputs]
+        outs = decoder_tail_ops.decoder_tail_res_plain(*a)
+        aligned = [torch.where(m, o.clamp_min(torch.finfo(dt).tiny), 0)
+                   for m, o in zip(masks, outs)]
+        grads = decoder_tail_ops.decoder_tail_bwd(
+            cot.to(dt), a[0], a[1], a[3], a[5], *aligned)
+        return [aligned[0].float()] + [g.float() for g in grads]
+
     _check_train(["mhada_decoder_tail_res"],
                  lambda be, *a: decoder_tail_train(*a, backend=be), dtype,
-                 [x, wu, bu, w5, b5, w6, b6], cot)
+                 inputs, cot, plain)
+    # the forward and its residuals repeat bit for bit
+    again = decoder_tail_ops._launch_tail("mhada_decoder_tail_res", *args)
+    for i, (a, b) in enumerate(zip(kernel_fwd, again)):
+        assert torch.equal(a, b), i
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

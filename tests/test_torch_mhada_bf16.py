@@ -1,9 +1,9 @@
-"""The bfloat16 plain versions of K3 and K7, which the card holds their
-tensor-core kernels to, against the JAX package's Pallas kernels in
+"""The bfloat16 plain versions of K3, K4 and K7, which the card holds
+their tensor-core kernels to, against the JAX package's Pallas kernels in
 interpret mode, CPU, with V = 3 + 0.3 N(0, 1) and K at scale 0.35.  With
 V offset, E2 - M1^2 cancels, so every place where the two round
 differently shows; the twins round P and V^2 to bf16 as the JAX kernels
-do (mhada_pallas.py:182-191, 295-301, 397-401).  Also the library
+do (mhada_pallas.py:63-72, 182-191, 295-301, 397-401).  Also the library
 yardstick that chip_smoke.py times beside K3, K4 and K7 (one
 scaled_dot_product_attention on [V | V^2] with scale 1) against the
 float32 twin's M1 and E2."""
@@ -20,8 +20,9 @@ from jax.experimental.pallas import tpu as pltpu
 
 from mhada_tpu.ops.mhada_pallas import \
     mhada_fused_prologue as jax_fused_prologue
-from mhada_tpu.ops.mhada_pallas import mhada_tm_train
+from mhada_tpu.ops.mhada_pallas import mhada_attention_pallas, mhada_tm_train
 from mhada_tpu_torch.ops.instance_norm import instance_norm_stats
+from mhada_tpu_torch.ops.mhada_kernel import mhada_tm_plain
 from mhada_tpu_torch.ops.mhada_prologue import mhada_fused_prologue_plain
 from mhada_tpu_torch.ops.mhada_train import mhada_train, mhada_train_fwd_plain
 
@@ -79,6 +80,35 @@ def test_prologue_bf16_twin_matches_pallas(b, n, m):
     got = mhada_fused_prologue_plain(fc_t, fcs_t, stats, wf_t, fb_t, k_t,
                                      v_t)
     assert got.dtype == BF16 and got.shape == ref.shape == (b, n, c)
+    err = np.abs(got.float().numpy() - ref).max()
+    assert err <= _step(np.abs(ref).max()), err
+
+
+@pytest.mark.parametrize("b,n,m", [(1, 128, 256), (2, 96, 160)])
+def test_mhada_tm_bf16_twin_matches_pallas(b, n, m):
+    """K4's plain version at bf16 against mhada_attention_pallas (the
+    single-pass _kernel): within one bf16 step of the output's largest
+    value (a step is 0.03125 at max |out| 4.2-4.4 here).  The twin before
+    the repair (softmax normalised in float32 before the product, P and V^2
+    kept in float32) was 0.0469 and 0.0625 off (1.5 and 2 steps); the
+    repaired twin is 0.0156 off at both shapes (half a step)."""
+    rng = np.random.default_rng((b, n, m, 4))
+    c, heads = 128, 2
+    q, q_t = _bf16(rng, (b, n, c), 0.35)
+    k, k_t = _bf16(rng, (b, m, c), 0.35)
+    v, v_t = _bf16(rng, (b, m, c), 0.3, 3.0)
+    f, f_t = _bf16(rng, (b, n, c))
+
+    def head_major(a):
+        return _jnp(a.reshape(a.shape[0], a.shape[1], heads, -1)
+                    .transpose(0, 2, 1, 3))
+
+    with pltpu.force_tpu_interpret_mode():
+        ref = mhada_attention_pallas(*map(head_major, (q, k, v, f)))
+    ref = np.asarray(ref.astype(jnp.float32)).transpose(0, 2, 1, 3)
+    ref = ref.reshape(b, n, c)
+    got = mhada_tm_plain(q_t, k_t, v_t, f_t, heads)
+    assert got.dtype == BF16 and got.shape == (b, n, c)
     err = np.abs(got.float().numpy() - ref).max()
     assert err <= _step(np.abs(ref).max()), err
 
