@@ -7,12 +7,13 @@
    whether cv2 imports (reported, never failed);
 2. build: compile mhada_tpu_torch/csrc/*.cu with nvcc (one per source, in
    parallel); the bf16 tensor-core kernels of K1, K6, K3, K4 and K7
-   (forward, dQ and dK/dV) and of the decoder tail (K5, K8) must each hold
-   HMMA.16816.F32.BF16 in their SASS (cuobjdump) and spill nothing
-   (ptxas), every instantiation that a bf16 path launches must exist (K4's
-   MHAda tile without prologue or residuals, the tail with and without
-   residuals), and no bf16 instantiation of the CUDA-core kernels they
-   replaced may exist;
+   (forward, dQ and dK/dV), of the decoder tail (K5, K8) and of K2 must
+   each hold HMMA.16816.F32.BF16 in their SASS (cuobjdump) and spill
+   nothing (ptxas), every instantiation that a bf16 path launches must
+   exist (K4's MHAda tile without prologue or residuals, the tail with and
+   without residuals, K2's), no bf16 instantiation of the CUDA-core
+   kernels they replaced may exist, and K2's float32 kernel must exist and
+   hold no HMMA of any kind (it computes in float32, no TF32);
 3. gates: each hand-written kernel against its plain PyTorch version on the
    card, in float32 and bfloat16, at the 512^2 path's shapes and at the
    1024^2 shapes (K2 at N = 16384; K3 at M = 16384; K5 from 512^2 to
@@ -23,8 +24,13 @@
    with its time, the plain version's, the PyTorch library call's where one
    computes the same function or, for K3, K4, K7 and P2, their products (SDPA
    on [V | V^2] with scale 1; named in the record with its backend), and
-   the least time the card could take (its bound); then the probes' CLIs,
-   their launches counted;
+   the least time the card could take (its bound); K2 three ways: its
+   wrapper (float32 weights cast per call, the 1536- and 2048-wide outputs
+   concatenated), the kernel alone and the library chain (F.layer_norm +
+   F.linear per width, cuBLAS; two calls, so it stands in the library
+   column only as a named chain, as the plain cuDNN chain is K5's
+   yardstick), both on the inputs cast once to the compute dtype; then the
+   probes' CLIs, their launches counted;
 4. main paths, each driven with the launch counts set to 0 just before it
    and read just after, and held against the plain path on the same
    weights:
@@ -53,9 +59,10 @@
    4096 tokens, the 512^2 step's shapes, and B = 1 at 16384), K8 from 256^2
    to 512^2 (B = 4), and K2 under its VJP at the fused-LN step's shapes
    (B = 8, 1024 tokens, 512 -> 1536 and 2048) against autograd of the
-   unfused LayerNorm and linear; float32 and bfloat16: each output,
-   residual and input gradient against its own scale, with times, bounds
-   and the library yardstick;
+   unfused LayerNorm and linear (its forward timed as the kernel alone,
+   through the wrapper and as the library chain of phase 3); float32 and
+   bfloat16: each output, residual and input gradient against its own
+   scale, with times, bounds and the library yardstick;
 7. the training paths: one step (``train.train_image``) on the kernel build
    and one on the plain build from the same weights and batch, losses and
    every gradient held together (each tensor against its own scale, to a
@@ -182,6 +189,21 @@ MM_REPS = 100   # P1's products per launch in its gate (and cuBLAS calls)
 NO_LIB = "no single PyTorch call computes this function"
 # The MHAda core's yardstick: SDPA on [V | V^2] with scale 1 gives M1 | E2.
 MHADA_SDPA = f"{SDPA} on [V | V^2], scale 1"
+# K2's yardstick: no single call computes LN + matmul; the chain of two
+# library calls per width on the compute-dtype inputs, named as such.
+LN_CHAIN = ("chain of torch.nn.functional.layer_norm + "
+            "torch.nn.functional.linear (cuBLAS) per width, 2 calls each, "
+            "on the compute-dtype inputs; no single call computes K2")
+
+
+def ln_chain(x, lw, lb, pairs):
+    """K2's library chain on ``pairs`` of (w, b), every input already in
+    the compute dtype."""
+    import torch.nn.functional as F
+
+    c = x.shape[-1]
+    return lambda: [F.linear(F.layer_norm(x, (c,), lw, lb, 1e-6), w, b)
+                    for w, b in pairs]
 # gate -> (its row, kind of inputs, token count, batch); the first gate of
 # a row fills the row.  K13: the c5 side; K14: the up1 output's side; P1:
 # the index of the probe's shape (bfloat16 only); P2: tokens.
@@ -312,25 +334,31 @@ DTYPE_NAMES = ("float32", "bfloat16")
 # The bf16 tensor-core kernels of K1 and K6 (csrc/attention_mma.cuh,
 # csrc/attention_bwd_mma.cuh), K3, K4 and K7 (csrc/mhada_mma.cuh: K3, K4
 # and K7's forward; csrc/mhada_bwd_mma.cuh), K5 and K8
-# (csrc/decoder_tail_mma.cuh) and the instruction each must contain.
+# (csrc/decoder_tail_mma.cuh), K2 (csrc/ln_matmul_mma.cuh) and the
+# instruction each must contain.
 MMA_KERNELS = ("attention_mma_fwd_kernel", "attention_mma_dkv_kernel",
                "attention_mma_dq_kernel", "mhada_mma_fwd_kernel",
                "mhada_mma_dkv_kernel", "mhada_mma_dq_kernel",
-               "decoder_tail_mma_kernel")
+               "decoder_tail_mma_kernel", "ln_matmul_mma_kernel")
 HMMA = "HMMA.16816.F32.BF16"
 # Instantiations (mangled-name parts) that the bf16 paths launch: K4's
-# MHAda tile (neither prologue nor residuals), K5's and K8's tail.
+# MHAda tile (neither prologue nor residuals), K5's and K8's tail, K2.
 MMA_REQUIRED = ("mhada_mma_fwd_kernelILb0ELb0E",
-                "decoder_tail_mma_kernelILb0E", "decoder_tail_mma_kernelILb1E")
+                "decoder_tail_mma_kernelILb0E", "decoder_tail_mma_kernelILb1E",
+                "ln_matmul_mma_kernel")
 # bf16 instantiations of the CUDA-core kernels that no path may reach any
 # more (mangled names): the attention and MHAda tile (K1, K4, K6's and
 # K7's forwards) and backward (K6, K7), K3's tile (a float32-only kernel
-# now; the pattern catches a bf16 template of it) and the decoder tail
-# (K5, K8).
+# now; the pattern catches a bf16 template of it), the decoder tail (K5,
+# K8) and K2's first kernel.
 OLD_BF16 = (r"flash_tile_kernelI13__nv_bfloat16"
             r"|flash_bwd_(dkv|dq)_kernelI13__nv_bfloat16"
             r"|mhada_prologue_kernelI13__nv_bfloat16"
-            r"|decoder_tail_kernelI13__nv_bfloat16")
+            r"|decoder_tail_kernelI13__nv_bfloat16"
+            r"|ln_matmul_kernelI13__nv_bfloat16")
+# float32 kernels that compute in float32: they must exist and hold no
+# HMMA of any kind (no TF32 on the tensor cores).  K2's float32 build.
+F32_KERNELS = ("ln_matmul_f32_kernel",)
 
 
 def all_gates():
@@ -400,6 +428,13 @@ def mma_report(lib):
     out.append(f"missing instantiations: {missing or 'none'}")
     old = [f for f in funcs if re.search(OLD_BF16, f)]
     out.append(f"replaced bf16 CUDA-core instantiations: {old or 'none'}")
+    for kernel in F32_KERNELS:
+        found = [f for f in funcs if kernel in f]
+        hmma = sum(funcs[f].count("HMMA") for f in found)
+        ok = ok and bool(found) and hmma == 0
+        out.append(f"{kernel} (float32): {len(found)} found, "
+                   f"{[ptxas.get(f, {}).get('regs') for f in found]} regs, "
+                   f"{hmma} x HMMA of any kind")
     return ok and not missing and not old, "; ".join(out)
 
 
@@ -534,9 +569,18 @@ def gate_inputs(kind, n, dtype, g, b=1):
             return torch.cat([ln_matmul.ln_matmul(x, lw, lb, w, bb,
                                                   backend=be)
                               for w, bb in zip(ws, bs)], dim=-1)
+
+        # timed beside the wrapper (float32 weights cast per call, the two
+        # outputs concatenated): the kernel alone and the library chain,
+        # both on the same inputs cast once to the compute dtype
+        lwt, lbt = lw.to(dtype), lb.to(dtype)
+        pairs = [(w.to(dtype), bb.to(dtype)) for w, bb in zip(ws, bs)]
+        run.kernel_alone = lambda: [
+            ln_matmul._ln_matmul_kernel(x, lwt, lbt, w, bb, 1e-6)
+            for w, bb in pairs]
         return (run, sum(2 * n * c * f for f in fs),
-                sum((n * c + f * c + n * f) * es + (2 * c + f) * 4
-                    for f in fs), None)
+                sum((n * c + f * c + n * f + 2 * c + f) * es for f in fs),
+                (LN_CHAIN, ln_chain(x, lwt, lbt, pairs)))
     if kind == "prologue":
         fc, fcs = rnd(1, n, c, scale=2.0) + 1, rnd(1, n, c, scale=3.0) - 1
         mc, rc = instance_norm_stats(fc)
@@ -650,6 +694,8 @@ def run_gate(gate, kind, n, b, dname, card):
         ms = cuda_ms(lambda: run("kernel"), *reps)
         plain_ms = cuda_ms(lambda: run("plain"), *reps)
         library_ms = cuda_ms(lib, *reps) if lib else None
+        alone = getattr(run, "kernel_alone", None)   # K2: also without casts
+        kernel_ms = cuda_ms(alone, *reps) if alone else None
     bound_ms, bound_by = bound(flops, nbytes, dname)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
@@ -658,6 +704,9 @@ def run_gate(gate, kind, n, b, dname, card):
                library=lib_name, gflop=flops / 1e9, mbytes=nbytes / 1e6)
     lib_txt = (f"{library_ms:.3f} ms ({lib_name})" if lib
                else "none (no single call)")
+    if kernel_ms is not None:
+        rec["kernel_ms"] = kernel_ms
+        lib_txt += f", the kernel alone {kernel_ms:.3f} ms"
     return phase(
         f"gate {gate} {dname}", good,
         f"max|d| {mx:.3e} mean|d| {mean:.3e} max|ref| {scale:.3e} rel "
@@ -889,6 +938,10 @@ def train_gate_inputs(kind, dtype, g, b, n):
                                     for w, bb in pairs],
                  "plain": lambda: [lm.ln_matmul_plain(x, lw, lb, w, bb)
                                    for w, bb in pairs]},
+            # the forward through the public wrapper, timed beside the
+            # kernel alone
+            wrapper=lambda: [lm.ln_matmul(x, lw, lb, w, bb)
+                             for w, bb in pairs],
             bwd=None, bwd_plain=ln_bwd,
             names={"fwd": ["qkv", "fc1"],
                    "grad": ["dx", "d_ln_w", "d_ln_b", "dw_qkv", "db_qkv",
@@ -896,7 +949,7 @@ def train_gate_inputs(kind, dtype, g, b, n):
             flops=(sum(2 * b * n * c * f for f in fs), None),
             bytes=(sum((b * n * c + f * c + b * n * f + 2 * c + f) * es
                        for f in fs), None),
-            lib=(None, None))
+            lib=((LN_CHAIN, ln_chain(x, lw, lb, pairs)), None))
     raise KeyError(kind)
 
 
@@ -991,6 +1044,9 @@ def run_train_gate(gate, kind, dname, card, b, n):
                           mbytes=d["bytes"][i] / 1e6)
         good = good and finite and rel <= limit
         lib_txt = f"{library_ms:.3f} ms" if lib else "none"
+        if part == "fwd" and "wrapper" in d:   # K2
+            recs[part]["wrapper_ms"] = cuda_ms(d["wrapper"], 2, 5)
+            lib_txt += f", the wrapper {recs[part]['wrapper_ms']:.3f} ms"
         lines.append(f"{part}: rel {_errs_txt(errs)} (bound {limit:.0e} "
                      f"each; max|d| {mx:.3e}); kernel {ms:.3f} ms, plain "
                      f"{plain_ms:.3f} ms, library {lib_txt}, bound "
@@ -1782,6 +1838,10 @@ def main() -> int:
                     "library_ms"):
             row[key] = r32.get(key)
             row[key + "_bf16"] = r16.get(key)
+        for key in ("kernel_ms", "wrapper_ms"):   # K2's other timings
+            if key in r32 or key in r16:
+                row[key] = r32.get(key)
+                row[key + "_bf16"] = r16.get(key)
         # the call that was timed, as the gate recorded it
         row["library"] = r32.get("library") or r16.get("library") or NO_LIB
         summary.append(row)

@@ -122,7 +122,9 @@ def build() -> Path:
     out.with_suffix(".log").write_text(log)
     if any(rcs):
         shutil.rmtree(tmp, ignore_errors=True)
-        raise RuntimeError(f"nvcc failed (exit codes {rcs}):\n{log[-4000:]}")
+        errors = "\n".join(ln for ln in log.splitlines() if "error" in ln)
+        raise RuntimeError(f"nvcc failed (exit codes {rcs}):\n"
+                           f"{errors[:4000]}\n...\n{log[-2000:]}")
     # atomic: a concurrent build never sees a partial .so
     os.replace(tmp / out.name, out)
     shutil.rmtree(tmp, ignore_errors=True)

@@ -176,16 +176,18 @@ __device__ __forceinline__ void load_tile_async(
 
 // Lane addresses of ldmatrix_x4 on a padded tile, for the 16 x 16 block
 // at (row0, col0):
-//   a_addr:  the A fragment of rows row0..+15, columns (k) col0..+15;
+//   a_addr:  the A fragment of rows row0..+15, columns (k) col0..+15 (rows
+//            `stride` elements apart, kMmaStride unless given);
 //   b_addr:  B fragments from an n-major tile (rows are n, columns k): n
 //            rows row0..+7 -> r[0], r[1]; row0+8..+15 -> r[2], r[3];
 //   bt_addr: B fragments from a k-major tile (rows are k, columns n),
 //            through ldmatrix_x4_trans: n columns col0..+7 -> r[0], r[1];
 //            col0+8..+15 -> r[2], r[3].
 __device__ __forceinline__ uint32_t a_addr(const __nv_bfloat16* tile,
-                                           int row0, int col0) {
+                                           int row0, int col0,
+                                           int stride = kMmaStride) {
   const int l = threadIdx.x % 32;
-  return smem_addr(tile + (row0 + (l % 16)) * kMmaStride + col0 + (l / 16) * 8);
+  return smem_addr(tile + (row0 + (l % 16)) * stride + col0 + (l / 16) * 8);
 }
 __device__ __forceinline__ uint32_t b_addr(const __nv_bfloat16* tile,
                                            int row0, int col0) {

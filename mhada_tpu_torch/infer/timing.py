@@ -12,10 +12,14 @@ The reference times un-warmed runs and re-encodes the style on every run.
 
 On the card every window is timed with CUDA events (device time, no host
 sync inside a window); a CPU run, which the caller must ask for, times
-with the host clock and says so in ``clock``.
+with the host clock and says so in ``clock``.  ``--profile`` also traces
+one full and one streaming frame (``train.bench_steps.profile_step``:
+the device's busy time, the union of its kernels' intervals, against the
+frame's wall time under the profiler, and the top kernels): a busy time
+well under the frame time above means the host sets the frame's pace.
 
     python -m mhada_tpu_torch.infer.timing [--size 512 512] [--iters 100] \
-        [--dtype bfloat16] [--device cuda]
+        [--dtype bfloat16] [--device cuda] [--profile]
 
 prints one JSON object.
 """
@@ -52,7 +56,7 @@ def _elapsed_ms(device: torch.device, fn) -> float:
 
 def measure(models: dict, image_size=(512, 512),
             dtype: torch.dtype = torch.float32, iters: int = 100,
-            warmup: int = 5) -> dict:
+            warmup: int = 5, profile: bool = False) -> dict:
     device = next(models["vit_c"].parameters()).device
     rng = np.random.default_rng(0)
     h, w = image_size
@@ -83,6 +87,15 @@ def measure(models: dict, image_size=(512, 512),
     lat = np.asarray([
         _elapsed_ms(device, lambda s=s: run_kv(s, s + window)) / window
         for s in range(0, iters, window)])
+    traces = {}
+    if profile:
+        from ..train.bench_steps import profile_step
+
+        traces = {"profile_full": profile_step(full, contents[0], style,
+                                               device, top=8),
+                  "profile_streaming": profile_step(
+                      lambda c, _: with_kv(c, kv), contents[0], style,
+                      device, top=8)}
     return {
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
@@ -94,6 +107,7 @@ def measure(models: dict, image_size=(512, 512),
         "steady_state_ms": float(lat.mean()),
         "steady_state_p50_ms": float(np.median(lat)),
         "fps": 1000.0 / float(lat.mean()),
+        **traces,
     }
 
 
@@ -102,11 +116,13 @@ def main(argv=None):
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--size", type=int, nargs=2, default=(512, 512))
     ap.add_argument("--iters", type=int, default=100)
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace one full and one streaming frame")
     add_model_args(ap)
     args = ap.parse_args(argv)
     models = models_from_args(ap, args)
     print(json.dumps(measure(models, tuple(args.size), DTYPES[args.dtype],
-                             args.iters)))
+                             args.iters, profile=args.profile)))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
-"""K2: LayerNorm fused into the following matmul (csrc/ln_matmul.cu), and
-its VJP.
+"""K2: LayerNorm fused into the following matmul (csrc/ln_matmul.cu: at
+bfloat16 an mma.sync GEMM with the LN as its prologue, csrc/ln_matmul_mma.cuh;
+at float32 a register-tiled CUDA-core GEMM), and its VJP.
 
 Port of mhada_tpu/ops/ln_matmul_pallas.py::ln_matmul for the ViT's
 ln1 -> qkv and ln2 -> fc1 sites.  ``layer_norm`` is the LayerNorm math of
@@ -20,8 +21,10 @@ import torch.nn.functional as F
 from .. import _build
 from ..config import use_kernel
 
-# The normalised row tile (64 rows x E in T) lives in shared memory.
-MAX_E = 768
+# The bf16 kernel keeps its 128 normalised rows (128 x E in bf16) resident
+# in shared memory beside the W ring: E <= 640 fits (csrc/ln_matmul_mma.cuh).
+# The float32 kernel takes any E.
+MAX_E = 640
 
 
 def _ln_stats(x: torch.Tensor, eps: float):
@@ -46,13 +49,18 @@ def ln_matmul_plain(x, ln_w, ln_b, w, b, eps: float = 1e-6) -> torch.Tensor:
 
 
 def _ln_matmul_kernel(x, ln_w, ln_b, w, b, eps):
+    """The launch: all five inputs in x's dtype (the kernel widens the LN
+    affine and the bias to float32 itself)."""
     e, f = x.shape[-1], w.shape[0]
-    _build.check_cuda_inputs("ln_matmul", x, w)
-    f32 = [t.float().contiguous() for t in (ln_w, ln_b, b)]
-    _build.check_cuda_inputs("ln_matmul", *f32)
+    _build.check_cuda_inputs("ln_matmul", x, ln_w, ln_b, w, b)
+    if x.dtype == torch.bfloat16:
+        if e % 8 or e > MAX_E:
+            raise ValueError(f"ln_matmul: the bfloat16 kernel takes E a "
+                             f"multiple of 8 and <= {MAX_E}, got {e}")
+        _build.check_aligned("ln_matmul", x, w)
     out = torch.empty((*x.shape[:-1], f), device=x.device, dtype=x.dtype)
-    _build.launch("mhada_ln_matmul", x.device, x, f32[0], f32[1], w, f32[2],
-                  out, x.numel() // e, e, f, float(eps), _build.dtype_code(x))
+    _build.launch("mhada_ln_matmul", x.device, x, ln_w, ln_b, w, b, out,
+                  x.numel() // e, e, f, float(eps), _build.dtype_code(x))
     return out
 
 
@@ -109,8 +117,5 @@ def ln_matmul(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
         raise ValueError(
             f"ln_matmul: bad shapes x {tuple(x.shape)} w {tuple(w.shape)} "
             f"b {tuple(b.shape)} ln {tuple(ln_w.shape)}")
-    if kernel and x.shape[-1] > MAX_E:
-        raise ValueError(
-            f"ln_matmul: the kernel takes E <= {MAX_E}, got {x.shape[-1]}")
     params = [t.to(x.dtype).contiguous() for t in (ln_w, ln_b, w, b)]
     return _LnMatmul.apply(x, *params, float(eps), kernel)

@@ -15,7 +15,10 @@ at the video-training shape (N = 2048, M = 1024); the decoder tail (K5,
 K8; at bf16 on the tensor cores) also from 256^2 to 512^2, repeating its
 outputs bit for bit, K8's gradients against the plain backward on the
 kernel forward's ReLU masks with the share of flipped masks bounded
-apart; a misaligned bf16 input of K3, K4, K7 or the tail raises too.  K13 (c6) and K14 (c1 -> c3) are held at small and path
+apart; a misaligned bf16 input of K3, K4, K7, the tail or K2 raises too,
+as does a bf16 K2 input whose E is no multiple of 8.  K2 (at bf16 on the
+tensor cores) also at the ViT's widths, 4096 rows by 512 -> 1536 and 2048,
+and at 999 ragged rows.  K13 (c6) and K14 (c1 -> c3) are held at small and path
 shapes, the probes P1 (a tensor-core matmul) and P2 (K3 with a cp.async
 ring on the CUDA cores, also against K3 at float32).
 
@@ -190,8 +193,12 @@ def test_mhada_prologue_kernel(gen, dtype, b, n, m, shift, entry):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape,f", [((2, 100, 128), 200), ((1, 64, 96), 64),
-                                     ((3, 5, 40), 7)])
+                                     ((3, 5, 40), 7), ((1, 4096, 512), 1536),
+                                     ((1, 4096, 512), 2048),
+                                     ((3, 333, 512), 2048)])
 def test_ln_matmul_kernel(gen, dtype, shape, f):
+    """K2 against its twin at ragged shapes (rows, F and E off the block
+    tile and the k-chunk) and at the ViT's qkv and fc1 widths."""
     e = shape[-1]
     x = _rnd(gen, dtype, *shape)
     lw = (1 + 0.1 * torch.randn(e, generator=gen)).cuda()
@@ -268,9 +275,10 @@ def test_mm_probe_kernel(gen, m, k, n):
 
 def test_kernel_rejects_bad_input(gen):
     """Bad shapes, strides and dtypes raise; so does a bfloat16 input of
-    K1, K6, K3, K4, K7 or the decoder tail (qkv, dO, fc, v, k, dE2, x)
-    that does not start on a 16-byte boundary (a contiguous view one
-    element into a buffer), before any launch."""
+    K1, K6, K3, K4, K7, the decoder tail or K2 (qkv, dO, fc, v, k, dE2,
+    x) that does not start on a 16-byte boundary (a contiguous view one
+    element into a buffer), and a bfloat16 K2 input whose E is no multiple
+    of 8, before any launch."""
     b, l, c = 1, 16, 128
 
     def off(*shape):
@@ -299,9 +307,14 @@ def test_kernel_rejects_bad_input(gen):
                      x, x, x, x, g, stats, stats, 2),
                  lambda: mhada_tm(x, x, g, x, 2),
                  lambda: decoder_tail(xt, *tail_w),
-                 lambda: decoder_tail_train(xt, *tail_w)):
+                 lambda: decoder_tail_train(xt, *tail_w),
+                 lambda: ln_matmul(g, x[0, 0], x[0, 0], x[0], x[0, 0, :l])):
         with pytest.raises(ValueError, match="16-byte aligned"):
             call()
+    # K2 at bf16: E a multiple of 8 (16-byte rows)
+    xe = torch.zeros(1, 4, 36, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ln_matmul(xe, xe[0, 0], xe[0, 0], xe[0], xe[0, 0, :4])
     assert _build.LAUNCHES == before
     qkv = _rnd(gen, torch.float32, 1, 16, 384)
     with pytest.raises(ValueError, match="head dim"):

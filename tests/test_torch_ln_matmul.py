@@ -1,8 +1,10 @@
 """K2's plain twin (mhada_tpu_torch/ops/ln_matmul.py) against the JAX fused
-LN + matmul Pallas kernel in interpret mode, CPU."""
+LN + matmul Pallas kernel in interpret mode, CPU, in float32 and bfloat16
+at the ViT's widths."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
@@ -32,14 +34,32 @@ def test_layer_norm_matches_jax():
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
 
 
-def test_ln_matmul_twin_matches_pallas():
-    x, s, sb, w, b = _inputs(128, 384)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("e,f", [(128, 384), (512, 1536), (512, 2048)])
+def test_ln_matmul_twin_matches_pallas(dtype, e, f):
+    """The twin against the Pallas kernel, also at the ViT's widths (ln1 ->
+    qkv, ln2 -> fc1).  bfloat16: all five inputs bf16-valued, as the bf16
+    step casts its parameter tree."""
+    arrays = _inputs(e, f)
+    if dtype == "bfloat16":
+        arrays = [torch.from_numpy(a).bfloat16().float().numpy()
+                  for a in arrays]
+    x, s, sb, w, b = arrays
+    jdt = getattr(jnp, dtype)
     with pltpu.force_tpu_interpret_mode():
-        ref = np.asarray(jax_ln_matmul(*map(jnp.asarray, (x, s, sb, w, b))))
+        ref = np.asarray(jax_ln_matmul(*(jnp.asarray(a).astype(jdt)
+                                         for a in (x, s, sb, w, b)))
+                         .astype(jnp.float32))
     # the port keeps nn.Linear's (out, in) weight layout
-    got = ln_matmul(torch.from_numpy(x), torch.from_numpy(s),
-                    torch.from_numpy(sb), torch.from_numpy(w.T.copy()),
-                    torch.from_numpy(b)).numpy()
-    assert got.shape == (1, 512, 384)
-    # 128-term float32 dot products, as tests/test_ln_matmul.py bounds them
-    np.testing.assert_allclose(got, ref, atol=2e-5, rtol=1e-5)
+    tdt = getattr(torch, dtype)
+    got = ln_matmul(*(torch.from_numpy(a).to(tdt)
+                      for a in (x, s, sb, w.T.copy(), b))).float().numpy()
+    assert got.shape == (1, 512, f)
+    if dtype == "float32":
+        # E-term float32 dot products, as tests/test_ln_matmul.py bounds them
+        np.testing.assert_allclose(got, ref, atol=2e-5, rtol=1e-5)
+    else:
+        # h and the output each rounded once to bf16 on both sides, the sums
+        # in another order: one bf16 step of the largest output
+        np.testing.assert_allclose(got, ref, rtol=0,
+                                   atol=2.0 ** -8 * np.abs(ref).max())

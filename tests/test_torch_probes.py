@@ -1,7 +1,8 @@
 """The probes' plain versions against the JAX package's TPU probe kernels
 (interpret mode), CPU: P1's ``mm_plain`` against ``_mm_kernel`` through
 ``pl.pallas_call``, P2's plain version against ``_pipe_kernel`` through the
-probe's ``call_variant``; the probes' CLIs on the CPU and their guards.
+probe's ``call_variant``; the probes' CLIs on the CPU and their guards;
+the cuts of K2's split probe against the kernel's source.
 The probe scripts are not a package, so they are imported by path."""
 
 import importlib.util
@@ -16,7 +17,8 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from mhada_tpu_torch.ops.instance_norm import instance_norm_stats
-from mhada_tpu_torch.probes import mhada_pipe_probe, mm_probe
+from mhada_tpu_torch import _build
+from mhada_tpu_torch.probes import ln_matmul_split, mhada_pipe_probe, mm_probe
 
 # Six test workers share the CPU: cap torch's intra-op threads.
 torch.set_num_threads(2)
@@ -120,3 +122,16 @@ def test_probe_guards(monkeypatch):
     for main in (mm_probe.main, mhada_pipe_probe.main):
         with pytest.raises(RuntimeError, match="--device cpu"):
             main([])
+
+
+def test_ln_matmul_split_cuts(monkeypatch):
+    """K2's split probe: every cut it makes names text that is in the bf16
+    kernel's source (so each scratch build is the kernel less one part),
+    and without a card it raises."""
+    src = (_build.CSRC / "ln_matmul_mma.cuh").read_text()
+    for cut, edits in ln_matmul_split.CUTS.items():
+        for old, _ in edits:
+            assert src.count(old) == 1, (cut, old)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        ln_matmul_split.main([])

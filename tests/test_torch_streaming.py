@@ -166,10 +166,17 @@ def test_run_grid_cpu(pair, tmp_path):
     assert np.abs(got - want).mean() < 8  # JPEG quality 75
 
 
-def test_timing_cli_cpu(capsys):
-    timing.main(["--size", "32", "32", "--iters", "2", "--device", "cpu"])
+@pytest.mark.parametrize("extra", [[], ["--profile"]])
+def test_timing_cli_cpu(capsys, extra):
+    timing.main(["--size", "32", "32", "--iters", "2", "--device", "cpu",
+                 *extra])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["clock"] == "host" and out["fps"] > 0
+    for key in ("profile_full", "profile_streaming"):
+        if extra:   # traced on the CPU: a wall time, no device time
+            assert out[key]["wall_ms"] > 0 and out[key]["device_busy_ms"] == 0
+        else:
+            assert key not in out
 
 
 @pytest.mark.parametrize("cli", ["image", "timing", "image_all"])
