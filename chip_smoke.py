@@ -7,30 +7,35 @@
    whether cv2 imports (reported, never failed);
 2. build: compile mhada_tpu_torch/csrc/*.cu with nvcc (one per source, in
    parallel); the bf16 tensor-core kernels of K1, K6, K3, K4 and K7
-   (forward, dQ and dK/dV), of the decoder tail (K5, K8) and of K2 must
-   each hold HMMA.16816.F32.BF16 in their SASS (cuobjdump) and spill
-   nothing (ptxas), every instantiation that a bf16 path launches must
-   exist (K4's MHAda tile without prologue or residuals, the tail with and
-   without residuals, K2's), no bf16 instantiation of the CUDA-core
-   kernels they replaced may exist, and K2's float32 kernel must exist and
-   hold no HMMA of any kind (it computes in float32, no TF32);
+   (forward, dQ and dK/dV), of the decoder tail (K5, K8), of K2 and of
+   K14 must each hold HMMA.16816.F32.BF16 in their SASS (cuobjdump) and
+   spill nothing (ptxas); P2's bf16 kernel must hold HGMMA (wgmma) and
+   UTMALDG (TMA loads) and spill nothing; every instantiation that a bf16
+   path launches must exist (K4's MHAda tile without prologue or
+   residuals, the tail with and without residuals, K2's, K14's), no bf16
+   instantiation of the CUDA-core kernels they replaced may exist (those
+   of K1, K3, K4, K5, K6, K7, K8, K2, K14 and P2), and K2's float32 kernel
+   must exist and hold no HMMA of any kind (it computes in float32, no
+   TF32);
 3. gates: each hand-written kernel against its plain PyTorch version on the
    card, in float32 and bfloat16, at the 512^2 path's shapes and at the
    1024^2 shapes (K2 at N = 16384; K3 at M = 16384; K5 from 512^2 to
    1024^2; K1 at L = 16384 for the TPU's K9; K4 at N = M = 16384 for the
    TPU's K10); K13 (c6) at 512^2 with B = 1 and 8 and at 1024^2; K14 (c1
    -> c3) at 128^2 with B = 1 and 8 and at 256^2; P2 at B = 8, N = M =
-   4096, also against K3 at float32; P1 at its 8 shapes (bfloat16), each
-   with its time, the plain version's, the PyTorch library call's where one
-   computes the same function or, for K3, K4, K7 and P2, their products (SDPA
-   on [V | V^2] with scale 1; named in the record with its backend), and
-   the least time the card could take (its bound); K2 three ways: its
+   4096, also against K3 (float32 and bfloat16); P1 at its 8 shapes
+   (bfloat16), each with its time, the plain version's, the PyTorch
+   library call's where one computes the same function or, for K3, K4, K7
+   and P2, their products (SDPA on [V | V^2] with scale 1; named in the
+   record with its backend), and the least time the card could take (its
+   bound); K2 three ways: its
    wrapper (float32 weights cast per call, the 1536- and 2048-wide outputs
    concatenated), the kernel alone and the library chain (F.layer_norm +
    F.linear per width, cuBLAS; two calls, so it stands in the library
    column only as a named chain, as the plain cuDNN chain is K5's
-   yardstick), both on the inputs cast once to the compute dtype; then the
-   probes' CLIs, their launches counted;
+   yardstick), both on the inputs cast once to the compute dtype; K14 also
+   as the kernel alone (its weights converted once); then the probes'
+   CLIs, their launches counted;
 4. main paths, each driven with the launch counts set to 0 just before it
    and read just after, and held against the plain path on the same
    weights:
@@ -317,10 +322,12 @@ BELOW_DQ = {"float32": 1e-3, "bfloat16": 1e-1}
 # differ only in summation order (TF32 is off), ~1e-6 expected.  bfloat16:
 # both round intermediates to bf16 (2^-8 relative) at different points.
 REL_BOUND = {"float32": 1e-4, "bfloat16": 3e-2}
-# P2 against K3 at float32: the same arithmetic in the same order.  At
-# bfloat16 K3 runs on the tensor cores and P2 stays on the CUDA cores, so
-# P2 is held to its own plain version only (its gate).
-PIPE_K3_REL = 1e-6
+# P2 against K3 on the same inputs, max |P2 - K3| / max |K3|.  float32:
+# the same arithmetic in the same order (0 measured on an H100).  bfloat16:
+# the same rounding points, sums in another order (wgmma against mma.sync)
+# and P's exponent as one FFMA; 2.6e-3 measured on an H100, K3 against
+# the plain version 5.1e-3.
+PIPE_K3_REL = {"float32": 1e-6, "bfloat16": 1e-2}
 # Main-path bound on max |pixel difference| (0-255) against the plain path.
 # float32: the repo's reference gate (scripts/reference_gate.py:63); 0.0016
 # measured on an H100.  bfloat16: pixels of 128-255 are stored with a
@@ -331,31 +338,39 @@ PIXEL_BOUND = {"float32": 0.1, "bfloat16": 4.0}
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 DTYPE_NAMES = ("float32", "bfloat16")
-# The bf16 tensor-core kernels of K1 and K6 (csrc/attention_mma.cuh,
+# The bf16 mma.sync kernels of K1 and K6 (csrc/attention_mma.cuh,
 # csrc/attention_bwd_mma.cuh), K3, K4 and K7 (csrc/mhada_mma.cuh: K3, K4
 # and K7's forward; csrc/mhada_bwd_mma.cuh), K5 and K8
-# (csrc/decoder_tail_mma.cuh), K2 (csrc/ln_matmul_mma.cuh) and the
-# instruction each must contain.
+# (csrc/decoder_tail_mma.cuh), K2 (csrc/ln_matmul_mma.cuh) and K14
+# (csrc/decoder_mid_mma.cuh) and the instruction each must contain.
 MMA_KERNELS = ("attention_mma_fwd_kernel", "attention_mma_dkv_kernel",
                "attention_mma_dq_kernel", "mhada_mma_fwd_kernel",
                "mhada_mma_dkv_kernel", "mhada_mma_dq_kernel",
-               "decoder_tail_mma_kernel", "ln_matmul_mma_kernel")
+               "decoder_tail_mma_kernel", "ln_matmul_mma_kernel",
+               "decoder_mid_mma_kernel")
 HMMA = "HMMA.16816.F32.BF16"
+# The bf16 wgmma + TMA kernels (P2: csrc/mhada_wgmma.cuh) and the
+# instructions each must contain: HGMMA (wgmma) and UTMALDG (TMA loads).
+WGMMA_KERNELS = ("mhada_wgmma_kernel",)
+WGMMA_SASS = ("HGMMA", "UTMALDG")
 # Instantiations (mangled-name parts) that the bf16 paths launch: K4's
-# MHAda tile (neither prologue nor residuals), K5's and K8's tail, K2.
+# MHAda tile (neither prologue nor residuals), K5's and K8's tail, K2,
+# K14.
 MMA_REQUIRED = ("mhada_mma_fwd_kernelILb0ELb0E",
                 "decoder_tail_mma_kernelILb0E", "decoder_tail_mma_kernelILb1E",
-                "ln_matmul_mma_kernel")
+                "ln_matmul_mma_kernel", "decoder_mid_mma_kernel")
 # bf16 instantiations of the CUDA-core kernels that no path may reach any
 # more (mangled names): the attention and MHAda tile (K1, K4, K6's and
 # K7's forwards) and backward (K6, K7), K3's tile (a float32-only kernel
 # now; the pattern catches a bf16 template of it), the decoder tail (K5,
-# K8) and K2's first kernel.
+# K8), K2's first kernel, K14's conv and P2's cp.async-ring tile.
 OLD_BF16 = (r"flash_tile_kernelI13__nv_bfloat16"
             r"|flash_bwd_(dkv|dq)_kernelI13__nv_bfloat16"
             r"|mhada_prologue_kernelI13__nv_bfloat16"
             r"|decoder_tail_kernelI13__nv_bfloat16"
-            r"|ln_matmul_kernelI13__nv_bfloat16")
+            r"|ln_matmul_kernelI13__nv_bfloat16"
+            r"|conv3x3_relu_kernelI13__nv_bfloat16"
+            r"|mhada_prologue_pipe_kernelI13__nv_bfloat16")
 # float32 kernels that compute in float32: they must exist and hold no
 # HMMA of any kind (no TF32 on the tensor cores).  K2's float32 build.
 F32_KERNELS = ("ln_matmul_f32_kernel",)
@@ -393,9 +408,10 @@ def ptxas_summary(log: str) -> str:
 def mma_report(lib):
     """The bf16 tensor-core kernels in the built library -> (ok, text): each
     kernel's registers and spilled bytes (ptxas), its count of HMMA in the
-    SASS (cuobjdump), any instantiation of MMA_REQUIRED that is missing,
-    and any bf16 instantiation of a CUDA-core kernel that the tensor-core
-    kernels replaced (OLD_BF16), which no path may reach."""
+    SASS (cuobjdump; the wgmma kernels: HGMMA and UTMALDG), any
+    instantiation of MMA_REQUIRED that is missing, and any bf16
+    instantiation of a CUDA-core kernel that the tensor-core kernels
+    replaced (OLD_BF16), which no path may reach."""
     from mhada_tpu_torch import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -424,6 +440,18 @@ def mma_report(lib):
             ok = ok and hmma > 0 and info.get("spill") == 0
             out.append(f"{f}: {info.get('regs')} regs, {info.get('spill')} "
                        f"B spilled, {hmma} x {HMMA}")
+    for kernel in WGMMA_KERNELS:
+        found = [f for f in funcs if kernel in f]
+        ok = ok and bool(found)
+        for f in found:
+            counts = {ins: funcs[f].count(ins) for ins in WGMMA_SASS}
+            info = ptxas.get(f, {})
+            ok = ok and all(counts.values()) and info.get("spill") == 0
+            out.append(f"{f}: {info.get('regs')} regs (the launch bound; "
+                       f"setmaxnreg moves them between warpgroups), "
+                       f"{info.get('spill')} B spilled, " + ", ".join(
+                           f"{n} x {ins}" for ins, n in counts.items())
+                       + f", {funcs[f].count(HMMA)} x {HMMA} (the prologue)")
     missing = [m for m in MMA_REQUIRED if not any(m in f for f in funcs)]
     out.append(f"missing instantiations: {missing or 'none'}")
     old = [f for f in funcs if re.search(OLD_BF16, f)]
@@ -641,8 +669,14 @@ def gate_inputs(kind, n, dtype, g, b=1):
                 h = torch.relu(conv2d_reflect(h, w.to(dtype), bias.to(dtype)))
             return h
 
-        return (lambda be: decoder_mid.mid3_fused(x, *params, backend=be),
-                3 * 2 * 9 * c * c * b * n * n,
+        def run(be):
+            return decoder_mid.mid3_fused(x, *params, backend=be)
+
+        # timed beside the wrapper (weights converted per call): the three
+        # launches on weights converted once
+        kparams = decoder_mid.kernel_params(params[::2], params[1::2], dtype)
+        run.kernel_alone = lambda: decoder_mid._kernel(x, *kparams)
+        return (run, 3 * 2 * 9 * c * c * b * n * n,
                 (2 * b * n * n * c + 3 * 9 * c * c + 3 * c) * es,
                 ("three cuDNN ConvReLUs (ops.pad_conv.conv2d_reflect + relu, "
                  "TF32 off)", convrelu3))
@@ -651,8 +685,7 @@ def gate_inputs(kind, n, dtype, g, b=1):
         fc, _, stats, wf, fb, k, v = inputs
         return (lambda be: mhada_pipe_probe.mhada_fused_prologue_pipe(
             *inputs, backend=be),
-            b * (6 * n * n * c + 2 * n * c * 64),
-            b * 5 * n * c * es + b * 4 * c * 4 + heads * 64 * (64 * es + 4),
+            *mhada_pipe_probe.work(b, n, n, c, heads, dtype),
             prologue_library(fc, stats, wf, fb, k, v, heads))
     if kind == "mm":
         m, k, nn = mm_probe.SHAPES[n]
@@ -694,7 +727,7 @@ def run_gate(gate, kind, n, b, dname, card):
         ms = cuda_ms(lambda: run("kernel"), *reps)
         plain_ms = cuda_ms(lambda: run("plain"), *reps)
         library_ms = cuda_ms(lib, *reps) if lib else None
-        alone = getattr(run, "kernel_alone", None)   # K2: also without casts
+        alone = getattr(run, "kernel_alone", None)   # K2, K14: without casts
         kernel_ms = cuda_ms(alone, *reps) if alone else None
     bound_ms, bound_by = bound(flops, nbytes, dname)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -717,17 +750,17 @@ def run_gate(gate, kind, n, b, dname, card):
         f"{card}); peak memory {peak_gb:.2f} GB"), rec
 
 
-def pipe_against_k3():
-    """P2 against K3 on the same float32 inputs at the probe's shape (B = 8,
-    N = M = 4096): the same arithmetic in the same order -> ok."""
+def pipe_against_k3(dname):
+    """P2 against K3 on the same inputs at the probe's shape (B = 8, N = M =
+    4096) in ``dname`` -> ok."""
     import torch
 
     from mhada_tpu_torch.ops.mhada_prologue import mhada_fused_prologue
     from mhada_tpu_torch.probes import mhada_pipe_probe as pp
 
-    label = "P2 against K3 float32"
+    label = f"P2 against K3 {dname}"
     try:
-        inputs = pp.probe_inputs(**pp.SHAPE, dtype=torch.float32,
+        inputs = pp.probe_inputs(**pp.SHAPE, dtype=getattr(torch, dname),
                                  device="cuda")
         with torch.inference_mode():
             pipe = pp.mhada_fused_prologue_pipe(*inputs).float()
@@ -735,9 +768,9 @@ def pipe_against_k3():
             rel = (pipe - k3).abs().max().item() / k3.abs().max().item()
     except Exception as e:
         return phase(label, False, f"{type(e).__name__}: {e}")
-    return phase(label, rel <= PIPE_K3_REL,
+    return phase(label, rel <= PIPE_K3_REL[dname],
                  f"max|P2 - K3| / max|K3| {rel:.3e} (bound "
-                 f"{PIPE_K3_REL:.1e})")
+                 f"{PIPE_K3_REL[dname]:.1e})")
 
 
 def run_probes(launches):
@@ -1367,7 +1400,8 @@ def main() -> int:
                 continue
             gates.setdefault(gate, {})[dname] = rec
             ok = good and ok
-    ok = pipe_against_k3() and ok
+    for dname in DTYPE_NAMES:
+        ok = pipe_against_k3(dname) and ok
     launches = {}   # path -> launch counts of its float32 run
     ok = run_probes(launches) and ok
 

@@ -22,7 +22,8 @@
 // float32 rate (67 TFLOP/s) and 0.020 ms at the bf16 tensor-core rate,
 // against 2 x 8.4 MB of activations at float32.
 //
-// Design (the simplest that is right; CUDA cores, float32 FMAs): a block
+// bfloat16 runs on the tensor cores (decoder_mid_mma.cuh, an implicit
+// GEMM on mma.sync).  float32 (CUDA cores, float32 FMAs): a block
 // owns a 16 x 16 tile of output pixels and 64 output channels.  It loops
 // over the input channels in chunks of 16: the chunk's 18 x 18 input
 // window (1-pixel halo, reflected at the image edges in the index
@@ -32,6 +33,7 @@
 // tx + 8 j, pixels ty + 32 i), 64 FMAs for every 16 shared loads.
 
 #include "common.cuh"
+#include "decoder_mid_mma.cuh"
 
 namespace {
 
@@ -138,14 +140,22 @@ cudaError_t conv3x3_relu(const void* x, const void* w, const float* bias,
 }  // namespace
 
 // One stage: x, y (B, H, W, C) NHWC in T; w HWIO (3, 3, C, C) in T; b (C,)
-// float32.  C % 64 == 0; H, W >= 2.
+// float32.  C % 64 == 0 (bfloat16: C % 128 == 0, every bf16 pointer
+// 16-byte aligned); H, W >= 2.
 extern "C" int mhada_decoder_mid_conv(const void* x, const void* w,
                                       const void* b, void* y, int batch,
                                       int h, int wd, int c, int dtype,
                                       void* stream) {
   if (c % kCo != 0) return (int)cudaErrorInvalidValue;
-  MHADA_DISPATCH_DTYPE(
-      dtype, T,
-      return (int)conv3x3_relu<T>(x, w, static_cast<const float*>(b), y,
-                                  batch, h, wd, c, (cudaStream_t)stream));
+  if (dtype == mhada::kF32)
+    return (int)conv3x3_relu<float>(x, w, static_cast<const float*>(b), y,
+                                    batch, h, wd, c, (cudaStream_t)stream);
+  if (dtype != mhada::kBF16 || c % mhada::mid::kCo != 0 ||
+      !mhada::mma_aligned({x, w, y}, c))
+    return (int)cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
+  return (int)mhada::mid::launch_decoder_mid_mma(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+      static_cast<const float*>(b), static_cast<bf16*>(y), batch, h, wd, c,
+      (cudaStream_t)stream);
 }

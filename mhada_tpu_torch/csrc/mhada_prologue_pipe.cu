@@ -1,32 +1,32 @@
-// P2: K3's function with its key and value tiles loaded by cp.async into a
-// two-stage shared-memory ring, so that tile t + 1's load is in flight
-// while tile t's Q K^T, softmax and P [V | V^2] run.
+// P2: K3's function, the repo's probe of the MHAda tile (mhada_mhada_
+// prologue_pipe).  bfloat16 launches the warp-specialised wgmma + TMA kernel
+// of mhada_wgmma.cuh; float32 launches the kernel below.
 //
 // Counterpart of scripts/mhada_pipe_probe.py::_pipe_kernel (pallas_call at
 // mhada_pipe_probe.py:112), an A/B probe of the fused-prologue MHAda kernel
 // that reordered two heads' work so that one head's vector work could hide
-// under the other's matrix work (mhada_pipe_probe.py:1-11).  On Hopper the
-// latency to hide is the global load of each 64-key tile, which K3
-// (mhada_prologue.cu) issues and waits for between two barriers.  The
-// function, the stats, the layouts and the rounding points are K3's
+// under the other's matrix work (mhada_pipe_probe.py:1-11).  The function,
+// the stats, the layouts and the rounding points are K3's
 // (ops/mhada_prologue.py::mhada_fused_prologue_plain is the plain version
 // of both).
 //
-// Design: K3's block (flash_tile.cuh: 64 queries of one head, 256
+// The float32 kernel asks the TPU probe's question on the CUDA cores: the
+// latency to hide is the global load of each 64-key tile, which K3's
+// float32 kernel (mhada_prologue.cu) issues and waits for between two
+// barriers.  It is K3's block (flash_tile.cuh: 64 queries of one head, 256
 // threads, float32 accumulators, online softmax) with a different key
-// loop.  The ring holds each tile as it lies in memory, in T: K at a row
-// stride padded by 16 bytes (the score loop reads it key-major, two-way
-// bank conflicts where K3's transposed float32 copy has none), V unpadded.
-// The 16-byte cp.async copies bypass registers and L1; keys past M are
-// zero-filled by plain stores.  Wf, needed only by the prologue, is staged
-// in the ring's second stage before the first tile lands there, so the
-// block needs 100.9 KB at float32 (two blocks an SM, as K3's 81 KB) and
-// 68 KB at bf16 (three).
-//
-// What bounds it on the card: operations, as K3: 6 N M d flops per head
-// plus 2 N d^2 for the projection, float32 FMAs on the CUDA cores.
+// loop.  The ring holds each tile as it lies in memory: K at a row stride
+// padded by 16 bytes (the score loop reads it key-major, two-way bank
+// conflicts where K3's transposed copy has none), V unpadded.  The 16-byte
+// cp.async copies bypass registers and L1; keys past M are zero-filled by
+// plain stores.  Wf, needed only by the prologue, is staged in the ring's
+// second stage before the first tile lands there: 100.9 KB of shared
+// memory, two blocks an SM, as K3's 81 KB.  What bounds it on the card:
+// operations, 6 N M d flops per head plus 2 N d^2 for the projection,
+// float32 FMAs on the CUDA cores.
 
 #include "mhada_prologue.cuh"
+#include "mhada_wgmma.cuh"
 
 namespace {
 
@@ -151,8 +151,10 @@ cudaError_t mhada_prologue_pipe(const void* fc, const void* fcs,
 
 }  // namespace
 
-// As mhada_mhada_prologue (mhada_prologue.cu); k and v 16-byte aligned,
-// C % 8 == 0.
+// As mhada_mhada_prologue (mhada_prologue.cu): fc, fcs, out (B, N, C), k,
+// v (B, M, C) and wf (H, 64, 64) in T; stats (B, 4, C) and fb (H, 64)
+// float32.  k and v 16-byte aligned, C % 8 == 0; bfloat16: every bf16
+// pointer 16-byte aligned, C = 64 H.
 extern "C" int mhada_mhada_prologue_pipe(const void* fc, const void* fcs,
                                          const void* stats, const void* wf,
                                          const void* fb, const void* k,
@@ -160,10 +162,25 @@ extern "C" int mhada_mhada_prologue_pipe(const void* fc, const void* fcs,
                                          int n, int m, int channels,
                                          int heads, int dtype, void* stream) {
   if (m < 1) return (int)cudaErrorInvalidValue;
-  MHADA_DISPATCH_DTYPE(
-      dtype, T,
-      return (int)mhada_prologue_pipe<T>(
-          fc, fcs, static_cast<const float*>(stats), wf,
-          static_cast<const float*>(fb), k, v, out, batch, n, m, channels,
-          heads, (cudaStream_t)stream));
+  if (dtype == mhada::kF32)
+    return (int)mhada_prologue_pipe<float>(
+        fc, fcs, static_cast<const float*>(stats), wf,
+        static_cast<const float*>(fb), k, v, out, batch, n, m, channels,
+        heads, (cudaStream_t)stream);
+  if (dtype != mhada::kBF16 || channels != 64 * heads ||
+      !mhada::mma_aligned({fc, fcs, wf, k, v, out}, channels))
+    return (int)cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
+  mhada::wg::WgArgs a{};
+  a.fc = static_cast<const bf16*>(fc);
+  a.fcs = static_cast<const bf16*>(fcs);
+  a.stats = static_cast<const float*>(stats);
+  a.wf = static_cast<const bf16*>(wf);
+  a.fb = static_cast<const float*>(fb);
+  a.out = static_cast<bf16*>(out);
+  a.n = n;
+  a.m = m;
+  a.channels = channels;
+  return (int)mhada::wg::launch_mhada_wgmma(a, k, v, batch, heads,
+                                            (cudaStream_t)stream);
 }

@@ -9,9 +9,11 @@ port's decoder runs c1-c3 as plain ConvReLUs.  It is held against the
 decoder's own activations by ``chip_smoke.py``.
 
 The kernel is one reflect-padded 3x3 ConvReLU launched once per stage,
-three launches per call.  Every stage keeps the TPU kernel's rounding
+three launches per call: at bfloat16 an implicit GEMM on the tensor cores,
+at float32 a CUDA-core conv.  Every stage keeps the TPU kernel's rounding
 points: the conv summed in float32, rounded to the dtype, plus the bias
-rounded to the dtype, ReLU.  Weights are torch OIHW.
+rounded to the dtype, ReLU.  Weights are torch OIHW; ``kernel_params``
+gives them in the kernel's layout.
 """
 
 import torch
@@ -35,6 +37,14 @@ def mid3_fused_plain(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     for w, b in ((w1, b1), (w2, b2), (w3, b3)):
         x = _stage_plain(x, w, b)
     return x
+
+
+def kernel_params(ws, bs, dtype):
+    """The weights and biases as the kernel takes them: HWIO (3, 3, C, C)
+    in ``dtype``, output channels contiguous, and float32 biases holding
+    ``dtype`` values."""
+    return ([w.to(dtype).permute(2, 3, 1, 0).contiguous() for w in ws],
+            [b.to(dtype).float().contiguous() for b in bs])
 
 
 def _check_shapes(x, ws, bs):
@@ -61,10 +71,12 @@ def mid3_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     _build.check_forward_only(
         "mid3_fused", "train through the plain ConvReLUs (models.decoder)",
         x, *ws, *bs)
-    dt = x.dtype
-    # OIHW -> HWIO: output channels contiguous for the kernel's weight reads
-    hwio = [w.to(dt).permute(2, 3, 1, 0).contiguous() for w in ws]
-    bias = [b.to(dt).float().contiguous() for b in bs]
+    return _kernel(x, *kernel_params(ws, bs, x.dtype))
+
+
+def _kernel(x, hwio, bias) -> torch.Tensor:
+    """The three launches, on weights and biases in the kernel's layout
+    (``kernel_params``)."""
     _build.check_cuda_inputs("mid3_fused", x, *hwio)
     _build.check_cuda_inputs("mid3_fused", *bias)
     if bias[0].device != x.device:
@@ -72,6 +84,7 @@ def mid3_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     bsz, h, w, c = x.shape
     for wt, bb in zip(hwio, bias):
         y = torch.empty_like(x)
+        _build.check_aligned("mid3_fused", x, wt, y)
         _build.launch("mhada_decoder_mid_conv", x.device, x, wt, bb, y, bsz,
                       h, w, c, _build.dtype_code(x))
         x = y

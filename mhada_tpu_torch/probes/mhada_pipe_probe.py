@@ -1,19 +1,23 @@
-"""P2: K3 with its key and value tiles double-buffered by ``cp.async``
+"""P2: K3's function as the repo's probe of the MHAda tile
 (csrc/mhada_prologue_pipe.cu), timed against K3.
 
 Counterpart of scripts/mhada_pipe_probe.py, which A/B-tested a
 software-pipelined variant of the fused-prologue MHAda kernel
 (``_pipe_kernel``) against the one in use.  The function is K3's, so its
-plain version is ``ops.mhada_prologue.mhada_fused_prologue_plain``.
+plain version is ``ops.mhada_prologue.mhada_fused_prologue_plain``.  At
+bfloat16 P2 is a warp-specialised wgmma + TMA kernel (csrc/mhada_wgmma.cuh;
+K3 runs mma.sync behind a cp.async ring); at float32 it is K3's CUDA-core
+block with its key and value tiles double-buffered by cp.async.
 
     python -m mhada_tpu_torch.probes.mhada_pipe_probe [--iters 30]
 
 runs the JAX probe's shape (B = 8, N = M = 4096, C = 512, 8 heads of 64,
 bfloat16) with the inputs of K3's gate (keys at scale 0.35, so the
 unscaled logits stay near std 1.6 and elementwise errors mean something)
-and prints K3's and the pipelined kernel's ms per dispatch and per frame,
-interleaved (K3, pipe, pipe, K3), each with its max error against the
-plain version.
+and prints K3's and P2's ms per dispatch and per frame, interleaved (K3,
+pipe, pipe, K3), each with its share of the card's bound (the published
+H100 SXM peaks of ``BOUND_PEAKS``), its TFLOP/s and its max error against
+the plain version.
 """
 
 import argparse
@@ -29,6 +33,26 @@ from ..ops.mhada_prologue import (launch_prologue, mhada_fused_prologue,
                                   mhada_fused_prologue_plain)
 
 SHAPE = dict(b=8, n=4096, m=4096, c=512, heads=8)   # mhada_pipe_probe.py:146
+# Published dense peaks of one H100 SXM at 700 W: FLOP/s by dtype (bf16 on
+# the tensor cores, float32 on the CUDA cores) and HBM bytes/s.
+BOUND_PEAKS = {"bfloat16": 989e12, "float32": 67e12, "bytes": 3.35e12}
+
+
+def work(b, n, m, c, heads, dtype):
+    """(flops, bytes) of one call: the products 6 N M d per head and the
+    projection 2 N d^2; fc, fcs, k, v and out once, the stats, Wf and fb."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    d = c // heads
+    flops = b * (6 * n * m * c + 2 * n * c * d)
+    nbytes = b * (3 * n + 2 * m) * c * es + b * 4 * c * 4 + heads * d * (
+        d * es + 4)
+    return flops, nbytes
+
+
+def bound_ms(flops, nbytes, dtype_name):
+    """The least ms the card could take for this work."""
+    return 1e3 * max(flops / BOUND_PEAKS[dtype_name],
+                     nbytes / BOUND_PEAKS["bytes"])
 
 
 def mhada_fused_prologue_pipe(fc, fcs, stats, wf, fb, k, v,
@@ -79,7 +103,10 @@ def main(argv=None) -> None:
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu (plain version, host clock)"
     b, n, c = SHAPE["b"], SHAPE["n"], SHAPE["c"]
-    print(f"# {name}; B={b} N=M={n} C={c} {args.dtype}", flush=True)
+    flops, nbytes = work(**SHAPE, dtype=DTYPES[args.dtype])
+    bound = bound_ms(flops, nbytes, args.dtype)
+    print(f"# {name}; B={b} N=M={n} C={c} {args.dtype}; bound {bound:.3f} "
+          f"ms ({flops / 1e9:.1f} GFLOP)", flush=True)
     with torch.inference_mode():
         ref = mhada_fused_prologue_plain(*inputs).float()
         runs = {"K3": lambda: mhada_fused_prologue(*inputs),
@@ -94,7 +121,9 @@ def main(argv=None) -> None:
 
             ms = _elapsed_ms(device, loop) / args.iters
             print(f"{label:5s}: {ms:8.3f} ms/dispatch ({ms / b:7.4f} "
-                  f"ms/frame)  max|err| against plain {err:.2e}", flush=True)
+                  f"ms/frame) {100 * bound / ms:5.1f} % of the bound "
+                  f"{flops / ms / 1e9:7.1f} TF/s  max|err| against plain "
+                  f"{err:.2e}", flush=True)
 
 
 if __name__ == "__main__":

@@ -18,9 +18,13 @@ kernel forward's ReLU masks with the share of flipped masks bounded
 apart; a misaligned bf16 input of K3, K4, K7, the tail or K2 raises too,
 as does a bf16 K2 input whose E is no multiple of 8.  K2 (at bf16 on the
 tensor cores) also at the ViT's widths, 4096 rows by 512 -> 1536 and 2048,
-and at 999 ragged rows.  K13 (c6) and K14 (c1 -> c3) are held at small and path
-shapes, the probes P1 (a tensor-core matmul) and P2 (K3 with a cp.async
-ring on the CUDA cores, also against K3 at float32).
+and at 999 ragged rows.  K13 (c6) and K14 (c1 -> c3; at bf16 an implicit
+GEMM on the tensor cores, also at ragged sizes with C = 128 and 256) are
+held at small and path shapes, the probes P1 (a tensor-core matmul) and P2
+(K3's function; at bf16 a wgmma + TMA kernel, also at the full width with M
+no multiple of 64 and N no multiple of its 192-query block), each also
+against K3 (float32 1e-6, bf16 1e-2); a misaligned, wrongly typed or
+grad-requiring input of P2 or K14 raises.
 
 Marked ``cuda``: each test skips without a card.  On a machine with one (the
 repo conftest imports jax, which that machine need not have):
@@ -165,9 +169,9 @@ def test_mhada_kernel_v_offset(gen, dtype, b, n, m, shift):
                                    "mhada_mhada_prologue_pipe"])
 def test_mhada_prologue_kernel(gen, dtype, b, n, m, shift, entry):
     """K3, and the probe P2 of the same function, against the plain
-    version; P2 also against K3 at float32: the same arithmetic in the same
-    order, so equal up to the output's rounding (at bf16 K3 runs on the
-    tensor cores, P2 on the CUDA cores)."""
+    version; P2 also against K3 (PIPE_K3_REL): at float32 the same
+    arithmetic in the same order, at bf16 the same rounding points with
+    sums in another order (wgmma against mma.sync)."""
     fn = {"mhada_mhada_prologue": mhada_fused_prologue,
           "mhada_mhada_prologue_pipe": mhada_fused_prologue_pipe}[entry]
     fc = _rnd(gen, dtype, b, n, 128, scale=2.0) + 1
@@ -184,11 +188,46 @@ def test_mhada_prologue_kernel(gen, dtype, b, n, m, shift, entry):
         return fc.to(dt), fcs.to(dt), stats, wf, fb, k.to(dt), v.to(dt)
 
     _check(entry, lambda be, dt: fn(*args(dt), backend=be), dtype)
-    if entry == "mhada_mhada_prologue_pipe" and dtype == torch.float32:
-        pipe = fn(*args(dtype))
-        k3 = mhada_fused_prologue(*args(dtype))
-        rel = (pipe - k3).abs().max().item() / k3.abs().max().item()
-        assert rel <= 1e-6, rel
+    if entry == "mhada_mhada_prologue_pipe":
+        _check_pipe_against_k3(args(dtype))
+
+
+# max |P2 - K3| / max |K3|, as chip_smoke.py's PIPE_K3_REL.
+PIPE_K3_REL = {torch.float32: 1e-6, torch.bfloat16: 1e-2}
+
+
+def _check_pipe_against_k3(inputs):
+    pipe = mhada_fused_prologue_pipe(*inputs).float()
+    k3 = mhada_fused_prologue(*inputs).float()
+    torch.cuda.synchronize()
+    rel = (pipe - k3).abs().max().item() / k3.abs().max().item()
+    assert rel <= PIPE_K3_REL[inputs[0].dtype], rel
+
+
+@pytest.mark.parametrize("b,n,m,heads", [(2, 200, 130, 8), (2, 385, 1000, 2),
+                                         (1, 1, 63, 8)])
+def test_pipe_wgmma_kernel(gen, b, n, m, heads):
+    """P2 at bf16 (csrc/mhada_wgmma.cuh) against the plain version and K3:
+    M no multiple of 64 (the 3-D tensor map zero-fills the last key tile
+    inside its own batch, the mask does the rest), N no multiple of the
+    192-query block, B = 2; the full width (8 heads) and 2 heads."""
+    c = 64 * heads
+    fc = _rnd(gen, torch.bfloat16, b, n, c, scale=2.0) + 1
+    fcs = _rnd(gen, torch.bfloat16, b, n, c, scale=3.0) - 1
+    stats = torch.stack([*instance_norm_stats(fc),
+                         *instance_norm_stats(fcs)], 1)
+    wf = _rnd(gen, torch.bfloat16, heads, 64, 64, scale=1 / 8)
+    fb = _rnd(gen, torch.bfloat16, heads, 64, scale=1 / 8)
+    k = _rnd(gen, torch.bfloat16, b, m, c, scale=0.35)
+    v = _rnd(gen, torch.bfloat16, b, m, c)
+
+    def args(dt):
+        return fc.to(dt), fcs.to(dt), stats, wf, fb, k.to(dt), v.to(dt)
+
+    _check("mhada_mhada_prologue_pipe",
+           lambda be, dt: mhada_fused_prologue_pipe(*args(dt), backend=be),
+           torch.bfloat16)
+    _check_pipe_against_k3(args(torch.bfloat16))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -247,8 +286,11 @@ def test_decoder_c6_kernel(gen, dtype, shape):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(1, 2, 3, 128), (2, 9, 20, 128),
+                                   (2, 19, 37, 128), (2, 19, 37, 256),
                                    (1, 128, 128, 256)])
 def test_decoder_mid_kernel(gen, dtype, shape):
+    """K14 against its twin, three launches; ragged tiles at C = 128 and
+    256 (two channel blocks, four input-channel chunks at bf16)."""
     c = shape[-1]
     x = _rnd(gen, dtype, *shape)
     params = [t for _ in range(3)
@@ -308,7 +350,12 @@ def test_kernel_rejects_bad_input(gen):
                  lambda: mhada_tm(x, x, g, x, 2),
                  lambda: decoder_tail(xt, *tail_w),
                  lambda: decoder_tail_train(xt, *tail_w),
-                 lambda: ln_matmul(g, x[0, 0], x[0, 0], x[0], x[0, 0, :l])):
+                 lambda: ln_matmul(g, x[0, 0], x[0, 0], x[0], x[0, 0, :l]),
+                 lambda: mhada_fused_prologue_pipe(g, x, st4, wf, fb, x, x),
+                 lambda: mhada_fused_prologue_pipe(x, x, st4, wf, fb, g, x),
+                 lambda: mid3_fused(xt, *[torch.zeros(
+                     shape, device="cuda") for shape in (
+                         (128, 128, 3, 3), (128,))] * 3)):
         with pytest.raises(ValueError, match="16-byte aligned"):
             call()
     # K2 at bf16: E a multiple of 8 (16-byte rows)
@@ -333,6 +380,9 @@ def test_kernel_rejects_bad_input(gen):
     w, b = torch.zeros(128, 128, 3, 3, device="cuda"), torch.zeros(128).cuda()
     with pytest.raises(TypeError):
         mid3_fused(x.half(), w, b, w, b, w, b)
+    xh = torch.zeros(1, 16, 128, device="cuda", dtype=torch.half)
+    with pytest.raises(TypeError):
+        mhada_fused_prologue_pipe(xh, xh, st4, wf, fb, xh, xh)
     a = torch.zeros(65, 32, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiples"):
         mm(a, torch.zeros(32, 64, device="cuda", dtype=torch.bfloat16))
@@ -493,9 +543,9 @@ def test_ln_matmul_vjp(gen, dtype, shape, f):
 
 
 def test_forward_only_wrappers_refuse_grad(gen):
-    """K1, K4, K5, K13 and K14 launch no kernel for an input that requires
-    grad while grad mode is on, and name their training route; under
-    no_grad they run."""
+    """K1, K4, K5, K13, K14 and the probe P2 launch no kernel for an input
+    that requires grad while grad mode is on, and name their training route
+    (P2: none, it is a probe); under no_grad they run."""
     qkv = _rnd(gen, torch.float32, 1, 16, 384).requires_grad_()
     q = _rnd(gen, torch.float32, 1, 16, 128).requires_grad_()
     x = _rnd(gen, torch.float32, 1, 4, 4, 128)
@@ -514,7 +564,11 @@ def test_forward_only_wrappers_refuse_grad(gen):
              (lambda: mhada_tm(q, q, q, q, 2), "K7"),
              (lambda: decoder_tail(*tail), "K8"),
              (lambda: c6_conv(y, w6, torch.zeros(3, device="cuda")), "K8"),
-             (lambda: mid3_fused(xm, wm, bm, wm, bm, wm, bm), "ConvReLU")]
+             (lambda: mid3_fused(xm, wm, bm, wm, bm, wm, bm), "ConvReLU"),
+             (lambda: mhada_fused_prologue_pipe(
+                 q, q, torch.ones(1, 4, 128, device="cuda"),
+                 torch.zeros(2, 64, 64, device="cuda"),
+                 torch.zeros(2, 64, device="cuda"), q, q), "probe")]
     before = dict(_build.LAUNCHES)
     for call, route in calls:
         with pytest.raises(RuntimeError, match=f"forward-only.*{route}"):

@@ -1,5 +1,7 @@
 """K14's plain version against the JAX package's ``mid3_fused`` (interpret
-mode), CPU, at the cases of tests/test_decoder_mid.py, and the wrapper's
+mode), CPU, at the cases of tests/test_decoder_mid.py; a model of the bf16
+kernel's implicit GEMM (csrc/decoder_mid_mma.cuh) on the weights as the
+wrapper hands them, against the plain version; and the wrapper's
 guards."""
 
 import numpy as np
@@ -9,7 +11,8 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from mhada_tpu.ops.decoder_mid_pallas import mid3_fused as jax_mid3_fused
-from mhada_tpu_torch.ops.decoder_mid import mid3_fused, mid3_fused_plain
+from mhada_tpu_torch.ops.decoder_mid import (kernel_params, mid3_fused,
+                                             mid3_fused_plain)
 
 # Six test workers share the CPU: cap torch's intra-op threads.
 torch.set_num_threads(2)
@@ -69,3 +72,72 @@ def test_mid3_guards():
                                                torch.zeros(64)] * 3)
     with pytest.raises(ValueError, match="bad shapes"):
         mid3_fused(x, w, b, w[:, :64], b, w, b)
+
+
+def _reflect(i, n):
+    """csrc/common.cuh::reflect_index: mirror into [0, n), then clamp."""
+    i = -i if i < 0 else i
+    i = 2 * n - 2 - i if i >= n else i
+    return max(0, min(n - 1, i))
+
+
+def _implicit_gemm_stage(x, w, bias, tile=16, co_block=128, chunk=64):
+    """One stage as decoder_mid_mma.cuh computes it: per 16 x 16 output
+    tile, the 18 x 18 window gathered by reflected indices; per block of
+    128 output channels, the sum over 64-channel chunks and the 9 taps of
+    the tap-shifted window times the HWIO weight tile [tap][ci][co] in
+    float32; the sum rounded to the dtype, the bias added and rounded,
+    ReLU; only in-image pixels stored."""
+    bsz, h, wd, c = x.shape
+    xf, wf = x.float(), w.float()
+    y = torch.empty_like(x)
+    for oy0 in range(0, h, tile):
+        rows = [_reflect(oy0 - 1 + p, h) for p in range(tile + 2)]
+        for ox0 in range(0, wd, tile):
+            cols = [_reflect(ox0 - 1 + p, wd) for p in range(tile + 2)]
+            win = xf[:, rows][:, :, cols]
+            acc = torch.zeros(bsz, tile, tile, c)
+            for co0 in range(0, c, co_block):
+                cs = slice(co0, co0 + co_block)
+                for ci0 in range(0, c, chunk):
+                    ks = slice(ci0, ci0 + chunk)
+                    for tap in range(9):
+                        dy, dx = tap // 3, tap % 3
+                        acc[..., cs] += (win[:, dy:dy + tile, dx:dx + tile, ks]
+                                         @ wf[dy, dx, ks, cs])
+            out = torch.relu((acc.to(x.dtype).float() + bias).to(x.dtype))
+            vh, vw = min(tile, h - oy0), min(tile, wd - ox0)
+            y[:, oy0:oy0 + vh, ox0:ox0 + vw] = out[:, :vh, :vw]
+    return y
+
+
+@pytest.mark.parametrize("c,shape,dtype", [
+    (128, (2, 19, 37), "float32"),     # ragged tiles on both sides
+    (256, (2, 19, 37), "float32"),     # two channel blocks, four chunks
+    (128, (2, 19, 37), "bfloat16"),
+    (256, (2, 19, 37), "bfloat16"),
+    (256, (1, 16, 2), "bfloat16"),     # one tile row, a 2-wide image
+])
+def test_mid3_implicit_gemm_matches_plain(c, shape, dtype):
+    """The kernel's indexing (reflected halo, tap shifts, channel chunks
+    and blocks, ragged tiles, the wrapper's HWIO layout) and rounding
+    points against mid3_fused_plain, three stages.  Bounds on max |d| /
+    max |plain|: float32 1e-5 (sums in another order); bfloat16 1e-2 (the
+    same rounding points, but a sum on either side of a bf16 rounding
+    boundary moves the next stages by whole bf16 steps; chip_smoke.py
+    holds the kernel to 3e-2)."""
+    rng = np.random.default_rng(72)
+    ws, bs = _params(rng, c)
+    x = torch.from_numpy(rng.standard_normal((*shape, c)).astype(
+        np.float32)).to(getattr(torch, dtype))
+    args = [t for wb in zip(ws, bs) for t in (_oihw(wb[0]),
+                                              torch.from_numpy(wb[1]))]
+    ref = mid3_fused_plain(x, *args).float()
+    hwio, bias = kernel_params(args[::2], args[1::2], x.dtype)
+    assert hwio[0].shape == (3, 3, c, c) and hwio[0].is_contiguous()
+    assert all(b.dtype == torch.float32 for b in bias)
+    got = x
+    for w, b in zip(hwio, bias):
+        got = _implicit_gemm_stage(got, w, b)
+    rel = ((got.float() - ref).abs().max() / ref.abs().max()).item()
+    assert rel <= (1e-5 if dtype == "float32" else 1e-2), rel

@@ -2,7 +2,8 @@
 (interpret mode), CPU: P1's ``mm_plain`` against ``_mm_kernel`` through
 ``pl.pallas_call``, P2's plain version against ``_pipe_kernel`` through the
 probe's ``call_variant``; the probes' CLIs on the CPU and their guards;
-the cuts of K2's split probe against the kernel's source.
+the cuts of K2's split probe, and the edits of P2's ablation probe, against
+the kernels' sources.
 The probe scripts are not a package, so they are imported by path."""
 
 import importlib.util
@@ -18,7 +19,8 @@ from jax.experimental.pallas import tpu as pltpu
 
 from mhada_tpu_torch.ops.instance_norm import instance_norm_stats
 from mhada_tpu_torch import _build
-from mhada_tpu_torch.probes import ln_matmul_split, mhada_pipe_probe, mm_probe
+from mhada_tpu_torch.probes import (ln_matmul_split, mhada_pipe_probe,
+                                    mhada_wgmma_ablate, mm_probe)
 
 # Six test workers share the CPU: cap torch's intra-op threads.
 torch.set_num_threads(2)
@@ -135,3 +137,30 @@ def test_ln_matmul_split_cuts(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA card"):
         ln_matmul_split.main([])
+
+
+@pytest.mark.parametrize("variant", list(mhada_wgmma_ablate.VARIANTS))
+def test_wgmma_ablate_edits_apply(variant):
+    """Each variant of P2's ablation probe still finds its text in
+    csrc/mhada_wgmma.cuh (the probe raises otherwise) and changes it."""
+    src = (_build.CSRC / mhada_wgmma_ablate.HEADER).read_text()
+    edits = mhada_wgmma_ablate.VARIANTS[variant]
+    out = mhada_wgmma_ablate.patched(src, edits)
+    assert (out != src) == bool(edits)
+    with pytest.raises(ValueError, match="not found"):
+        mhada_wgmma_ablate.patched(src, [("no such text", "")])
+
+
+def test_pipe_probe_work():
+    """P2's flops and bytes at the probe's shape, and its bound: the
+    numbers chip_smoke.py's P2 gate counts (414.5 GFLOP; 0.419 ms at bf16,
+    6.186 ms at float32, operations)."""
+    flops, nbytes = mhada_pipe_probe.work(**mhada_pipe_probe.SHAPE,
+                                          dtype=torch.bfloat16)
+    assert flops == 8 * (6 * 4096 * 4096 * 512 + 2 * 4096 * 512 * 64)
+    assert nbytes == 8 * 5 * 4096 * 512 * 2 + 8 * 4 * 512 * 4 + 8 * 64 * (
+        64 * 2 + 4)
+    assert abs(mhada_pipe_probe.bound_ms(flops, nbytes, "bfloat16")
+               - 0.4191) < 1e-3
+    f32 = mhada_pipe_probe.work(**mhada_pipe_probe.SHAPE, dtype=torch.float32)
+    assert abs(mhada_pipe_probe.bound_ms(*f32, "float32") - 6.186) < 1e-3

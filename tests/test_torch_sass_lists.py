@@ -1,0 +1,56 @@
+"""chip_smoke.py's phase 2 ("tensor cores") checks the SASS of the kernels
+it lists: every ``__global__`` kernel of the tensor-core headers
+(csrc/*_mma.cuh, and csrc/mhada_wgmma.cuh for wgmma + TMA) must be in
+MMA_KERNELS or WGMMA_KERNELS, so that no kernel skips the check; each
+listed kernel exists, and each kernel required of a bf16 path is listed.
+CPU: reads the sources and chip_smoke.py's constants (it imports torch only
+inside main)."""
+
+import importlib.util
+import re
+from pathlib import Path
+
+import pytest
+import torch
+
+# Six test workers share the CPU: cap torch's intra-op threads.
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+CSRC = ROOT / "mhada_tpu_torch" / "csrc"
+KERNEL = re.compile(
+    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _kernels(pattern):
+    return {name: src.name for src in sorted(CSRC.glob(pattern))
+            for name in KERNEL.findall(src.read_text())}
+
+
+@pytest.mark.parametrize("pattern,listed", [("*_mma.cuh", "MMA_KERNELS"),
+                                            ("*wgmma*.cuh", "WGMMA_KERNELS")])
+def test_tensor_core_kernels_are_listed(pattern, listed):
+    kernels = _kernels(pattern)
+    assert kernels, f"no __global__ kernel found in csrc/{pattern}"
+    names = getattr(_chip_smoke(), listed)
+    missing = {k: f for k, f in kernels.items()
+               if not any(n in k for n in names)}
+    assert not missing, f"kernels absent from chip_smoke.{listed}: {missing}"
+
+
+def test_listed_kernels_exist():
+    smoke = _chip_smoke()
+    every = set(_kernels("*.cuh")) | set(_kernels("*.cu"))
+    for name in (*smoke.MMA_KERNELS, *smoke.WGMMA_KERNELS, *smoke.F32_KERNELS):
+        assert any(name in k for k in every), name
+    # a required instantiation names a listed kernel
+    for req in smoke.MMA_REQUIRED:
+        assert any(n in req for n in smoke.MMA_KERNELS), req
