@@ -14,9 +14,12 @@
    path launches must exist (K4's MHAda tile without prologue or
    residuals, the tail with and without residuals, K2's, K14's), no bf16
    instantiation of the CUDA-core kernels they replaced may exist (those
-   of K1, K3, K4, K5, K6, K7, K8, K2, K14 and P2), and K2's float32 kernel
-   must exist and hold no HMMA of any kind (it computes in float32, no
-   TF32);
+   of K1, K4, K5, K6, K7, K8, K2 and K14), nor flash_tile.cuh's float32
+   MHAda tile without residuals (K4's before the float32 tile); K2's
+   float32 kernel and the float32 MHAda tile (csrc/mhada_f32_tile.cuh: K4
+   <false, 2>, K3 <true, 2>, P2 <true, 1>, each instantiation present)
+   must exist, spill nothing and hold no HMMA or HGMMA of any kind (they
+   compute in float32, no TF32);
 3. gates: each hand-written kernel against its plain PyTorch version on the
    card, in float32 and bfloat16, at the 512^2 path's shapes and at the
    1024^2 shapes (K2 at N = 16384; K3 at M = 16384; K5 from 512^2 to
@@ -323,7 +326,8 @@ BELOW_DQ = {"float32": 1e-3, "bfloat16": 1e-1}
 # both round intermediates to bf16 (2^-8 relative) at different points.
 REL_BOUND = {"float32": 1e-4, "bfloat16": 3e-2}
 # P2 against K3 on the same inputs, max |P2 - K3| / max |K3|.  float32:
-# the same arithmetic in the same order (0 measured on an H100).  bfloat16:
+# K3's tile with a one-stage ring, the same arithmetic in the same order
+# (bit for bit expected).  bfloat16:
 # the same rounding points, sums in another order (wgmma against mma.sync)
 # and P's exponent as one FFMA; 2.6e-3 measured on an H100, K3 against
 # the plain version 5.1e-3.
@@ -361,19 +365,25 @@ MMA_REQUIRED = ("mhada_mma_fwd_kernelILb0ELb0E",
                 "ln_matmul_mma_kernel", "decoder_mid_mma_kernel")
 # bf16 instantiations of the CUDA-core kernels that no path may reach any
 # more (mangled names): the attention and MHAda tile (K1, K4, K6's and
-# K7's forwards) and backward (K6, K7), K3's tile (a float32-only kernel
-# now; the pattern catches a bf16 template of it), the decoder tail (K5,
-# K8), K2's first kernel, K14's conv and P2's cp.async-ring tile.
+# K7's forwards) and backward (K6, K7), the decoder tail (K5, K8), K2's
+# first kernel and K14's conv.  Also the float32 instantiation that the
+# float32 MHAda tile replaced: flash_tile.cuh's MHAda tile without
+# residuals (K4's; K7's float32 forward keeps its own, with residuals).
 OLD_BF16 = (r"flash_tile_kernelI13__nv_bfloat16"
             r"|flash_bwd_(dkv|dq)_kernelI13__nv_bfloat16"
-            r"|mhada_prologue_kernelI13__nv_bfloat16"
             r"|decoder_tail_kernelI13__nv_bfloat16"
             r"|ln_matmul_kernelI13__nv_bfloat16"
             r"|conv3x3_relu_kernelI13__nv_bfloat16"
-            r"|mhada_prologue_pipe_kernelI13__nv_bfloat16")
-# float32 kernels that compute in float32: they must exist and hold no
-# HMMA of any kind (no TF32 on the tensor cores).  K2's float32 build.
-F32_KERNELS = ("ln_matmul_f32_kernel",)
+            r"|flash_tile_kernelIfLb1ELb0E")
+# float32 kernels that compute in float32: they must exist, spill nothing
+# and hold no tensor-core instruction of any kind (HMMA, HGMMA: no TF32).
+# K2's float32 build and the float32 MHAda tile (csrc/mhada_f32_tile.cuh:
+# K4, K3 and P2).
+F32_KERNELS = ("ln_matmul_f32_kernel", "mhada_f32_kernel")
+# The float32 tile's instantiations that the paths and P2 launch (mangled:
+# <prologue, ring stages>): K4 <false, 2>, K3 <true, 2>, P2 <true, 1>.
+F32_REQUIRED = ("mhada_f32_kernelILb0ELi2E", "mhada_f32_kernelILb1ELi2E",
+                "mhada_f32_kernelILb1ELi1E")
 
 
 def all_gates():
@@ -409,9 +419,11 @@ def mma_report(lib):
     """The bf16 tensor-core kernels in the built library -> (ok, text): each
     kernel's registers and spilled bytes (ptxas), its count of HMMA in the
     SASS (cuobjdump; the wgmma kernels: HGMMA and UTMALDG), any
-    instantiation of MMA_REQUIRED that is missing, and any bf16
-    instantiation of a CUDA-core kernel that the tensor-core kernels
-    replaced (OLD_BF16), which no path may reach."""
+    instantiation of MMA_REQUIRED or F32_REQUIRED that is missing, and any
+    instantiation of a CUDA-core kernel that a redesign replaced
+    (OLD_BF16), which no path may reach; the float32 kernels (F32_KERNELS)
+    with their registers and spills (none allowed) and no tensor-core
+    instruction."""
     from mhada_tpu_torch import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -452,17 +464,20 @@ def mma_report(lib):
                        f"{info.get('spill')} B spilled, " + ", ".join(
                            f"{n} x {ins}" for ins, n in counts.items())
                        + f", {funcs[f].count(HMMA)} x {HMMA} (the prologue)")
-    missing = [m for m in MMA_REQUIRED if not any(m in f for f in funcs)]
+    missing = [m for m in MMA_REQUIRED + F32_REQUIRED
+               if not any(m in f for f in funcs)]
     out.append(f"missing instantiations: {missing or 'none'}")
     old = [f for f in funcs if re.search(OLD_BF16, f)]
-    out.append(f"replaced bf16 CUDA-core instantiations: {old or 'none'}")
+    out.append(f"replaced CUDA-core instantiations: {old or 'none'}")
     for kernel in F32_KERNELS:
         found = [f for f in funcs if kernel in f]
-        hmma = sum(funcs[f].count("HMMA") for f in found)
-        ok = ok and bool(found) and hmma == 0
+        tc = sum(funcs[f].count(ins) for f in found
+                 for ins in ("HMMA", "HGMMA"))
+        spills = [ptxas.get(f, {}).get("spill") for f in found]
+        ok = ok and bool(found) and tc == 0 and all(n == 0 for n in spills)
         out.append(f"{kernel} (float32): {len(found)} found, "
                    f"{[ptxas.get(f, {}).get('regs') for f in found]} regs, "
-                   f"{hmma} x HMMA of any kind")
+                   f"{spills} B spilled, {tc} x HMMA or HGMMA of any kind")
     return ok and not missing and not old, "; ".join(out)
 
 
@@ -743,8 +758,9 @@ def run_gate(gate, kind, n, b, dname, card):
     return phase(
         f"gate {gate} {dname}", good,
         f"max|d| {mx:.3e} mean|d| {mean:.3e} max|ref| {scale:.3e} rel "
-        f"{rel:.3e} (bound {REL_BOUND[dname]:.0e}); kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, library {lib_txt}, card bound "
+        f"{rel:.3e} (bound {REL_BOUND[dname]:.0e}); kernel {ms:.3f} ms "
+        f"({100 * bound_ms / ms:.0f} % of the bound), plain {plain_ms:.3f} "
+        f"ms, library {lib_txt}, card bound "
         f"{bound_ms:.3f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP, "
         f"{nbytes / 1e6:.1f} MB at the published 700 W peaks; this card: "
         f"{card}); peak memory {peak_gb:.2f} GB"), rec

@@ -1,13 +1,10 @@
 // Single-head, 64-wide attention tile with an online softmax on the CUDA
-// cores, shared by the MHAda core (mhada_fwd.cu, K4) at float32 and
-// bfloat16, and at float32 only by the MHAda core with the fused prologue
-// (mhada_prologue.cu, K3), the MHAda training forward (mhada_train.cu, K7)
+// cores, at float32, for the MHAda training forward (mhada_train.cu, K7)
 // and the ViT self-attention (attention_fwd.cu, K1; attention_train.cu,
 // K6's forward): at bfloat16 those run on the tensor cores
 // (attention_mma.cuh, mhada_mma.cuh).  The training forwards also write the
-// backward's residuals.  The probe P2 (mhada_prologue_pipe.cu) runs the key
-// loop's steps (flash_scores, flash_softmax, flash_pv) on tiles it loads
-// itself, at both dtypes.
+// backward's residuals.  K4's and K3's float32 builds (and the probe P2's)
+// run the register-tiled MHAda tile of mhada_f32_tile.cuh instead.
 //
 // One block owns (batch b, head h, a tile of kBQ = 64 queries) and loops
 // over the keys in tiles of kBK = 64 held in shared memory; nothing of the

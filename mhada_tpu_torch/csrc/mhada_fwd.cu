@@ -23,10 +23,11 @@
 // given, f = fcs_n, no M1, E2 or lse written): Q K^T and P [V | V^2] on
 // mma.sync with bf16 operands and float32 accumulators, P and V^2 rounded
 // to bf16 as the Pallas kernel rounds them (mhada_pallas.py:63-72).
-// float32 keeps computing in float32, as FMAs on the CUDA cores
-// (flash_tile.cuh), with no TF32.
+// float32 keeps computing in float32, as FMAs on the CUDA cores, with no
+// TF32: the register-tiled, cp.async-pipelined tile of mhada_f32_tile.cuh
+// (mhada_f32_kernel<false, 2>: 128 queries a block, q read as given).
 
-#include "flash_tile.cuh"
+#include "mhada_f32_tile.cuh"
 #include "mhada_mma.cuh"
 
 namespace {
@@ -35,25 +36,23 @@ cudaError_t mhada_fwd_f32(const void* q, const void* k, const void* v,
                           const void* fcs_n, void* out, int batch, int n,
                           int m, int channels, int heads,
                           cudaStream_t stream) {
-  mhada::FlashArgs a{};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.f = fcs_n;
-  a.out = out;
+  mhada::f32t::F32Args a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.f = static_cast<const float*>(fcs_n);
+  a.out = static_cast<float*>(out);
   a.n = n;
   a.m = m;
-  a.q_bs = a.f_bs = a.o_bs = (long long)n * channels;
-  a.kv_bs = (long long)m * channels;
-  a.q_rs = a.kv_rs = a.f_rs = a.o_rs = channels;
-  a.scale = 1.f;
-  return mhada::launch_flash_tile<float, true>(a, heads, batch, stream);
+  a.channels = channels;
+  return mhada::f32t::launch_mhada_f32<false, mhada::f32t::kRingStages>(
+      a, heads, batch, stream);
 }
 
 }  // namespace
 
-// q, fcs_n, out (B, N, C) and k, v (B, M, C) in T.  bfloat16: every pointer
-// 16-byte aligned, channels a multiple of 8.
+// q, fcs_n, out (B, N, C) and k, v (B, M, C) in T, every pointer 16-byte
+// aligned; channels a multiple of 4 (float32) or 8 (bfloat16).
 extern "C" int mhada_mhada_fwd(const void* q, const void* k, const void* v,
                                const void* fcs_n, void* out, int batch, int n,
                                int m, int channels, int heads, int dtype,

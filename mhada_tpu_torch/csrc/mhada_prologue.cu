@@ -17,18 +17,19 @@
 // fc, fcs and out are token-major (B, N, C), k and v (B, M, C), stats
 // (B, 4, C) float32, wf (H, 64, 64) as (in, out) in T, fb (H, 64) float32.
 //
-// Design at float32: the block is K4's tile (flash_tile.cuh).  The
-// prologue loads the block's 64 raw fc rows of head h, normalises them with
-// the stats into the P^T buffer (unused until the first key tile) and
-// multiplies them by Wf_h, staged in shared memory (16 KB at float32 on top
-// of the tile's 65 KB), into the Q^T buffer.  The key loop is K4's,
-// unscaled.  The epilogue normalises raw fcs with the stats.  Neither q nor IN(fcs) ever
-// reaches device memory, which is what the TPU kernel kept out of HBM.
-// The TPU kernel packed two heads' Wf into 128 lanes and concatenated
-// [V | V^2] to fill its MXU; neither exists here (V^2 is formed in
-// registers).  The TPU kernel holds every key in VMEM, so its call site
-// caps M at 4096; this one streams the keys, so every cached-K/V block
-// runs here, M = 16384 (1024^2) included.
+// Design at float32: the block is K4's float32 tile (mhada_f32_tile.cuh,
+// mhada_f32_kernel<true, 2>) with the prologue switched on: it loads the
+// block's 128 raw fc rows of head h, normalises them with the stats into
+// the P^T buffer (unused until the first key tile) and multiplies them,
+// register-tiled, by Wf_h, staged in the V^2 buffer, into Q^T, while the
+// first key tile lands.  The key loop is K4's, unscaled.  The epilogue
+// normalises raw fcs with the stats.  Neither q nor IN(fcs) ever reaches
+// device memory, which is what the TPU kernel kept out of HBM.  The TPU
+// kernel packed two heads' Wf into 128 lanes and concatenated [V | V^2] to
+// fill its MXU; neither exists here (V^2 is formed once a key tile).  The
+// TPU kernel holds every key in VMEM, so its call site caps M at 4096; this
+// one streams the keys, so every cached-K/V block runs here, M = 16384
+// (1024^2) included.
 //
 // What bounds it on the card: 6 N M d flops per head for the attention and
 // 2 N d^2 for the projection (51.5 + 0.3 GFLOP at N = M = 4096, 8 heads)
@@ -38,57 +39,38 @@
 // accumulators, q kept in registers); float32 keeps computing in float32,
 // as FMAs on the CUDA cores (the tile above).
 
+#include "mhada_f32_tile.cuh"
 #include "mhada_mma.cuh"
-#include "mhada_prologue.cuh"
 
 namespace {
 
-using mhada::FlashAcc;
-using mhada::FlashSmem;
-using mhada::kFlashThreads;
-using mhada::kHeadDim;
-
-constexpr size_t kSmemBytes =
-    mhada::kFlashSmemBytes + sizeof(float) * kHeadDim * kHeadDim;
-
-// The float32 tile (bfloat16 runs mhada_mma.cuh's).
-__global__ void __launch_bounds__(kFlashThreads)
-    mhada_prologue_kernel(mhada::FlashArgs a, const float* __restrict__ stats,
-                          const float* __restrict__ wf,
-                          const float* __restrict__ fb, int channels) {
-  extern __shared__ float smem[];
-  const FlashSmem s = mhada::flash_smem(smem);
-  float* wfs = s.ps + mhada::kBK * mhada::kTPad;  // [d_in][d_out]
-
-  // qn^T goes through the P^T buffer, unused until the first key tile.
-  mhada::prologue_queries<float>(a, stats, wf, fb, channels, s.ps, wfs,
-                                 s.qs);
-  // No barrier here: flash_keys' first __syncthreads publishes Q^T, and it
-  // writes P^T only after that barrier, when every qn read is done.
-  FlashAcc acc;
-  mhada::flash_keys<float, true>(a, s, acc);
-  mhada::prologue_epilogue<float>(a, stats, channels, acc);
-}
-
 cudaError_t mhada_prologue_f32(const void* fc, const void* fcs,
-                               const float* stats, const void* wf,
-                               const float* fb, const void* k, const void* v,
+                               const void* stats, const void* wf,
+                               const void* fb, const void* k, const void* v,
                                void* out, int batch, int n, int m,
                                int channels, int heads, cudaStream_t stream) {
-  const mhada::FlashArgs a =
-      mhada::prologue_args(fc, fcs, k, v, out, n, m, channels);
-  const dim3 grid((n + mhada::kBQ - 1) / mhada::kBQ, heads, batch);
-  return mhada::launch_with_smem(mhada_prologue_kernel, grid,
-                                 dim3(kFlashThreads), kSmemBytes, stream, a,
-                                 stats, static_cast<const float*>(wf), fb,
-                                 channels);
+  mhada::f32t::F32Args a{};
+  a.q = static_cast<const float*>(fc);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.f = static_cast<const float*>(fcs);
+  a.out = static_cast<float*>(out);
+  a.stats = static_cast<const float*>(stats);
+  a.wf = static_cast<const float*>(wf);
+  a.fb = static_cast<const float*>(fb);
+  a.n = n;
+  a.m = m;
+  a.channels = channels;
+  return mhada::f32t::launch_mhada_f32<true, mhada::f32t::kRingStages>(
+      a, heads, batch, stream);
 }
 
 }  // namespace
 
 // fc, fcs, out (B, N, C), k, v (B, M, C) and wf (H, 64, 64) in T; stats
-// (B, 4, C) and fb (H, 64) float32.  bfloat16: every bf16 pointer 16-byte
-// aligned, channels a multiple of 8.
+// (B, 4, C) and fb (H, 64) float32.  float32: every pointer 16-byte aligned,
+// channels a multiple of 4; bfloat16: every bf16 pointer 16-byte aligned,
+// channels a multiple of 8.
 extern "C" int mhada_mhada_prologue(const void* fc, const void* fcs,
                                     const void* stats, const void* wf,
                                     const void* fb, const void* k,
@@ -96,10 +78,9 @@ extern "C" int mhada_mhada_prologue(const void* fc, const void* fcs,
                                     int n, int m, int channels, int heads,
                                     int dtype, void* stream) {
   if (dtype == mhada::kF32)
-    return (int)mhada_prologue_f32(
-        fc, fcs, static_cast<const float*>(stats), wf,
-        static_cast<const float*>(fb), k, v, out, batch, n, m, channels,
-        heads, (cudaStream_t)stream);
+    return (int)mhada_prologue_f32(fc, fcs, stats, wf, fb, k, v, out, batch,
+                                   n, m, channels, heads,
+                                   (cudaStream_t)stream);
   if (dtype != mhada::kBF16 ||
       !mhada::mma_aligned({fc, fcs, wf, k, v, out}, channels))
     return (int)cudaErrorInvalidValue;

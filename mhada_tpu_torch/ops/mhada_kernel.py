@@ -5,11 +5,11 @@ forward.  Inputs stay (B, N|M, C) with head h in channels
 [h*64, (h+1)*64), so the head-split transposes of
 mhada_tpu/models/adaformer.py:133-141 are not needed.  At bfloat16 the
 kernel runs on the tensor cores (the MHAda tile of csrc/mhada_mma.cuh
-without K3's prologue) and raises on a tensor that is not 16-byte aligned;
-at float32 it computes in float32 on the CUDA cores.  The softmax twin
-follows the Pallas kernel's rounding points (``mhada_softmax_plain``,
-which K3's twin shares); the cosine activation runs the plain core of
-ops/mhada.py.
+without K3's prologue); at float32 it computes in float32 on the CUDA cores
+(csrc/mhada_f32_tile.cuh).  Both raise on a tensor that is not 16-byte
+aligned.  The softmax twin follows the Pallas kernel's rounding points
+(``mhada_softmax_plain``, which K3's twin shares); the cosine activation
+runs the plain core of ops/mhada.py.
 """
 
 import torch
@@ -19,6 +19,10 @@ from ..config import use_kernel
 from .mhada import mhada_attention
 
 HEAD_DIM = 64
+# The dtypes whose kernel builds copy 16 bytes at a time, so that each
+# operand must start on a 16-byte boundary: all of them (the float32 tile
+# of csrc/mhada_f32_tile.cuh too).
+ALIGNED = (torch.float32, torch.bfloat16)
 
 
 def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -81,7 +85,7 @@ def mhada_tm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         "mhada_tm", "train through K7, ops.mhada_train.mhada_train",
         q, k, v, fcs_n)
     out = torch.empty_like(q)
-    _build.check_aligned("mhada_tm", q, k, v, fcs_n, out)
+    _build.check_aligned("mhada_tm", q, k, v, fcs_n, out, dtypes=ALIGNED)
     _build.launch("mhada_mhada_fwd", q.device, q, k, v, fcs_n, out, b, n, m,
                   c, num_heads, _build.dtype_code(q))
     return out

@@ -2,19 +2,19 @@
 the Q projection fused in (csrc/mhada_prologue.cu).
 
 Port of mhada_tpu/ops/mhada_pallas.py::mhada_fused_prologue.  At bfloat16
-the kernel runs on the tensor cores and raises on a tensor that is not
-16-byte aligned; at float32 it computes in float32.  The plain version
-follows its ``_fused_kernel`` (mhada_pallas.py:143-198) step by step, with
-its rounding points, for all heads at once.  Everything stays token-major:
-head h is the channel slice [h*64, (h+1)*64) of fc, fcs, k, v and the
-output.
+the kernel runs on the tensor cores; at float32 it computes in float32 on
+the CUDA cores (csrc/mhada_f32_tile.cuh).  Both raise on a tensor that is
+not 16-byte aligned.  The plain version follows its ``_fused_kernel``
+(mhada_pallas.py:143-198) step by step, with its rounding points, for all
+heads at once.  Everything stays token-major: head h is the channel slice
+[h*64, (h+1)*64) of fc, fcs, k, v and the output.
 """
 
 import torch
 
 from .. import _build
 from ..config import use_kernel
-from .mhada_kernel import HEAD_DIM, _heads, mhada_softmax_plain
+from .mhada_kernel import ALIGNED, HEAD_DIM, _heads, mhada_softmax_plain
 
 
 def mhada_fused_prologue_plain(fc, fcs, stats, wf, fb, k, v) -> torch.Tensor:
@@ -84,7 +84,10 @@ def launch_prologue(entry: str, fc, fcs, stats, wf, fb, k, v) -> torch.Tensor:
         raise ValueError("mhada_fused_prologue: all tensors must be on one "
                          "CUDA device")
     out = torch.empty_like(fc)
-    _build.check_aligned("mhada_fused_prologue", fc, fcs, k, v, wt, out)
+    # at float32 the float32 operands are copied 16 bytes at a time too
+    _build.check_aligned("mhada_fused_prologue", fc, fcs, k, v, wt, out,
+                         *(f32 if fc.dtype == torch.float32 else ()),
+                         dtypes=ALIGNED)
     _build.launch(entry, fc.device, fc, fcs, f32[0], wt, f32[1], k, v, out,
                   b, n, k.shape[1], c, heads, _build.dtype_code(fc))
     return out

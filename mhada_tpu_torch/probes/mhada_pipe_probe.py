@@ -6,8 +6,9 @@ software-pipelined variant of the fused-prologue MHAda kernel
 (``_pipe_kernel``) against the one in use.  The function is K3's, so its
 plain version is ``ops.mhada_prologue.mhada_fused_prologue_plain``.  At
 bfloat16 P2 is a warp-specialised wgmma + TMA kernel (csrc/mhada_wgmma.cuh;
-K3 runs mma.sync behind a cp.async ring); at float32 it is K3's CUDA-core
-block with its key and value tiles double-buffered by cp.async.
+K3 runs mma.sync behind a cp.async ring); at float32 it is K3's float32
+tile (csrc/mhada_f32_tile.cuh) with a one-stage ring, each key tile waited
+for before it is computed, so the pair times what K3's second stage buys.
 
     python -m mhada_tpu_torch.probes.mhada_pipe_probe [--iters 30]
 

@@ -16,7 +16,10 @@ K8; at bf16 on the tensor cores) also from 256^2 to 512^2, repeating its
 outputs bit for bit, K8's gradients against the plain backward on the
 kernel forward's ReLU masks with the share of flipped masks bounded
 apart; a misaligned bf16 input of K3, K4, K7, the tail or K2 raises too,
-as does a bf16 K2 input whose E is no multiple of 8.  K2 (at bf16 on the
+as does a bf16 K2 input whose E is no multiple of 8, and a misaligned
+float32 input of K3, K4 or P2 (the float32 MHAda tile), whose C entry
+points also refuse channels that are no multiple of 4.  K3, K4 and P2 also
+at N = 4160, one partial 128-query block of the float32 tile.  K2 (at bf16 on the
 tensor cores) also at the ViT's widths, 4096 rows by 512 -> 1536 and 2048,
 and at 999 ragged rows.  K13 (c6) and K14 (c1 -> c3; at bf16 an implicit
 GEMM on the tensor cores, also at ragged sizes with C = 128 and 256) are
@@ -136,8 +139,10 @@ def test_mhada_kernel(gen, dtype, b, n, m):
 
 # (batch, queries, keys, V's offset) of the MHAda kernels: ragged lengths,
 # N = 1, past 4096 keys; V = 3 + 0.3 N(0, 1) where V's offset is 3.
+# N = 4160: 32 full 128-query blocks of the float32 tile and a partial one.
 MHADA_SHAPES = [(2, 70, 130, 0.0), (1, 1, 200, 0.0), (1, 64, 64, 0.0),
-                (1, 300, 4100, 0.0), (2, 70, 130, 3.0), (1, 300, 4100, 3.0)]
+                (1, 300, 4100, 0.0), (2, 70, 130, 3.0), (1, 300, 4100, 3.0),
+                (1, 4160, 300, 0.0)]
 
 
 def _v(gen, dtype, b, m, shift):
@@ -313,6 +318,60 @@ def test_mm_probe_kernel(gen, m, k, n):
     # both round one float32 sum to bf16: at most one bf16 step apart
     assert ((got - ref).abs() <= ref.abs() * 2 ** -7
             + 1e-3 * ref.abs().max()).all()
+
+
+@pytest.mark.parametrize("entry", ["mhada_mhada_fwd", "mhada_mhada_prologue",
+                                   "mhada_mhada_prologue_pipe"])
+def test_f32_mhada_rejects_unaligned(gen, entry):
+    """The float32 MHAda tile (K4, K3, P2) copies 16 bytes at a time: a
+    float32 operand one element into its buffer raises in the wrapper
+    (every operand in turn), and the C entry point itself refuses channels
+    that are no multiple of 4 (the wrappers refuse them as heads that are
+    not 64 wide); nothing launches."""
+    b, n, m, c = 1, 16, 24, 128
+
+    def off(*shape):
+        buf = torch.zeros(torch.Size(shape).numel() + 1, device="cuda")
+        return buf[1:].view(shape)
+
+    def tensors(c):
+        ones = torch.ones(b, 4, c, device="cuda")
+        return {"q": torch.zeros(b, n, c, device="cuda"),
+                "k": torch.zeros(b, m, c, device="cuda"),
+                "v": torch.zeros(b, m, c, device="cuda"),
+                "f": torch.zeros(b, n, c, device="cuda"), "stats": ones,
+                "wf": torch.zeros(2, 64, 64, device="cuda"),
+                "fb": torch.zeros(2, 64, device="cuda")}
+
+    fn = {"mhada_mhada_prologue": mhada_fused_prologue,
+          "mhada_mhada_prologue_pipe": mhada_fused_prologue_pipe}.get(entry)
+
+    def call(t):
+        if fn is None:
+            return mhada_tm(t["q"], t["k"], t["v"], t["f"], 2)
+        return fn(t["q"], t["f"], t["stats"], t["wf"], t["fb"], t["k"],
+                  t["v"])
+
+    before = dict(_build.LAUNCHES)
+    names = "qkvf" if fn is None else ["q", "f", "stats", "wf", "fb", "k",
+                                       "v"]
+    for name in names:
+        t = tensors(c)
+        t[name] = off(*t[name].shape)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            call(t)
+    with pytest.raises(ValueError, match="head"):
+        call(tensors(130))
+    t = tensors(130)
+    out = torch.zeros(b, n, 130, device="cuda")
+    args = ([t["q"], t["k"], t["v"], t["f"], out] if fn is None else
+            [t["q"], t["f"], t["stats"], t["wf"], t["fb"], t["k"], t["v"],
+             out])
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.launch(entry, out.device, *args, b, n, m, 130, 2, 0)
+    assert _build.LAUNCHES == before
+    call(tensors(c))   # aligned: launches
+    assert _build.LAUNCHES[entry] == before[entry] + 1
 
 
 def test_kernel_rejects_bad_input(gen):

@@ -1,8 +1,10 @@
 """chip_smoke.py's phase 2 ("tensor cores") checks the SASS of the kernels
 it lists: every ``__global__`` kernel of the tensor-core headers
 (csrc/*_mma.cuh, and csrc/mhada_wgmma.cuh for wgmma + TMA) must be in
-MMA_KERNELS or WGMMA_KERNELS, so that no kernel skips the check; each
-listed kernel exists, and each kernel required of a bf16 path is listed.
+MMA_KERNELS or WGMMA_KERNELS, and every one of the float32 MHAda tile
+(csrc/mhada_f32_tile.cuh) in F32_KERNELS (no tensor-core instruction, no
+spills), so that no kernel skips the check; each listed kernel exists, and
+each instantiation required of a path is listed.
 CPU: reads the sources and chip_smoke.py's constants (it imports torch only
 inside main)."""
 
@@ -36,7 +38,9 @@ def _kernels(pattern):
 
 
 @pytest.mark.parametrize("pattern,listed", [("*_mma.cuh", "MMA_KERNELS"),
-                                            ("*wgmma*.cuh", "WGMMA_KERNELS")])
+                                            ("*wgmma*.cuh", "WGMMA_KERNELS"),
+                                            ("mhada_f32_tile.cuh",
+                                             "F32_KERNELS")])
 def test_tensor_core_kernels_are_listed(pattern, listed):
     kernels = _kernels(pattern)
     assert kernels, f"no __global__ kernel found in csrc/{pattern}"
@@ -54,3 +58,5 @@ def test_listed_kernels_exist():
     # a required instantiation names a listed kernel
     for req in smoke.MMA_REQUIRED:
         assert any(n in req for n in smoke.MMA_KERNELS), req
+    for req in smoke.F32_REQUIRED:
+        assert any(n in req for n in smoke.F32_KERNELS), req
