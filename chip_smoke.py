@@ -15,9 +15,12 @@
    residuals, the tail with and without residuals, K2's, K14's), no bf16
    instantiation of the CUDA-core kernels they replaced may exist (those
    of K1, K4, K5, K6, K7, K8, K2 and K14), nor flash_tile.cuh's float32
-   MHAda tile without residuals (K4's before the float32 tile); K2's
-   float32 kernel and the float32 MHAda tile (csrc/mhada_f32_tile.cuh: K4
-   <false, 2>, K3 <true, 2>, P2 <true, 1>, each instantiation present)
+   MHAda tile without residuals (K4's before the float32 tile), nor a
+   float32 instantiation of the old flash backward (flash_bwd_dkv_kernel,
+   flash_bwd_dq_kernel); K2's float32 kernel, the float32 MHAda tile
+   (csrc/mhada_f32_tile.cuh: K4 <false, 2>, K3 <true, 2>, P2 <true, 1>)
+   and the float32 flash backward (csrc/flash_bwd_f32.cuh: the dK/dV and
+   dQ kernels of K6 <false> and K7 <true>), each instantiation present,
    must exist, spill nothing and hold no HMMA or HGMMA of any kind (they
    compute in float32, no TF32);
 3. gates: each hand-written kernel against its plain PyTorch version on the
@@ -70,7 +73,9 @@
    unfused LayerNorm and linear (its forward timed as the kernel alone,
    through the wrapper and as the library chain of phase 3); float32 and
    bfloat16: each output, residual and input gradient against its own
-   scale, with times, bounds and the library yardstick;
+   scale, with times, bounds and the library yardstick, and K6's and K7's
+   backward also as its dK/dV and dQ kernels' device times apart
+   (``torch.profiler``);
 7. the training paths: one step (``train.train_image``) on the kernel build
    and one on the plain build from the same weights and batch, losses and
    every gradient held together (each tensor against its own scale, to a
@@ -366,24 +371,33 @@ MMA_REQUIRED = ("mhada_mma_fwd_kernelILb0ELb0E",
 # bf16 instantiations of the CUDA-core kernels that no path may reach any
 # more (mangled names): the attention and MHAda tile (K1, K4, K6's and
 # K7's forwards) and backward (K6, K7), the decoder tail (K5, K8), K2's
-# first kernel and K14's conv.  Also the float32 instantiation that the
-# float32 MHAda tile replaced: flash_tile.cuh's MHAda tile without
-# residuals (K4's; K7's float32 forward keeps its own, with residuals).
+# first kernel and K14's conv.  Also the float32 instantiations that a
+# float32 redesign replaced: flash_tile.cuh's MHAda tile without residuals
+# (K4's; K7's float32 forward keeps its own, with residuals) and the old
+# float32 flash backward's two kernels (K6's and K7's).
 OLD_BF16 = (r"flash_tile_kernelI13__nv_bfloat16"
             r"|flash_bwd_(dkv|dq)_kernelI13__nv_bfloat16"
             r"|decoder_tail_kernelI13__nv_bfloat16"
             r"|ln_matmul_kernelI13__nv_bfloat16"
             r"|conv3x3_relu_kernelI13__nv_bfloat16"
-            r"|flash_tile_kernelIfLb1ELb0E")
+            r"|flash_tile_kernelIfLb1ELb0E"
+            r"|flash_bwd_(dkv|dq)_kernelIf")
 # float32 kernels that compute in float32: they must exist, spill nothing
 # and hold no tensor-core instruction of any kind (HMMA, HGMMA: no TF32).
-# K2's float32 build and the float32 MHAda tile (csrc/mhada_f32_tile.cuh:
-# K4, K3 and P2).
-F32_KERNELS = ("ln_matmul_f32_kernel", "mhada_f32_kernel")
-# The float32 tile's instantiations that the paths and P2 launch (mangled:
-# <prologue, ring stages>): K4 <false, 2>, K3 <true, 2>, P2 <true, 1>.
+# K2's float32 build, the float32 MHAda tile (csrc/mhada_f32_tile.cuh:
+# K4, K3 and P2) and the float32 flash backward (csrc/flash_bwd_f32.cuh:
+# K6's and K7's dK/dV and dQ kernels).
+F32_KERNELS = ("ln_matmul_f32_kernel", "mhada_f32_kernel",
+               "flash_bwd_f32_dkv_kernel", "flash_bwd_f32_dq_kernel")
+# The float32 instantiations that the paths and P2 launch (mangled): the
+# tile's <prologue, ring stages>, K4 <false, 2>, K3 <true, 2>, P2 <true,
+# 1>; the backward's <mhada>, K6 <false>, K7 <true>.
 F32_REQUIRED = ("mhada_f32_kernelILb0ELi2E", "mhada_f32_kernelILb1ELi2E",
-                "mhada_f32_kernelILb1ELi1E")
+                "mhada_f32_kernelILb1ELi1E",
+                "flash_bwd_f32_dkv_kernelILb0E",
+                "flash_bwd_f32_dkv_kernelILb1E",
+                "flash_bwd_f32_dq_kernelILb0E",
+                "flash_bwd_f32_dq_kernelILb1E")
 
 
 def all_gates():
@@ -495,6 +509,26 @@ def cuda_ms(fn, warmup=2, iters=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def split_ms(fn, parts, iters=3):
+    """{part: device ms per call of the kernels whose names hold ``part``}
+    from ``torch.profiler`` over ``iters`` calls of ``fn`` after one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(parts, 0.0)
+    for e in prof.key_averages():
+        for part in parts:
+            if part in e.key:
+                out[part] += e.self_device_time_total / 1e3 / iters
+    return out
 
 
 def bound(flops, nbytes, dname):
@@ -1092,12 +1126,21 @@ def run_train_gate(gate, kind, dname, card, b, n):
                           gflop=d["flops"][i] / 1e9,
                           mbytes=d["bytes"][i] / 1e6)
         good = good and finite and rel <= limit
+        split_txt = ""
+        if part == "bwd":   # which of the backward's two kernels holds it
+            split = split_ms(calls["kernel"], ("dkv_kernel", "dq_kernel"))
+            recs[part]["dkv_ms"] = split["dkv_kernel"]
+            recs[part]["dq_ms"] = split["dq_kernel"]
+            good = good and all(t > 0 for t in split.values())
+            split_txt = (f" (profiler: dK/dV kernel {split['dkv_kernel']:.3f}"
+                         f" + dQ kernel {split['dq_kernel']:.3f} ms)")
         lib_txt = f"{library_ms:.3f} ms" if lib else "none"
         if part == "fwd" and "wrapper" in d:   # K2
             recs[part]["wrapper_ms"] = cuda_ms(d["wrapper"], 2, 5)
             lib_txt += f", the wrapper {recs[part]['wrapper_ms']:.3f} ms"
         lines.append(f"{part}: rel {_errs_txt(errs)} (bound {limit:.0e} "
-                     f"each; max|d| {mx:.3e}); kernel {ms:.3f} ms, plain "
+                     f"each; max|d| {mx:.3e}); kernel {ms:.3f} ms{split_txt}"
+                     f", plain "
                      f"{plain_ms:.3f} ms, library {lib_txt}, bound "
                      f"{bound_ms:.3f} ms ({bound_by})")
     got, ref = grads("kernel"), grads("plain")
@@ -1888,7 +1931,8 @@ def main() -> int:
                     "library_ms"):
             row[key] = r32.get(key)
             row[key + "_bf16"] = r16.get(key)
-        for key in ("kernel_ms", "wrapper_ms"):   # K2's other timings
+        # K2's other timings; the backward's dK/dV and dQ kernels apart
+        for key in ("kernel_ms", "wrapper_ms", "dkv_ms", "dq_ms"):
             if key in r32 or key in r16:
                 row[key] = r32.get(key)
                 row[key + "_bf16"] = r16.get(key)

@@ -23,10 +23,12 @@
 // compute-bound.  bfloat16 runs on the tensor cores (attention_mma.cuh,
 // attention_bwd_mma.cuh: mma.sync with bf16 operands and float32
 // accumulators); float32 keeps computing in float32, as FMAs on the CUDA
-// cores (flash_tile.cuh, flash_bwd.cuh).
+// cores (flash_tile.cuh; the backward: flash_bwd_f32.cuh, float32 operands
+// 16-byte aligned and channels a multiple of 4, or the entry point refuses).
 
 #include "attention_bwd_mma.cuh"
-#include "flash_bwd.cuh"
+#include "flash_bwd_f32.cuh"
+#include "flash_tile.cuh"
 
 namespace {
 
@@ -60,11 +62,13 @@ cudaError_t attention_train_bwd_f32(const void* qkv, const void* g,
                                     cudaStream_t stream) {
   const float* base = static_cast<const float*>(qkv);
   float* dbase = static_cast<float*>(dqkv);
-  mhada::FlashBwdArgs a{};
+  if (!mhada::f32t::f32_aligned({qkv, g, dqkv}, channels))
+    return cudaErrorInvalidValue;
+  mhada::f32b::BwdArgs a{};
   a.q = base;
   a.k = base + channels;
   a.v = base + 2 * channels;
-  a.g1 = g;
+  a.g1 = static_cast<const float*>(g);
   a.g2 = nullptr;
   a.lse = lse;
   a.delta = delta;
@@ -78,7 +82,7 @@ cudaError_t attention_train_bwd_f32(const void* qkv, const void* g,
   a.g_bs = (long long)seq * channels;
   a.g_rs = channels;
   a.scale = scale;
-  return mhada::launch_flash_bwd<float, false>(a, heads, batch, stream);
+  return mhada::f32b::launch_flash_bwd_f32<false>(a, heads, batch, stream);
 }
 
 }  // namespace

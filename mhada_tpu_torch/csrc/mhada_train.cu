@@ -25,9 +25,12 @@
 // compute-bound.  bfloat16 runs on the tensor cores (mhada_mma.cuh,
 // mhada_bwd_mma.cuh: mma.sync with bf16 operands and float32 accumulators,
 // V^2 squared in registers); float32 keeps computing in float32, as FMAs on
-// the CUDA cores (flash_tile.cuh, flash_bwd.cuh).
+// the CUDA cores (flash_tile.cuh; the backward: flash_bwd_f32.cuh, float32
+// operands 16-byte aligned and channels a multiple of 4, or the entry point
+// refuses).
 
-#include "flash_bwd.cuh"
+#include "flash_bwd_f32.cuh"
+#include "flash_tile.cuh"
 #include "mhada_bwd_mma.cuh"
 
 namespace {
@@ -62,24 +65,26 @@ cudaError_t mhada_train_bwd_f32(const void* q, const void* k, const void* v,
                                 void* dq, void* dk, void* dv, int batch,
                                 int n, int m, int channels, int heads,
                                 cudaStream_t stream) {
-  mhada::FlashBwdArgs a{};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.g1 = dm1;
-  a.g2 = de2;
+  if (!mhada::f32t::f32_aligned({q, k, v, dm1, de2, dq, dk, dv}, channels))
+    return cudaErrorInvalidValue;
+  mhada::f32b::BwdArgs a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.g1 = static_cast<const float*>(dm1);
+  a.g2 = static_cast<const float*>(de2);
   a.lse = lse;
   a.delta = delta;
-  a.dq = dq;
-  a.dk = dk;
-  a.dv = dv;
+  a.dq = static_cast<float*>(dq);
+  a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
   a.n = n;
   a.m = m;
   a.q_bs = a.g_bs = a.dq_bs = (long long)n * channels;
   a.kv_bs = a.dkv_bs = (long long)m * channels;
   a.q_rs = a.g_rs = a.dq_rs = a.kv_rs = a.dkv_rs = channels;
   a.scale = 1.f;
-  return mhada::launch_flash_bwd<float, true>(a, heads, batch, stream);
+  return mhada::f32b::launch_flash_bwd_f32<true>(a, heads, batch, stream);
 }
 
 }  // namespace

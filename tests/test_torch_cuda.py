@@ -18,7 +18,8 @@ kernel forward's ReLU masks with the share of flipped masks bounded
 apart; a misaligned bf16 input of K3, K4, K7, the tail or K2 raises too,
 as does a bf16 K2 input whose E is no multiple of 8, and a misaligned
 float32 input of K3, K4 or P2 (the float32 MHAda tile), whose C entry
-points also refuse channels that are no multiple of 4.  K3, K4 and P2 also
+points also refuse channels that are no multiple of 4, and of K6's or K7's
+float32 backward, which the C entry points refuse.  K3, K4 and P2 also
 at N = 4160, one partial 128-query block of the float32 tile.  K2 (at bf16 on the
 tensor cores) also at the ViT's widths, 4096 rows by 512 -> 1536 and 2048,
 and at 999 ragged rows.  K13 (c6) and K14 (c1 -> c3; at bf16 an implicit
@@ -374,6 +375,41 @@ def test_f32_mhada_rejects_unaligned(gen, entry):
     assert _build.LAUNCHES[entry] == before[entry] + 1
 
 
+@pytest.mark.parametrize("kind", ["attention", "mhada"])
+def test_f32_train_bwd_rejects_unaligned(gen, kind):
+    """The float32 flash backward (K6's and K7's) copies 16 bytes at a
+    time: its C entry points refuse a float32 operand one element into its
+    buffer (every operand in turn), which the wrappers raise; nothing
+    launches."""
+    b, n, m, heads = 1, 70, 90, 2
+    c = 64 * heads
+
+    def off(*shape):
+        buf = torch.zeros(torch.Size(shape).numel() + 1, device="cuda")
+        return buf[1:].view(shape)
+
+    lse = torch.zeros(b, heads, n, device="cuda")
+    delta = torch.zeros(b, heads, n, device="cuda")
+    if kind == "attention":
+        shapes = {"qkv": (b, n, 3 * c), "g": (b, n, c)}
+    else:
+        shapes = {"q": (b, n, c), "k": (b, m, c), "v": (b, m, c),
+                  "dm1": (b, n, c), "de2": (b, n, c)}
+    before = dict(_build.LAUNCHES)
+    for name in shapes:
+        t = {key: torch.zeros(shape, device="cuda")
+             for key, shape in shapes.items()}
+        t[name] = off(*shapes[name])
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            if kind == "attention":
+                attention_train_ops._bwd_kernel(t["qkv"], lse, delta, t["g"],
+                                                heads, 0.125)
+            else:
+                mhada_train_ops._bwd_kernel(t["q"], t["k"], t["v"], t["dm1"],
+                                            t["de2"], lse, delta, heads)
+    assert _build.LAUNCHES == before
+
+
 def test_kernel_rejects_bad_input(gen):
     """Bad shapes, strides and dtypes raise; so does a bfloat16 input of
     K1, K6, K3, K4, K7, the decoder tail or K2 (qkv, dO, fc, v, k, dE2,
@@ -487,10 +523,14 @@ def _check_train(entries, run, dtype, inputs, cot, plain=None):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,l,heads", ATTN_SHAPES + [(1, 130, 2),
-                                                     (1, 4100, 2)])
+                                                     (1, 4100, 2),
+                                                     (3, 200, 2), (2, 129, 1),
+                                                     (2, 63, 2), (4, 384, 2)])
 def test_attention_train_kernels(gen, dtype, b, l, heads):
     """K6 forward and backward against the twins; a second call repeats the
-    output and all three gradients bit for bit (no atomics)."""
+    output and all three gradients bit for bit (no atomics).  The float32
+    backward's blocks hold 128 rows and stream 64-row tiles: lengths past,
+    below and at those, with B > 1 on the packed qkv."""
     qkv = _rnd(gen, dtype, b, l, 3 * 64 * heads, scale=0.5)
     cot = _rnd(gen, dtype, b, l, 64 * heads)
 
@@ -509,11 +549,14 @@ def test_attention_train_kernels(gen, dtype, b, l, heads):
 @pytest.mark.parametrize("b,n,m,shift", [
     (2, 70, 130, 0.0), (1, 1, 200, 0.0), (1, 64, 64, 0.0), (1, 150, 33, 0.0),
     (1, 2100, 4100, 0.0), (1, 2048, 1024, 0.0), (2, 70, 130, 3.0),
-    (1, 2048, 1024, 3.0)])
+    (1, 2048, 1024, 3.0), (3, 129, 63, 0.0), (2, 300, 260, 0.0),
+    (2, 256, 128, 0.0), (1, 257, 129, 3.0)])
 def test_mhada_train_kernels(gen, dtype, b, n, m, shift):
     """K7 forward and backward against the twins (N = 2048, M = 1024: video
     training's frames against one style); a second call repeats the output
-    and all four gradients bit for bit (no atomics)."""
+    and all four gradients bit for bit (no atomics).  The float32
+    backward's blocks hold 128 rows and stream 64-row tiles: N and M past,
+    below and at those, B > 1."""
     q = _rnd(gen, dtype, b, n, 128, scale=0.35)
     k = _rnd(gen, dtype, b, m, 128, scale=0.35)
     v, f = _v(gen, dtype, b, m, shift), _rnd(gen, dtype, b, n, 128)

@@ -2,7 +2,8 @@
 it lists: every ``__global__`` kernel of the tensor-core headers
 (csrc/*_mma.cuh, and csrc/mhada_wgmma.cuh for wgmma + TMA) must be in
 MMA_KERNELS or WGMMA_KERNELS, and every one of the float32 MHAda tile
-(csrc/mhada_f32_tile.cuh) in F32_KERNELS (no tensor-core instruction, no
+(csrc/mhada_f32_tile.cuh) and of the float32 flash backward
+(csrc/flash_bwd_f32.cuh) in F32_KERNELS (no tensor-core instruction, no
 spills), so that no kernel skips the check; each listed kernel exists, and
 each instantiation required of a path is listed.
 CPU: reads the sources and chip_smoke.py's constants (it imports torch only
@@ -40,6 +41,8 @@ def _kernels(pattern):
 @pytest.mark.parametrize("pattern,listed", [("*_mma.cuh", "MMA_KERNELS"),
                                             ("*wgmma*.cuh", "WGMMA_KERNELS"),
                                             ("mhada_f32_tile.cuh",
+                                             "F32_KERNELS"),
+                                            ("flash_bwd_f32.cuh",
                                              "F32_KERNELS")])
 def test_tensor_core_kernels_are_listed(pattern, listed):
     kernels = _kernels(pattern)
@@ -60,3 +63,6 @@ def test_listed_kernels_exist():
         assert any(n in req for n in smoke.MMA_KERNELS), req
     for req in smoke.F32_REQUIRED:
         assert any(n in req for n in smoke.F32_KERNELS), req
+    # no required instantiation is one that phase 2 refuses as replaced
+    for req in (*smoke.MMA_REQUIRED, *smoke.F32_REQUIRED):
+        assert not re.search(smoke.OLD_BF16, req), req
