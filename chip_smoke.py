@@ -14,15 +14,18 @@
    path launches must exist (K4's MHAda tile without prologue or
    residuals, the tail with and without residuals, K2's, K14's), no bf16
    instantiation of the CUDA-core kernels they replaced may exist (those
-   of K1, K4, K5, K6, K7, K8, K2 and K14), nor flash_tile.cuh's float32
-   MHAda tile without residuals (K4's before the float32 tile), nor a
-   float32 instantiation of the old flash backward (flash_bwd_dkv_kernel,
-   flash_bwd_dq_kernel); K2's float32 kernel, the float32 MHAda tile
-   (csrc/mhada_f32_tile.cuh: K4 <false, 2>, K3 <true, 2>, P2 <true, 1>)
-   and the float32 flash backward (csrc/flash_bwd_f32.cuh: the dK/dV and
-   dQ kernels of K6 <false> and K7 <true>), each instantiation present,
-   must exist, spill nothing and hold no HMMA or HGMMA of any kind (they
-   compute in float32, no TF32);
+   of K1, K4, K5, K6, K7, K8, K2 and K14), nor any instantiation of the
+   old flash tile (flash_tile_kernel, the f32 forwards of K1, K4, K6 and
+   K7 before the float32 tile), nor a float32 instantiation of the old
+   flash backward (flash_bwd_dkv_kernel, flash_bwd_dq_kernel); K2's
+   float32 kernel, the float32 flash tile (csrc/mhada_f32_tile.cuh: the
+   MHAda kernel <prologue, stages, residuals> of K4 <false, 2, false>, K3
+   <true, 2, false>, P2 <true, 1, false> and K7's forward <false, 2,
+   true>; the attention kernel <lse> of K1 <false> and K6's forward
+   <true>) and the float32 flash backward (csrc/flash_bwd_f32.cuh: the
+   dK/dV and dQ kernels of K6 <false> and K7 <true>), each instantiation
+   present, must exist, spill nothing and hold no HMMA or HGMMA of any
+   kind (they compute in float32, no TF32);
 3. gates: each hand-written kernel against its plain PyTorch version on the
    card, in float32 and bfloat16, at the 512^2 path's shapes and at the
    1024^2 shapes (K2 at N = 16384; K3 at M = 16384; K5 from 512^2 to
@@ -372,28 +375,35 @@ MMA_REQUIRED = ("mhada_mma_fwd_kernelILb0ELb0E",
 # more (mangled names): the attention and MHAda tile (K1, K4, K6's and
 # K7's forwards) and backward (K6, K7), the decoder tail (K5, K8), K2's
 # first kernel and K14's conv.  Also the float32 instantiations that a
-# float32 redesign replaced: flash_tile.cuh's MHAda tile without residuals
-# (K4's; K7's float32 forward keeps its own, with residuals) and the old
-# float32 flash backward's two kernels (K6's and K7's).
-OLD_BF16 = (r"flash_tile_kernelI13__nv_bfloat16"
+# float32 redesign replaced: every instantiation of the old flash tile
+# (flash_tile_kernel: K1's, K4's, K6's and K7's float32 forwards before the
+# float32 flash tile) and the old float32 flash backward's two kernels
+# (K6's and K7's).
+OLD_BF16 = (r"flash_tile_kernel"
             r"|flash_bwd_(dkv|dq)_kernelI13__nv_bfloat16"
             r"|decoder_tail_kernelI13__nv_bfloat16"
             r"|ln_matmul_kernelI13__nv_bfloat16"
             r"|conv3x3_relu_kernelI13__nv_bfloat16"
-            r"|flash_tile_kernelIfLb1ELb0E"
             r"|flash_bwd_(dkv|dq)_kernelIf")
 # float32 kernels that compute in float32: they must exist, spill nothing
 # and hold no tensor-core instruction of any kind (HMMA, HGMMA: no TF32).
-# K2's float32 build, the float32 MHAda tile (csrc/mhada_f32_tile.cuh:
-# K4, K3 and P2) and the float32 flash backward (csrc/flash_bwd_f32.cuh:
+# K2's float32 build, the float32 flash tile (csrc/mhada_f32_tile.cuh: the
+# MHAda kernel of K4, K3, P2 and K7's forward, the attention kernel of K1
+# and K6's forward) and the float32 flash backward (csrc/flash_bwd_f32.cuh:
 # K6's and K7's dK/dV and dQ kernels).
 F32_KERNELS = ("ln_matmul_f32_kernel", "mhada_f32_kernel",
-               "flash_bwd_f32_dkv_kernel", "flash_bwd_f32_dq_kernel")
+               "attention_f32_kernel", "flash_bwd_f32_dkv_kernel",
+               "flash_bwd_f32_dq_kernel")
 # The float32 instantiations that the paths and P2 launch (mangled): the
-# tile's <prologue, ring stages>, K4 <false, 2>, K3 <true, 2>, P2 <true,
-# 1>; the backward's <mhada>, K6 <false>, K7 <true>.
-F32_REQUIRED = ("mhada_f32_kernelILb0ELi2E", "mhada_f32_kernelILb1ELi2E",
-                "mhada_f32_kernelILb1ELi1E",
+# MHAda kernel's <prologue, ring stages, residuals>, K4 <false, 2, false>,
+# K3 <true, 2, false>, P2 <true, 1, false>, K7's forward <false, 2, true>;
+# the attention kernel's <lse>, K1 <false>, K6's forward <true>; the
+# backward's <mhada>, K6 <false>, K7 <true>.
+F32_REQUIRED = ("mhada_f32_kernelILb0ELi2ELb0E",
+                "mhada_f32_kernelILb1ELi2ELb0E",
+                "mhada_f32_kernelILb1ELi1ELb0E",
+                "mhada_f32_kernelILb0ELi2ELb1E",
+                "attention_f32_kernelILb0E", "attention_f32_kernelILb1E",
                 "flash_bwd_f32_dkv_kernelILb0E",
                 "flash_bwd_f32_dkv_kernelILb1E",
                 "flash_bwd_f32_dq_kernelILb0E",
@@ -1142,7 +1152,8 @@ def run_train_gate(gate, kind, dname, card, b, n):
                      f"each; max|d| {mx:.3e}); kernel {ms:.3f} ms{split_txt}"
                      f", plain "
                      f"{plain_ms:.3f} ms, library {lib_txt}, bound "
-                     f"{bound_ms:.3f} ms ({bound_by})")
+                     f"{bound_ms:.3f} ms ({bound_by}; the kernel at "
+                     f"{100 * bound_ms / ms:.1f} % of it)")
     got, ref = grads("kernel"), grads("plain")
     finite = all(bool(torch.isfinite(t).all()) for t in got)
     names = d["names"]["grad"]
@@ -1931,6 +1942,10 @@ def main() -> int:
                     "library_ms"):
             row[key] = r32.get(key)
             row[key + "_bf16"] = r16.get(key)
+        # the share of the bound each build reaches
+        for suffix, r in (("", r32), ("_bf16", r16)):
+            if r.get("ms"):
+                row["bound_share" + suffix] = r["bound_ms"] / r["ms"]
         # K2's other timings; the backward's dK/dV and dQ kernels apart
         for key in ("kernel_ms", "wrapper_ms", "dkv_ms", "dq_ms"):
             if key in r32 or key in r16:

@@ -184,9 +184,9 @@ def check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
 
 def check_aligned(name: str, *tensors: torch.Tensor,
                   dtypes=(torch.bfloat16,)) -> None:
-    """The tensor-core kernels (and the float32 MHAda tile, which passes
-    ``dtypes`` with float32) copy 16 bytes at a time: raise unless each CUDA
-    tensor of one of ``dtypes`` starts on a 16-byte boundary."""
+    """The tensor-core kernels (and the float32 flash tile, whose wrappers
+    pass ``dtypes`` with float32) copy 16 bytes at a time: raise unless each
+    CUDA tensor of one of ``dtypes`` starts on a 16-byte boundary."""
     for t in tensors:
         if t.is_cuda and t.dtype in dtypes and t.data_ptr() % 16:
             raise ValueError(f"{name}: {t.dtype} tensors must be 16-byte "

@@ -11,38 +11,33 @@
 // L = 4096, 8 heads) against 2 L (3C + C) element reads, so it is
 // compute-bound.  bfloat16 runs on the tensor cores (attention_mma.cuh:
 // mma.sync with bf16 operands, float32 accumulators, a cp.async K/V ring);
-// float32 keeps computing in float32, as FMAs on the CUDA cores
-// (flash_tile.cuh).  The scores never leave shared memory and registers.
+// float32 keeps computing in float32, as FMAs on the CUDA cores, with no
+// TF32: the attention variant of the register-tiled, cp.async-pipelined
+// f32 tile (mhada_f32_tile.cuh, attention_f32_kernel<false>: 256 queries a
+// block, the scale folded into Q^T).  The scores never leave shared memory
+// and registers.
 
 #include "attention_mma.cuh"
-#include "flash_tile.cuh"
+#include "mhada_f32_tile.cuh"
 
 namespace {
 
 cudaError_t attention_fwd_f32(const void* qkv, void* out, int batch,
                               int seq, int channels, int heads, float scale,
                               cudaStream_t stream) {
-  const float* base = static_cast<const float*>(qkv);
-  mhada::FlashArgs a{};
-  a.q = base;
-  a.k = base + channels;
-  a.v = base + 2 * channels;
-  a.f = nullptr;
-  a.out = out;
+  mhada::f32t::AttnArgs a{};
+  a.qkv = static_cast<const float*>(qkv);
+  a.out = static_cast<float*>(out);
   a.n = seq;
-  a.m = seq;
-  a.q_bs = a.kv_bs = (long long)seq * 3 * channels;
-  a.q_rs = a.kv_rs = 3LL * channels;
-  a.f_bs = a.f_rs = 0;
-  a.o_bs = (long long)seq * channels;
-  a.o_rs = channels;
+  a.channels = channels;
   a.scale = scale;
-  return mhada::launch_flash_tile<float, false>(a, heads, batch, stream);
+  return mhada::f32t::launch_attention_f32<false>(a, heads, batch, stream);
 }
 
 }  // namespace
 
-// bfloat16: qkv and out 16-byte aligned, channels a multiple of 8.
+// qkv and out 16-byte aligned; channels a multiple of 4 (float32) or 8
+// (bfloat16).
 extern "C" int mhada_attention_fwd(const void* qkv, void* out, int batch,
                                    int seq, int channels, int heads,
                                    float scale, int dtype, void* stream) {

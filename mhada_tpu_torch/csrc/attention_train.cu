@@ -6,7 +6,7 @@
 // attention_pallas.py:236) and the backward _attn_tm_bwd_impl
 // (_tm_bwd_kernel, pallas_call at attention_pallas.py:351).
 //
-// Forward: K1's tile that also writes the row log-sum-exp, (B, heads, L)
+// Forward: K1's kernel that also writes the row log-sum-exp, (B, heads, L)
 // float32; the TPU kernel broadcast it over 64 lanes for its tiles, which
 // Hopper does not need.  Backward: two kernels (dK and dV per key tile, dQ
 // per query tile), reading Q, K and V in place from the (B, L, 3C)
@@ -23,12 +23,12 @@
 // compute-bound.  bfloat16 runs on the tensor cores (attention_mma.cuh,
 // attention_bwd_mma.cuh: mma.sync with bf16 operands and float32
 // accumulators); float32 keeps computing in float32, as FMAs on the CUDA
-// cores (flash_tile.cuh; the backward: flash_bwd_f32.cuh, float32 operands
-// 16-byte aligned and channels a multiple of 4, or the entry point refuses).
+// cores (the forward: mhada_f32_tile.cuh, attention_f32_kernel<true>; the
+// backward: flash_bwd_f32.cuh; float32 operands 16-byte aligned and
+// channels a multiple of 4, or the entry point refuses).
 
 #include "attention_bwd_mma.cuh"
-#include "flash_bwd_f32.cuh"
-#include "flash_tile.cuh"
+#include "flash_bwd_f32.cuh"  // and mhada_f32_tile.cuh
 
 namespace {
 
@@ -36,23 +36,14 @@ cudaError_t attention_train_fwd_f32(const void* qkv, void* out, float* lse,
                                     int batch, int seq, int channels,
                                     int heads, float scale,
                                     cudaStream_t stream) {
-  const float* base = static_cast<const float*>(qkv);
-  mhada::FlashArgs a{};
-  a.q = base;
-  a.k = base + channels;
-  a.v = base + 2 * channels;
-  a.f = nullptr;
-  a.out = out;
-  a.n = seq;
-  a.m = seq;
-  a.q_bs = a.kv_bs = (long long)seq * 3 * channels;
-  a.q_rs = a.kv_rs = 3LL * channels;
-  a.o_bs = (long long)seq * channels;
-  a.o_rs = channels;
-  a.scale = scale;
+  mhada::f32t::AttnArgs a{};
+  a.qkv = static_cast<const float*>(qkv);
+  a.out = static_cast<float*>(out);
   a.lse = lse;
-  return mhada::launch_flash_tile<float, false, true>(a, heads, batch,
-                                                      stream);
+  a.n = seq;
+  a.channels = channels;
+  a.scale = scale;
+  return mhada::f32t::launch_attention_f32<true>(a, heads, batch, stream);
 }
 
 cudaError_t attention_train_bwd_f32(const void* qkv, const void* g,

@@ -25,12 +25,13 @@
 // compute-bound.  bfloat16 runs on the tensor cores (mhada_mma.cuh,
 // mhada_bwd_mma.cuh: mma.sync with bf16 operands and float32 accumulators,
 // V^2 squared in registers); float32 keeps computing in float32, as FMAs on
-// the CUDA cores (flash_tile.cuh; the backward: flash_bwd_f32.cuh, float32
-// operands 16-byte aligned and channels a multiple of 4, or the entry point
+// the CUDA cores (the forward: K4's tile of mhada_f32_tile.cuh with its
+// residual stores, mhada_f32_kernel<false, 2, true>, so its out repeats
+// K4's bit for bit; the backward: flash_bwd_f32.cuh; float32 operands
+// 16-byte aligned and channels a multiple of 4, or the entry point
 // refuses).
 
-#include "flash_bwd_f32.cuh"
-#include "flash_tile.cuh"
+#include "flash_bwd_f32.cuh"  // and mhada_f32_tile.cuh
 #include "mhada_bwd_mma.cuh"
 
 namespace {
@@ -40,23 +41,20 @@ cudaError_t mhada_train_fwd_f32(const void* q, const void* k, const void* v,
                                 float* e2, float* lse, int batch, int n,
                                 int m, int channels, int heads,
                                 cudaStream_t stream) {
-  mhada::FlashArgs a{};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.f = fcs_n;
-  a.out = out;
-  a.n = n;
-  a.m = m;
-  a.q_bs = a.f_bs = a.o_bs = (long long)n * channels;
-  a.kv_bs = (long long)m * channels;
-  a.q_rs = a.kv_rs = a.f_rs = a.o_rs = channels;
-  a.scale = 1.f;
-  a.lse = lse;
+  mhada::f32t::F32Args a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.f = static_cast<const float*>(fcs_n);
+  a.out = static_cast<float*>(out);
   a.m1 = m1;
   a.e2 = e2;
-  return mhada::launch_flash_tile<float, true, true>(a, heads, batch,
-                                                     stream);
+  a.lse = lse;
+  a.n = n;
+  a.m = m;
+  a.channels = channels;
+  return mhada::f32t::launch_mhada_f32<false, mhada::f32t::kRingStages, true>(
+      a, heads, batch, stream);
 }
 
 cudaError_t mhada_train_bwd_f32(const void* q, const void* k, const void* v,

@@ -11,6 +11,7 @@ import torch
 
 from .. import _build
 from ..config import use_kernel
+from .mhada_kernel import ALIGNED
 
 HEAD_DIM = 64
 
@@ -52,7 +53,7 @@ def attention_tm(qkv: torch.Tensor, num_heads: int,
         "attention_train", qkv)
     scale = 1.0 / math.sqrt(HEAD_DIM) if scale is None else scale
     out = torch.empty((b, l, c), device=qkv.device, dtype=qkv.dtype)
-    _build.check_aligned("attention_tm", qkv, out)
+    _build.check_aligned("attention_tm", qkv, out, dtypes=ALIGNED)
     _build.launch("mhada_attention_fwd", qkv.device, qkv, out, b, l, c,
                   num_heads, float(scale), _build.dtype_code(qkv))
     return out

@@ -25,6 +25,7 @@ import torch
 from .. import _build
 from ..config import use_kernel
 from .attention_kernel import HEAD_DIM
+from .mhada_kernel import ALIGNED
 
 
 def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -86,7 +87,7 @@ def _fwd_kernel(qkv, num_heads, scale):
     out = qkv.new_empty((b, l, c3 // 3))
     lse = torch.empty((b, num_heads, l), device=qkv.device,
                       dtype=torch.float32)
-    _build.check_aligned("attention_train", qkv, out)
+    _build.check_aligned("attention_train", qkv, out, dtypes=ALIGNED)
     _build.launch("mhada_attention_train_fwd", qkv.device, qkv, out, lse, b,
                   l, c3 // 3, num_heads, float(scale), _build.dtype_code(qkv))
     return out, lse

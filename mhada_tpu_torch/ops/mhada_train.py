@@ -27,7 +27,7 @@ import torch
 from .. import _build
 from ..config import use_kernel
 from .attention_train import _head, _heads
-from .mhada_kernel import HEAD_DIM
+from .mhada_kernel import ALIGNED, HEAD_DIM
 
 
 def mhada_train_fwd_plain(q, k, v, fcs_n, num_heads: int):
@@ -101,7 +101,7 @@ def _fwd_kernel(q, k, v, fcs_n, num_heads):
     m1, e2 = (torch.empty((b, n, c), device=q.device, dtype=torch.float32)
               for _ in range(2))
     lse = torch.empty((b, num_heads, n), device=q.device, dtype=torch.float32)
-    _build.check_aligned("mhada_train", q, k, v, fcs_n, out)
+    _build.check_aligned("mhada_train", q, k, v, fcs_n, out, dtypes=ALIGNED)
     _build.launch("mhada_mhada_train_fwd", q.device, q, k, v, fcs_n, out, m1,
                   e2, lse, b, n, k.shape[1], c, num_heads,
                   _build.dtype_code(q))

@@ -17,9 +17,12 @@ outputs bit for bit, K8's gradients against the plain backward on the
 kernel forward's ReLU masks with the share of flipped masks bounded
 apart; a misaligned bf16 input of K3, K4, K7, the tail or K2 raises too,
 as does a bf16 K2 input whose E is no multiple of 8, and a misaligned
-float32 input of K3, K4 or P2 (the float32 MHAda tile), whose C entry
-points also refuse channels that are no multiple of 4, and of K6's or K7's
-float32 backward, which the C entry points refuse.  K3, K4 and P2 also
+float32 input of K3, K4, P2, K1, K6's forward or K7's forward (the
+float32 flash tile), whose C entry points also refuse channels that are no
+multiple of 4, and of K6's or K7's float32 backward, which the C entry
+points refuse.  K1, K6's forward and K7's forward also at float32 and C =
+512 with ragged lengths, K1's out bit-equal to K6's forward out and K7's
+forward out bit-equal to K4's.  K3, K4 and P2 also
 at N = 4160, one partial 128-query block of the float32 tile.  K2 (at bf16 on the
 tensor cores) also at the ViT's widths, 4096 rows by 512 -> 1536 and 2048,
 and at 999 ragged rows.  K13 (c6) and K14 (c1 -> c3; at bf16 an implicit
@@ -408,6 +411,110 @@ def test_f32_train_bwd_rejects_unaligned(gen, kind):
                 mhada_train_ops._bwd_kernel(t["q"], t["k"], t["v"], t["dm1"],
                                             t["de2"], lse, delta, heads)
     assert _build.LAUNCHES == before
+
+
+# (batch, queries, keys, V's offset) of the float32 forwards at the full
+# width (C = 512, 8 heads): lengths past and below the attention kernel's
+# 256-query blocks, the MHAda kernel's 128 and the 64-key tiles, N = 1
+# against 63 keys, N != M for MHAda; V = 3 + 0.3 N(0, 1) where E2 - M1^2
+# cancels.  Self-attention runs at L = N.
+F32_FWD_SHAPES = [(2, 300, 300, 0.0), (1, 1, 63, 0.0), (1, 257, 1000, 3.0),
+                  (3, 513, 130, 0.0)]
+
+
+def _rel(got, ref):
+    return (got - ref).abs().max().item() / ref.abs().max().item()
+
+
+@pytest.mark.parametrize("b,n,m,shift", F32_FWD_SHAPES)
+def test_f32_forwards_full_width(gen, b, n, m, shift):
+    """K1, K6's forward and K7's forward at float32, on the float32 flash
+    tile, at C = 512 against their plain versions: out, lse, M1 and E2,
+    each against its own scale.  K1's out repeats K6's forward out bit for
+    bit (one kernel; K6 also stores lse), and K7's forward out repeats K4's
+    (one tile; K7 also stores M1, E2 and lse).  Each entry point launches
+    once."""
+    c, heads = 512, 8
+    entries = ["mhada_attention_fwd", "mhada_attention_train_fwd",
+               "mhada_mhada_train_fwd", "mhada_mhada_fwd"]
+    before = [_build.LAUNCHES[e] for e in entries]
+    qkv = _rnd(gen, torch.float32, b, n, 3 * c)
+    k1 = attention_tm(qkv, heads)
+    k6 = attention_train_ops._fwd_kernel(qkv, heads, 0.125)
+    q = _rnd(gen, torch.float32, b, n, c, scale=0.35)
+    k = _rnd(gen, torch.float32, b, m, c, scale=0.35)
+    v = _rnd(gen, torch.float32, b, m, c, scale=0.3 if shift else 1.0) + shift
+    f = _rnd(gen, torch.float32, b, n, c)
+    k7 = mhada_train_ops._fwd_kernel(q, k, v, f, heads)
+    k4 = mhada_tm(q, k, v, f, heads)
+    assert [_build.LAUNCHES[e] for e in entries] == [x + 1 for x in before]
+    ref6 = attention_train_ops.attention_train_fwd_plain(qkv, heads, 0.125)
+    ref7 = mhada_train_ops.mhada_train_fwd_plain(q, k, v, f, heads)
+    torch.cuda.synchronize()
+    for i, (got, ref) in enumerate(zip((k1, *k6, *k7), (ref6[0], *ref6,
+                                                         *ref7))):
+        assert torch.isfinite(got).all(), i
+        assert _rel(got, ref) <= REL_F32, (i, _rel(got, ref))
+    assert torch.equal(k1, k6[0])
+    assert torch.equal(k7[0], k4)
+
+
+@pytest.mark.parametrize("entry", ["mhada_attention_fwd",
+                                   "mhada_attention_train_fwd",
+                                   "mhada_mhada_train_fwd"])
+def test_f32_forwards_reject_unaligned(gen, entry):
+    """The float32 flash tile copies 16 bytes at a time: the wrappers of
+    K1, K6's forward and K7's forward raise on a float32 operand one
+    element into its buffer (every operand in turn), and the C entry points
+    refuse channels that are no multiple of 4; nothing launches."""
+    b, n, m, heads = 1, 70, 90, 2
+    c = 64 * heads
+
+    def off(*shape):
+        buf = torch.zeros(torch.Size(shape).numel() + 1, device="cuda")
+        return buf[1:].view(shape)
+
+    if entry == "mhada_mhada_train_fwd":
+        shapes = {"q": (b, n, c), "k": (b, m, c), "v": (b, m, c),
+                  "f": (b, n, c)}
+
+        def call(t):
+            return mhada_train_ops._fwd_kernel(t["q"], t["k"], t["v"],
+                                               t["f"], heads)
+    else:
+        shapes = {"qkv": (b, n, 3 * c)}
+
+        def call(t):
+            if entry == "mhada_attention_fwd":
+                return attention_tm(t["qkv"], heads)
+            return attention_train_ops._fwd_kernel(t["qkv"], heads, 0.125)
+
+    before = dict(_build.LAUNCHES)
+    for name in shapes:
+        t = {key: torch.zeros(shape, device="cuda")
+             for key, shape in shapes.items()}
+        t[name] = off(*shapes[name])
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            call(t)
+    c = 130
+    out = torch.zeros(b, n, c, device="cuda")
+    lse = torch.zeros(b, heads, n, device="cuda")
+    if entry == "mhada_mhada_train_fwd":
+        q, kv = torch.zeros(b, n, c, device="cuda"), torch.zeros(
+            b, m, c, device="cuda")
+        args = [q, kv, kv, q, out, out.clone(), out.clone(), lse, b, n, m]
+    else:
+        args = [torch.zeros(b, n, 3 * c, device="cuda"), out]
+        args += [lse] if entry == "mhada_attention_train_fwd" else []
+        args += [b, n]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.launch(entry, out.device, *args, c, heads,
+                      *([] if entry == "mhada_mhada_train_fwd" else [0.125]),
+                      0)
+    assert _build.LAUNCHES == before
+    call({key: torch.zeros(shape, device="cuda")
+          for key, shape in shapes.items()})   # aligned: launches
+    assert _build.LAUNCHES[entry] == before[entry] + 1
 
 
 def test_kernel_rejects_bad_input(gen):

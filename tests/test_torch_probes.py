@@ -2,8 +2,8 @@
 (interpret mode), CPU: P1's ``mm_plain`` against ``_mm_kernel`` through
 ``pl.pallas_call``, P2's plain version against ``_pipe_kernel`` through the
 probe's ``call_variant``; the probes' CLIs on the CPU and their guards;
-the cuts of K2's split probe, and the edits of P2's ablation probe, against
-the kernels' sources.
+the cuts of K2's split probe, and the edits of P2's ablation probe and of
+the f32 attention geometry probe, against the kernels' sources.
 The probe scripts are not a package, so they are imported by path."""
 
 import importlib.util
@@ -19,8 +19,9 @@ from jax.experimental.pallas import tpu as pltpu
 
 from mhada_tpu_torch.ops.instance_norm import instance_norm_stats
 from mhada_tpu_torch import _build
-from mhada_tpu_torch.probes import (ln_matmul_split, mhada_pipe_probe,
-                                    mhada_wgmma_ablate, mm_probe)
+from mhada_tpu_torch.probes import (f32_tile_geometry, ln_matmul_split,
+                                    mhada_pipe_probe, mhada_wgmma_ablate,
+                                    mm_probe)
 
 # Six test workers share the CPU: cap torch's intra-op threads.
 torch.set_num_threads(2)
@@ -149,6 +150,27 @@ def test_wgmma_ablate_edits_apply(variant):
     assert (out != src) == bool(edits)
     with pytest.raises(ValueError, match="not found"):
         mhada_wgmma_ablate.patched(src, [("no such text", "")])
+
+
+@pytest.mark.parametrize("variant", list(f32_tile_geometry.VARIANTS))
+def test_f32_geometry_variants_apply(variant, monkeypatch):
+    """Each layout of the f32 attention geometry probe replaces the AttnGeom
+    line of csrc/mhada_f32_tile.cuh (the probe raises where it is missing;
+    the as-built layout is the header's own), fits a block's 227 KB of
+    shared memory, and gives whole 64-key tiles; without a card the probe
+    raises."""
+    src = (_build.CSRC / f32_tile_geometry.HEADER).read_text()
+    geom = f32_tile_geometry.VARIANTS[variant]
+    out = f32_tile_geometry.patched(src, geom)
+    assert f"using AttnGeom = {geom};" in out
+    assert (out == src) == ("as built" in variant)
+    lay = f32_tile_geometry.layout(geom)
+    assert lay["smem_bytes"] <= 232448 and lay["queries"] in (128, 256)
+    with pytest.raises(ValueError, match="not found"):
+        f32_tile_geometry.patched("", geom)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        f32_tile_geometry.main([])
 
 
 def test_pipe_probe_work():
