@@ -17,15 +17,19 @@
    of K1, K4, K5, K6, K7, K8, K2 and K14), nor any instantiation of the
    old flash tile (flash_tile_kernel, the f32 forwards of K1, K4, K6 and
    K7 before the float32 tile), nor a float32 instantiation of the old
-   flash backward (flash_bwd_dkv_kernel, flash_bwd_dq_kernel); K2's
-   float32 kernel, the float32 flash tile (csrc/mhada_f32_tile.cuh: the
-   MHAda kernel <prologue, stages, residuals> of K4 <false, 2, false>, K3
-   <true, 2, false>, P2 <true, 1, false> and K7's forward <false, 2,
-   true>; the attention kernel <lse> of K1 <false> and K6's forward
-   <true>) and the float32 flash backward (csrc/flash_bwd_f32.cuh: the
-   dK/dV and dQ kernels of K6 <false> and K7 <true>), each instantiation
-   present, must exist, spill nothing and hold no HMMA or HGMMA of any
-   kind (they compute in float32, no TF32);
+   flash backward (flash_bwd_dkv_kernel, flash_bwd_dq_kernel) or of the
+   old fused tail (decoder_tail_kernel<bool>, K5's and K8's before the
+   two-stage float32 tail); K2's float32 kernel, the float32 flash tile
+   (csrc/mhada_f32_tile.cuh: the MHAda kernel <prologue, stages,
+   residuals> of K4 <false, 2, false>, K3 <true, 2, false>, P2 <true, 1,
+   false> and K7's forward <false, 2, true>; the attention kernel <lse> of
+   K1 <false> and K6's forward <true>), the float32 flash backward
+   (csrc/flash_bwd_f32.cuh: the dK/dV and dQ kernels of K6 <false> and K7
+   <true>) and the float32 tail (csrc/decoder_tail_f32.cuh: the up3
+   kernel of K5 and K8, the upsample + c5 + c6 kernel <residuals> of K5
+   <false> and K8 <true>), each instantiation present, must exist, spill
+   nothing and hold no HMMA or HGMMA of any kind (they compute in float32,
+   no TF32);
 3. gates: each hand-written kernel against its plain PyTorch version on the
    card, in float32 and bfloat16, at the 512^2 path's shapes and at the
    1024^2 shapes (K2 at N = 16384; K3 at M = 16384; K5 from 512^2 to
@@ -43,8 +47,9 @@
    F.linear per width, cuBLAS; two calls, so it stands in the library
    column only as a named chain, as the plain cuDNN chain is K5's
    yardstick), both on the inputs cast once to the compute dtype; K14 also
-   as the kernel alone (its weights converted once); then the probes'
-   CLIs, their launches counted;
+   as the kernel alone (its weights converted once); K5 at float32 also as
+   its two kernels' device times apart (``torch.profiler``); then the
+   probes' CLIs, their launches counted;
 4. main paths, each driven with the launch counts set to 0 just before it
    and read just after, and held against the plain path on the same
    weights:
@@ -78,7 +83,8 @@
    bfloat16: each output, residual and input gradient against its own
    scale, with times, bounds and the library yardstick, and K6's and K7's
    backward also as its dK/dV and dQ kernels' device times apart
-   (``torch.profiler``);
+   (``torch.profiler``), K8's float32 forward as its two kernels' (up3;
+   the upsample, c5 and c6);
 7. the training paths: one step (``train.train_image``) on the kernel build
    and one on the plain build from the same weights and batch, losses and
    every gradient held together (each tensor against its own scale, to a
@@ -361,6 +367,9 @@ MMA_KERNELS = ("attention_mma_fwd_kernel", "attention_mma_dkv_kernel",
                "decoder_tail_mma_kernel", "ln_matmul_mma_kernel",
                "decoder_mid_mma_kernel")
 HMMA = "HMMA.16816.F32.BF16"
+# The float32 tail's two kernels (csrc/decoder_tail_f32.cuh), timed apart
+# by name in the K5 and K8 gates.
+TAIL_STAGES = ("tail_up3_f32_kernel", "tail_c5c6_f32_kernel")
 # The bf16 wgmma + TMA kernels (P2: csrc/mhada_wgmma.cuh) and the
 # instructions each must contain: HGMMA (wgmma) and UTMALDG (TMA loads).
 WGMMA_KERNELS = ("mhada_wgmma_kernel",)
@@ -377,28 +386,34 @@ MMA_REQUIRED = ("mhada_mma_fwd_kernelILb0ELb0E",
 # first kernel and K14's conv.  Also the float32 instantiations that a
 # float32 redesign replaced: every instantiation of the old flash tile
 # (flash_tile_kernel: K1's, K4's, K6's and K7's float32 forwards before the
-# float32 flash tile) and the old float32 flash backward's two kernels
-# (K6's and K7's).
+# float32 flash tile), the old float32 flash backward's two kernels (K6's
+# and K7's) and the old fused float32 tail (decoder_tail_kernel<bool>: K5's
+# and K8's before csrc/decoder_tail_f32.cuh).
 OLD_BF16 = (r"flash_tile_kernel"
             r"|flash_bwd_(dkv|dq)_kernelI13__nv_bfloat16"
             r"|decoder_tail_kernelI13__nv_bfloat16"
             r"|ln_matmul_kernelI13__nv_bfloat16"
             r"|conv3x3_relu_kernelI13__nv_bfloat16"
-            r"|flash_bwd_(dkv|dq)_kernelIf")
+            r"|flash_bwd_(dkv|dq)_kernelIf"
+            r"|decoder_tail_kernelILb")
 # float32 kernels that compute in float32: they must exist, spill nothing
 # and hold no tensor-core instruction of any kind (HMMA, HGMMA: no TF32).
 # K2's float32 build, the float32 flash tile (csrc/mhada_f32_tile.cuh: the
 # MHAda kernel of K4, K3, P2 and K7's forward, the attention kernel of K1
-# and K6's forward) and the float32 flash backward (csrc/flash_bwd_f32.cuh:
-# K6's and K7's dK/dV and dQ kernels).
+# and K6's forward), the float32 flash backward (csrc/flash_bwd_f32.cuh:
+# K6's and K7's dK/dV and dQ kernels) and the float32 tail
+# (csrc/decoder_tail_f32.cuh: K5's and K8's up3 kernel and upsample + c5 +
+# c6 kernel).
 F32_KERNELS = ("ln_matmul_f32_kernel", "mhada_f32_kernel",
                "attention_f32_kernel", "flash_bwd_f32_dkv_kernel",
-               "flash_bwd_f32_dq_kernel")
+               "flash_bwd_f32_dq_kernel", "tail_up3_f32_kernel",
+               "tail_c5c6_f32_kernel")
 # The float32 instantiations that the paths and P2 launch (mangled): the
 # MHAda kernel's <prologue, ring stages, residuals>, K4 <false, 2, false>,
 # K3 <true, 2, false>, P2 <true, 1, false>, K7's forward <false, 2, true>;
 # the attention kernel's <lse>, K1 <false>, K6's forward <true>; the
-# backward's <mhada>, K6 <false>, K7 <true>.
+# backward's <mhada>, K6 <false>, K7 <true>; the tail's up3 kernel (K5 and
+# K8) and its c5 + c6 kernel <residuals>, K5 <false>, K8 <true>.
 F32_REQUIRED = ("mhada_f32_kernelILb0ELi2ELb0E",
                 "mhada_f32_kernelILb1ELi2ELb0E",
                 "mhada_f32_kernelILb1ELi1ELb0E",
@@ -407,7 +422,8 @@ F32_REQUIRED = ("mhada_f32_kernelILb0ELi2ELb0E",
                 "flash_bwd_f32_dkv_kernelILb0E",
                 "flash_bwd_f32_dkv_kernelILb1E",
                 "flash_bwd_f32_dq_kernelILb0E",
-                "flash_bwd_f32_dq_kernelILb1E")
+                "flash_bwd_f32_dq_kernelILb1E", "tail_up3_f32_kernel",
+                "tail_c5c6_f32_kernelILb0E", "tail_c5c6_f32_kernelILb1E")
 
 
 def all_gates():
@@ -539,6 +555,16 @@ def split_ms(fn, parts, iters=3):
             if part in e.key:
                 out[part] += e.self_device_time_total / 1e3 / iters
     return out
+
+
+def tail_stage_ms(split):
+    """The float32 tail's stage times from ``split_ms`` over TAIL_STAGES."""
+    return {"up3_ms": split[TAIL_STAGES[0]], "c5c6_ms": split[TAIL_STAGES[1]]}
+
+
+def tail_stage_txt(split):
+    up3, c5c6 = (split[p] for p in TAIL_STAGES)
+    return f" (profiler: up3 {up3:.3f} + upsample, c5 and c6 {c5c6:.3f} ms)"
 
 
 def bound(flops, nbytes, dname):
@@ -703,8 +729,13 @@ def gate_inputs(kind, n, dtype, g, b=1):
         hi = (2 * n) ** 2
         flops = 2 * 9 * (n * n * 128 * 64 + hi * 64 * 64 + hi * 64 * 3)
         nbytes = (n * n * 128 + hi * 3) * es + 9 * 64 * (128 + 64 + 3) * es
-        return (lambda be: decoder_tail.decoder_tail(
-            x, wu, bu, w5, b5, w6, b6, backend=be), flops, nbytes, None)
+
+        def run(be):
+            return decoder_tail.decoder_tail(x, wu, bu, w5, b5, w6, b6,
+                                             backend=be)
+
+        run.stages = TAIL_STAGES   # timed apart at float32
+        return run, flops, nbytes, None
     if kind == "c6":
         y = rnd(b, n, n, 64).abs()   # c5 is post-ReLU
         w6, b6 = conv(3, 64)
@@ -788,6 +819,8 @@ def run_gate(gate, kind, n, b, dname, card):
         library_ms = cuda_ms(lib, *reps) if lib else None
         alone = getattr(run, "kernel_alone", None)   # K2, K14: without casts
         kernel_ms = cuda_ms(alone, *reps) if alone else None
+        stages = getattr(run, "stages", None) if dname == "float32" else None
+        split = split_ms(lambda: run("kernel"), stages) if stages else None
     bound_ms, bound_by = bound(flops, nbytes, dname)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
@@ -799,6 +832,10 @@ def run_gate(gate, kind, n, b, dname, card):
     if kernel_ms is not None:
         rec["kernel_ms"] = kernel_ms
         lib_txt += f", the kernel alone {kernel_ms:.3f} ms"
+    if split:
+        rec.update(tail_stage_ms(split))
+        good = good and all(t > 0 for t in split.values())
+        lib_txt += tail_stage_txt(split)
     return phase(
         f"gate {gate} {dname}", good,
         f"max|d| {mx:.3e} mean|d| {mean:.3e} max|ref| {scale:.3e} rel "
@@ -1144,6 +1181,11 @@ def run_train_gate(gate, kind, dname, card, b, n):
             good = good and all(t > 0 for t in split.values())
             split_txt = (f" (profiler: dK/dV kernel {split['dkv_kernel']:.3f}"
                          f" + dQ kernel {split['dq_kernel']:.3f} ms)")
+        elif kind == "tail" and dname == "float32":   # K8's two stages
+            split = split_ms(calls["kernel"], TAIL_STAGES)
+            recs[part].update(tail_stage_ms(split))
+            good = good and all(t > 0 for t in split.values())
+            split_txt = tail_stage_txt(split)
         lib_txt = f"{library_ms:.3f} ms" if lib else "none"
         if part == "fwd" and "wrapper" in d:   # K2
             recs[part]["wrapper_ms"] = cuda_ms(d["wrapper"], 2, 5)
@@ -1946,8 +1988,10 @@ def main() -> int:
         for suffix, r in (("", r32), ("_bf16", r16)):
             if r.get("ms"):
                 row["bound_share" + suffix] = r["bound_ms"] / r["ms"]
-        # K2's other timings; the backward's dK/dV and dQ kernels apart
-        for key in ("kernel_ms", "wrapper_ms", "dkv_ms", "dq_ms"):
+        # K2's other timings; the backward's dK/dV and dQ kernels and the
+        # float32 tail's two stages apart
+        for key in ("kernel_ms", "wrapper_ms", "dkv_ms", "dq_ms", "up3_ms",
+                    "c5c6_ms"):
             if key in r32 or key in r16:
                 row[key] = r32.get(key)
                 row[key + "_bf16"] = r16.get(key)

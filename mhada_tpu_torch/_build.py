@@ -37,8 +37,7 @@ SIGNATURES = {
     "mhada_mhada_prologue": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _P],
     "mhada_ln_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
-    "mhada_decoder_tail": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _P],
+    "mhada_decoder_tail": [_P] * 9 + [_I] * 4 + [_P],
     "mhada_attention_train_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "mhada_attention_train_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                                   _P],
@@ -184,11 +183,13 @@ def check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
 
 def check_aligned(name: str, *tensors: torch.Tensor,
                   dtypes=(torch.bfloat16,)) -> None:
-    """The tensor-core kernels (and the float32 flash tile, whose wrappers
-    pass ``dtypes`` with float32) copy 16 bytes at a time: raise unless each
-    CUDA tensor of one of ``dtypes`` starts on a 16-byte boundary."""
+    """The tensor-core kernels (and the float32 kernels whose wrappers pass
+    ``dtypes`` with float32) copy 16 bytes at a time: raise unless each
+    CUDA tensor of one of ``dtypes`` starts on a 16-byte boundary (None
+    stands for a pointer the kernel does not take)."""
     for t in tensors:
-        if t.is_cuda and t.dtype in dtypes and t.data_ptr() % 16:
+        if t is not None and t.is_cuda and t.dtype in dtypes \
+                and t.data_ptr() % 16:
             raise ValueError(f"{name}: {t.dtype} tensors must be 16-byte "
                              f"aligned, got data_ptr {t.data_ptr():#x}")
 

@@ -1,14 +1,16 @@
-"""K5 and K8: the decoder tail up3 -> 2x bilinear -> c5 -> c6 in one kernel
-(csrc/decoder_tail.cu).
+"""K5 and K8: the decoder tail up3 -> 2x bilinear -> c5 -> c6, one entry
+call (csrc/decoder_tail.cu).
 
 K5 ports mhada_tpu/ops/decoder_tail_pallas.py::tail3_fused, K8 its training
-form ``tail3_train``: the same kernel also writing the post-ReLU residuals
+form ``tail3_train``: the same kernels also writing the post-ReLU residuals
 y1 = relu(up3 conv) (B, H, W, 64) and c5 (B, 2H, 2W, 64), with a plain
 PyTorch backward written from ``_tail3_train_bwd``
 (decoder_tail_pallas.py:622-653), as the JAX package's is XLA.  At
-bfloat16 the kernel runs on the tensor cores (csrc/decoder_tail_mma.cuh)
-and raises on a tensor that is not 16-byte aligned; at float32 it computes
-in float32 on the CUDA cores.  The plain forward is the chain of
+bfloat16 one kernel runs on the tensor cores (csrc/decoder_tail_mma.cuh);
+at float32 two run on the CUDA cores (csrc/decoder_tail_f32.cuh: up3 into
+y1, which K5 keeps in a scratch tensor allocated here, then the upsample,
+c5 and c6).  The wrapper raises on a tensor that is not 16-byte aligned.
+The plain forward is the chain of
 mhada_tpu/models/decoder.py:215-217 (reflect-padded convs, ReLU after
 each, a 2x bilinear upsample after up3) with tail3_fused's rounding
 points, so that at bfloat16 it is the Pallas kernel's function: each
@@ -23,6 +25,7 @@ from torch.nn.grad import conv2d_input, conv2d_weight
 
 from .. import _build
 from ..config import use_kernel
+from .mhada_kernel import ALIGNED
 from .pad_conv import conv2d_reflect, no_tf32, reflect_pad2d
 from .resize import upsample2x
 
@@ -108,9 +111,15 @@ def _launch_tail(entry, x, w_up, b_up, w5, b5, w6, b6):
     if entry == "mhada_decoder_tail_res":
         outs += [x.new_empty((b, h, w, C_MID)),
                  x.new_empty((b, 2 * h, 2 * w, C_MID))]
-    _build.check_aligned("decoder_tail", x, *hwio, *outs)
+        scratch = []
+    else:   # K5's y1 between its two float32 kernels; bf16 takes none
+        scratch = [x.new_empty((b, h, w, C_MID))
+                   if dt == torch.float32 else None]
+    _build.check_aligned("decoder_tail", x, *hwio, *outs, *scratch,
+                         dtypes=ALIGNED)
     _build.launch(entry, x.device, x, hwio[0], bias[0], hwio[1], bias[1],
-                  hwio[2], bias[2], *outs, b, h, w, _build.dtype_code(x))
+                  hwio[2], bias[2], *outs, *scratch, b, h, w,
+                  _build.dtype_code(x))
     return outs
 
 

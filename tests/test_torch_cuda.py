@@ -20,7 +20,10 @@ as does a bf16 K2 input whose E is no multiple of 8, and a misaligned
 float32 input of K3, K4, P2, K1, K6's forward or K7's forward (the
 float32 flash tile), whose C entry points also refuse channels that are no
 multiple of 4, and of K6's or K7's float32 backward, which the C entry
-points refuse.  K1, K6's forward and K7's forward also at float32 and C =
+points refuse; the float32 tail (K5, K8) also refuses a misaligned x in
+its wrappers and a misaligned x, weight, output, y1 or c5 in its C entry
+points, and K8's float32 y1 and c5 are held at every pixel, its rgb
+bit-equal to K5's.  K1, K6's forward and K7's forward also at float32 and C =
 512 with ragged lengths, K1's out bit-equal to K6's forward out and K7's
 forward out bit-equal to K4's.  K3, K4 and P2 also
 at N = 4160, one partial 128-query block of the float32 tile.  K2 (at bf16 on the
@@ -258,28 +261,111 @@ def test_ln_matmul_kernel(gen, dtype, shape, f):
            dtype)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(1, 8, 12, 128), (2, 6, 10, 128),
-                                   (1, 2, 3, 128), (1, 16, 16, 128),
-                                   (1, 256, 256, 128)])
-def test_decoder_tail_kernel(gen, dtype, shape):
-    """K5 against its twin, from 2 x 3 to 256^2 low-res (partial output
-    tiles, reflected windows); a second call repeats the first bit for
-    bit."""
-    x = _rnd(gen, dtype, *shape).abs()
-
+def _tail_weights(gen, dtype, shift=0.0):
+    """The tail's conv weights at their init scale U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)), biases shifted by ``shift`` bounds; bf16-valued when
+    dtype is bf16, held in float32."""
     def conv(co, ci):
         bound = 1 / (ci * 9) ** 0.5
         w = (torch.rand(co, ci, 3, 3, generator=gen) * 2 - 1) * bound
-        b = (torch.rand(co, generator=gen) * 2 - 1) * bound
+        b = (torch.rand(co, generator=gen) * 2 - 1 + shift) * bound
         return w.to("cuda", dtype).float(), b.to("cuda", dtype).float()
 
-    (wu, bu), (w5, b5), (w6, b6) = conv(64, 128), conv(64, 64), conv(3, 64)
+    return [t for co, ci in ((64, 128), (64, 64), (3, 64))
+            for t in conv(co, ci)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(1, 8, 12, 128), (2, 6, 10, 128),
+                                   (1, 2, 3, 128), (1, 16, 16, 128),
+                                   (1, 17, 33, 128), (3, 40, 24, 128),
+                                   (1, 256, 256, 128)])
+def test_decoder_tail_kernel(gen, dtype, shape):
+    """K5 against its twin, from 2 x 3 to 256^2 low-res (partial output
+    tiles, reflected windows; the float32 kernels' 8 x 32 up3 tiles and 14
+    x 30 rgb tiles ragged in both directions at 17 x 33 and 40 x 24); a
+    second call repeats the first bit for bit."""
+    x = _rnd(gen, dtype, *shape).abs()
+    ws = _tail_weights(gen, dtype)
+
     def run(be, dt):
-        return decoder_tail(x.to(dt), wu, bu, w5, b5, w6, b6, backend=be)
+        return decoder_tail(x.to(dt), *ws, backend=be)
 
     _check("mhada_decoder_tail", run, dtype)
     assert torch.equal(run("kernel", dtype), run("kernel", dtype))
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 3, 128), (2, 6, 10, 128),
+                                   (1, 17, 33, 128), (3, 40, 24, 128),
+                                   (2, 128, 128, 128)])
+def test_decoder_tail_f32_residuals(gen, shape):
+    """K8 at float32: rgb, y1 and c5 against the plain version at every
+    pixel, each within REL_F32 of its own largest value (biases shifted
+    positive: few pre-activations at 0); K8's rgb equals K5's bit for bit
+    on the same inputs (one upsample + c5 + c6 kernel, with and without the
+    residual stores)."""
+    x = _rnd(gen, torch.float32, *shape).abs()
+    ws = _tail_weights(gen, torch.float32, shift=1.0)
+    before = dict(_build.LAUNCHES)
+    got = decoder_tail_ops._launch_tail("mhada_decoder_tail_res", x, *ws)
+    k5 = decoder_tail(x, *ws)
+    assert _build.LAUNCHES["mhada_decoder_tail_res"] == \
+        before["mhada_decoder_tail_res"] + 1
+    assert _build.LAUNCHES["mhada_decoder_tail"] == \
+        before["mhada_decoder_tail"] + 1
+    ref = decoder_tail_ops.decoder_tail_res_plain(x, *ws)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("rgb", "y1", "c5"), got, ref):
+        assert g.shape == r.shape, name
+        assert torch.isfinite(g).all(), name
+        rel = (g - r).abs().max().item() / r.abs().max().item()
+        assert rel <= REL_F32, (name, rel)
+    assert torch.equal(got[0], k5)
+
+
+@pytest.mark.parametrize("entry", ["mhada_decoder_tail",
+                                   "mhada_decoder_tail_res"])
+def test_decoder_tail_f32_rejects_unaligned(gen, entry):
+    """The float32 tail copies and stores 16 bytes at a time: the wrappers
+    of K5 and K8 raise on a float32 x one element into its buffer, and the
+    C entry points refuse a misaligned x, weight, output, y1 scratch or
+    residual; nothing launches."""
+    b, h, w = 1, 6, 10
+
+    def off(*shape):
+        buf = torch.zeros(torch.Size(shape).numel() + 1, device="cuda")
+        return buf[1:].view(shape)
+
+    ws = _tail_weights(gen, torch.float32)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        if entry == "mhada_decoder_tail":
+            decoder_tail(off(b, h, w, 128), *ws)
+        else:
+            decoder_tail_train(off(b, h, w, 128), *ws)
+    hwio = [t.permute(2, 3, 1, 0).contiguous() for t in ws[::2]]
+    shapes = {"x": (b, h, w, 128), "w_up": (3, 3, 128, 64),
+              "w5": (3, 3, 64, 64), "w6": (3, 3, 64, 3),
+              "out": (b, 2 * h, 2 * w, 3), "y1": (b, h, w, 64)}
+    if entry == "mhada_decoder_tail_res":
+        shapes["c5"] = (b, 2 * h, 2 * w, 64)
+
+    def args(t):
+        return [t["x"], t["w_up"], ws[1], t["w5"], ws[3], t["w6"], ws[5],
+                t["out"], t["y1"], *([t["c5"]] if "c5" in t else []),
+                b, h, w, 0]
+
+    good = {"x": torch.zeros(shapes["x"], device="cuda"),
+            "w_up": hwio[0], "w5": hwio[1], "w6": hwio[2],
+            **{k: torch.zeros(shapes[k], device="cuda")
+               for k in ("out", "y1", "c5") if k in shapes}}
+    for name in shapes:
+        t = dict(good, **{name: off(*shapes[name])})
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _build.launch(entry, good["x"].device, *args(t))
+    assert _build.LAUNCHES == before
+    _build.launch(entry, good["x"].device, *args(good))   # aligned: launches
+    assert _build.LAUNCHES[entry] == before[entry] + 1
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -2,8 +2,9 @@
 (interpret mode), CPU: P1's ``mm_plain`` against ``_mm_kernel`` through
 ``pl.pallas_call``, P2's plain version against ``_pipe_kernel`` through the
 probe's ``call_variant``; the probes' CLIs on the CPU and their guards;
-the cuts of K2's split probe, and the edits of P2's ablation probe and of
-the f32 attention geometry probe, against the kernels' sources.
+the cuts of K2's split probe, and the edits of P2's ablation probe, of
+the f32 attention geometry probe and of the f32 tail geometry probe,
+against the kernels' sources.
 The probe scripts are not a package, so they are imported by path."""
 
 import importlib.util
@@ -21,7 +22,7 @@ from mhada_tpu_torch.ops.instance_norm import instance_norm_stats
 from mhada_tpu_torch import _build
 from mhada_tpu_torch.probes import (f32_tile_geometry, ln_matmul_split,
                                     mhada_pipe_probe, mhada_wgmma_ablate,
-                                    mm_probe)
+                                    mm_probe, tail_f32_geometry)
 
 # Six test workers share the CPU: cap torch's intra-op threads.
 torch.set_num_threads(2)
@@ -171,6 +172,32 @@ def test_f32_geometry_variants_apply(variant, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA card"):
         f32_tile_geometry.main([])
+
+
+@pytest.mark.parametrize("variant", list(tail_f32_geometry.VARIANTS))
+def test_tail_geometry_variants_apply(variant, monkeypatch):
+    """Each block of the f32 tail geometry probe replaces stage 2's region
+    rows and blocks an SM in csrc/decoder_tail_f32.cuh (the probe raises
+    where a line is missing; the as-built block is the header's own), its
+    shared memory fits the blocks an SM (227 KB each, 228 KB an SM with 1
+    KB reserved a block) and the as-built one matches the header's
+    kSmemB; without a card the probe raises."""
+    src = (_build.CSRC / tail_f32_geometry.HEADER).read_text()
+    rows, blocks = tail_f32_geometry.VARIANTS[variant]
+    out = tail_f32_geometry.patched(src, (rows, blocks))
+    assert f"constexpr int kBR = {rows}, kBC = 32;" in out
+    assert f"__launch_bounds__(kBThreads, {blocks})" in out
+    assert (out == src) == ("as built" in variant)
+    lay = tail_f32_geometry.layout((rows, blocks))
+    assert blocks * (lay["smem_bytes"] + 1024) <= 228 * 1024
+    assert lay["threads"] * blocks <= 2048
+    if "as built" in variant:
+        assert f"// {lay['smem_bytes']:,} B" in src
+    with pytest.raises(ValueError, match="not found"):
+        tail_f32_geometry.patched("", (rows, blocks))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        tail_f32_geometry.main([])
 
 
 def test_pipe_probe_work():
