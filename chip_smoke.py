@@ -84,7 +84,10 @@
    scale, with times, bounds and the library yardstick, and K6's and K7's
    backward also as its dK/dV and dQ kernels' device times apart
    (``torch.profiler``), K8's float32 forward as its two kernels' (up3;
-   the upsample, c5 and c6);
+   the upsample, c5 and c6); and at the video step's shapes (B = 2; 256 x
+   512 frames are 2048 tokens, 256^2 styles 1024): K6 at L = 2048, K7 at
+   N = 2048 against M = 1024, K8 from 128 x 256 to 256 x 512, the first
+   non-square tail at full width;
 7. the training paths: one step (``train.train_image``) on the kernel build
    and one on the plain build from the same weights and batch, losses and
    every gradient held together (each tensor against its own scale, to a
@@ -98,8 +101,16 @@
    K2 and its VJP) at 256^2, B = 8: that step and ms/step interleaved with
    the unfused kernel build; 512^2 (4096 tokens), B = 4: that step with
    each build's peak memory and ms/step interleaved; ``train.run_image
-   --image-size 512 512 --batch-size 8`` for 2 steps; float32 and bfloat16
-   throughout.
+   --image-size 512 512 --batch-size 8`` for 2 steps; the video recipe
+   (``train.train_video``: B = 2 pairs of 256 x 512 frames, 256^2 styles,
+   flow U(-5, 5), mask U(0, 1) > 0.2): that step, with K6 18 + 18, K7 30 +
+   30 and K8 5 launches, its key biases' gradients held to their own
+   ceiling and a planted fault in K7's dK that must cross it, 5 steps on
+   a fixed batch with a falling loss, ``train.run_video`` for 2 steps
+   over a synthetic SceneFlow tree and WikiArt PNGs, resumed across from
+   the checkpoint that the 256^2 ``train.run_image`` run wrote, and
+   ms/step of both builds interleaved with each build's peak memory;
+   float32 and bfloat16 throughout.
 
 Each phase prints one line; any failure exits non-zero without the final
 result line.  The model is the full-width ``ModelConfig()`` with random
@@ -110,9 +121,11 @@ FILE`` also writes phase 7's per-tensor gradient errors and bounds.
 
 import argparse
 import contextlib
+import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -271,11 +284,15 @@ MID_DECODER = {**{k: 0 for k in FULL}, MID: 3, TAIL: 1}
 TRAIN = {ATTN: 0, LN: 0, K3: 0, K4: 0, TAIL: 0, K6F: 12, K6B: 12, K7F: 18,
          K7B: 18, K8: 3, C6: 0, MID: 0, MM: 0, PIPE: 0}
 TRAIN_FUSED = {**TRAIN, LN: 24}
+# One video training step (6 ViT applies x 3 blocks, 5 AdaFormer applies x
+# 6 MHAda blocks, 5 decoder tails; the VGG sweeps launch none).
+TRAIN_VIDEO = {**TRAIN, K6F: 18, K6B: 18, K7F: 30, K7B: 30, K8: 5}
 # The training gates: (gate, row of its forward or None, row of its backward
-# or None, kind, batch, tokens; K8: the input's side).  A gate without a row
-# is recorded under its own name.  The first three are the 256^2 step's
-# shapes; K6 and K7 at 4096 tokens are the 512^2 step's, and there they
-# stand for the TPU's head-major K12, K10 and K11.
+# or None, kind, batch, tokens; K7: tokens or (queries, keys); K8: the
+# input's side or (height, width)).  A gate without a row is recorded under
+# its own name.  The first three are the 256^2 step's shapes; K6 and K7 at
+# 4096 tokens are the 512^2 step's, and there they stand for the TPU's
+# head-major K12, K10 and K11; the last three are the video step's.
 TRAIN_GATES = [
     ("K6 L=1024", "K6 attention_train forward", "K6 attention_train backward",
      "attention", 8, 1024),
@@ -289,10 +306,17 @@ TRAIN_GATES = [
     ("K7 B=1 N=M=16384", None, None, "mhada", 1, 16384),
     ("K8 256^2->512^2 B=4", None, None, "tail", 4, 256),
     ("K2 VJP B=8 L=1024", K2_VJP, None, "ln_matmul", 8, 1024),
+    ("K6 B=2 L=2048", None, None, "attention", 2, 2048),
+    ("K7 B=2 N=2048 M=1024", None, None, "mhada", 2, (2048, 1024)),
+    ("K8 128x256->256x512 B=2", None, None, "tail", 2, (128, 256)),
 ]
+VIDEO_GATES = TRAIN_GATES[-3:]
 TRAIN_B, TRAIN_SIZE = 8, 256
 # The 512^2 step (4096 tokens at every attention and MHAda site).
 BIG_B, BIG_SIZE = 4, 512
+# The synthetic SceneFlow frames of phase 7's run_video: SceneFlow's own
+# 960 x 540, resized by the dataset to the recipe's 512 x 256.
+SCENEFLOW_HW = (540, 960)
 # Training bounds on max |kernel - plain| / max |plain| of each output,
 # residual and input gradient, each against its own largest value: forward
 # as the forward gates; gradients sum over 1024 rows in another order
@@ -310,12 +334,22 @@ TAIL_FLIPS = {"float32": 1e-4, "bfloat16": 1e-2}
 # softmax is shift-invariant; the value and output biases and the last
 # vit_c block's output biases: the next instance norm removes a per-channel
 # constant); the plain float32 build gives them 1e-13 to 1e-9 of the
-# network's largest gradient and every other tensor at least 1e-5.  Tensors
-# below LIVE_FLOOR there are rounding noise, held to NOISE_BOUND x the
+# network's largest gradient in the image steps (3e-7 in the video step's
+# key biases) and every other tensor at least 1e-5.  Tensors below
+# LIVE_FLOOR there are rounding noise, held to NOISE_BOUND x the
 # network's largest gradient.
 STEP_LOSS_REL = {"float32": 1e-4, "bfloat16": 3e-2}
 LIVE_FLOOR = 1e-6
 NOISE_BOUND = {"float32": 1e-5, "bfloat16": 1e-3}
+# The video step's six MHAda key biases (adaFormer.ada*.g_bias), whose
+# gradients sum B x M = 4096 or 2048 rows of dK that cancel in exact
+# arithmetic, have a ceiling of their own in place of NOISE_BOUND.  On an
+# H100 (four runs) the bfloat16 kernel build put them 1.43e-3 to 2.31e-3
+# of adaFormer's largest gradient from the plain build, and the plain
+# build's own rounding controls moved them 1.58e-3 to 1.96e-3 (below 1e-6
+# in the image steps); float32 gives 2.3e-7.  The bfloat16 ceiling is 2.2 x
+# the worst of those seven readings.
+KEY_BIAS_BOUND = {"float32": 1e-5, "bfloat16": 5e-3}
 # Every live tensor's gradient is held against its own largest value, to
 # the larger of TRAIN_REL's gradient bound and ROUNDING_FACTOR x the error
 # that a rounding-level change gives the plain build (the same step on
@@ -335,6 +369,15 @@ ROUNDING_FACTOR = 6.0
 # to 1e-3 / 5e-2 of its own scale on the same inputs).
 PLANTED_DQ = {"float32": 1e-2, "bfloat16": 1.0}
 BELOW_DQ = {"float32": 1e-3, "bfloat16": 1e-1}
+# Where the key biases have their ceiling, a control the gate must report
+# there: K7's dK with every element moved by PLANTED_DK x its largest
+# |value|.  The keys are instance-normalised style tokens, so the shift
+# cancels in the key projection's weight gradient and in the gradient that
+# reaches the style tokens: only the key biases' gradients see it.  A shift
+# of one bfloat16 rounding step (2^-8; float32: 2^-16) is the gated
+# control; one of 2^-12 (float32: 2^-20) is counted, not gated.
+PLANTED_DK = {"float32": 2.0 ** -16, "bfloat16": 2.0 ** -8}
+BELOW_DK = {"float32": 2.0 ** -20, "bfloat16": 2.0 ** -12}
 # Gate bounds on max |kernel - plain| / max |plain|.  float32: the two
 # differ only in summation order (TF32 is off), ~1e-6 expected.  bfloat16:
 # both round intermediates to bf16 (2^-8 relative) at different points.
@@ -437,6 +480,54 @@ def all_gates():
 def phase(name, ok, detail):
     print(f"[{'PASS' if ok else 'FAIL'}] {name}: {detail}", flush=True)
     return ok
+
+
+def _children() -> dict:
+    """{pid: command line} of this process's running children (/proc)."""
+    kids = {}
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:   # it ended meanwhile
+            continue
+        if int(ppid) == os.getpid() and state != "Z":
+            kids[int(pid)] = cmd.strip()[:160]
+    return kids
+
+
+def stop_children() -> list[str]:
+    """Stop every process this script started that still runs, and say
+    which.  The training CLIs' loaders spawn workers and, through their
+    queues' semaphores, multiprocessing's resource tracker, which lives
+    until its owner exits: shut the tracker down, then end any other
+    child (SIGTERM, then SIGKILL after 5 s) and reap it."""
+    import gc
+    import signal
+    from multiprocessing import active_children, resource_tracker
+
+    gc.collect()   # a loader iterator still referenced shuts its workers
+    found = [f"{pid} {cmd}" for pid, cmd in sorted(_children().items())]
+    for p in active_children():
+        p.terminate()
+        p.join(5)
+    tracker = resource_tracker._resource_tracker
+    if getattr(tracker, "_pid", None) is not None:
+        tracker._stop()
+    deadline = time.monotonic() + 5
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in _children():
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, sig)
+        while _children() and time.monotonic() < deadline:
+            time.sleep(0.05)
+        deadline = time.monotonic() + 5
+    with contextlib.suppress(ChildProcessError):   # reap what was killed
+        while os.waitpid(-1, os.WNOHANG)[0]:
+            pass
+    return found
 
 
 def ptxas_summary(log: str) -> str:
@@ -900,7 +991,8 @@ def run_probes(launches):
 
 def train_gate_inputs(kind, dtype, g, b, n):
     """Seeded inputs of one training kernel at batch ``b`` and ``n`` tokens
-    (K8: an n x n input) -> dict: ``run(backend, *inputs)`` through the
+    (K7: n or (queries, keys); K8: an n x n or (height, width) input) ->
+    dict: ``run(backend, *inputs)`` through the
     autograd Function (K2: against autograd of the unfused plain LayerNorm
     and linear), the ``inputs`` and output cotangent ``cot``; ``fwd`` /
     ``bwd``: backend -> call of the forward (outputs and residuals) and of
@@ -920,6 +1012,7 @@ def train_gate_inputs(kind, dtype, g, b, n):
 
     dev, c, heads = "cuda", 512, 8
     es = torch.tensor([], dtype=dtype).element_size()
+    n, m = (n, n) if isinstance(n, int) else n
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
@@ -955,8 +1048,8 @@ def train_gate_inputs(kind, dtype, g, b, n):
                   lambda: torch.autograd.grad(lib_out, lib_in, lib_cot,
                                               retain_graph=True))))
     if kind == "mhada":
-        q, k = rnd(b, n, c, scale=0.35), rnd(b, n, c, scale=0.35)
-        v, f, cot = rnd(b, n, c), rnd(b, n, c), rnd(b, n, c)
+        q, k = rnd(b, n, c, scale=0.35), rnd(b, m, c, scale=0.35)
+        v, f, cot = rnd(b, m, c), rnd(b, n, c), rnd(b, n, c)
         _, m1, e2, lse = mt.mhada_train_fwd_plain(q, k, v, f, heads)
         dm1, de2, delta, _ = mt.mhada_train_prologue(cot, f, m1, e2, heads,
                                                      dtype)
@@ -988,17 +1081,18 @@ def train_gate_inputs(kind, dtype, g, b, n):
             names={"fwd": ["out", "M1", "E2", "lse"],
                    "bwd": ["dq", "dk", "dv"],
                    "grad": ["dq", "dk", "dv", "dfcs_n"]},
-            flops=(6 * b * n * n * c, 14 * b * n * n * c),
-            bytes=(5 * b * n * c * es + 8 * b * n * c + 4 * b * heads * n,
-                   8 * b * n * c * es + 8 * b * heads * n),
+            flops=(6 * b * n * m * c, 14 * b * n * m * c),
+            bytes=((3 * n + 2 * m) * b * c * es + 8 * b * n * c
+                   + 4 * b * heads * n,
+                   (4 * n + 4 * m) * b * c * es + 8 * b * heads * n),
             lib=(mhada_library(q, k, v, heads, "the MHAda epilogue"),
                  (f"backward of {MHADA_SDPA} ({lib_backend} backend; "
                   "torch.autograd.grad); leaves out the MHAda prologue",
                   lambda: torch.autograd.grad(lib_out, lib_in, lib_cot,
                                               retain_graph=True))))
     if kind == "tail":
-        h = n
-        x = rnd(b, h, h, 128).abs()
+        h, w = n, m
+        x = rnd(b, h, w, 128).abs()
 
         def conv(co, ci):
             # biases shifted positive, as in tests/test_torch_cuda.py: few
@@ -1010,8 +1104,8 @@ def train_gate_inputs(kind, dtype, g, b, n):
             return w.to(dev, dtype), bb.to(dev, dtype)
 
         ws = [*conv(64, 128), *conv(64, 64), *conv(3, 64)]
-        cot = rnd(b, 2 * h, 2 * h, 3)
-        hi = b * (2 * h) ** 2
+        cot = rnd(b, 2 * h, 2 * w, 3)
+        hi = b * 4 * h * w
 
         def tail_bwd():
             # K8's backward is plain PyTorch on the kernel's residuals
@@ -1029,9 +1123,9 @@ def train_gate_inputs(kind, dtype, g, b, n):
             names={"fwd": ["rgb", "y1", "c5"],
                    "grad": ["dx", "dw_up", "db_up", "dw5", "db5", "dw6",
                             "db6"]},
-            flops=(2 * 9 * (b * h * h * 128 * 64 + hi * 64 * 64
+            flops=(2 * 9 * (b * h * w * 128 * 64 + hi * 64 * 64
                             + hi * 64 * 3), None),
-            bytes=((b * h * h * (128 + 64) + hi * (3 + 64)) * es
+            bytes=((b * h * w * (128 + 64) + hi * (3 + 64)) * es
                    + 9 * 64 * (128 + 64 + 3) * es, None),
             lib=(None, None))
     if kind == "ln_matmul":
@@ -1227,16 +1321,19 @@ def run_train_gate(gate, kind, dname, card, b, n):
         f"{mx:.3e}); peak memory {peak_gb:.2f} GB ({card})"), recs
 
 
-def step_grads(models, cfg, content, style):
-    """One forward and backward of the image loss -> (metrics as floats,
-    {network: {parameter: grad}})."""
+def step_grads(models, cfg, batch):
+    """One forward and backward of the recipe's loss, on ``batch`` =
+    (content, style) for the image recipe or (style, c1, c2, flow, mask)
+    for the video recipe -> (metrics as floats, {network: {parameter:
+    grad}})."""
     from mhada_tpu_torch.ops.pad_conv import no_tf32
-    from mhada_tpu_torch.train.train_image import TRAINABLE, image_loss_fn
+    from mhada_tpu_torch.train.recipes import recipe
+    from mhada_tpu_torch.train.train_image import TRAINABLE
 
     for net in TRAINABLE:
         models[net].zero_grad(set_to_none=True)
     with no_tf32():
-        loss, metrics = image_loss_fn(models, content, style, cfg)
+        loss, metrics = recipe(cfg).loss_fn(models, *batch, cfg)
         loss.backward()
     return ({k: float(v.detach()) for k, v in metrics.items()},
             {net: {k: p.grad for k, p in models[net].named_parameters()}
@@ -1256,9 +1353,9 @@ def live_tensors(grads):
 
 def grad_errors(got, ref, live):
     """({(network, parameter): max |got - ref| / max |ref|} over the live
-    tensors, the largest error of the others over its network's largest
-    gradient)."""
-    errs, noise = {}, 0.0
+    tensors, {(network, parameter): max |got - ref| / its network's largest
+    gradient} over the others)."""
+    errs, noise = {}, {}
     for net, want in ref.items():
         top = max(r.abs().max().item() for r in want.values())
         for key, r in want.items():
@@ -1266,7 +1363,7 @@ def grad_errors(got, ref, live):
             if (net, key) in live:
                 errs[net, key] = err / r.abs().max().item()
             else:
-                noise = max(noise, err / top)
+                noise[net, key] = err / top
     return errs, noise
 
 
@@ -1294,16 +1391,17 @@ def nudged(x, dtype, gen):
 
 
 @contextlib.contextmanager
-def planted_dq_fault(scale):
-    """K7's backward kernel with its dq scaled by ``scale``: a fault that
-    the step gate must report."""
+def planted_fault(dq_scale=1.0, dk_shift=0.0):
+    """K7's backward kernel with its dq scaled by ``dq_scale`` and every
+    element of its dk moved by ``dk_shift`` x its largest |value|: faults
+    that the step gate must report."""
     from mhada_tpu_torch.ops import mhada_train as mt
 
     real = mt._bwd_kernel
 
     def faulty(*args):
         dq, dk, dv = real(*args)
-        return dq * scale, dk, dv
+        return dq * dq_scale, dk + dk_shift * dk.abs().amax(), dv
 
     mt._bwd_kernel = faulty
     try:
@@ -1312,25 +1410,32 @@ def planted_dq_fault(scale):
         mt._bwd_kernel = real
 
 
-def train_step_gates(label, want, kcfg, ktrain, pcfg, ptrain, tc, ts):
+def train_step_gates(label, want, kcfg, ktrain, pcfg, ptrain, batch,
+                     key_bias=False):
     """Phase 7's gate, per dtype: one step on the kernel build (its launches
     counted, to equal ``want``) and one on the plain build from the same
     weights and batch, each build's peak device memory; losses and every
     gradient held together, each live tensor against its own largest value;
-    the rounding control that sets the bounds; the controls the gate must
-    report.  -> (ok, {dtype: record with the launches}, {dtype: {tensor:
-    errors and bound}})."""
+    the rounding control that sets the bounds (the batch's images nudged;
+    the video recipe's flow and mask stay float32 data); the controls the
+    gate must report.  ``key_bias``: the key biases held to KEY_BIAS_BOUND,
+    with the planted dK controls.  -> (ok, {dtype: record with the
+    launches}, {dtype: {tensor: errors and bound}})."""
     from dataclasses import replace
 
     import torch
 
     from mhada_tpu_torch import _build
+    from mhada_tpu_torch.train.recipes import recipe
 
     ok, records, grad_tables = True, {}, {}
     # the plain float32 build's gradients, its live tensors and the float32
     # gate's bounds (float32 runs first)
     pg32 = live = bounds32 = None
     nudge_gen = torch.Generator().manual_seed(SEED)
+    images = recipe(kcfg).images
+    faults = [("dq", PLANTED_DQ), ("dq", BELOW_DQ)] + (
+        [("dk", PLANTED_DK), ("dk", BELOW_DK)] if key_bias else [])
     for dname in DTYPE_NAMES:
         dtype = getattr(torch, dname)
         kc, pc = (replace(c, compute_dtype=dname) for c in (kcfg, pcfg))
@@ -1339,21 +1444,23 @@ def train_step_gates(label, want, kcfg, ktrain, pcfg, ptrain, tc, ts):
             peaks = {}
             torch.cuda.reset_peak_memory_stats()
             _build.reset_launches()
-            km, kg = step_grads(ktrain, kc, tc, ts)
+            km, kg = step_grads(ktrain, kc, batch)
             torch.cuda.synchronize()
             counts = dict(_build.LAUNCHES)
             peaks["kernel"] = torch.cuda.max_memory_allocated() / 1e9
             torch.cuda.reset_peak_memory_stats()
-            pm, pg = step_grads(ptrain, pc, tc, ts)
+            pm, pg = step_grads(ptrain, pc, batch)
             torch.cuda.synchronize()
             peaks["plain"] = torch.cuda.max_memory_allocated() / 1e9
-            rgs = [step_grads(ptrain, pc, nudged(tc, dtype, nudge_gen),
-                              nudged(ts, dtype, nudge_gen))[1]
-                   for _ in range(2)]
+            rgs = [step_grads(ptrain, pc, [
+                nudged(x, dtype, nudge_gen) for x in batch[:images]]
+                + batch[images:])[1] for _ in range(2)]
             fgs = []
-            for size in (PLANTED_DQ[dname], BELOW_DQ[dname]):
-                with planted_dq_fault(1 + size):
-                    fgs.append(step_grads(ktrain, kc, tc, ts)[1])
+            for kind, size in faults:
+                with planted_fault(**({"dq_scale": 1 + size[dname]}
+                                      if kind == "dq" else
+                                      {"dk_shift": size[dname]})):
+                    fgs.append(step_grads(ktrain, kc, batch)[1])
             torch.cuda.synchronize()
         except Exception as e:
             ok = phase(f"train step {label} {dname}", False,
@@ -1363,13 +1470,26 @@ def train_step_gates(label, want, kcfg, ktrain, pcfg, ptrain, tc, ts):
             pg32, live = pg, live_tensors(pg)
         loss_rel = abs(km["loss"] - pm["loss"]) / abs(pm["loss"])
         errs, noise = grad_errors(kg, pg, live)
-        controls = [grad_errors(rg, pg, live)[0] for rg in rgs]
-        rounding = {t: max(c[t] for c in controls) for t in live}
+        controls = [grad_errors(rg, pg, live) for rg in rgs]
+        rounding = {t: max(c[0][t] for c in controls) for t in live}
         bounds = {t: max(rel_grad, ROUNDING_FACTOR * rounding[t])
                   for t in live}
-        fault, below = (grad_errors(fg, pg, live)[0] for fg in fgs)
-        over, caught = over_bound(errs, bounds), over_bound(fault, bounds)
+        noise_bounds = {t: (KEY_BIAS_BOUND[dname] if key_bias
+                            and t[1].endswith("g_bias")
+                            else NOISE_BOUND[dname]) for t in noise}
+        noise_rounding = max((c[1][t] for c in controls for t in noise),
+                             default=0.0)
+        over, noise_over = over_bound(errs, bounds), over_bound(
+            noise, noise_bounds)
         widened = [bounds[t] for t in live if bounds[t] > rel_grad]
+        # each planted fault's errors over every tensor, live or not, and
+        # the tensors it puts over their bounds
+        every_bound = {**bounds, **noise_bounds}
+        planted = []
+        for fg in fgs:
+            e, n = grad_errors(fg, pg, live)
+            planted.append(({**e, **n}, over_bound({**e, **n}, every_bound)))
+        (fault, caught), (below, below_over) = planted[:2]
         grad_tables[dname] = {
             f"{net}.{key}": dict(kernel=errs[net, key],
                                  rounding=rounding[net, key],
@@ -1378,27 +1498,48 @@ def train_step_gates(label, want, kcfg, ktrain, pcfg, ptrain, tc, ts):
                                  below=below[net, key])
             for net, key in sorted(live)}
         control_txt, controls_ok = "", bool(caught)
+        if key_bias:
+            (dk, dk_caught), (dk_below, dk_below_over) = planted[2:]
+            controls_ok = controls_ok and bool(dk_caught)
+            control_txt = (
+                f"; K7's dK + {PLANTED_DK[dname]:.3g} x max|dK|: "
+                f"{len(dk_caught)} tensors over their bounds (nearest: "
+                f"{worst_txt(dk, every_bound)}); a smaller one, counted, not"
+                f" gated: + {BELOW_DK[dname]:.3g} x max|dK|: "
+                f"{len(dk_below_over)} tensors over (nearest: "
+                f"{worst_txt(dk_below, every_bound)})")
         if bounds32 is None:
             bounds32 = bounds
         else:   # the plain bfloat16 build held to the float32 gate
             lower = grad_errors(pg, pg32, live)[0]
             lower_caught = over_bound(lower, bounds32)
             controls_ok = controls_ok and bool(lower_caught)
-            control_txt = (f"; the plain bfloat16 build against the float32"
-                           f" gate: {len(lower_caught)} tensors over their "
-                           f"bounds (nearest: "
-                           f"{worst_txt(lower, bounds32)})")
+            control_txt += (f"; the plain bfloat16 build against the "
+                            f"float32 gate: {len(lower_caught)} tensors over"
+                            f" their bounds (nearest: "
+                            f"{worst_txt(lower, bounds32)})")
         good = (all(np.isfinite(v) for v in km.values()) and counts == want
                 and loss_rel <= STEP_LOSS_REL[dname] and not over
-                and noise <= NOISE_BOUND[dname])
+                and not noise_over)
         records[dname] = dict(
             loss_kernel=km, loss_plain=pm, loss_rel=loss_rel,
             grad_rel_worst=max(errs.values()),
             grad_rounding_worst=max(rounding.values()),
             grad_bounds_widened=len(widened), grad_tensors_live=len(errs),
-            grad_noise_worst=noise, fault_tensors_over=len(caught),
-            below_fault_tensors_over=len(over_bound(below, bounds)),
+            grad_noise_worst=max(noise.values(), default=0.0),
+            noise_rounding_worst=noise_rounding,
+            fault_tensors_over=len(caught),
+            below_fault_tensors_over=len(below_over),
             launches=counts, peak_gb=peaks)
+        if key_bias:
+            records[dname].update(
+                key_bias_worst=max(v for t, v in noise.items()
+                                   if t[1].endswith("g_bias")),
+                dk_fault_tensors_over=len(dk_caught),
+                below_dk_fault_tensors_over=len(dk_below_over))
+        bound_txt = (f"{NOISE_BOUND[dname]:.0e}, the key biases "
+                     f"{KEY_BIAS_BOUND[dname]:.0e}" if key_bias
+                     else f"{NOISE_BOUND[dname]:.0e}")
         ok = phase(f"train step {label} {dname}", good,
                    f"kernel build {km}; plain build {pm}; loss rel "
                    f"{loss_rel:.3e} (bound {STEP_LOSS_REL[dname]:.0e}); "
@@ -1409,20 +1550,23 @@ def train_step_gates(label, want, kcfg, ktrain, pcfg, ptrain, tc, ts):
                    f"controls' worst {max(rounding.values()):.3e}, widening"
                    f" {len(widened)} bounds up to "
                    f"{max(widened, default=0):.2e}"
-                   f"; the others (zero in exact arithmetic) within "
-                   f"{noise:.3e} of their network's largest gradient (bound "
-                   f"{NOISE_BOUND[dname]:.0e}); launches {counts} (want "
-                   f"{want}); peak memory kernel build {peaks['kernel']:.2f}"
-                   f" GB, plain build {peaks['plain']:.2f} GB") and ok
+                   f"; the {len(noise)} others (zero in exact arithmetic), "
+                   f"each against its network's largest gradient: "
+                   f"{len(noise_over)} over their bounds ({bound_txt}) "
+                   f"(nearest: {worst_txt(noise, noise_bounds)}); their "
+                   f"controls' worst {noise_rounding:.3e}; launches {counts} "
+                   f"(want {want}); peak memory kernel build "
+                   f"{peaks['kernel']:.2f} GB, plain build "
+                   f"{peaks['plain']:.2f} GB") and ok
         ok = phase(f"train step gate controls {label} {dname}", controls_ok,
                    f"K7's dq x (1 + {PLANTED_DQ[dname]:g}): "
                    f"{len(caught)} tensors over their "
-                   f"bounds (nearest: {worst_txt(fault, bounds)})"
-                   f"{control_txt}; a smaller fault, counted, not gated: K7's "
+                   f"bounds (nearest: {worst_txt(fault, every_bound)})"
+                   f"; a smaller fault, counted, not gated: K7's "
                    f"dq x (1 + {BELOW_DQ[dname]:g}): "
-                   f"{len(over_bound(below, bounds))} tensors over (nearest:"
-                   f" {worst_txt(below, bounds)})") and ok
-        del kg, pg, rgs, fgs
+                   f"{len(below_over)} tensors over (nearest:"
+                   f" {worst_txt(below, every_bound)}){control_txt}") and ok
+        del kg, pg, rgs, fgs, planted
     return ok, records, grad_tables
 
 
@@ -1435,6 +1579,52 @@ def synthetic_folders(root, n, rng):
         for i in range(n):
             pixels = rng.integers(0, 256, (300, 340, 3), np.uint8)
             Image.fromarray(pixels).save(os.path.join(root, d, f"{i}.png"))
+
+
+def synthetic_sceneflow(root, rng, frames=5, styles=4):
+    """A Monkaa scene of ``frames`` frames at SceneFlow's size (4 samples at
+    the default), its flows into the future and the past as PFM files and
+    its motion boundaries under root/SceneFlowDatasets/monkaa, and
+    ``styles`` random PNGs under root/WikiArt: what
+    ``data.sceneflow.FlyingThings3DMonkaaWikiArt`` reads."""
+    from PIL import Image
+
+    from mhada_tpu_torch.data import flowlib
+
+    h, w = SCENEFLOW_HW
+    base = os.path.join(root, "SceneFlowDatasets", "monkaa")
+    yy, xx = np.mgrid[0:h, 0:w] / w
+
+    def path(*parts):
+        os.makedirs(os.path.join(base, *parts[:-1]), exist_ok=True)
+        return os.path.join(base, *parts)
+
+    past = None
+    for i in range(frames):
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), np.uint8)).save(
+            path("frames_finalpass", "sc", "left", f"{i:04d}.png"))
+        # a smooth flow into the next frame, and its negation as that
+        # frame's flow into the past: mostly consistent, so the masks keep
+        # most pixels
+        a, b = rng.normal(0, 8, 2)
+        future = np.stack([a * np.sin(6 * yy + i) + b * xx,
+                           b * np.cos(5 * xx) - a * yy,
+                           np.zeros_like(xx)], -1).astype(np.float32)
+        for d, flow in (("into_future", future),
+                        ("into_past", -future if past is None else past)):
+            flowlib.write_pfm(path("optical_flow", "sc", d, "left",
+                                   f"{i:04d}.pfm"), flow)
+        past = -future
+        edges = np.zeros((h, w), np.uint8)
+        edges[:, 100 + 20 * i: 110 + 20 * i] = 255
+        Image.fromarray(edges).save(path("motion_boundaries", "sc",
+                                         "into_future", "left",
+                                         f"{i:04d}.png"))
+    os.makedirs(os.path.join(root, "WikiArt"), exist_ok=True)
+    for i in range(styles):
+        pixels = rng.integers(0, 256, (300, 340, 3), np.uint8)
+        Image.fromarray(pixels).save(os.path.join(root, "WikiArt",
+                                                  f"{i}.png"))
 
 
 def test_images(size, rng):
@@ -1787,7 +1977,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6. training gates at the training steps' shapes
+    video_s = 0.0   # the video gates' and phase 7e's seconds
     for gate, row_f, row_b, kind, b, n in TRAIN_GATES:
+        t0 = time.perf_counter()
         for dname in DTYPE_NAMES:
             try:
                 good, recs = run_train_gate(gate, kind, dname, card, b, n)
@@ -1804,15 +1996,16 @@ def main() -> int:
                 train_extra.setdefault(gate, {})[dname] = {
                     k: v for k, v in recs.items() if k not in ("fwd", "bwd")}
             ok = good and ok
+        if (gate, row_f, row_b, kind, b, n) in VIDEO_GATES:
+            video_s += time.perf_counter() - t0
 
     # ---- 7. the training paths: ModelConfig() at full width
     from dataclasses import replace
 
-    from mhada_tpu_torch.config import ImageTrainConfig
-    from mhada_tpu_torch.train import run_image
-    from mhada_tpu_torch.train.train_image import (init_params,
-                                                   make_image_train_step,
-                                                   make_optimizers)
+    from mhada_tpu_torch.config import ImageTrainConfig, VideoTrainConfig
+    from mhada_tpu_torch.train import run_image, run_video
+    from mhada_tpu_torch.train.recipes import recipe
+    from mhada_tpu_torch.train.train_image import init_params, make_optimizers
 
     def train_models(backend, size=TRAIN_SIZE, batch=TRAIN_B,
                      fuse_ln="auto"):
@@ -1822,16 +2015,14 @@ def main() -> int:
         return cfg, init_params(cfg, "cuda",
                                 torch.Generator().manual_seed(SEED))
 
-    def batch(b, size):
-        return [torch.from_numpy(rng.uniform(0, 255, (b, size, size, 3))
-                                 .astype(np.float32)).cuda()
-                for _ in range(2)]
+    def batch(cfg):
+        return recipe(cfg).random_batch(cfg, "cuda", rng)
 
-    def interleaved_steps(key, builds, tc, ts, reps, note):
+    def interleaved_steps(key, builds, data, reps, note):
         """ms/step of two builds {name: (cfg, models)} in turns (a, b, b,
-        a), float32 and bfloat16, with the caching allocator's retries
-        (frees and re-allocations after a failed cudaMalloc) in each round
-        -> ok."""
+        a) on the batch ``data``, float32 and bfloat16, with the caching
+        allocator's retries (frees and re-allocations after a failed
+        cudaMalloc) and the peak device memory in each round -> ok."""
         a, b = builds
 
         def retries():
@@ -1839,43 +2030,52 @@ def main() -> int:
 
         for dname in DTYPE_NAMES:
             try:
-                steps = {k: make_image_train_step(
+                steps = {k: recipe(c).make_step(
                     replace(c, compute_dtype=dname), m, make_optimizers(m, c))
                     for k, (c, m) in builds.items()}
-                t, tries = {a: [], b: []}, []
+                t, tries, peaks = {a: [], b: []}, [], {a: [], b: []}
                 for k in (a, b, b, a):
                     r0 = retries()
-                    t[k].append(cuda_ms(lambda: steps[k](tc, ts), *reps))
+                    torch.cuda.reset_peak_memory_stats()
+                    t[k].append(cuda_ms(lambda: steps[k](*data), *reps))
                     tries.append(retries() - r0)
+                    peaks[k].append(torch.cuda.max_memory_allocated() / 1e9)
             except Exception as e:
                 return phase(f"times {key} {dname}", False,
                              f"{type(e).__name__}: {e}")
             step_ms.setdefault(key, {})[dname] = {
                 k: sum(v) / len(v) for k, v in t.items()}
+            step_peak_gb.setdefault(key, {})[dname] = {
+                k: max(v) for k, v in peaks.items()}
             phase(f"times {key} {dname}", True,
                   f"ms/step {a} build {t[a]} {b} build {t[b]} ({note}; "
-                  f"allocator retries per round {tries}; {card})")
+                  f"allocator retries per round {tries}; peak memory "
+                  f"{a} build {max(peaks[a]):.2f} GB, {b} build "
+                  f"{max(peaks[b]):.2f} GB; {card})")
         return True
 
-    def step_gate(label, want, kernel, plain, tc, ts, path):
+    def step_gate(label, want, kernel, plain, data, path, key_bias=False):
         good, records, tables = train_step_gates(label, want, *kernel,
-                                                 *plain, tc, ts)
+                                                 *plain, data, key_bias)
         train_extra[f"step {label}"] = records
         grad_tables[label] = tables
         if "float32" in records:
             launches[path] = records["float32"]["launches"]
         return good
 
-    grad_tables = {}
+    grad_tables, step_peak_gb = {}, {}
+    # the 256^2 run_image run's last checkpoint, which phase 7e's
+    # run_video resumes across from
+    xover = tempfile.TemporaryDirectory()
     # a. the recipe: 256^2, B = 8
     kernel, plain = train_models("auto"), train_models("plain")
     (kcfg, ktrain), (pcfg, ptrain) = kernel, plain
-    tc, ts = batch(TRAIN_B, TRAIN_SIZE)
-    ok = step_gate("256^2", TRAIN, kernel, plain, tc, ts, "train") and ok
+    tc, ts = batch(kcfg)
+    ok = step_gate("256^2", TRAIN, kernel, plain, [tc, ts], "train") and ok
 
     try:
-        step = make_image_train_step(kcfg, ktrain,
-                                     make_optimizers(ktrain, kcfg))
+        step = recipe(kcfg).make_step(kcfg, ktrain,
+                                      make_optimizers(ktrain, kcfg))
         losses = [float(step(tc, ts)["loss"]) for _ in range(5)]
         good = all(np.isfinite(losses)) and losses[-1] < losses[0]
     except Exception as e:
@@ -1901,6 +2101,8 @@ def main() -> int:
             rows, files = run_image_main(
                 tmp, TRAIN_SIZE, TRAIN_B, "--epoch-start", "2", "--epochs",
                 "2", "--steps-per-epoch", "1")
+            shutil.copy(f"{tmp}/models/checkpoint_epoch_2_batchSize_8.pth",
+                        xover.name)
         good = ([r["epoch"] for r in rows] == [1, 1, 2]
                 and all(np.isfinite(r["loss"]) for r in rows)
                 and "checkpoint_epoch_2_batchSize_8.pth" in files)
@@ -1911,15 +2113,15 @@ def main() -> int:
     ok = phase("train run_image 2 steps + 1 resumed", good, detail) and ok
 
     ok = interleaved_steps("train256", {"plain": plain, "kernel": kernel},
-                           tc, ts, (1, 3), "256^2, B = 8") and ok
+                           [tc, ts], (1, 3), "256^2, B = 8") and ok
 
     # b. the fused-LN build (K2 and its VJP at every pre-LN), 256^2, B = 8
     fused = train_models("auto", fuse_ln=True)
     ok = step_gate("fused-LN 256^2", TRAIN_FUSED, fused,
-                   train_models("plain", fuse_ln=True), tc, ts,
+                   train_models("plain", fuse_ln=True), [tc, ts],
                    "train_fuseln") and ok
     ok = interleaved_steps("fuseln256", {"unfused": kernel, "fused": fused},
-                           tc, ts, (1, 3), "kernel builds, 256^2, B = 8") \
+                           [tc, ts], (1, 3), "kernel builds, 256^2, B = 8") \
         and ok
     del kernel, plain, fused, ktrain, ptrain, tc, ts
     torch.cuda.empty_cache()
@@ -1927,10 +2129,11 @@ def main() -> int:
     # c. 512^2, B = 4: 4096 tokens at every attention and MHAda site
     kernel = train_models("auto", BIG_SIZE, BIG_B)
     plain = train_models("plain", BIG_SIZE, BIG_B)
-    tc, ts = batch(BIG_B, BIG_SIZE)
-    ok = step_gate("512^2", TRAIN, kernel, plain, tc, ts, "train512") and ok
+    tc, ts = batch(kernel[0])
+    ok = step_gate("512^2", TRAIN, kernel, plain, [tc, ts], "train512") \
+        and ok
     ok = interleaved_steps("train512", {"plain": plain, "kernel": kernel},
-                           tc, ts, (1, 2), f"512^2, B = {BIG_B}") and ok
+                           [tc, ts], (1, 2), f"512^2, B = {BIG_B}") and ok
     del kernel, plain, tc, ts
     torch.cuda.empty_cache()
     if args.dump:
@@ -1958,6 +2161,70 @@ def main() -> int:
         good, detail = False, f"{type(e).__name__}: {e}"
     ok = phase("train run_image 512^2 B=8 2 steps", good, detail) and ok
 
+    # e. the video recipe: B = 2 pairs of 256 x 512 frames (2048 tokens),
+    #    256^2 styles (1024); flow U(-5, 5), mask U(0, 1) > 0.2 as the
+    #    JAX bench's (mhada_tpu/train/bench_steps.py:76-79)
+    t0 = time.perf_counter()
+
+    def video_models(backend):
+        cfg = VideoTrainConfig(model=ModelConfig(mhada_backend=backend))
+        return cfg, init_params(cfg, "cuda",
+                                torch.Generator().manual_seed(SEED))
+
+    vkernel, vplain = video_models("auto"), video_models("plain")
+    vcfg, vtrain = vkernel
+    vbatch = batch(vcfg)
+    ok = step_gate("video", TRAIN_VIDEO, vkernel, vplain, vbatch,
+                   "train_video", key_bias=True) and ok
+    try:
+        step = recipe(vcfg).make_step(vcfg, vtrain,
+                                      make_optimizers(vtrain, vcfg))
+        losses = [float(step(*vbatch)["loss"]) for _ in range(5)]
+        good = all(np.isfinite(losses)) and losses[-1] < losses[0]
+    except Exception as e:
+        good, losses = False, f"{type(e).__name__}: {e}"
+    train_extra["video_five_steps_float32"] = losses
+    ok = phase("train video 5 steps float32", good, f"losses {losses}") \
+        and ok
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            synthetic_sceneflow(tmp, rng)
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                run_video.main([
+                    "--datasets", tmp, "--models-dir", xover.name,
+                    "--epoch-start", "3", "--epochs", "3",
+                    "--image-batch-size", str(TRAIN_B), "--steps-per-epoch",
+                    "2", "--seed", str(SEED), "--log-every", "1",
+                    "--metrics-jsonl", f"{tmp}/v.jsonl"])
+            print(out.getvalue(), end="", flush=True)
+            rows = [json.loads(ln) for ln in open(f"{tmp}/v.jsonl")]
+        files = sorted(os.listdir(xover.name))
+        source = os.path.join(xover.name, "checkpoint_epoch_2_batchSize_8.pth")
+        good = (f"resumed from {source} (epoch 2)" in out.getvalue()
+                and [r["epoch"] for r in rows] == [3, 3]
+                and all(np.isfinite(r["loss"]) for r in rows)
+                and "checkpoint_epoch_3_batchSize_2.pth" in files)
+        train_extra["run_video"] = [r["loss"] for r in rows]
+        detail = (f"resumed across from run_image's "
+                  f"checkpoint_epoch_2_batchSize_8.pth: "
+                  f"{f'resumed from {source}' in out.getvalue()}; losses "
+                  f"{[r['loss'] for r in rows]} epochs "
+                  f"{[r['epoch'] for r in rows]}; files {files}")
+    except Exception as e:
+        good, detail = False, f"{type(e).__name__}: {e}"
+    xover.cleanup()
+    ok = phase("train run_video 2 steps, resumed from run_image", good,
+               detail) and ok
+    ok = interleaved_steps("video", {"plain": vplain, "kernel": vkernel},
+                           vbatch, (1, 3), "the video recipe, B = {}, {} x {}"
+                           " frames, {}^2 styles".format(
+                               vcfg.batch_size, *vcfg.content_size,
+                               vcfg.style_size[0])) and ok
+    del vkernel, vplain, vtrain, vbatch
+    torch.cuda.empty_cache()
+    video_s += time.perf_counter() - t0
+
     # ---- the kernels' summary: one row per TPU kernel the path replaces
     first_gate = {}
     for gate, row, *_ in gate_list:
@@ -1976,6 +2243,9 @@ def main() -> int:
         row = dict(name=name, route="cuda", source=source,
                    replaces=replaces, gate=first, path=row_path,
                    launches=launches.get(path, {}).get(entry, 0))
+        if path == "train":   # K6, K7, K8: the video step's launches too
+            row["launches_video"] = launches.get("train_video", {}).get(
+                entry, 0)
         if note:
             row["path_note"] = note
         if not r32:   # a bfloat16-only kernel (P1): its numbers stand first
@@ -2000,11 +2270,18 @@ def main() -> int:
         summary.append(row)
     extra = {g: gates.get(g) for g, *_ in gate_list
              if g not in first_gate.values()}
+    stopped = stop_children()
+    left = _children()
+    ok = phase("processes", not left,
+               f"still running at the end, stopped: {stopped or 'none'}; "
+               f"left: {left or 'none'}") and ok
     seconds = time.perf_counter() - t_start
-    phase("run time", True, f"{seconds:.1f} s from start to summary")
+    phase("run time", True, f"{seconds:.1f} s from start to summary, "
+          f"{video_s:.1f} s of it the video gates and step (phases 6, 7e)")
     print(json.dumps({"kernels": summary, "extra_gates": extra,
                       "launches": launches, "frame_ms": frame_ms,
                       "train": train_extra, "step_ms": step_ms,
+                      "step_peak_gb": step_peak_gb,
                       "card": card, "seconds": seconds}), flush=True)
     if not ok:
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2016,4 +2293,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:   # a failed run, too, leaves nothing running
+        if stop_children():
+            print("chip_smoke: stopped processes left running",
+                  file=sys.stderr)
+    sys.exit(rc)

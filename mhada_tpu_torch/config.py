@@ -1,5 +1,5 @@
-"""Model and image-training configuration (mhada_tpu/config.py:12-63), the
-kernel switch and the device rule."""
+"""Model, image- and video-training configuration (mhada_tpu/config.py:
+12-83), the kernel switch and the device rule."""
 
 from dataclasses import dataclass, field
 
@@ -65,6 +65,30 @@ class ImageTrainConfig:
     remat: bool = False
     # forward and backward in this dtype ("float32" | "bfloat16"); master
     # weights, gradients and Adam state stay float32
+    compute_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class VideoTrainConfig:
+    """The reference video recipe (reference train_video.py:14-32): epochs
+    21-30 resumed from the image run, B = 2 pairs of 256 x 512 frames
+    against 256^2 styles, six losses."""
+    model: ModelConfig = field(default_factory=ModelConfig)
+    epoch_start: int = 21
+    epoch_end: int = 30
+    batch_size: int = 2
+    # the image run's batch size: it names the checkpoint resumed from
+    image_batch_size: int = 8
+    lr: float = 1e-4
+    lambda_gs: float = 100.0
+    lambda_lf: float = 15.0
+    lambda_ot: float = 2.0
+    lambda_ft: float = 2.0
+    lambda_id1: float = 5e-2
+    lambda_id2: float = 1e-1
+    style_size: tuple[int, int] = (256, 256)
+    content_size: tuple[int, int] = (256, 512)
+    remat: bool = False
     compute_dtype: str = "float32"
 
 

@@ -91,10 +91,10 @@ def measure(models: dict, image_size=(512, 512),
     if profile:
         from ..train.bench_steps import profile_step
 
-        traces = {"profile_full": profile_step(full, contents[0], style,
+        traces = {"profile_full": profile_step(full, (contents[0], style),
                                                device, top=8),
                   "profile_streaming": profile_step(
-                      lambda c, _: with_kv(c, kv), contents[0], style,
+                      lambda c, _: with_kv(c, kv), (contents[0], style),
                       device, top=8)}
     return {
         "device": (torch.cuda.get_device_name(device)

@@ -1,1 +1,2 @@
-"""Image training: the step, its losses, checkpoints and CLIs."""
+"""Image and video training: the steps, their losses, checkpoints and
+CLIs."""

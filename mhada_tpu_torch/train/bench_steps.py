@@ -1,23 +1,28 @@
-"""Train-step timing (mhada_tpu/train/bench_steps.py) for the image recipe:
-256^2, B = 8, full-width ``ModelConfig()``, random weights and batches from
-seed 0.
+"""Train-step timing (mhada_tpu/train/bench_steps.py) for the image recipe
+(256^2, B = 8) and the video recipe (B = 2 pairs of 256 x 512 frames with
+256^2 styles), full-width ``ModelConfig()``, random weights and batches
+from seed 0.
 
-Variants: ``image_f32``, ``image_bf16``, ``image_f32_remat`` and
+Variants: ``image_f32``, ``image_bf16``, ``image_f32_remat``,
 ``image_bf16_fuseln`` (the bf16 step with each ViT pre-LN fused into its
-matmul, K2 and its VJP: ``ModelConfig(fuse_ln=True)``).  On the card each
-variant is timed with CUDA events over ``--steps`` steps after one warm-up
-step, and ``--backend plain`` times the plain PyTorch versions in place of
-the kernels.  ``--tiny`` (a one-layer 128-wide model at 32^2,
-B = 2) with ``--device cpu`` is a smoke test of this CLI, timed by the
-host clock and labelled as such, not a benchmark.
+matmul, K2 and its VJP: ``ModelConfig(fuse_ln=True)``), ``video_f32`` and
+``video_bf16`` (the six-loss video step on a batch with flow U(-5, 5) and
+mask U(0, 1) > 0.2, as the JAX bench's).  On the card each variant is
+timed with CUDA events over ``--steps`` steps after one warm-up step, and
+``--backend plain`` times the plain PyTorch versions in place of the
+kernels.  ``--tiny`` (a one-layer 128-wide model at 32^2, video 32 x 64
+frames with 32^2 styles, B = 2) with ``--device cpu`` is a smoke test of
+this CLI, timed by the host clock and labelled as such, not a benchmark.
 
 Run: ``python -m mhada_tpu_torch.train.bench_steps [--steps 10]
 [--variants ...] [--backend kernel|plain] [--image-size 512 512]
-[--batch-size 4] [--profile FILE]``.  Prints one JSON line per variant:
-ms/step, steps/s, the device, the card's name.  ``--profile`` also traces
-one more step of each variant with ``torch.profiler`` and writes, per
-variant, the step's wall time, the device's busy time and idle share, and
-the kernels with the most device time to FILE (JSON).
+[--batch-size 4] [--profile FILE]`` (``--image-size`` and
+``--batch-size`` set the image variants' shapes).  Prints one JSON line
+per variant: ms/step, steps/s, the shapes, the device, the card's name.
+``--profile`` also traces one more step of each variant with
+``torch.profiler`` and writes, per variant, the step's wall time, the
+device's busy time and idle share, and the kernels with the most device
+time to FILE (JSON).
 """
 
 import argparse
@@ -28,55 +33,57 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from ..config import ImageTrainConfig, ModelConfig, resolve_device
-from .train_image import init_params, make_image_train_step, make_optimizers
+from ..config import (ImageTrainConfig, ModelConfig, VideoTrainConfig,
+                      resolve_device)
+from .recipes import recipe
+from .train_image import init_params, make_optimizers
 
-# variant -> ImageTrainConfig fields; "fuse_ln" is the model's
+# variant -> config fields ("fuse_ln" is the model's); video_* variants
+# take the video recipe's config, the others the image recipe's
 VARIANTS = {
     "image_f32": {},
     "image_bf16": {"compute_dtype": "bfloat16"},
     "image_f32_remat": {"remat": True},
     "image_bf16_fuseln": {"compute_dtype": "bfloat16", "fuse_ln": True},
+    "video_f32": {},
+    "video_bf16": {"compute_dtype": "bfloat16"},
 }
 
 
-def variant_config(cfg: ImageTrainConfig, variant: str) -> ImageTrainConfig:
+def variant_config(cfg, variant: str):
+    """``cfg`` (the recipe the variant belongs to) with its fields."""
     fields = dict(VARIANTS[variant])
     if "fuse_ln" in fields:
         fields["model"] = replace(cfg.model, fuse_ln=fields.pop("fuse_ln"))
     return replace(cfg, **fields)
 
 
-def time_steps(cfg: ImageTrainConfig, steps: int, device,
-               profile: bool = False):
+def time_steps(cfg, steps: int, device, profile: bool = False):
     """(ms per training step after one warm-up step, the profile of one
     more step or None)."""
     models = init_params(cfg, device)
-    step = make_image_train_step(cfg, models, make_optimizers(models, cfg))
-    rng = np.random.default_rng(0)
-    h, w = cfg.image_size
-    content, style = (torch.from_numpy(rng.uniform(
-        0, 255, (cfg.batch_size, h, w, 3)).astype(np.float32)).to(device)
-        for _ in range(2))
-    step(content, style)
+    r = recipe(cfg)
+    step = r.make_step(cfg, models, make_optimizers(models, cfg))
+    batch = r.random_batch(cfg, device, np.random.default_rng(0))
+    step(*batch)
     if device.type == "cuda":
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda.synchronize()
         start.record()
         for _ in range(steps):
-            step(content, style)
+            step(*batch)
         end.record()
         torch.cuda.synchronize()
         ms = start.elapsed_time(end) / steps
     else:
         t0 = time.perf_counter()
         for _ in range(steps):
-            step(content, style)
+            step(*batch)
         ms = (time.perf_counter() - t0) * 1e3 / steps
-    return ms, profile_step(step, content, style, device) if profile else None
+    return ms, profile_step(step, batch, device) if profile else None
 
 
-def profile_step(step, content, style, device, top: int = 30) -> dict:
+def profile_step(step, batch, device, top: int = 30) -> dict:
     """One step under ``torch.profiler``: its wall time, the device's busy
     time (the union of the kernels' intervals: some library kernels run
     side by side) and idle share, the kernels' summed device time, the
@@ -90,7 +97,7 @@ def profile_step(step, content, style, device, top: int = 30) -> dict:
         torch.cuda.synchronize()
     with profile(activities=acts, record_shapes=True) as prof:
         t0 = time.perf_counter()
-        step(content, style)
+        step(*batch)
         if device.type == "cuda":
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -133,8 +140,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="default: cuda; --device cpu only with --tiny")
     ap.add_argument("--image-size", type=int, nargs=2,
-                    help="default: the recipe's 256 256")
-    ap.add_argument("--batch-size", type=int, help="default: the recipe's 8")
+                    help="image variants; default: the recipe's 256 256")
+    ap.add_argument("--batch-size", type=int,
+                    help="image variants; default: the recipe's 8")
     ap.add_argument("--profile", help="write one profiled step of each "
                     "variant to this JSON file")
     args = ap.parse_args(argv)
@@ -144,9 +152,13 @@ def main(argv=None):
                  "--tiny smoke runs")
     model = ModelConfig(mhada_backend=args.backend)
     cfg = ImageTrainConfig(model=model)
+    vcfg = VideoTrainConfig(model=model)
     if args.tiny:
-        cfg = replace(cfg, batch_size=2, image_size=(32, 32), model=replace(
-            model, num_layers=1, num_heads=2, hidden_dim=128, mlp_dim=256))
+        tiny = replace(model, num_layers=1, num_heads=2, hidden_dim=128,
+                       mlp_dim=256)
+        cfg = replace(cfg, batch_size=2, image_size=(32, 32), model=tiny)
+        vcfg = replace(vcfg, batch_size=2, style_size=(32, 32),
+                       content_size=(32, 64), model=tiny)
     if args.image_size:
         cfg = replace(cfg, image_size=tuple(args.image_size))
     if args.batch_size:
@@ -155,14 +167,15 @@ def main(argv=None):
             else "cpu (host clock, smoke test)")
     profiles = {}
     for variant in args.variants:
-        ms, profiles[variant] = time_steps(variant_config(cfg, variant),
-                                           args.steps, device,
+        vc = variant_config(vcfg if variant.startswith("video") else cfg,
+                            variant)
+        ms, profiles[variant] = time_steps(vc, args.steps, device,
                                            bool(args.profile))
         print(json.dumps({"variant": variant, "ms_per_step": ms,
                           "steps_per_s": 1e3 / ms, "backend": args.backend,
-                          "image_size": list(cfg.image_size),
-                          "batch_size": cfg.batch_size, "device": name,
-                          "tiny": args.tiny}), flush=True)
+                          **recipe(vc).shapes(vc),
+                          "batch_size": vc.batch_size,
+                          "device": name, "tiny": args.tiny}), flush=True)
     if args.profile:
         with open(args.profile, "w") as f:
             json.dump({"device": name, "variants": profiles}, f, indent=1)

@@ -81,25 +81,38 @@ def main(argv=None):
                                         m.num_layers, m.num_heads)
         print(f"resumed from {path} (epoch {epoch})")
 
-    step_fn = make_image_train_step(cfg, models, optimizers)
+    train_epochs(cfg, models, optimizers,
+                 make_image_train_step(cfg, models, optimizers), loader,
+                 device, args)
+
+
+def train_epochs(cfg, models: dict, optimizers: dict, step_fn, loader,
+                 device, args) -> None:
+    """The epoch loop of both training CLIs (mhada_tpu/train/run_image.py:
+    113-150, run_video.py:122-160): each batch of ``loader`` through
+    ``step_fn`` on ``device``; metrics every ``args.log_every`` steps (to
+    ``args.metrics_jsonl`` too), the rolling weights every 100 and, at each
+    epoch's end, the weights and a checkpoint named by ``cfg.batch_size``
+    under ``args.models_dir``; ``args.steps_per_epoch`` truncates."""
+    m = cfg.model
     logger = MetricsLogger(args.metrics_jsonl)
     step = 0
     try:
         for epoch in range(cfg.epoch_start, cfg.epoch_end + 1):
             t0 = time.time()
-            for idx, (content, style) in enumerate(loader):
+            for idx, batch in enumerate(loader):
                 if args.steps_per_epoch and idx >= args.steps_per_epoch:
                     break
-                metrics = step_fn(content.to(device, non_blocking=True),
-                                  style.to(device, non_blocking=True))
+                metrics = step_fn(*(t.to(device, non_blocking=True)
+                                    for t in batch))
                 step += 1
                 if idx % args.log_every == 0:
                     row = logger.log(step, metrics, epoch=epoch)
                     rate = (idx + 1) * cfg.batch_size / (time.time() - t0)
-                    print(f"epoch {epoch}/{cfg.epoch_end} step {idx} " + " ".join(
-                        f"{k}={v:.4f}" for k, v in row.items()
-                        if k not in ("step", "time", "epoch"))
-                        + f" ({rate:.1f} img/s)", flush=True)
+                    print(f"epoch {epoch}/{cfg.epoch_end} step {idx} "
+                          + " ".join(f"{k}={v:.4f}" for k, v in row.items()
+                                     if k not in ("step", "time", "epoch"))
+                          + f" ({rate:.1f} samples/s)", flush=True)
                 if idx % 100 == 0:
                     ckpt.save_weights(args.models_dir, models, m.num_layers,
                                       m.num_heads, attn_mode=m.attn_mode)

@@ -11,7 +11,10 @@ K2's VJP against autograd of the unfused LayerNorm and linear, and the
 forward-only wrappers must refuse tensors that require grad.  K3, K4 and
 K7 (at bf16 on the tensor cores) also with V = 3 + 0.3 N(0, 1), where E2 -
 M1^2 cancels, K4 repeating its output and K7 its gradients bit for bit, K7
-at the video-training shape (N = 2048, M = 1024); the decoder tail (K5,
+at the video-training shape (N = 2048, M = 1024); the video step's shapes
+at full width: K6 at B = 2, L = 2048 and 1024, K7 at B = 2, 8 heads, N =
+2048 against M = 1024, N = M = 2048 and N = M = 1024, K8 from 128 x 256
+and 128^2 at B = 2; the decoder tail (K5,
 K8; at bf16 on the tensor cores) also from 256^2 to 512^2, repeating its
 outputs bit for bit, K8's gradients against the plain backward on the
 kernel forward's ReLU masks with the share of flipped masks bounded
@@ -718,12 +721,15 @@ def _check_train(entries, run, dtype, inputs, cot, plain=None):
 @pytest.mark.parametrize("b,l,heads", ATTN_SHAPES + [(1, 130, 2),
                                                      (1, 4100, 2),
                                                      (3, 200, 2), (2, 129, 1),
-                                                     (2, 63, 2), (4, 384, 2)])
+                                                     (2, 63, 2), (4, 384, 2),
+                                                     (2, 2048, 8),
+                                                     (2, 1024, 8)])
 def test_attention_train_kernels(gen, dtype, b, l, heads):
     """K6 forward and backward against the twins; a second call repeats the
     output and all three gradients bit for bit (no atomics).  The float32
     backward's blocks hold 128 rows and stream 64-row tiles: lengths past,
-    below and at those, with B > 1 on the packed qkv."""
+    below and at those, with B > 1 on the packed qkv.  (2, 2048, 8) and
+    (2, 1024, 8) are the video step's frames and styles at full width."""
     qkv = _rnd(gen, dtype, b, l, 3 * 64 * heads, scale=0.5)
     cot = _rnd(gen, dtype, b, l, 64 * heads)
 
@@ -766,10 +772,32 @@ def test_mhada_train_kernels(gen, dtype, b, n, m, shift):
         assert torch.equal(x, y), i
 
 
+@pytest.mark.parametrize("n,m", [(2048, 1024), (2048, 2048), (1024, 1024)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mhada_train_kernels_video_shapes(gen, dtype, n, m):
+    """K7 forward and backward at the video step's full width (8 heads of
+    64, B = 2): frames against a style (cs1, cs2), frames against
+    themselves (cc1, cc2) and the style against itself (ss)."""
+    q = _rnd(gen, dtype, 2, n, 512, scale=0.35)
+    k = _rnd(gen, dtype, 2, m, 512, scale=0.35)
+    v, f = _rnd(gen, dtype, 2, m, 512), _rnd(gen, dtype, 2, n, 512)
+    cot = _rnd(gen, dtype, 2, n, 512)
+
+    def run(be, *a):
+        return mhada_train(*a, 8, backend=be)
+
+    _check_train(["mhada_mhada_train_fwd", "mhada_mhada_train_bwd"], run,
+                 dtype, [q, k, v, f], cot)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(1, 8, 12, 128), (2, 6, 10, 128),
-                                   (1, 2, 3, 128)])
+                                   (1, 2, 3, 128), (2, 128, 256, 128),
+                                   (2, 128, 128, 128)])
 def test_decoder_tail_train_kernel(gen, dtype, shape):
+    """K8 forward and input gradients against the plain versions on the
+    kernel forward's ReLU masks; (2, 128, 256, 128) and (2, 128, 128, 128)
+    are the video step's frame and style tails at full size."""
     x = _rnd(gen, dtype, *shape).abs()
 
     def conv(co, ci):
