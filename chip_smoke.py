@@ -9,14 +9,17 @@
    parallel); the bf16 tensor-core kernels of K1, K6, K3, K4 and K7
    (forward, dQ and dK/dV), of the decoder tail (K5, K8), of K2 and of
    K14 must each hold HMMA.16816.F32.BF16 in their SASS (cuobjdump) and
-   spill nothing (ptxas); P2's bf16 kernel must hold HGMMA (wgmma) and
-   UTMALDG (TMA loads) and spill nothing; every instantiation that a bf16
-   path launches must exist (K4's MHAda tile without prologue or
+   spill nothing (ptxas); the wgmma + TMA kernels, P2's bf16 kernel and
+   every block tile of P1's, must hold HGMMA (wgmma) and UTMALDG (TMA
+   loads) and spill nothing; every instantiation that a bf16 path
+   launches must exist (K4's MHAda tile without prologue or
    residuals, the tail with and without residuals, K2's, K14's), no bf16
    instantiation of the CUDA-core kernels they replaced may exist (those
-   of K1, K4, K5, K6, K7, K8, K2 and K14), nor any instantiation of the
-   old flash tile (flash_tile_kernel, the f32 forwards of K1, K4, K6 and
-   K7 before the float32 tile), nor a float32 instantiation of the old
+   of K1, K4, K5, K6, K7, K8 and K2), nor any instantiation of K14's old
+   conv (conv3x3_relu_kernel, either dtype) or of P1's old wmma kernel
+   (mm_probe_kernel), nor any instantiation of the old flash tile
+   (flash_tile_kernel, the f32 forwards of K1, K4, K6 and K7 before the
+   float32 tile), nor a float32 instantiation of the old
    flash backward (flash_bwd_dkv_kernel, flash_bwd_dq_kernel) or of the
    old fused tail (decoder_tail_kernel<bool>, K5's and K8's before the
    two-stage float32 tail); K2's float32 kernel, the float32 flash tile
@@ -27,9 +30,10 @@
    (csrc/flash_bwd_f32.cuh: the dK/dV and dQ kernels of K6 <false> and K7
    <true>) and the float32 tail (csrc/decoder_tail_f32.cuh: the up3
    kernel of K5 and K8, the upsample + c5 + c6 kernel <residuals> of K5
-   <false> and K8 <true>), each instantiation present, must exist, spill
-   nothing and hold no HMMA or HGMMA of any kind (they compute in float32,
-   no TF32);
+   <false> and K8 <true>) and K14's float32 conv
+   (csrc/decoder_mid_f32.cuh), each instantiation present, must exist,
+   spill nothing and hold no HMMA or HGMMA of any kind (they compute in
+   float32, no TF32);
 3. gates: each hand-written kernel against its plain PyTorch version on the
    card, in float32 and bfloat16, at the 512^2 path's shapes and at the
    1024^2 shapes (K2 at N = 16384; K3 at M = 16384; K5 from 512^2 to
@@ -37,8 +41,9 @@
    TPU's K10); K13 (c6) at 512^2 with B = 1 and 8 and at 1024^2; K14 (c1
    -> c3) at 128^2 with B = 1 and 8 and at 256^2; P2 at B = 8, N = M =
    4096, also against K3 (float32 and bfloat16); P1 at its 8 shapes
-   (bfloat16), each with its time, the plain version's, the PyTorch
-   library call's where one computes the same function or, for K3, K4, K7
+   (bfloat16, each with its block tile), each with its time, the plain
+   version's, the PyTorch library call's where one computes the same
+   function or, for K3, K4, K7
    and P2, their products (SDPA on [V | V^2] with scale 1; named in the
    record with its backend), and the least time the card could take (its
    bound); K2 three ways: its
@@ -413,9 +418,10 @@ HMMA = "HMMA.16816.F32.BF16"
 # The float32 tail's two kernels (csrc/decoder_tail_f32.cuh), timed apart
 # by name in the K5 and K8 gates.
 TAIL_STAGES = ("tail_up3_f32_kernel", "tail_c5c6_f32_kernel")
-# The bf16 wgmma + TMA kernels (P2: csrc/mhada_wgmma.cuh) and the
-# instructions each must contain: HGMMA (wgmma) and UTMALDG (TMA loads).
-WGMMA_KERNELS = ("mhada_wgmma_kernel",)
+# The bf16 wgmma + TMA kernels (P2: csrc/mhada_wgmma.cuh; P1, each block
+# tile: csrc/mm_wgmma.cuh) and the instructions each must contain: HGMMA
+# (wgmma) and UTMALDG (TMA loads).
+WGMMA_KERNELS = ("mhada_wgmma_kernel", "mm_wgmma_kernel")
 WGMMA_SASS = ("HGMMA", "UTMALDG")
 # Instantiations (mangled-name parts) that the bf16 paths launch: K4's
 # MHAda tile (neither prologue nor residuals), K5's and K8's tail, K2,
@@ -427,7 +433,9 @@ MMA_REQUIRED = ("mhada_mma_fwd_kernelILb0ELb0E",
 # more (mangled names): the attention and MHAda tile (K1, K4, K6's and
 # K7's forwards) and backward (K6, K7), the decoder tail (K5, K8), K2's
 # first kernel and K14's conv.  Also the float32 instantiations that a
-# float32 redesign replaced: every instantiation of the old flash tile
+# float32 redesign replaced: K14's old conv at either dtype
+# (conv3x3_relu_kernel<T>), P1's wmma kernel (mm_probe_kernel, before
+# csrc/mm_wgmma.cuh), every instantiation of the old flash tile
 # (flash_tile_kernel: K1's, K4's, K6's and K7's float32 forwards before the
 # float32 flash tile), the old float32 flash backward's two kernels (K6's
 # and K7's) and the old fused float32 tail (decoder_tail_kernel<bool>: K5's
@@ -436,7 +444,8 @@ OLD_BF16 = (r"flash_tile_kernel"
             r"|flash_bwd_(dkv|dq)_kernelI13__nv_bfloat16"
             r"|decoder_tail_kernelI13__nv_bfloat16"
             r"|ln_matmul_kernelI13__nv_bfloat16"
-            r"|conv3x3_relu_kernelI13__nv_bfloat16"
+            r"|conv3x3_relu_kernelI"
+            r"|mm_probe_kernel"
             r"|flash_bwd_(dkv|dq)_kernelIf"
             r"|decoder_tail_kernelILb")
 # float32 kernels that compute in float32: they must exist, spill nothing
@@ -446,17 +455,17 @@ OLD_BF16 = (r"flash_tile_kernel"
 # and K6's forward), the float32 flash backward (csrc/flash_bwd_f32.cuh:
 # K6's and K7's dK/dV and dQ kernels) and the float32 tail
 # (csrc/decoder_tail_f32.cuh: K5's and K8's up3 kernel and upsample + c5 +
-# c6 kernel).
+# c6 kernel) and K14's conv (csrc/decoder_mid_f32.cuh).
 F32_KERNELS = ("ln_matmul_f32_kernel", "mhada_f32_kernel",
                "attention_f32_kernel", "flash_bwd_f32_dkv_kernel",
                "flash_bwd_f32_dq_kernel", "tail_up3_f32_kernel",
-               "tail_c5c6_f32_kernel")
+               "tail_c5c6_f32_kernel", "decoder_mid_f32_kernel")
 # The float32 instantiations that the paths and P2 launch (mangled): the
 # MHAda kernel's <prologue, ring stages, residuals>, K4 <false, 2, false>,
 # K3 <true, 2, false>, P2 <true, 1, false>, K7's forward <false, 2, true>;
 # the attention kernel's <lse>, K1 <false>, K6's forward <true>; the
 # backward's <mhada>, K6 <false>, K7 <true>; the tail's up3 kernel (K5 and
-# K8) and its c5 + c6 kernel <residuals>, K5 <false>, K8 <true>.
+# K8) and its c5 + c6 kernel <residuals>, K5 <false>, K8 <true>; K14's.
 F32_REQUIRED = ("mhada_f32_kernelILb0ELi2ELb0E",
                 "mhada_f32_kernelILb1ELi2ELb0E",
                 "mhada_f32_kernelILb1ELi1ELb0E",
@@ -466,7 +475,8 @@ F32_REQUIRED = ("mhada_f32_kernelILb0ELi2ELb0E",
                 "flash_bwd_f32_dkv_kernelILb1E",
                 "flash_bwd_f32_dq_kernelILb0E",
                 "flash_bwd_f32_dq_kernelILb1E", "tail_up3_f32_kernel",
-                "tail_c5c6_f32_kernelILb0E", "tail_c5c6_f32_kernelILb1E")
+                "tail_c5c6_f32_kernelILb0E", "tail_c5c6_f32_kernelILb1E",
+                "decoder_mid_f32_kernel")
 
 
 def all_gates():
@@ -594,7 +604,7 @@ def mma_report(lib):
                        f"setmaxnreg moves them between warpgroups), "
                        f"{info.get('spill')} B spilled, " + ", ".join(
                            f"{n} x {ins}" for ins, n in counts.items())
-                       + f", {funcs[f].count(HMMA)} x {HMMA} (the prologue)")
+                       + f", {funcs[f].count(HMMA)} x {HMMA}")
     missing = [m for m in MMA_REQUIRED + F32_REQUIRED
                if not any(m in f for f in funcs)]
     out.append(f"missing instantiations: {missing or 'none'}")
@@ -628,23 +638,30 @@ def cuda_ms(fn, warmup=2, iters=5):
     return start.elapsed_time(end) / iters
 
 
-def split_ms(fn, parts, iters=3):
+def split_ms(fn, parts, iters=3, windows=3):
     """{part: device ms per call of the kernels whose names hold ``part``}
-    from ``torch.profiler`` over ``iters`` calls of ``fn`` after one."""
+    from ``torch.profiler`` over ``iters`` calls of ``fn`` after one.  A
+    window in which the profiler recorded no kernel of some part (CUPTI
+    has returned a window without device events on an H100) is profiled
+    again, up to ``windows`` windows; the last one's reading is returned,
+    and the callers fail on a part still at 0."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys(parts, 0.0)
-    for e in prof.key_averages():
-        for part in parts:
-            if part in e.key:
-                out[part] += e.self_device_time_total / 1e3 / iters
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = dict.fromkeys(parts, 0.0)
+        for e in prof.key_averages():
+            for part in parts:
+                if part in e.key:
+                    out[part] += e.self_device_time_total / 1e3 / iters
+        if all(out.values()):
+            break
     return out
 
 
@@ -877,8 +894,11 @@ def gate_inputs(kind, n, dtype, g, b=1):
                 out = mm_probe.mm_plain(a, bm)
             return out
 
-        return (lambda be: (mm_probe.mm(a, bm, MM_REPS) if be == "kernel"
-                            else plain()),
+        def run(be):
+            return mm_probe.mm(a, bm, MM_REPS) if be == "kernel" else plain()
+
+        run.tile = mm_probe.tile(m, k, nn)
+        return (run,
                 2 * m * k * nn * MM_REPS, (m * k + k * nn + m * nn) * es,
                 (f"torch.matmul (cuBLAS), {MM_REPS} calls replayed from a "
                  "CUDA graph", mm_probe.cublas_loop(a, bm, MM_REPS)))
@@ -923,6 +943,10 @@ def run_gate(gate, kind, n, b, dname, card):
     if kernel_ms is not None:
         rec["kernel_ms"] = kernel_ms
         lib_txt += f", the kernel alone {kernel_ms:.3f} ms"
+    tile = getattr(run, "tile", None)   # P1: the kernel's block tile
+    if tile:
+        rec["tile"] = list(tile)
+        lib_txt += f", block tile {tile[0]} x {tile[1]}"
     if split:
         rec.update(tail_stage_ms(split))
         good = good and all(t > 0 for t in split.values())
@@ -2261,7 +2285,7 @@ def main() -> int:
         # K2's other timings; the backward's dK/dV and dQ kernels and the
         # float32 tail's two stages apart
         for key in ("kernel_ms", "wrapper_ms", "dkv_ms", "dq_ms", "up3_ms",
-                    "c5c6_ms"):
+                    "c5c6_ms", "tile"):
             if key in r32 or key in r16:
                 row[key] = r32.get(key)
                 row[key + "_bf16"] = r16.get(key)

@@ -46,7 +46,7 @@ SIGNATURES = {
     "mhada_decoder_tail_res": [_P] * 10 + [_I] * 4 + [_P],
     "mhada_decoder_c6": [_P] * 4 + [_I] * 4 + [_P],
     "mhada_decoder_mid_conv": [_P] * 4 + [_I] * 5 + [_P],
-    "mhada_mm_probe": [_P] * 3 + [_I] * 4 + [_P],
+    "mhada_mm_probe": [_P] * 3 + [_I] * 6 + [_P],
     "mhada_mhada_prologue_pipe": [_P] * 8 + [_I] * 6 + [_P],
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

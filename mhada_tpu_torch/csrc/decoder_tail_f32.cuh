@@ -30,13 +30,11 @@
 //   kPasses passes of kCc output channels and keeps each pass in shared
 //   memory only until c6 has added its part; c6's partial sums wait in
 //   the rgb output between the passes (ReLU at the end).
-// - The convolution (conv_step).  A thread owns a run of 8 consecutive
-//   pixels of one row and 8 output channels (two groups of 4, so a
-//   quarter-warp's 16-byte weight loads cover 128 contiguous bytes).  For
-//   each input channel and kernel row it loads the run and its 2-pixel
-//   overlap once (two LDS.128 and one LDS.64; the lanes of a quarter-warp
-//   share the run, so the load is a broadcast) and applies the three
-//   kernel columns from registers: 192 FFMA for 9 shared loads.
+// - The convolution (conv_step, conv3x3_f32.cuh, shared with K14's float32
+//   build).  A thread owns a run of 8 consecutive pixels of one row and 8
+//   output channels; for each input channel and kernel row it loads the
+//   run and its 2-pixel overlap once and applies the three kernel columns
+//   from registers: 192 FFMA for 9 shared loads.
 // - The pipeline.  Input channels stream in steps of kCk = 8 through a
 //   two-stage cp.async ring: stage 1 copies the x window (10 x 34 low-res
 //   pixels, reflect-mapped, 4-byte copies into channel planes) and the
@@ -64,6 +62,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "conv3x3_f32.cuh"  // conv_step, ld4, ld2, st4
 #include "flash_mma.cuh"  // mma::cp_async_16 / _4 / _commit / _wait, smem_addr
 
 namespace mhada {
@@ -71,7 +70,11 @@ namespace tailf32 {
 
 constexpr int kThreads = 256;
 constexpr int kCin = 128, kCmid = 64, kCout = 3;
-constexpr int kCk = 8;  // input channels a pipeline step
+using conv3f32::conv_step;
+using conv3f32::kCk;  // input channels a pipeline step
+using conv3f32::ld2;
+using conv3f32::ld4;
+using conv3f32::st4;
 
 // Stage 1: a block owns kAR x kAC y1 pixels and all 64 channels; warp w
 // computes row w, lane l the run (l / 8) and the channel group (l % 8).
@@ -120,48 +123,6 @@ static_assert(kBC == 32 && kCc == 32 && kC6Threads % 32 == 0 &&
 static_assert(kAPlane >= kAWR * kAWS && kBStage % 4 == 0 && kAStage % 4 == 0,
               "16-byte aligned stages");
 static_assert((kW6 + kUnion + 2 * kBStage) % 4 == 0, "aligned tables");
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ void st4(float* p, float a, float b, float c,
-                                    float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-
-// acc[p][j] += sum over the step's kCk input channels and the 9 taps of
-// win[ci][ky][p + kx] * w[ky * 3 + kx][ci][co_j]: a run of 8 pixels (from
-// `win` on, a window row of kRowS floats, planes of kPlane) and 8 output
-// channels (4 from `w` on and 4 from w + kHalf on; taps kTapS apart,
-// input channels kCiS).
-template <int kPlane, int kRowS, int kTapS, int kCiS, int kHalf>
-__device__ __forceinline__ void conv_step(const float* win, const float* w,
-                                          float (&acc)[8][8]) {
-#pragma unroll 2
-  for (int ci = 0; ci < kCk; ++ci) {
-#pragma unroll
-    for (int ky = 0; ky < 3; ++ky) {
-      const float* r = win + ci * kPlane + ky * kRowS;
-      const float4 a = ld4(r), b = ld4(r + 4);
-      const float2 c = ld2(r + 8);
-      const float v[10] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y};
-#pragma unroll
-      for (int kx = 0; kx < 3; ++kx) {
-        const float* wt = w + (ky * 3 + kx) * kTapS + ci * kCiS;
-        const float4 w0 = ld4(wt), w1 = ld4(wt + kHalf);
-        const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-        for (int p = 0; p < 8; ++p)
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            acc[p][j] = fmaf(v[p + kx], wv[j], acc[p][j]);
-      }
-    }
-  }
-}
 
 // Stage 1: y1 (B, hl, wl, 64) from x (B, hl, wl, 128); grid (tiles, B).
 __global__ void __launch_bounds__(kThreads, 2)

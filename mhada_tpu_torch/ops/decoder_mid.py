@@ -10,7 +10,8 @@ decoder's own activations by ``chip_smoke.py``.
 
 The kernel is one reflect-padded 3x3 ConvReLU launched once per stage,
 three launches per call: at bfloat16 an implicit GEMM on the tensor cores,
-at float32 a CUDA-core conv.  Every stage keeps the TPU kernel's rounding
+at float32 a register-tiled direct conv on the CUDA cores with a cp.async
+ring (csrc/decoder_mid_f32.cuh).  Every stage keeps the TPU kernel's rounding
 points: the conv summed in float32, rounded to the dtype, plus the bias
 rounded to the dtype, ReLU.  Weights are torch OIHW; ``kernel_params``
 gives them in the kernel's layout.
@@ -84,7 +85,8 @@ def _kernel(x, hwio, bias) -> torch.Tensor:
     bsz, h, w, c = x.shape
     for wt, bb in zip(hwio, bias):
         y = torch.empty_like(x)
-        _build.check_aligned("mid3_fused", x, wt, y)
+        _build.check_aligned("mid3_fused", x, wt, y,
+                             dtypes=(torch.bfloat16, torch.float32))
         _build.launch("mhada_decoder_mid_conv", x.device, x, wt, bb, y, bsz,
                       h, w, c, _build.dtype_code(x))
         x = y

@@ -3,20 +3,24 @@
 Counterpart of scripts/mxu_probe.py: the TPU probe timed a bare Pallas
 matmul (``_mm_kernel``) at the attention tile shapes with its operands
 resident in VMEM, to map which dimensions quantize on the matrix unit.
-Here ``mm(a, b, reps)`` launches a hand-written ``wmma`` (``mma.sync``)
-kernel whose grid repeats the whole product ``reps`` times on the same
-operands, so after the first rep they come from L2; ``torch.matmul``
-(cuBLAS) at the same shape, ``reps`` calls replayed from a CUDA graph, is
-the yardstick.  It measures what a simple tensor-core kernel reaches at
-the flash kernels' shapes.
+Here ``mm(a, b, reps)`` launches a hand-written ``wgmma`` + TMA kernel
+(csrc/mm_wgmma.cuh) whose grid repeats the whole product ``reps`` times on
+the same operands, so after the first rep they come from L2;
+``torch.matmul`` (cuBLAS) at the same shape, ``reps`` calls replayed from
+a CUDA graph, is the yardstick.  It measures what the card's GEMM design
+reaches at the flash kernels' shapes.
 
     python -m mhada_tpu_torch.probes.mm_probe [--reps 400] [--iters 8]
+    python -m mhada_tpu_torch.probes.mm_probe --sweep   # card only
 
 prints one line per shape: us per product, useful TFLOP/s, cuBLAS's
-TFLOP/s and the max error against ``mm_plain``.
+TFLOP/s and the max error against ``mm_plain``.  ``--sweep`` times every
+block tile the kernel is built with at each shape instead (one JSON line
+each, two rounds), the measurement behind ``TILES``.
 """
 
 import argparse
+import json
 
 import numpy as np
 import torch
@@ -36,13 +40,41 @@ SHAPES = [
     (512, 64, 2048),     # Q K^T: contraction depth d = 64
     (512, 128, 2048),
 ]
-BM, BN, BK = 64, 64, 32   # the kernel's tile (m, n multiples of 64, k of 32)
+# m, n and k are multiples of these: the smallest block tile (BM x BN) and
+# the k of a pipeline stage (BK).
+BM, BN, BK = 64, 64, 64
+# The block tiles (BM, BN) the kernel is built with, and the one each shape
+# takes (timed with --sweep).
+BLOCK_TILES = [(bm, bn) for bm in (64, 128) for bn in (64, 128, 256)]
+TILES = {
+    (512, 2048, 512): (128, 256),
+    (512, 2048, 64): (128, 64),
+    (512, 2048, 128): (128, 128),
+    (64, 2048, 512): (64, 128),
+    (128, 2048, 512): (128, 128),
+    (256, 2048, 512): (128, 256),
+    (512, 64, 2048): (128, 64),
+    (512, 128, 2048): (128, 64),
+}
 
 
 def mm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The float32 product of bf16 a (m, k) and b (k, n), rounded to bf16,
     as ``_mm_kernel`` computes it."""
     return (a.float() @ b.float()).to(torch.bfloat16)
+
+
+def tile(m: int, k: int, n: int) -> tuple[int, int]:
+    """The block tile (BM, BN) of the kernel for a (m, k) times (k, n):
+    ``TILES``' for the probe's shapes, else BM = 128 where m allows it and
+    BN = 128 where n does (else 64).  Raises ValueError on a shape the
+    kernel does not take."""
+    if min(m, k, n) < 1 or m % BM or n % BN or k % BK:
+        raise ValueError(f"mm: the kernel takes m, n and k multiples of "
+                         f"{BM}, {BN} and {BK}; got ({m}, {k}, {n})")
+    if (m, k, n) in TILES:
+        return TILES[(m, k, n)]
+    return (128 if m % 128 == 0 else 64, 128 if n % 128 == 0 else 64)
 
 
 def mm(a: torch.Tensor, b: torch.Tensor, reps: int = 1,
@@ -57,15 +89,21 @@ def mm(a: torch.Tensor, b: torch.Tensor, reps: int = 1,
     (m, k), n = a.shape, b.shape[1]
     if a.dtype != torch.bfloat16:
         raise TypeError(f"mm: the kernel takes bfloat16, got {a.dtype}")
-    if m % BM or n % BN or k % BK or not 1 <= reps <= 65535:
-        raise ValueError(f"mm: the kernel takes m, n multiples of {BM}, k "
-                         f"of {BK} and 1 <= reps <= 65535; got ({m}, {k}, "
-                         f"{n}), reps {reps}")
+    if not 1 <= reps <= 65535:
+        raise ValueError(f"mm: the kernel takes 1 <= reps <= 65535, got "
+                         f"{reps}")
+    return _launch(a, b, reps, tile(m, k, n))
+
+
+def _launch(a, b, reps, block_tile) -> torch.Tensor:
+    """One launch of the kernel at ``block_tile`` (BM, BN)."""
     _build.check_cuda_inputs("mm", a, b)
     if a.data_ptr() % 16 or b.data_ptr() % 16:
         raise ValueError("mm: a and b must be 16-byte aligned")
+    (m, k), n = a.shape, b.shape[1]
     out = a.new_empty((m, n))
-    _build.launch("mhada_mm_probe", a.device, a, b, out, m, k, n, reps)
+    _build.launch("mhada_mm_probe", a.device, a, b, out, m, k, n, reps,
+                  *block_tile)
     return out
 
 
@@ -124,15 +162,49 @@ def bench_shape(m, k, n, reps, iters, device) -> dict:
                 max_abs_err=err)
 
 
+def sweep(reps, iters, device) -> None:
+    """Every block tile of BLOCK_TILES that divides each shape, timed in
+    two rounds (in order, then reversed), one JSON line each."""
+    for m, k, n in SHAPES:
+        a, b = operands(m, k, n, device)
+        ref = mm_plain(a, b).float()
+        fits = [t for t in BLOCK_TILES if m % t[0] == 0 and n % t[1] == 0]
+        rows = {}
+        for t in fits:
+            err = (_launch(a, b, 1, t).float() - ref).abs().max().item()
+            rows[t] = dict(m=m, k=k, n=n, tile=list(t), taken=t == tile(
+                m, k, n), max_abs_err=err, us=[])
+        for order in (fits, fits[::-1]):
+            for t in order:
+                _launch(a, b, reps, t)   # warm-up
+
+                def loop(t=t):
+                    for _ in range(iters):
+                        _launch(a, b, reps, t)
+                rows[t]["us"].append(
+                    _elapsed_ms(device, loop) * 1e3 / (iters * reps))
+        for t in fits:
+            print(json.dumps(rows[t]), flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=400)
     ap.add_argument("--iters", type=int, default=8)
+    ap.add_argument("--sweep", action="store_true",
+                    help="time every block tile at each shape (card only)")
     ap.add_argument("--device", default="cuda",
                     help="the card unless 'cpu' (the plain product, host "
                          "clock)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    if args.sweep:
+        if device.type != "cuda":
+            raise RuntimeError("mm_probe --sweep times the kernel: it needs "
+                               "the card")
+        print(f"# {torch.cuda.get_device_name(device)}", flush=True)
+        sweep(args.reps, args.iters, device)
+        return
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu (plain product, host clock)"
     print(f"# {name}", flush=True)

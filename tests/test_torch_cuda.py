@@ -63,6 +63,7 @@ from mhada_tpu_torch.ops.mhada_train import mhada_train
 from mhada_tpu_torch.ops.instance_norm import instance_norm_stats
 from mhada_tpu_torch.ops.mhada_prologue import mhada_fused_prologue
 from mhada_tpu_torch.probes.mhada_pipe_probe import mhada_fused_prologue_pipe
+from mhada_tpu_torch.probes import mm_probe
 from mhada_tpu_torch.probes.mm_probe import mm, mm_plain
 
 # Six test workers share the CPU: cap torch's intra-op threads.
@@ -399,7 +400,7 @@ def test_decoder_mid_kernel(gen, dtype, shape):
            launches=3)
 
 
-@pytest.mark.parametrize("m,k,n", [(64, 32, 64), (128, 2048, 192)])
+@pytest.mark.parametrize("m,k,n", [(64, 64, 64), (128, 2048, 192)])
 def test_mm_probe_kernel(gen, m, k, n):
     a = _rnd(gen, torch.bfloat16, m, k, scale=0.1).to(torch.bfloat16)
     b = _rnd(gen, torch.bfloat16, k, n, scale=0.1).to(torch.bfloat16)
@@ -411,6 +412,36 @@ def test_mm_probe_kernel(gen, m, k, n):
     # both round one float32 sum to bf16: at most one bf16 step apart
     assert ((got - ref).abs() <= ref.abs() * 2 ** -7
             + 1e-3 * ref.abs().max()).all()
+
+
+@pytest.mark.parametrize("block_tile", mm_probe.BLOCK_TILES)
+def test_mm_probe_block_tiles(gen, block_tile):
+    """Every block tile P1's kernel is built with, at two blocks a side
+    and three k stages, within one bf16 step of the plain product."""
+    bm, bn = block_tile
+    a = _rnd(gen, torch.bfloat16, 2 * bm, 192, scale=0.1).to(torch.bfloat16)
+    b = _rnd(gen, torch.bfloat16, 192, 2 * bn, scale=0.1).to(torch.bfloat16)
+    got = mm_probe._launch(a, b, 2, block_tile).float()
+    ref = mm_plain(a, b).float()
+    torch.cuda.synchronize()
+    assert ((got - ref).abs() <= ref.abs() * 2 ** -7
+            + 1e-3 * ref.abs().max()).all()
+
+
+def test_f32_mid_rejects_unaligned(gen):
+    """K14's float32 conv copies 16 bytes of weights at a time and stores 16
+    bytes of y: a float32 x one element into its buffer raises in the
+    wrapper before any launch; aligned, it launches three times."""
+    buf = torch.zeros(4 * 4 * 128 + 1, device="cuda")
+    w, b = torch.zeros(128, 128, 3, 3, device="cuda"), torch.zeros(
+        128, device="cuda")
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mid3_fused(buf[1:].view(1, 4, 4, 128), w, b, w, b, w, b)
+    assert _build.LAUNCHES == before
+    mid3_fused(buf[:-1].view(1, 4, 4, 128), w, b, w, b, w, b)
+    assert _build.LAUNCHES["mhada_decoder_mid_conv"] == before[
+        "mhada_decoder_mid_conv"] + 3
 
 
 @pytest.mark.parametrize("entry", ["mhada_mhada_fwd", "mhada_mhada_prologue",

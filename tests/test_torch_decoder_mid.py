@@ -1,6 +1,7 @@
 """K14's plain version against the JAX package's ``mid3_fused`` (interpret
-mode), CPU, at the cases of tests/test_decoder_mid.py; a model of the bf16
-kernel's implicit GEMM (csrc/decoder_mid_mma.cuh) on the weights as the
+mode), CPU, at the cases of tests/test_decoder_mid.py; models of the bf16
+kernel's implicit GEMM (csrc/decoder_mid_mma.cuh) and of the float32
+kernel's direct conv (csrc/decoder_mid_f32.cuh) on the weights as the
 wrapper hands them, against the plain version; and the wrapper's
 guards."""
 
@@ -141,3 +142,56 @@ def test_mid3_implicit_gemm_matches_plain(c, shape, dtype):
         got = _implicit_gemm_stage(got, w, b)
     rel = ((got.float() - ref).abs().max() / ref.abs().max()).item()
     assert rel <= (1e-5 if dtype == "float32" else 1e-2), rel
+
+
+def _direct_conv_stage(x, w, bias, rows=8, cols=32, co_block=64, step=8):
+    """One stage as decoder_mid_f32.cuh computes it: per 8 x 32 output tile
+    and block of 64 output channels, the 10 x 34 window gathered by
+    reflected (then clamped) indices; input channels in steps of 8, each
+    step's 9 taps applied to the window's rows and 8-pixel runs shifted by
+    the tap, summed in float32; bias, ReLU; only in-image pixels
+    stored."""
+    bsz, h, wd, c = x.shape
+    y = torch.empty_like(x)
+    for oy0 in range(0, h, rows):
+        rr = [_reflect(oy0 - 1 + p, h) for p in range(rows + 2)]
+        for ox0 in range(0, wd, cols):
+            cc = [_reflect(ox0 - 1 + p, wd) for p in range(cols + 2)]
+            win = x[:, rr][:, :, cc]
+            vh, vw = min(rows, h - oy0), min(cols, wd - ox0)
+            for co0 in range(0, c, co_block):
+                cs = slice(co0, co0 + co_block)
+                acc = torch.zeros(bsz, rows, cols, co_block)
+                for ci0 in range(0, c, step):
+                    ks = slice(ci0, ci0 + step)
+                    for tap in range(9):
+                        dy, dx = tap // 3, tap % 3
+                        acc += (win[:, dy:dy + rows, dx:dx + cols, ks]
+                                @ w[dy, dx, ks, cs])
+                out = torch.relu(acc + bias[cs])
+                y[:, oy0:oy0 + vh, ox0:ox0 + vw, cs] = out[:, :vh, :vw]
+    return y
+
+
+@pytest.mark.parametrize("c,shape", [
+    (128, (2, 19, 37)),     # ragged tiles on both sides, two channel blocks
+    (256, (2, 19, 37)),     # four channel blocks, 32 steps
+    (256, (1, 16, 2)),      # two tile rows, a 2-wide image
+])
+def test_mid3_direct_conv_matches_plain(c, shape):
+    """The float32 kernel's indexing (reflected halo, 8-pixel runs and
+    their overlap, channel steps and blocks, ragged tiles, the wrapper's
+    HWIO layout) against mid3_fused_plain, three stages: max |d| / max
+    |plain| within 1e-5 (sums in another order)."""
+    rng = np.random.default_rng(73)
+    ws, bs = _params(rng, c)
+    x = torch.from_numpy(rng.standard_normal((*shape, c)).astype(np.float32))
+    args = [t for wb in zip(ws, bs) for t in (_oihw(wb[0]),
+                                              torch.from_numpy(wb[1]))]
+    ref = mid3_fused_plain(x, *args)
+    hwio, bias = kernel_params(args[::2], args[1::2], x.dtype)
+    got = x
+    for w, b in zip(hwio, bias):
+        got = _direct_conv_stage(got, w, b)
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    assert rel <= 1e-5, rel

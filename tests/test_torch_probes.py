@@ -1,13 +1,16 @@
 """The probes' plain versions against the JAX package's TPU probe kernels
 (interpret mode), CPU: P1's ``mm_plain`` against ``_mm_kernel`` through
 ``pl.pallas_call``, P2's plain version against ``_pipe_kernel`` through the
-probe's ``call_variant``; the probes' CLIs on the CPU and their guards;
+probe's ``call_variant``; a model of P1's wgmma + TMA schedule against
+``mm_plain`` and P1's tile contract; the probes' CLIs on the CPU and their
+guards;
 the cuts of K2's split probe, and the edits of P2's ablation probe, of
 the f32 attention geometry probe and of the f32 tail geometry probe,
 against the kernels' sources.
 The probe scripts are not a package, so they are imported by path."""
 
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -22,7 +25,7 @@ from mhada_tpu_torch.ops.instance_norm import instance_norm_stats
 from mhada_tpu_torch import _build
 from mhada_tpu_torch.probes import (f32_tile_geometry, ln_matmul_split,
                                     mhada_pipe_probe, mhada_wgmma_ablate,
-                                    mm_probe, tail_f32_geometry)
+                                    mm_probe, redesign_ab, tail_f32_geometry)
 
 # Six test workers share the CPU: cap torch's intra-op threads.
 torch.set_num_threads(2)
@@ -65,6 +68,97 @@ def test_mm_plain_matches_mm_kernel(m, k, n):
     np.testing.assert_allclose(got.float().numpy(), ref, atol=1e-3,
                                rtol=2 ** -8)
     assert torch.equal(mm_probe.mm(at, bt, reps=3), got)
+
+
+def _mm_schedule(a, b, block_tile):
+    """P1 as csrc/mm_wgmma.cuh computes it: per BM x BN block, k in stages
+    of 64, each four k16 products summed into float32 accumulators held in
+    the wgmma m64nN layout (element e of n8 chunk c of a thread: row 16
+    warp + lane / 4 + 8 (e / 2) of its warpgroup's 64, column 8 c + 2
+    (lane % 4) + e % 2), rounded once to bf16 and stored by the epilogue's
+    lane-pair exchange: 8 bytes a lane, the quad's 32 contiguous bytes.
+    Returns the output and how often each element was stored."""
+    (m, k), n = a.shape, b.shape[1]
+    bm, bn = block_tile
+    out = torch.zeros(m, n, dtype=torch.bfloat16)
+    stores = torch.zeros(m, n, dtype=torch.int32)
+    lane = torch.arange(32)
+    g, t = lane // 4, lane % 4
+    odd = (t % 2).bool()
+    for m0 in range(0, m, bm):
+        for n0 in range(0, n, bn):
+            acc = torch.zeros(bm, bn)
+            for k0 in range(0, k, mm_probe.BK):
+                for kk in range(k0, k0 + mm_probe.BK, 16):
+                    acc += a[m0:m0 + bm, kk:kk + 16].float() \
+                        @ b[kk:kk + 16, n0:n0 + bn].float()
+            acc = acc.to(torch.bfloat16)
+            for group in range(bm // 64):
+                for warp in range(4):
+                    row0 = 64 * group + 16 * warp + g
+                    for r in range(2):
+                        rows = row0 + 8 * r
+                        for c in range(0, bn // 8, 2):
+                            # each lane's pair (two bf16) of chunks c, c + 1
+                            lo = acc[rows[:, None], (8 * c + 2 * t)[:, None]
+                                     + torch.arange(2)]
+                            hi = acc[rows[:, None],
+                                     (8 * c + 8 + 2 * t)[:, None]
+                                     + torch.arange(2)]
+                            got = torch.where(odd[:, None], lo, hi)[lane ^ 1]
+                            col = torch.where(odd, 8 * c + 8 + 2 * (t - 1),
+                                              8 * c + 2 * t)
+                            val = torch.where(odd[:, None],
+                                              torch.cat([got, hi], 1),
+                                              torch.cat([lo, got], 1))
+                            for i in range(4):
+                                out[m0 + rows, n0 + col + i] = val[:, i]
+                                stores[m0 + rows, n0 + col + i] += 1
+    return out, stores
+
+
+@pytest.mark.parametrize("shape", mm_probe.SHAPES)
+def test_mm_schedule_matches_plain(shape):
+    """P1's schedule at each probe shape with the tile it takes, against
+    mm_plain: every element stored once, and equal up to one bf16 step
+    (both round one float32 sum, taken in another order, to bf16)."""
+    m, k, n = shape
+    a, b = mm_probe.operands(m, k, n, "cpu", seed=83)
+    got, stores = _mm_schedule(a, b, mm_probe.tile(m, k, n))
+    assert (stores == 1).all()
+    ref = mm_probe.mm_plain(a, b).float()
+    assert ((got.float() - ref).abs() <= ref.abs() * 2 ** -7
+            + 1e-3 * ref.abs().max()).all()
+
+
+def test_mm_tile_contract():
+    """Each probe shape takes a tile the kernel is built with (the C entry
+    point dispatches exactly BLOCK_TILES) that divides it; other shapes
+    take the rule's; shapes off the 64-multiples raise ValueError."""
+    built = re.findall(r"MHADA_MM_TILE\((\d+), (\d+)\)\n",
+                       (_build.CSRC / "mm_probe.cu").read_text())
+    assert sorted((int(x), int(y)) for x, y in built) == sorted(
+        mm_probe.BLOCK_TILES)
+    assert set(mm_probe.TILES) == set(mm_probe.SHAPES)
+    for (m, k, n), (bm, bn) in mm_probe.TILES.items():
+        assert (bm, bn) in mm_probe.BLOCK_TILES
+        assert m % bm == 0 and n % bn == 0 and k % mm_probe.BK == 0
+    assert mm_probe.tile(192, 64, 320) == (64, 64)
+    assert mm_probe.tile(256, 128, 384) == (128, 128)
+    for shape in [(64, 32, 64), (96, 64, 64), (64, 64, 96), (0, 64, 64)]:
+        with pytest.raises(ValueError, match="multiples"):
+            mm_probe.tile(*shape)
+
+
+def test_redesign_ab_needs_card(monkeypatch, capsys):
+    """The A/B probe's worker imports the checkout it is given (here this
+    one) and raises without a card; main needs --other."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs the card"):
+        redesign_ab.worker(str(redesign_ab.ROOT))
+    with pytest.raises(SystemExit):
+        redesign_ab.main([])
+    assert "--other" in capsys.readouterr().err
 
 
 def test_pipe_plain_matches_pipe_kernel():
@@ -121,6 +215,9 @@ def test_probe_guards(monkeypatch):
         mhada_pipe_probe.mhada_fused_prologue_pipe(
             x, x, torch.zeros(1, 4, 128), torch.zeros(2, 64, 64),
             torch.zeros(2, 64), x, x, backend="kernel")
+    # the tile sweep times the kernel: not on the CPU
+    with pytest.raises(RuntimeError, match="needs the card"):
+        mm_probe.main(["--sweep", "--device", "cpu"])
     # without a card the CLIs raise and name the way to the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for main in (mm_probe.main, mhada_pipe_probe.main):

@@ -1,10 +1,11 @@
 """chip_smoke.py's phase 2 ("tensor cores") checks the SASS of the kernels
 it lists: every ``__global__`` kernel of the tensor-core headers
-(csrc/*_mma.cuh, and csrc/mhada_wgmma.cuh for wgmma + TMA) must be in
+(csrc/*_mma.cuh, and csrc/*wgmma*.cuh for wgmma + TMA) must be in
 MMA_KERNELS or WGMMA_KERNELS, and every one of the float32 MHAda tile
 (csrc/mhada_f32_tile.cuh), of the float32 flash backward
-(csrc/flash_bwd_f32.cuh) and of the float32 tail (csrc/decoder_tail_f32.cuh)
-in F32_KERNELS (no tensor-core instruction, no
+(csrc/flash_bwd_f32.cuh), of the float32 tail (csrc/decoder_tail_f32.cuh)
+and of K14's float32 conv (csrc/decoder_mid_f32.cuh) in F32_KERNELS (no
+tensor-core instruction, no
 spills), so that no kernel skips the check; each listed kernel exists, and
 each instantiation required of a path is listed.
 CPU: reads the sources and chip_smoke.py's constants (it imports torch only
@@ -46,6 +47,8 @@ def _kernels(pattern):
                                             ("flash_bwd_f32.cuh",
                                              "F32_KERNELS"),
                                             ("decoder_tail_f32.cuh",
+                                             "F32_KERNELS"),
+                                            ("decoder_mid_f32.cuh",
                                              "F32_KERNELS")])
 def test_tensor_core_kernels_are_listed(pattern, listed):
     kernels = _kernels(pattern)
