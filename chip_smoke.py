@@ -7,19 +7,20 @@
    whether cv2 imports (reported, never failed);
 2. build: compile mhada_tpu_torch/csrc/*.cu with nvcc (one per source, in
    parallel); the bf16 tensor-core kernels of K1, K6, K3, K4 and K7
-   (forward, dQ and dK/dV), of the decoder tail (K5, K8), of K2 and of
-   K14 must each hold HMMA.16816.F32.BF16 in their SASS (cuobjdump) and
+   (forward, dQ and dK/dV), of the decoder tail (K5, K8), of K2, of K14
+   and of K13 must each hold HMMA.16816.F32.BF16 in their SASS (cuobjdump) and
    spill nothing (ptxas); the wgmma + TMA kernels, P2's bf16 kernel and
    every block tile of P1's, must hold HGMMA (wgmma) and UTMALDG (TMA
    loads) and spill nothing; every instantiation that a bf16 path
    launches must exist (K4's MHAda tile without prologue or
-   residuals, the tail with and without residuals, K2's, K14's), no bf16
+   residuals, the tail with and without residuals, K2's, K14's, K13's), no bf16
    instantiation of the CUDA-core kernels they replaced may exist (those
    of K1, K4, K5, K6, K7, K8 and K2), nor any instantiation of K14's old
    conv (conv3x3_relu_kernel, either dtype) or of P1's old wmma kernel
    (mm_probe_kernel), nor any instantiation of the old flash tile
    (flash_tile_kernel, the f32 forwards of K1, K4, K6 and K7 before the
-   float32 tile), nor a float32 instantiation of the old
+   float32 tile) or of K13's first kernel (decoder_c6_kernel, either
+   dtype), nor a float32 instantiation of the old
    flash backward (flash_bwd_dkv_kernel, flash_bwd_dq_kernel) or of the
    old fused tail (decoder_tail_kernel<bool>, K5's and K8's before the
    two-stage float32 tail); K2's float32 kernel, the float32 flash tile
@@ -30,15 +31,18 @@
    (csrc/flash_bwd_f32.cuh: the dK/dV and dQ kernels of K6 <false> and K7
    <true>) and the float32 tail (csrc/decoder_tail_f32.cuh: the up3
    kernel of K5 and K8, the upsample + c5 + c6 kernel <residuals> of K5
-   <false> and K8 <true>) and K14's float32 conv
-   (csrc/decoder_mid_f32.cuh), each instantiation present, must exist,
+   <false> and K8 <true>), K14's float32 conv
+   (csrc/decoder_mid_f32.cuh) and K13's (csrc/decoder_c6_f32.cuh), each
+   instantiation present, must exist,
    spill nothing and hold no HMMA or HGMMA of any kind (they compute in
    float32, no TF32);
 3. gates: each hand-written kernel against its plain PyTorch version on the
    card, in float32 and bfloat16, at the 512^2 path's shapes and at the
    1024^2 shapes (K2 at N = 16384; K3 at M = 16384; K5 from 512^2 to
    1024^2; K1 at L = 16384 for the TPU's K9; K4 at N = M = 16384 for the
-   TPU's K10); K13 (c6) at 512^2 with B = 1 and 8 and at 1024^2; K14 (c1
+   TPU's K10); K13 (c6) at 512^2 with B = 1 and 8, at 1024^2, at the
+   video CLI's 256 x 512 with B = 8 and at 264 x 488 (sides that are not
+   multiples of its 16 x 64 strip), also as the kernel alone; K14 (c1
    -> c3) at 128^2 with B = 1 and 8 and at 256^2; P2 at B = 8, N = M =
    4096, also against K3 (float32 and bfloat16); P1 at its 8 shapes
    (bfloat16, each with its block tile), each with its time, the plain
@@ -69,11 +73,19 @@
    e. K14 on the 512^2 decoder's own activations (B = 1 and 8): up1's
       output through ``mid3_fused``, then up2, c4 and K5, the c3
       activation and the pixels against the plain decoder;
+   f. the video CLI's frame: 256 x 512 content against a 256^2 style
+      (``infer.video``'s defaults; K3 at N = 2048 against M = 1024), the
+      streaming path at B = 1 and 8, the style set-up counted apart;
+   g. the video CLI, ``infer.video.main`` at bf16 over a synthetic
+      16-frame 540 x 960 mp4v clip with these weights as a .pth triple,
+      --chunk 1 and 8: the frames, their JPEGs, a readable video.mp4, the
+      whole run's launches, the chunked frames within 1 uint8 level of
+      the unchunked, and the CLI's wall ms/frame (not gated);
 5. times: ms per frame of the kernel and plain paths, interleaved: the full
    path at 512^2; the streaming path at 512^2 with B = 1 and 8 (one B = 8
    batch of each tail held against the plain path first), the c6-tail
-   path timed in the same turns; the streaming path at 1024^2, B = 1,
-   bfloat16;
+   path timed in the same turns; the video CLI's 256 x 512 frame at B = 1
+   and 8; the streaming path at 1024^2, B = 1, bfloat16;
 6. training gates: the training kernels K6 (attention, forward and
    backward), K7 (MHAda, forward and backward) and K8 (the decoder tail
    writing its residuals) against their plain versions at the image
@@ -245,8 +257,11 @@ def ln_chain(x, lw, lb, pairs):
     return lambda: [F.linear(F.layer_norm(x, (c,), lw, lb, 1e-6), w, b)
                     for w, b in pairs]
 # gate -> (its row, kind of inputs, token count, batch); the first gate of
-# a row fills the row.  K13: the c5 side; K14: the up1 output's side; P1:
-# the index of the probe's shape (bfloat16 only); P2: tokens.
+# a row fills the row.  K13: the c5 side or (height, width) (256 x 512 is
+# the video CLI's frame, B = 8 its --chunk 8 batch; 264 x 488 sides the
+# model can produce that are not multiples of the kernel's 16 x 64 strip);
+# K14: the up1 output's side; P1: the index of the probe's shape (bfloat16
+# only); P2: tokens.
 GATES = [
     ("K1 L=4096", "K1 attention_tm", "attention", 4096, 1),
     ("K2 N=4096", "K2 ln_matmul", "ln_matmul", 4096, 1),
@@ -263,6 +278,8 @@ GATES = [
     ("K13 512^2", "K13 c6_transposed", "c6", 512, 1),
     ("K13 512^2 B=8", "K13 c6_transposed", "c6", 512, 8),
     ("K13 1024^2", "K13 c6_transposed", "c6", 1024, 1),
+    ("K13 256x512 B=8", "K13 c6_transposed", "c6", (256, 512), 8),
+    ("K13 264x488", "K13 c6_transposed", "c6", (264, 488), 1),
     ("K14 128^2", "K14 mid3_fused", "mid", 128, 1),
     ("K14 128^2 B=8", "K14 mid3_fused", "mid", 128, 8),
     ("K14 256^2", "K14 mid3_fused", "mid", 256, 1),
@@ -394,6 +411,9 @@ REL_BOUND = {"float32": 1e-4, "bfloat16": 3e-2}
 # and P's exponent as one FFMA; 2.6e-3 measured on an H100, K3 against
 # the plain version 5.1e-3.
 PIPE_K3_REL = {"float32": 1e-6, "bfloat16": 1e-2}
+# Phase 4g: the video CLI on a synthetic clip of SceneFlow's frame size,
+# at its default 256 x 512 content and 256^2 style, --chunk 1 and 8.
+CLI_FRAMES, CLI_CLIP_HW, CLI_HW = 16, (540, 960), (256, 512)
 # Main-path bound on max |pixel difference| (0-255) against the plain path.
 # float32: the repo's reference gate (scripts/reference_gate.py:63); 0.0016
 # measured on an H100.  bfloat16: pixels of 128-255 are stored with a
@@ -407,13 +427,14 @@ DTYPE_NAMES = ("float32", "bfloat16")
 # The bf16 mma.sync kernels of K1 and K6 (csrc/attention_mma.cuh,
 # csrc/attention_bwd_mma.cuh), K3, K4 and K7 (csrc/mhada_mma.cuh: K3, K4
 # and K7's forward; csrc/mhada_bwd_mma.cuh), K5 and K8
-# (csrc/decoder_tail_mma.cuh), K2 (csrc/ln_matmul_mma.cuh) and K14
-# (csrc/decoder_mid_mma.cuh) and the instruction each must contain.
+# (csrc/decoder_tail_mma.cuh), K2 (csrc/ln_matmul_mma.cuh), K14
+# (csrc/decoder_mid_mma.cuh) and K13 (csrc/decoder_c6_mma.cuh) and the
+# instruction each must contain.
 MMA_KERNELS = ("attention_mma_fwd_kernel", "attention_mma_dkv_kernel",
                "attention_mma_dq_kernel", "mhada_mma_fwd_kernel",
                "mhada_mma_dkv_kernel", "mhada_mma_dq_kernel",
                "decoder_tail_mma_kernel", "ln_matmul_mma_kernel",
-               "decoder_mid_mma_kernel")
+               "decoder_mid_mma_kernel", "decoder_c6_mma_kernel")
 HMMA = "HMMA.16816.F32.BF16"
 # The float32 tail's two kernels (csrc/decoder_tail_f32.cuh), timed apart
 # by name in the K5 and K8 gates.
@@ -425,10 +446,11 @@ WGMMA_KERNELS = ("mhada_wgmma_kernel", "mm_wgmma_kernel")
 WGMMA_SASS = ("HGMMA", "UTMALDG")
 # Instantiations (mangled-name parts) that the bf16 paths launch: K4's
 # MHAda tile (neither prologue nor residuals), K5's and K8's tail, K2,
-# K14.
+# K14, K13.
 MMA_REQUIRED = ("mhada_mma_fwd_kernelILb0ELb0E",
                 "decoder_tail_mma_kernelILb0E", "decoder_tail_mma_kernelILb1E",
-                "ln_matmul_mma_kernel", "decoder_mid_mma_kernel")
+                "ln_matmul_mma_kernel", "decoder_mid_mma_kernel",
+                "decoder_c6_mma_kernel")
 # bf16 instantiations of the CUDA-core kernels that no path may reach any
 # more (mangled names): the attention and MHAda tile (K1, K4, K6's and
 # K7's forwards) and backward (K6, K7), the decoder tail (K5, K8), K2's
@@ -438,8 +460,10 @@ MMA_REQUIRED = ("mhada_mma_fwd_kernelILb0ELb0E",
 # csrc/mm_wgmma.cuh), every instantiation of the old flash tile
 # (flash_tile_kernel: K1's, K4's, K6's and K7's float32 forwards before the
 # float32 flash tile), the old float32 flash backward's two kernels (K6's
-# and K7's) and the old fused float32 tail (decoder_tail_kernel<bool>: K5's
-# and K8's before csrc/decoder_tail_f32.cuh).
+# and K7's), the old fused float32 tail (decoder_tail_kernel<bool>: K5's
+# and K8's before csrc/decoder_tail_f32.cuh) and K13's first kernel at
+# either dtype (decoder_c6_kernel<T>, before csrc/decoder_c6_f32.cuh and
+# csrc/decoder_c6_mma.cuh).
 OLD_BF16 = (r"flash_tile_kernel"
             r"|flash_bwd_(dkv|dq)_kernelI13__nv_bfloat16"
             r"|decoder_tail_kernelI13__nv_bfloat16"
@@ -447,7 +471,8 @@ OLD_BF16 = (r"flash_tile_kernel"
             r"|conv3x3_relu_kernelI"
             r"|mm_probe_kernel"
             r"|flash_bwd_(dkv|dq)_kernelIf"
-            r"|decoder_tail_kernelILb")
+            r"|decoder_tail_kernelILb"
+            r"|decoder_c6_kernel")
 # float32 kernels that compute in float32: they must exist, spill nothing
 # and hold no tensor-core instruction of any kind (HMMA, HGMMA: no TF32).
 # K2's float32 build, the float32 flash tile (csrc/mhada_f32_tile.cuh: the
@@ -455,17 +480,20 @@ OLD_BF16 = (r"flash_tile_kernel"
 # and K6's forward), the float32 flash backward (csrc/flash_bwd_f32.cuh:
 # K6's and K7's dK/dV and dQ kernels) and the float32 tail
 # (csrc/decoder_tail_f32.cuh: K5's and K8's up3 kernel and upsample + c5 +
-# c6 kernel) and K14's conv (csrc/decoder_mid_f32.cuh).
+# c6 kernel), K14's conv (csrc/decoder_mid_f32.cuh) and K13's
+# (csrc/decoder_c6_f32.cuh).
 F32_KERNELS = ("ln_matmul_f32_kernel", "mhada_f32_kernel",
                "attention_f32_kernel", "flash_bwd_f32_dkv_kernel",
                "flash_bwd_f32_dq_kernel", "tail_up3_f32_kernel",
-               "tail_c5c6_f32_kernel", "decoder_mid_f32_kernel")
+               "tail_c5c6_f32_kernel", "decoder_mid_f32_kernel",
+               "decoder_c6_f32_kernel")
 # The float32 instantiations that the paths and P2 launch (mangled): the
 # MHAda kernel's <prologue, ring stages, residuals>, K4 <false, 2, false>,
 # K3 <true, 2, false>, P2 <true, 1, false>, K7's forward <false, 2, true>;
 # the attention kernel's <lse>, K1 <false>, K6's forward <true>; the
 # backward's <mhada>, K6 <false>, K7 <true>; the tail's up3 kernel (K5 and
-# K8) and its c5 + c6 kernel <residuals>, K5 <false>, K8 <true>; K14's.
+# K8) and its c5 + c6 kernel <residuals>, K5 <false>, K8 <true>; K14's;
+# K13's.
 F32_REQUIRED = ("mhada_f32_kernelILb0ELi2ELb0E",
                 "mhada_f32_kernelILb1ELi2ELb0E",
                 "mhada_f32_kernelILb1ELi1ELb0E",
@@ -476,7 +504,7 @@ F32_REQUIRED = ("mhada_f32_kernelILb0ELi2ELb0E",
                 "flash_bwd_f32_dq_kernelILb0E",
                 "flash_bwd_f32_dq_kernelILb1E", "tail_up3_f32_kernel",
                 "tail_c5c6_f32_kernelILb0E", "tail_c5c6_f32_kernelILb1E",
-                "decoder_mid_f32_kernel")
+                "decoder_mid_f32_kernel", "decoder_c6_f32_kernel")
 
 
 def all_gates():
@@ -845,15 +873,23 @@ def gate_inputs(kind, n, dtype, g, b=1):
         run.stages = TAIL_STAGES   # timed apart at float32
         return run, flops, nbytes, None
     if kind == "c6":
-        y = rnd(b, n, n, 64).abs()   # c5 is post-ReLU
+        hh, ww = (n, n) if isinstance(n, int) else n
+        y = rnd(b, hh, ww, 64).abs()   # c5 is post-ReLU
         w6, b6 = conv(3, 64)
         # the yardstick: one cuDNN conv on the reflect-padded c5 (padded
         # outside the timing), NCHW view of the NHWC tensor, TF32 off
         yp = F.pad(y.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
         w6t, b6t = w6.to(dtype), b6.to(dtype)
-        return (lambda be: decoder_c6.c6_conv(y, w6, b6, backend=be),
-                2 * 9 * 64 * 3 * b * n * n,
-                b * n * n * (64 + 3) * es + 9 * 64 * 3 * es + 3 * 4,
+
+        def run(be):
+            return decoder_c6.c6_conv(y, w6, b6, backend=be)
+
+        # timed beside the wrapper (weights converted per call): the launch
+        # on weights converted once
+        kparams = decoder_c6.kernel_params(w6, b6, dtype)
+        run.kernel_alone = lambda: decoder_c6._kernel(y, *kparams)
+        return (run, 2 * 9 * 64 * 3 * b * hh * ww,
+                b * hh * ww * (64 + 3) * es + 9 * 64 * 3 * es + 3 * 4,
                 ("torch.nn.functional.conv2d on the reflect-padded c5, TF32 "
                  "off", lambda: F.conv2d(yp, w6t, b6t)))
     if kind == "mid":
@@ -914,7 +950,8 @@ def run_gate(gate, kind, n, b, dname, card):
     torch.cuda.reset_peak_memory_stats()
     run, flops, nbytes, lib = gate_inputs(kind, n, dtype, g, b)
     lib_name, lib = lib or (NO_LIB, None)
-    reps = (3, 10) if n <= 4096 else (1, 3)
+    reps = (3, 10) if (n if isinstance(n, int) else max(n)) <= 4096 \
+        else (1, 3)
     with torch.inference_mode():
         got = run("kernel").float()
         ref = run("plain").float()
@@ -928,7 +965,7 @@ def run_gate(gate, kind, n, b, dname, card):
         ms = cuda_ms(lambda: run("kernel"), *reps)
         plain_ms = cuda_ms(lambda: run("plain"), *reps)
         library_ms = cuda_ms(lib, *reps) if lib else None
-        alone = getattr(run, "kernel_alone", None)   # K2, K14: without casts
+        alone = getattr(run, "kernel_alone", None)   # K2, K13, K14: no casts
         kernel_ms = cuda_ms(alone, *reps) if alone else None
         stages = getattr(run, "stages", None) if dname == "float32" else None
         split = split_ms(lambda: run("kernel"), stages) if stages else None
@@ -1651,6 +1688,113 @@ def synthetic_sceneflow(root, rng, frames=5, styles=4):
                                                   f"{i}.png"))
 
 
+def video_cli_phase(models, card) -> tuple[bool, dict]:
+    """Phase 4g: ``infer.video.main`` at bf16 over a synthetic CLI_FRAMES
+    clip (mp4v, CLI_CLIP_HW) with ``models``' weights written as a .pth
+    triple, at --chunk 1 and --chunk 8 -> (ok, per chunk: wall ms/frame and
+    launches).  Each run must write every frame as a JPEG and a readable
+    video.mp4, launch exactly the style set-up plus one frame's kernels per
+    dispatch, and give frames that are not all 0; the chunked frames must
+    lie within 1 uint8 level of the unchunked ones (cuDNN may choose other
+    algorithms at B = 8).  The frames are read where the CLI writes them,
+    by wrapping its ``_flush``."""
+    import cv2
+    import torch
+
+    from mhada_tpu_torch import _build
+    from mhada_tpu_torch.infer import video
+    from mhada_tpu_torch.train.checkpoint import save_weights
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_video_")
+    ok, rec, frames = True, {}, {}
+    try:
+        rng = np.random.default_rng(SEED + 2)
+        clip = os.path.join(tmp, "clip.mp4")
+        h, w = CLI_CLIP_HW
+        yy, xx = np.mgrid[0:h, 0:w]
+        vw = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"mp4v"), 30,
+                             (w, h))
+        for i in range(CLI_FRAMES):   # bands drifting 12 pixels a frame
+            f = np.stack([127 + 100 * np.sin((xx + 12 * i) / (40 + 9 * c)
+                                             + yy / 57) for c in range(3)],
+                         -1) + rng.normal(0, 12, (h, w, 3))
+            vw.write(np.clip(f, 0, 255).astype(np.uint8))
+        vw.release()
+        style = os.path.join(tmp, "style.png")
+        cv2.imwrite(style, rng.integers(0, 256, (256, 256, 3), np.uint8))
+        wdir = os.path.join(tmp, "weights")
+        save_weights(wdir, models)
+        flush = video._flush
+        for chunk in (1, 8):
+            out = os.path.join(tmp, f"out{chunk}")
+            got, log = [], io.StringIO()
+            video._flush = lambda p, *a, **k: (
+                got.append((p[0], np.array(p[1]))), flush(p, *a, **k))[1]
+            try:
+                _build.reset_launches()
+                with contextlib.redirect_stdout(log):
+                    video.main([
+                        "--video", clip, "--style", style, "--out", out,
+                        "--dtype", "bfloat16", "--chunk", str(chunk),
+                        *(f for n in ("ada", "vitc", "vits") for f in (
+                            f"--{n}", os.path.join(wdir, {
+                                "ada": "AdaFormer", "vitc": "ViT_C",
+                                "vits": "ViT_S"}[n] + ".pth")))])
+                torch.cuda.synchronize()
+                counts = dict(_build.LAUNCHES)
+            except Exception as e:
+                ok = phase(f"video CLI --chunk {chunk}", False,
+                           f"{type(e).__name__}: {e}") and ok
+                continue
+            finally:
+                video._flush = flush
+            calls = CLI_FRAMES // chunk
+            want = {k: STYLE[k] + calls * FRAME[k] for k in FRAME}
+            got.sort(key=lambda t: t[0])
+            frames[chunk] = np.stack([f for _, f in got])
+            files = sorted(os.listdir(out))
+            jpegs = [f"frame_{i:05d}.jpg" for i in range(CLI_FRAMES)]
+            cap = cv2.VideoCapture(os.path.join(out, "video.mp4"))
+            n_mp4, shape = 0, None
+            while True:
+                more, fr = cap.read()
+                if not more:
+                    break
+                n_mp4, shape = n_mp4 + 1, fr.shape
+            cap.release()
+            m = re.search(r"processed (\d+) frames .* in ([\d.]+) s",
+                          log.getvalue())
+            ms = 1e3 * float(m[2]) / CLI_FRAMES if m else None
+            a = frames[chunk]
+            good = (m is not None and int(m[1]) == CLI_FRAMES
+                    and [i for i, _ in got] == list(range(CLI_FRAMES))
+                    and a.shape == (CLI_FRAMES, *CLI_HW, 3)
+                    and files == jpegs + ["video.mp4"]
+                    and n_mp4 == CLI_FRAMES and shape == (*CLI_HW, 3)
+                    and counts == want and a.max() > 0)
+            rec[f"chunk{chunk}"] = dict(ms_per_frame=ms, launches=counts)
+            ok = phase(f"video CLI --chunk {chunk}", good,
+                       f"{m[0] if m else 'no summary line'}; {len(got)} "
+                       f"frames {a.shape}, pixels [{a.min()}, {a.max()}] "
+                       f"mean {a.mean():.2f}; files {len(files)} (want "
+                       f"{CLI_FRAMES} JPEGs and video.mp4); video.mp4 "
+                       f"{n_mp4} frames of {shape}; launches {counts} (want "
+                       f"{want})") and ok
+        if len(frames) == 2:
+            d = np.abs(frames[8].astype(int) - frames[1].astype(int))
+            ok = phase("video CLI --chunk 8 vs --chunk 1", d.max() <= 1,
+                       f"max |d| {d.max()} uint8 levels (bound 1), "
+                       f"{100 * (d > 0).mean():.3f} % of values differ"
+                       ) and ok
+        phase("video CLI times", True, "wall ms/frame of the stream "
+              "(style set-up, decode, stylization, JPEG writes; not gated): "
+              + ", ".join(f"{k} {r['ms_per_frame']}" for k, r in
+                          rec.items()) + f" ({card})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ok, rec
+
+
 def test_images(size, rng):
     """A smooth content picture with noise and a noise style, HWC 0-255."""
     yy, xx = np.mgrid[0:size, 0:size] / size
@@ -1948,6 +2092,43 @@ def main() -> int:
             ok = mid_on_decoder(frames, dtype, dname) and ok
     torch.cuda.empty_cache()
 
+    # f. the video CLI's frame (infer/video.py's defaults): 256 x 512 crops
+    #    of the 512^2 content, 32 rows apart, against a 256^2 style, B = 1
+    #    and 8 (--chunk 8), the style set-up counted apart; each against
+    #    the plain path
+    frames_cli = torch.stack([c_t[0, 32 * i:32 * i + CLI_HW[0]]
+                              for i in range(8)]).contiguous()
+    style_cli = to_dev(test_images(256, rng)[1])
+    for dname in DTYPE_NAMES:
+        dtype = getattr(torch, dname)
+        try:
+            kv, setup = counted(lambda: style_kv(kmodels, style_cli, dtype))
+        except Exception as e:
+            ok = phase(f"256x512 style setup {dname}", False,
+                       f"{type(e).__name__}: {e}")
+            continue
+        ok = phase(f"256x512 style setup {dname}", setup == STYLE,
+                   f"launches {setup} (want {STYLE})") and ok
+        pkv = style_kv(pmodels, style_cli, dtype)
+        for b in (1, 8):
+            kvb, pkvb = ([(k.repeat(b, 1, 1), v.repeat(b, 1, 1))
+                          for k, v in x] for x in (kv, pkv))
+            good, _, counts = drive(
+                f"streaming path 256x512 B={b} {dname}",
+                (b, *CLI_HW, 3), dname, FRAME,
+                lambda: make_stylize_with_kv_fn(kmodels, dtype)(
+                    frames_cli[:b], kvb),
+                lambda: make_stylize_with_kv_fn(pmodels, dtype)(
+                    frames_cli[:b], pkvb))
+            ok = good and ok
+            launches.setdefault(f"stream256x512_b{b}", counts)
+        del kv, pkv, kvb, pkvb
+
+    # g. the video CLI end to end at bf16, --chunk 1 and 8
+    good, video_cli = video_cli_phase(kmodels, card)
+    ok = good and ok
+    torch.cuda.empty_cache()
+
     # ---- 5. times per frame, the paths interleaved
     frame_ms = {}
 
@@ -1990,14 +2171,24 @@ def main() -> int:
         interleaved("stream512_b8", dname,
                     {p: (lambda p=p: fns[p](frames8, kv8[p])) for p in paths},
                     8)
-        del kv, kv8, fns
+        # the video CLI's frame (4f), kernel and plain paths
+        kvc = {p: style_kv(paths[p], style_cli, dtype)
+               for p in ("plain", "kernel")}
+        for b in (1, 8):
+            kvb = {p: [(k.repeat(b, 1, 1), v.repeat(b, 1, 1)) for k, v in x]
+                   for p, x in kvc.items()}
+            interleaved(f"stream256x512_b{b}", dname,
+                        {p: (lambda p=p: fns[p](frames_cli[:b], kvb[p]))
+                         for p in kvc}, b)
+        del kv, kv8, fns, kvc, kvb
     bf = torch.bfloat16
     kv_k, kv_p = (style_kv(m, s1k, bf) for m in (kmodels, pmodels))
     sk, sp = (make_stylize_with_kv_fn(m, bf) for m in (kmodels, pmodels))
     interleaved("stream1024_b1", "bfloat16",
                 {"plain": lambda: sp(c1k, kv_p),
                  "kernel": lambda: sk(c1k, kv_k)}, 1, reps=(1, 3))
-    del kmodels, pmodels, cmodels, paths, kv_k, kv_p, sk, sp, frames8
+    del kmodels, pmodels, cmodels, paths, kv_k, kv_p, sk, sp, frames8, \
+        frames_cli
     torch.cuda.empty_cache()
 
     # ---- 6. training gates at the training steps' shapes
@@ -2304,6 +2495,7 @@ def main() -> int:
           f"{video_s:.1f} s of it the video gates and step (phases 6, 7e)")
     print(json.dumps({"kernels": summary, "extra_gates": extra,
                       "launches": launches, "frame_ms": frame_ms,
+                      "video_cli": video_cli,
                       "train": train_extra, "step_ms": step_ms,
                       "step_peak_gb": step_peak_gb,
                       "card": card, "seconds": seconds}), flush=True)

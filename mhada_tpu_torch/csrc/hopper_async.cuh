@@ -1,8 +1,9 @@
 // The port's Hopper building blocks for warp-specialised kernels: mbarrier
 // waits and arrivals, TMA tensor loads completing on an mbarrier, named
 // barriers, the wgmma fence / commit / wait, the wgmma shared-memory
-// descriptor of a tile in the 128-byte swizzle, and the host's encoder of
-// tensor maps.  Used by P2 (mhada_wgmma.cuh) and P1 (mm_wgmma.cuh).
+// descriptor of a tile in the 128-byte swizzle, the host's encoder of
+// tensor maps, and 1-D bulk copies.  Used by P2 (mhada_wgmma.cuh), P1
+// (mm_wgmma.cuh) and K13 (decoder_c6_f32.cuh, decoder_c6_mma.cuh).
 #pragma once
 
 #include <cuda.h>
@@ -61,6 +62,17 @@ __device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar, int parity) {
     if (done) return;
     if (polls == (1u << 30)) __trap();
   }
+}
+// `bytes` contiguous bytes of device memory into shared memory by the TMA
+// unit, completing on `bar` (dst and src 16-byte aligned, bytes a multiple
+// of 16): the issuing thread does not wait for it.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 // One box of a 3-D tensor map into shared memory, completing on `bar`.
 __device__ __forceinline__ void tma_load_3d(uint32_t dst,

@@ -1,5 +1,5 @@
-"""Image stylization (mhada_tpu/infer/image.py:83-220, 286-337; reference
-infer_image.py:47-94).
+"""Image stylization (mhada_tpu/infer/image.py:83-337; reference
+infer_image.py:47-184).
 
 - ``make_stylize_fn``: the full path, style re-encoded on every call;
 - the streaming path: ``make_encode_style_fn`` and ``precompute_style_kv``
@@ -11,9 +11,10 @@ Weights live in the modules, so each function takes the models dict from
 ``models.build_models``; the dict also carries the decoder's tail, so
 ``build_models(..., decoder_tail="c6")`` gives every function here the c6
 tail (K13) with no change to it.  The CLI runs vit_c / vit_s / AdaFormer on one
-content and style pair, clamps to [0, 255] and saves a PNG.  Weights: a
-reference ``.pth`` triple (``--ada/--vitc/--vits``), or random weights
-from seed 0 (smoke mode).
+content and style pair, clamps to [0, 255] and saves a PNG; ``--heatmaps
+DIR`` also saves the features' heatmaps (``make_diagnostic_fn``,
+``save_feature_heatmaps``).  Weights: a reference ``.pth`` triple
+(``--ada/--vitc/--vits``), or random weights from seed 0 (smoke mode).
 """
 
 import argparse
@@ -125,6 +126,64 @@ def stylize_image(models: dict, content: np.ndarray, style: np.ndarray,
     return out[0].cpu().numpy()
 
 
+def save_feature_heatmaps(fc, fs, fcs, out_dir: str,
+                          num_heads: int = 8) -> None:
+    """Diagnostic heatmaps (reference infer_image.py:97-184): each layer's
+    channel-mean feature map of fc and fs (``attention_{c,s}_{i}.png``) and
+    the per-head channel-group means of fcs, fc[-1] and fs[-1]
+    (``{fcs,fc,fs}_head_{h}.png``) of the first image.  Features are
+    (B, H, W, C) tensors or arrays."""
+    import os
+
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    os.makedirs(out_dir, exist_ok=True)
+
+    def first(feat):
+        a = feat[0]
+        return (a.float().cpu().numpy() if isinstance(a, torch.Tensor)
+                else np.asarray(a, np.float32))
+
+    def heat(arr2d, title, path):
+        plt.figure(figsize=(8, 8))
+        plt.imshow(arr2d, cmap="viridis")
+        plt.colorbar()
+        plt.title(title)
+        plt.xlabel("Token")
+        plt.ylabel("Token")
+        plt.savefig(path)
+        plt.close()
+
+    for tag, feats in (("c", fc), ("s", fs)):
+        for idx, feat in enumerate(feats):
+            heat(first(feat).mean(-1), f"Feature Maps {idx + 1}",
+                 os.path.join(out_dir, f"attention_{tag}_{idx}.png"))
+    for tag, feat in (("fcs", fcs), ("fc", fc[-1]), ("fs", fs[-1])):
+        a = first(feat)
+        hd = a.shape[-1] // num_heads
+        for h in range(num_heads):
+            heat(a[..., h * hd:(h + 1) * hd].mean(-1), f"{tag} - Head {h + 1}",
+                 os.path.join(out_dir, f"{tag}_head_{h + 1}.png"))
+
+
+def make_diagnostic_fn(models: dict, dtype: torch.dtype = torch.float32):
+    """``fn(content, style) -> (fc, fs, fcs, cs)`` for analysis dumps: both
+    encoders' per-layer features, the AdaFormer's output map before the
+    decoder and the picture, float32 clamped to [0, 255]."""
+
+    @torch.inference_mode()
+    def fn(content: torch.Tensor, style: torch.Tensor):
+        fc = models["vit_c"](content.to(dtype))
+        fs = models["vit_s"](style.to(dtype))
+        fcs, cs = models["adaFormer"](fc, fs)
+        return fc, fs, fcs, cs.float().clamp(0, 255)
+
+    return fn
+
+
 def add_model_args(ap: argparse.ArgumentParser) -> None:
     """Weights, dtype and device: the options every inference CLI shares."""
     ap.add_argument("--ada", help="reference .pth AdaFormer checkpoint")
@@ -170,13 +229,25 @@ def main(argv=None):
     ap.add_argument("--style", required=True)
     ap.add_argument("--out", default="./results/stylized.png")
     ap.add_argument("--size", type=int, nargs=2, default=(512, 512))
+    ap.add_argument("--heatmaps", metavar="DIR",
+                    help="save feature/head heatmaps (infer_image.py:97-184)")
     add_model_args(ap)
     args = ap.parse_args(argv)
 
     models = models_from_args(ap, args)
     c = load_image(args.content, tuple(args.size))
     s = load_image(args.style, tuple(args.size))
-    out = stylize_image(models, c, s, DTYPES[args.dtype])
+    dtype = DTYPES[args.dtype]
+    if args.heatmaps:
+        device = next(models["vit_c"].parameters()).device
+        fc, fs, fcs, cs = make_diagnostic_fn(models, dtype)(
+            *(torch.from_numpy(a)[None].to(device) for a in (c, s)))
+        out = cs[0].cpu().numpy()
+        save_feature_heatmaps(fc, fs, fcs, args.heatmaps,
+                              num_heads=models["adaFormer"].ada0.num_heads)
+        print(f"heatmaps -> {args.heatmaps}")
+    else:
+        out = stylize_image(models, c, s, dtype)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     save_image(args.out, out)
     print(f"saved {args.out}  range=[{out.min():.1f}, {out.max():.1f}]")

@@ -1,4 +1,6 @@
-"""K13: the decoder's last conv c6 on its own (csrc/decoder_c6.cu).
+"""K13: the decoder's last conv c6 on its own (csrc/decoder_c6.cu: a
+register-tiled direct conv at float32, an implicit GEMM on the tensor cores
+at bf16).
 
 Port of mhada_tpu/ops/decoder_tail_pallas.py::c6_transposed, the kernel
 ``Decoder(packed="col_tail")`` runs after plain up3 and c5 convs.  The
@@ -47,11 +49,21 @@ def c6_conv(y: torch.Tensor, w6: torch.Tensor, b6: torch.Tensor,
     _build.check_forward_only(
         "c6_conv", "train with the fused tail, K8 (ops.decoder_tail."
         "decoder_tail_train)", y, w6, b6)
-    # OIHW -> HWIO: the 3 output channels of one (tap, input channel) sit
-    # together for the kernel's weight reads
-    hwio = w6.to(y.dtype).permute(2, 3, 1, 0).contiguous()
+    return _kernel(y, *kernel_params(w6, b6, y.dtype))
+
+
+def kernel_params(w6: torch.Tensor, b6: torch.Tensor, dtype: torch.dtype):
+    """The weights and bias as the kernel takes them: HWIO (3, 3, 64, 3) in
+    ``dtype`` (the 3 output channels of one tap and input channel
+    together) and a float32 bias."""
+    return (w6.to(dtype).permute(2, 3, 1, 0).contiguous(),
+            b6.float().contiguous())
+
+
+def _kernel(y: torch.Tensor, hwio: torch.Tensor,
+            bias: torch.Tensor) -> torch.Tensor:
+    """One launch on weights in the kernel's layout (``kernel_params``)."""
     _build.check_cuda_inputs("c6_conv", y, hwio)
-    bias = b6.float().contiguous()
     _build.check_cuda_inputs("c6_conv", bias)
     if bias.device != y.device:
         raise ValueError("c6_conv: all tensors must be on one CUDA device")

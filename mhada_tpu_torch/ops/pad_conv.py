@@ -36,15 +36,19 @@ def reflect_pad2d(x: torch.Tensor, pad: int) -> torch.Tensor:
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
            stride: int = 1, padding: int = 0) -> torch.Tensor:
-    """NHWC conv with an OIHW kernel, ``padding`` zeros on each side.
+    """NHWC conv with an OIHW kernel, ``padding`` zeros on each side; the
+    output is contiguous NHWC.
 
     TF32 is off for the call, so a float32 conv computes in float32, as the
-    configuration states.
+    configuration states.  The conv returns channels-last (so the permute
+    back is free) when it recognises x's NCHW view as channels-last; an
+    input whose batch axis of size 1 has stride 0 (``torch.from_numpy(
+    a[None])``) is not, and would reach the kernels non-contiguous.
     """
     with no_tf32():
         y = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=stride,
                      padding=padding)
-    return y.permute(0, 2, 3, 1)
+    return y.permute(0, 2, 3, 1).contiguous()
 
 
 def conv2d_reflect(x: torch.Tensor, w: torch.Tensor,

@@ -1,5 +1,6 @@
-"""P1, K14 and the float32 tail against another checkout's builds of them,
-on one card, in turns: the time a redesign saves, measured in one call.
+"""P1, K14, K13 and the float32 tail against another checkout's builds of
+them, on one card, in turns: the time a redesign saves, measured in one
+call.
 
     python -m mhada_tpu_torch.probes.redesign_ab --other DIR [--rounds 2]
 
@@ -15,6 +16,10 @@ events:
   (``ops.decoder_mid._kernel``, ``chip_smoke.py``'s "kernel alone") at its
   gate shapes (128^2 with B = 1 and 8, 256^2; C = 256), float32 and
   bfloat16;
+- K13's launch on weights already in the kernel's layout (the C entry
+  ``mhada_decoder_c6``, whose arguments no redesign changed) at its gate
+  shapes (512^2 with B = 1 and 8, 1024^2, 256 x 512 with B = 8, 264 x
+  488), float32 and bfloat16;
 - the float32 decoder tail, whose direct conv K14's float32 build shares:
   K5 from 256^2 to 512^2 (B = 1) and K8's forward from 128^2 to 256^2 (B =
   8), ``chip_smoke.py``'s K5 and K8 gate shapes.
@@ -38,6 +43,9 @@ MM_REPS = 100
 # (side, batch) of K14's gates in chip_smoke.py
 MID_SHAPES = [(128, 1), (128, 8), (256, 1)]
 MID_C = 256
+# (height, width, batch) of K13's gates in chip_smoke.py
+C6_SHAPES = [(512, 512, 1), (512, 512, 8), (1024, 1024, 1), (256, 512, 8),
+             (264, 488, 1)]
 
 
 def _cuda_ms(fn, warmup=3, iters=10):
@@ -61,6 +69,7 @@ def worker(root: str) -> dict:
     sys.path.insert(0, root)
     import torch
 
+    from mhada_tpu_torch import _build
     from mhada_tpu_torch.ops import decoder_mid, decoder_tail
     from mhada_tpu_torch.probes import mm_probe
 
@@ -89,6 +98,19 @@ def worker(root: str) -> dict:
                 out[f"K14 {side}^2 B={batch} {str(dtype)[6:]}"] = _cuda_ms(
                     lambda: decoder_mid._kernel(x, hwio, bias))
                 del x
+            torch.cuda.empty_cache()
+        for dtype in (torch.float32, torch.bfloat16):
+            w6 = ((torch.rand(3, 64, 3, 3, generator=g) * 2 - 1) / 24).cuda()
+            hwio = w6.to(dtype).permute(2, 3, 1, 0).contiguous()
+            bias = ((torch.rand(3, generator=g) * 2 - 1) / 24).cuda()
+            code = _build.dtype_code(hwio)
+            for h, w, batch in C6_SHAPES:
+                y = torch.rand(batch, h, w, 64, generator=g).to("cuda", dtype)
+                o = y.new_empty((batch, h, w, 3))
+                out[f"K13 {h}x{w} B={batch} {str(dtype)[6:]}"] = _cuda_ms(
+                    lambda: _build.launch("mhada_decoder_c6", y.device, y,
+                                          hwio, bias, o, batch, h, w, code))
+                del y, o
             torch.cuda.empty_cache()
         for name, fn, batch, side in (
                 ("K5", decoder_tail.decoder_tail, 1, 256),

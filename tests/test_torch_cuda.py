@@ -374,8 +374,12 @@ def test_decoder_tail_f32_rejects_unaligned(gen, entry):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(1, 2, 3, 64), (2, 17, 33, 64),
-                                   (1, 512, 512, 64)])
+                                   (1, 512, 512, 64), (1, 2, 2, 64),
+                                   (3, 5, 2, 64), (2, 19, 70, 64),
+                                   (1, 264, 488, 64), (8, 256, 512, 64)])
 def test_decoder_c6_kernel(gen, dtype, shape):
+    """K13 against its twin: a 2 x 2 and a 2-wide image, strips and column
+    blocks that do not divide H or W, the video CLI's B = 8 batch."""
     y = _rnd(gen, dtype, *shape).abs()
     w6 = _rnd(gen, dtype, 3, 64, 3, 3, scale=1 / 24)
     b6 = (torch.rand(3, generator=gen) / 24).cuda()

@@ -4,9 +4,9 @@
 probe's ``call_variant``; a model of P1's wgmma + TMA schedule against
 ``mm_plain`` and P1's tile contract; the probes' CLIs on the CPU and their
 guards;
-the cuts of K2's split probe, and the edits of P2's ablation probe, of
-the f32 attention geometry probe and of the f32 tail geometry probe,
-against the kernels' sources.
+the cuts of K2's split probe, and the edits of P2's and K13's ablation
+probes, of the f32 attention geometry probe and of the f32 tail geometry
+probe, against the kernels' sources.
 The probe scripts are not a package, so they are imported by path."""
 
 import importlib.util
@@ -23,9 +23,10 @@ from jax.experimental.pallas import tpu as pltpu
 
 from mhada_tpu_torch.ops.instance_norm import instance_norm_stats
 from mhada_tpu_torch import _build
-from mhada_tpu_torch.probes import (f32_tile_geometry, ln_matmul_split,
-                                    mhada_pipe_probe, mhada_wgmma_ablate,
-                                    mm_probe, redesign_ab, tail_f32_geometry)
+from mhada_tpu_torch.probes import (c6_ablate, f32_tile_geometry,
+                                    ln_matmul_split, mhada_pipe_probe,
+                                    mhada_wgmma_ablate, mm_probe, redesign_ab,
+                                    tail_f32_geometry)
 
 # Six test workers share the CPU: cap torch's intra-op threads.
 torch.set_num_threads(2)
@@ -248,6 +249,28 @@ def test_wgmma_ablate_edits_apply(variant):
     assert (out != src) == bool(edits)
     with pytest.raises(ValueError, match="not found"):
         mhada_wgmma_ablate.patched(src, [("no such text", "")])
+
+
+@pytest.mark.parametrize("variant", list(c6_ablate.VARIANTS))
+def test_c6_ablate_edits_apply(variant):
+    """Each variant of K13's ablation probe still finds its text in the
+    sources it edits (the probe raises otherwise) and changes each file;
+    the cut variants touch both builds' copies or arithmetic."""
+    edits = c6_ablate.VARIANTS[variant]
+    for fname, file_edits in edits.items():
+        src = (_build.CSRC / fname).read_text()
+        assert c6_ablate.patched(src, file_edits, fname) != src
+    if variant in ("copies only", "arithmetic only"):   # both builds cut
+        assert c6_ablate.MMA in edits and ({c6_ablate.F32, c6_ablate.RING}
+                                           & set(edits))
+    with pytest.raises(ValueError, match="not found"):
+        c6_ablate.patched("", [("no such text", "")], c6_ablate.SOURCE)
+
+
+def test_c6_ablate_needs_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        c6_ablate.main(["--variants", "as built"])
 
 
 @pytest.mark.parametrize("variant", list(f32_tile_geometry.VARIANTS))

@@ -123,8 +123,9 @@ def test_cli_random_weights(tmp_path):
 
 def test_port_never_imports_jax(tmp_path):
     """In a fresh interpreter: import every module of the port, drive the
-    path, read a reference-format .pth triple written by the JAX package's
-    exporters, and find no module of jax, jaxlib, flax or mhada_tpu loaded."""
+    path and the video CLI's stream on a 2-frame clip, read a
+    reference-format .pth triple written by the JAX package's exporters,
+    and find no module of jax, jaxlib, flax or mhada_tpu loaded."""
     _, params = _jax_params("spatial")
     layers, heads = SMALL["num_layers"], SMALL["num_heads"]
     save_pth(str(tmp_path / "ada.pth"),
@@ -148,6 +149,14 @@ def test_port_never_imports_jax(tmp_path):
         "load_params(m, sd)\n"
         "x = np.zeros((32, 32, 3), np.float32)\n"
         "assert ii.stylize_image(m, x, x).shape == (32, 32, 3)\n"
+        "import cv2\n"
+        "import mhada_tpu_torch.infer.video as iv\n"
+        "vw = cv2.VideoWriter(d + '/c.mp4', cv2.VideoWriter_fourcc(*'mp4v'),"
+        " 5, (32, 32))\n"
+        "for _ in range(2):\n"
+        "    vw.write(np.zeros((32, 32, 3), np.uint8))\n"
+        "vw.release()\n"
+        "assert iv.stream_stylize(m, d + '/c.mp4', x, d + '/v', (32, 32)) == 2\n"
         "print(sorted(k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'mhada_tpu')))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
