@@ -127,7 +127,34 @@
    over a synthetic SceneFlow tree and WikiArt PNGs, resumed across from
    the checkpoint that the 256^2 ``train.run_image`` run wrote, and
    ms/step of both builds interleaved with each build's peak memory;
-   float32 and bfloat16 throughout.
+   float32 and bfloat16 throughout;
+8. the evals (``mhada_tpu_torch.evals``), on random full-width weights from
+   the seed written as the .pth files each CLI loads (the stylization
+   triple; torchvision-layout vgg16, vgg19, inception_v3 and raft_large;
+   the LPIPS heads):
+   a. K1 (L = 3600), K2 (3600 rows), K4 (N = 3600 against M = 1024) and K5
+      (180 x 320 -> 360 x 640), the Sintel eval's 360 x 640 frame against
+      a 256^2 style, and K4 at N = 2048 against M = 1024, the video eval's
+      frame, each against its plain version, float32 and bfloat16: tiles
+      that these sides leave ragged;
+   b. ``evals.exps_image.main`` at 512^2, float32, over the six reference
+      file names (seeded JPEGs), every backbone but Inception: the CSV's
+      14 columns and 7 rows (SIFID NaN, the rest finite, the average row
+      the column mean), exactly 6 x the full path's launches, each
+      stylized.png within 1 uint8 level of the plain path's, and its wall
+      per pair split into stylization, LPIPS, gram, SSIM and histograms;
+   c. SSIM, gram, LPIPS, the four Inception taps and SIFID at 64, 192 and
+      768 dims on the card against the same functions on the CPU (each
+      against its own scale; SIFID's host seconds), and ``evals.cli -m
+      sifid`` at 2048 dims with its wall seconds;
+   d. ``evals.exps_image_all.main`` on a 2 x 2 grid (exact launches);
+   e. ``evals.exps_sintel.main`` at 360 x 640 over two scenes of three
+      436 x 1024 frames, ``--flow raft:<pth>`` and ``--flow farneback``
+      (the CSV, finite losses, exact launches, wall per flow and per
+      pair), and RAFT's device ms per flow at 360 x 640 and 256 x 512;
+   f. ``evals.exps_video.main`` on an 8-frame 540 x 960 mp4v clip at
+      256 x 512, RAFT, 4 pairs, float32 and bfloat16 (finite errors, exact
+      launches, wall per pair).
 
 Each phase prints one line; any failure exits non-zero without the final
 result line.  The model is the full-width ``ModelConfig()`` with random
@@ -295,6 +322,9 @@ NO_TRAIN = {K6F: 0, K6B: 0, K7F: 0, K7B: 0, K8: 0, C6: 0, MID: 0, MM: 0,
 FULL = {ATTN: 6, LN: 12, K3: 0, K4: 6, TAIL: 1, **NO_TRAIN}
 STYLE = {ATTN: 3, LN: 6, K3: 0, K4: 0, TAIL: 0, **NO_TRAIN}  # style set-up
 FRAME = {ATTN: 3, LN: 6, K3: 6, K4: 0, TAIL: 1, **NO_TRAIN}  # one frame
+# One frame against style features encoded once (make_stylize_with_fs_fn,
+# the evals' path): vit_c, the MHAda blocks on K4 and the tail.
+FS_FRAME = {k: FULL[k] - STYLE[k] for k in FULL}
 # The c6 tail (4d): K13 in place of K5.
 FULL_C6, FRAME_C6 = ({**p, TAIL: 0, C6: 1} for p in (FULL, FRAME))
 # 4e: the decoder with K14 for c1 -> c3 and K5 for the tail.
@@ -414,6 +444,29 @@ PIPE_K3_REL = {"float32": 1e-6, "bfloat16": 1e-2}
 # Phase 4g: the video CLI on a synthetic clip of SceneFlow's frame size,
 # at its default 256 x 512 content and 256^2 style, --chunk 1 and 8.
 CLI_FRAMES, CLI_CLIP_HW, CLI_HW = 16, (540, 960), (256, 512)
+# Phase 8, the evals.  The Sintel eval stylises 360 x 640 frames (a 45 x
+# 80 patch grid: 3600 content tokens) against a 256^2 style (1024 tokens):
+# 3600 is not a multiple of the attention kernels' 64-key tiles or of
+# their 128- and 256-query blocks, and the tail's 180 x 320 input is not a
+# multiple of its 8 x 32 up3 tile in height.  The video eval's 256 x 512
+# frame runs K4 at N = 2048 against M = 1024 (make_stylize_with_fs_fn, the
+# path without cached style K/V).  (gate, kind, tokens or shape.)
+EVAL_GATES = [
+    ("K1 L=3600", "attention", 3600),
+    ("K2 N=3600", "ln_matmul", 3600),
+    ("K4 N=3600 M=1024", "mhada", (3600, 1024)),
+    ("K5 180x320->360x640", "tail", (180, 320)),
+    ("K4 N=2048 M=1024", "mhada", (2048, 1024)),
+]
+# Sintel's frames (1024 x 436) and the eval's default working size; the
+# video eval's clip (phase 4g's frame size), its frames and pairs.
+SINTEL_FRAME_HW, SINTEL_HW = (436, 1024), (360, 640)
+EVAL_CLIP_FRAMES, EVAL_PAIRS = 8, 4
+# The metrics on the card against the same functions on the CPU, each
+# quantity against its own scale.  Both compute in float32 (TF32 off) and
+# differ in summation order only; a TF32 conv or matmul gives ~1e-3.
+# SIFID: a Fréchet distance through sqrtm of near-singular covariances.
+METRIC_REL, SIFID_REL = 1e-4, 1e-3
 # Main-path bound on max |pixel difference| (0-255) against the plain path.
 # float32: the repo's reference gate (scripts/reference_gate.py:63); 0.0016
 # measured on an H100.  bfloat16: pixels of 128-255 are stored with a
@@ -773,7 +826,8 @@ def prologue_library(fc, stats, wf, fb, k, v, heads):
 
 
 def gate_inputs(kind, n, dtype, g, b=1):
-    """Seeded inputs of one kernel at ``n`` tokens (K5, K13, K14: an n x n
+    """Seeded inputs of one kernel at ``n`` tokens (K4: n or (queries,
+    keys); K5, K13: an n x n input or (height, width); K14: an n x n
     input; P1: the probe's shape number n) and batch ``b`` -> (call(backend),
     flops, bytes moved, (name, call) of one library call or None).
 
@@ -844,12 +898,13 @@ def gate_inputs(kind, n, dtype, g, b=1):
             6 * n * n * c + 2 * n * c * 64,
             5 * n * c * es + 4 * c * 4 + heads * 64 * (64 * es + 4),
             prologue_library(fc, stats, wf, fb, k, v, heads))
-    if kind == "mhada":
-        q, k = rnd(1, n, c, scale=0.35), rnd(1, n, c, scale=0.35)
-        v, f = rnd(1, n, c), rnd(1, n, c)
+    if kind == "mhada":   # n queries against n keys, or (N, M)
+        nq, nk = (n, n) if isinstance(n, int) else n
+        q, k = rnd(1, nq, c, scale=0.35), rnd(1, nk, c, scale=0.35)
+        v, f = rnd(1, nk, c), rnd(1, nq, c)
         return (lambda be: mhada_kernel.mhada_tm(q, k, v, f, heads,
                                                  backend=be),
-                6 * n * n * c, 5 * n * c * es,
+                6 * nq * nk * c, (3 * nq + 2 * nk) * c * es,
                 mhada_library(q, k, v, heads, "the MHAda epilogue"))
     def conv(co, ci):
         """A conv's init U(-1/sqrt(fan_in), 1/sqrt(fan_in)), float32."""
@@ -858,13 +913,14 @@ def gate_inputs(kind, n, dtype, g, b=1):
         bias = (torch.rand(co, generator=g) * 2 - 1) * bound_
         return w.to(dev), bias.to(dev)
 
-    if kind == "tail":
-        x = rnd(1, n, n, 128).abs()
+    if kind == "tail":   # an n x n input, or (height, width)
+        hh, ww = (n, n) if isinstance(n, int) else n
+        x = rnd(1, hh, ww, 128).abs()
 
         (wu, bu), (w5, b5), (w6, b6) = conv(64, 128), conv(64, 64), conv(3, 64)
-        hi = (2 * n) ** 2
-        flops = 2 * 9 * (n * n * 128 * 64 + hi * 64 * 64 + hi * 64 * 3)
-        nbytes = (n * n * 128 + hi * 3) * es + 9 * 64 * (128 + 64 + 3) * es
+        lo, hi = hh * ww, 4 * hh * ww
+        flops = 2 * 9 * (lo * 128 * 64 + hi * 64 * 64 + hi * 64 * 3)
+        nbytes = (lo * 128 + hi * 3) * es + 9 * 64 * (128 + 64 + 3) * es
 
         def run(be):
             return decoder_tail.decoder_tail(x, wu, bu, w5, b5, w6, b6,
@@ -1795,6 +1851,461 @@ def video_cli_phase(models, card) -> tuple[bool, dict]:
     return ok, rec
 
 
+def randomize(module, seed):
+    """Seeded random weights that keep a deep backbone's activations O(1):
+    He-normal conv and linear weights, biases N(0, 0.05^2), BatchNorm
+    scales U(0.8, 1.2), shifts and means N(0, 0.05^2), variances U(0.5,
+    1.5) (torch's default init fades through 40 layers) -> the module."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(t, lo, width):
+        t.copy_(lo + width * torch.rand(t.shape, generator=g))
+
+    def randn(t, scale):
+        t.copy_(scale * torch.randn(t.shape, generator=g))
+
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                rand(m.weight, 0.8, 0.4)
+                randn(m.bias, 0.05)
+                randn(m.running_mean, 0.05)
+                rand(m.running_var, 0.5, 1.0)
+            elif (getattr(m, "weight", None) is not None
+                  and m.weight.dim() in (2, 4)):
+                randn(m.weight, (2.0 / m.weight[0].numel()) ** 0.5)
+                if m.bias is not None:
+                    randn(m.bias, 0.05)
+    return module
+
+
+def eval_weights(d, models) -> dict:
+    """Random full-width weights from the seed as the .pth files the eval
+    CLIs read -> {name: path}: the stylization triple (``models``, the
+    kernel build's weights), torchvision-layout vgg16, vgg19,
+    inception_v3 and raft_large, and the LPIPS v0.1 heads."""
+    import torch
+
+    from mhada_tpu_torch.evals.inception import InceptionV3Features
+    from mhada_tpu_torch.evals.lpips import LPIPS_CHANNELS, VGG16Features
+    from mhada_tpu_torch.interop import _VGG19_IDX
+    from mhada_tpu_torch.models.raft import RAFT
+    from mhada_tpu_torch.models.vgg19 import VGG19Features
+    from mhada_tpu_torch.train.checkpoint import save_weights
+
+    wdir = os.path.join(d, "weights")
+    save_weights(wdir, models)
+    paths = {k: os.path.join(wdir, f"{f}.pth") for k, f in (
+        ("ada", "AdaFormer"), ("vitc", "ViT_C"), ("vits", "ViT_S"))}
+    vgg19 = randomize(VGG19Features(), SEED + 11)
+    sds = {
+        "vgg16": randomize(VGG16Features(), SEED + 12).state_dict(),
+        "vgg19": {f"features.{i}.{p}": getattr(getattr(vgg19, name),
+                                               p).detach()
+                  for name, i in _VGG19_IDX.items()
+                  for p in ("weight", "bias")},
+        "inception": randomize(InceptionV3Features(), SEED + 13).state_dict(),
+        "raft": randomize(RAFT(), SEED + 14).state_dict(),
+    }
+    g = torch.Generator().manual_seed(SEED + 15)
+    sds["heads"] = {f"lin{k}.model.1.weight": 0.05 * torch.randn(
+        1, c, 1, 1, generator=g).abs() for k, c in enumerate(LPIPS_CHANNELS)}
+    for name, sd in sds.items():
+        paths[name] = os.path.join(d, f"{name}.pth")
+        torch.save(sd, paths[name])
+    return paths
+
+
+def eval_picture(hw, rng, phase_=0.0):
+    """A smooth picture with noise, bands drifting with ``phase_``, uint8."""
+    yy, xx = np.mgrid[0:hw[0], 0:hw[1]] / max(hw)
+    a = np.stack([127.5 + 110 * np.sin(6.3 * (xx + c + phase_) * (yy + 1))
+                  for c in range(3)], -1)
+    return np.clip(a + rng.normal(0, 10, a.shape), 0, 255).astype(np.uint8)
+
+
+@contextlib.contextmanager
+def timed_calls(targets, spans):
+    """Wrap each (owner, attribute, span) so its calls' wall seconds add up
+    in ``spans[span]``; restored on exit.  The wrapped calls return host
+    values, so their work is done when they return."""
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in targets]
+    for (owner, attr, fn), (_, _, span) in zip(saved, targets):
+        def wrap(*a, fn=fn, span=span, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spans[span] = spans.get(span, 0.0) + time.perf_counter() - t0
+        setattr(owner, attr, wrap)
+    try:
+        yield spans
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def run_cli(main_fn, argv):
+    """One CLI ``main`` on the card, its stdout captured -> (the launches it
+    made, counts set to 0 just before; wall seconds; its output)."""
+    import torch
+
+    from mhada_tpu_torch import _build
+
+    log = io.StringIO()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        main_fn(argv)
+    torch.cuda.synchronize()
+    return dict(_build.LAUNCHES), time.perf_counter() - t0, log.getvalue()
+
+
+def times_want(*parts):
+    """The launches of ``(count, path counts)`` parts added up."""
+    return {k: sum(n * p[k] for n, p in parts) for k in FULL}
+
+
+def read_rows(path):
+    import csv
+
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return rows[0], rows[1:]
+
+
+def evals_phase(kmodels, pmodels, card, gates) -> tuple[bool, dict]:
+    """Phase 8 -> (ok, record): (a) K1, K2, K4 and K5 against their plain
+    versions at the Sintel frame's shapes and K4 at the video eval's, both
+    dtypes; (b) ``evals.exps_image.main`` at 512^2 over the six reference
+    file names with every backbone but Inception (exact launches, the CSV,
+    each stylized.png within 1 uint8 level of the plain path's), its wall
+    per pair split into stylization and metrics; (c) SSIM, gram, LPIPS,
+    the four Inception taps and SIFID at 64 / 192 / 768 dims on the card
+    against the CPU, and ``evals.cli -m sifid`` at 2048; (d)
+    ``evals.exps_image_all.main`` on a 2 x 2 grid; (e)
+    ``evals.exps_sintel.main`` at 360 x 640 over two scenes of three
+    436 x 1024 frames, with RAFT and with Farnebäck, and RAFT's device ms
+    per flow at 360 x 640 and 256 x 512; (f) ``evals.exps_video.main`` on
+    an 8-frame clip with RAFT, 4 pairs, float32 and bfloat16.
+    ``kmodels`` hold the weights the CLIs load; ``pmodels`` the same
+    weights on the plain build."""
+    import cv2
+    import torch
+    from PIL import Image
+
+    from mhada_tpu_torch.config import resolve_device
+    from mhada_tpu_torch.evals import (cli, exps_image, exps_image_all,
+                                       exps_sintel, exps_video, metrics)
+    from mhada_tpu_torch.evals.exps_image import MetricSuite
+    from mhada_tpu_torch.evals.inception import load_inception
+    from mhada_tpu_torch.evals.lpips import load_lpips
+    from mhada_tpu_torch.evals.sifid import SIFID, load_01
+    from mhada_tpu_torch.infer.image import stylize_image
+    from mhada_tpu_torch.models.raft import load_raft
+    from mhada_tpu_torch.utils.image_io import load_image
+
+    ok, rec, secs = True, {}, {}
+    # a. the kernels at the eval shapes
+    t0 = time.perf_counter()
+    for gate, kind, n in EVAL_GATES:
+        for dname in DTYPE_NAMES:
+            try:
+                good, r = run_gate(gate, kind, n, 1, dname, card)
+            except Exception as e:
+                ok = phase(f"gate {gate} {dname}", False,
+                           f"{type(e).__name__}: {e}")
+                continue
+            gates.setdefault(gate, {})[dname] = r
+            ok = good and ok
+    secs["a_gates"] = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_evals_")
+    try:
+        rng = np.random.default_rng(SEED + 8)
+        w = eval_weights(tmp, kmodels)
+        model_args = [f for n in ("ada", "vitc", "vits")
+                      for f in (f"--{n}", w[n])]
+        backbones = ["--vgg19", w["vgg19"], "--vgg16", w["vgg16"],
+                     "--lpips-heads", w["heads"]]
+
+        # b. exps_image.main at 512^2, float32, the six pairs
+        t0 = time.perf_counter()
+        assets = os.path.join(tmp, "assets")
+        for k, rel_path in enumerate(sorted(
+                {p for pair in exps_image.CONTENT_STYLE_PAIR for p in pair})):
+            path = os.path.join(assets, rel_path)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            hw = (480 + 16 * k, 640 - 16 * k)
+            pic = (eval_picture(hw, rng, 0.1 * k) if "contents" in rel_path
+                   else rng.integers(0, 256, (*hw, 3), np.uint8))
+            Image.fromarray(pic).save(path, quality=95)
+        res = os.path.join(tmp, "results")
+        spans = {}
+        targets = [(exps_image, "stylize_image", "stylise"),
+                   (MetricSuite, "lpips", "lpips"),
+                   (MetricSuite, "gram", "gram"),
+                   (MetricSuite, "ssim", "ssim"),
+                   *((metrics, f, "histograms") for f in (
+                       "kl_divergence", "nth_order_moment", "uniformity",
+                       "average_entropy"))]
+        try:
+            with timed_calls(targets, spans):
+                counts, wall, _ = run_cli(exps_image.main, [
+                    "--assets", assets, "--results", res, *backbones,
+                    *model_args])
+            head, rows = read_rows(os.path.join(res, "results.csv"))
+            vals = np.array([[float(v) for v in r[2:]] for r in rows])
+            sifid_cols = [i for i, k in enumerate(head[2:])
+                          if k.startswith("sifid")]
+            other = [i for i in range(len(head) - 2) if i not in sifid_cols]
+            npairs = len(exps_image.CONTENT_STYLE_PAIR)
+            want = times_want((npairs, FULL))
+            dpix = []
+            for i, (cp, sp) in enumerate(exps_image.CONTENT_STYLE_PAIR):
+                c, s_ = (load_image(os.path.join(assets, p), (512, 512))
+                         for p in (cp, sp))
+                ref = stylize_image(pmodels, c, s_, torch.float32)
+                got = np.asarray(Image.open(os.path.join(
+                    res, str(i + 1), "stylized.png")), np.int64)
+                dpix.append(int(np.abs(got - ref.astype(np.uint8)).max()))
+                if i == 0:
+                    pic_max = int(got.max())
+            good = (head == exps_image.FIELDNAMES and len(rows) == npairs + 1
+                    and rows[-1][:2] == ["average", "average"]
+                    and np.isnan(vals[:, sifid_cols]).all()
+                    and np.isfinite(vals[:, other]).all()
+                    and np.allclose(vals[-1, other],
+                                    vals[:-1, other].mean(0), rtol=1e-9)
+                    and counts == want and max(dpix) <= 1 and pic_max > 0)
+            per_pair = {k: v / npairs for k, v in spans.items()}
+            per_pair["wall"] = wall / npairs
+            rec["exps_image"] = dict(launches=counts, s_per_pair=per_pair,
+                                     stylized_dpix=dpix)
+            ok = phase("evals exps_image.main 512^2 float32", good,
+                       f"{len(head)} columns x {len(rows)} rows, SIFID NaN, "
+                       f"the rest finite, average = column mean; launches "
+                       f"{counts} (want 6 x the full path: {want}); "
+                       f"stylized.png against the plain path's max |d| "
+                       f"{dpix} uint8 levels (bound 1); wall s/pair "
+                       + ", ".join(f"{k} {v:.4f}" for k, v in
+                                   per_pair.items()) + f" ({card})") and ok
+        except Exception as e:
+            ok = phase("evals exps_image.main 512^2 float32", False,
+                       f"{type(e).__name__}: {e}")
+        secs["b_exps_image"] = time.perf_counter() - t0
+
+        # c. the metrics on the card against the CPU, on pair 1's files
+        t0 = time.perf_counter()
+        p0, p1 = (os.path.join(res, "1", f) for f in ("stylized.png",
+                                                      "content.png"))
+        try:
+            vals, mrec = {}, {}
+            x01 = torch.from_numpy(load_01(p0))[None]
+            for dev in ("cuda", "cpu"):
+                dev_t = resolve_device(dev)
+                vgg = metrics.load_vgg19_features(w["vgg19"], dev)
+                lp = load_lpips(w["vgg16"], w["heads"], dev)
+                inc = load_inception(w["inception"], 3, dev)
+
+                v = {"ssim": metrics.ssim(p0, p1, dev),
+                     "gram": metrics.gram_loss(p0, p1, vgg, dev),
+                     "lpips": float(lp(metrics.rgb_batch(p0, dev_t),
+                                       metrics.rgb_batch(p1, dev_t))[0]),
+                     "taps": [t.cpu() for t in inc(x01.to(dev_t))]}
+                for dims in (64, 192, 768):
+                    ts = time.perf_counter()
+                    v[f"sifid{dims}"] = SIFID(inc, dims)(p0, p1)
+                    mrec[f"sifid{dims}_s_{dev}"] = time.perf_counter() - ts
+                vals[dev] = v
+            errs = {}
+            for k in ("ssim", "gram", "lpips", "sifid64", "sifid192",
+                      "sifid768"):
+                a, b = vals["cuda"][k], vals["cpu"][k]
+                errs[k] = abs(a - b) / max(abs(b), 1e-30)
+            for i, (a, b) in enumerate(zip(vals["cuda"]["taps"],
+                                           vals["cpu"]["taps"])):
+                errs[f"tap{i}"] = float((a - b).abs().max()
+                                        / b.abs().max().clamp_min(1e-30))
+            bound = {k: SIFID_REL if k.startswith("sifid") else METRIC_REL
+                     for k in errs}
+            good = all(np.isfinite(vals[d][k]) for d in vals
+                       for k in errs if not k.startswith("tap")) and all(
+                errs[k] <= bound[k] for k in errs)
+            mrec.update(values={k: [vals["cuda"][k], vals["cpu"][k]]
+                                for k in errs if not k.startswith("tap")},
+                        rel=errs)
+            ok = phase("evals metrics card vs CPU", good,
+                       "rel " + ", ".join(f"{k} {e:.2e}" for k, e in
+                                          errs.items())
+                       + f" (bounds {METRIC_REL:.0e}, SIFID "
+                       f"{SIFID_REL:.0e}); card/CPU values " + ", ".join(
+                           f"{k} {a:.6g}/{b:.6g}" for k, (a, b) in
+                           mrec["values"].items())
+                       + "; SIFID host s/call " + ", ".join(
+                           f"{k} {v:.2f}" for k, v in mrec.items()
+                           if k.endswith(("_cuda", "_cpu")))) and ok
+            counts, wall, out = run_cli(cli.main, [
+                "-m", "sifid", "-p0", p0, "-p1", p1, "--inception",
+                w["inception"]])
+            m = re.search(r"SIFID: (\S+)", out)
+            good = m is not None and np.isfinite(float(m[1]))
+            mrec["sifid2048_cli_s"] = wall
+            rec["metrics"] = mrec
+            ok = phase("evals cli -m sifid (2048 dims)", good,
+                       f"{out.strip()!r} in {wall:.2f} s wall (the sqrtm "
+                       f"of a 2048^2 covariance product on the host; "
+                       f"{os.cpu_count()} cores)") and ok
+        except Exception as e:
+            ok = phase("evals metrics card vs CPU", False,
+                       f"{type(e).__name__}: {e}")
+        secs["c_metrics"] = time.perf_counter() - t0
+
+        # d. exps_image_all.main on a 2 x 2 grid
+        t0 = time.perf_counter()
+        try:
+            for sub, n in (("contents", 2), ("styles", 2)):
+                os.makedirs(os.path.join(tmp, "grid", sub))
+                for i in range(n):
+                    pic = (eval_picture((500, 600), rng, 0.3 * i)
+                           if sub == "contents" else
+                           rng.integers(0, 256, (400, 420, 3), np.uint8))
+                    Image.fromarray(pic).save(os.path.join(
+                        tmp, "grid", sub, f"{i}.jpg"))
+            res2 = os.path.join(tmp, "results_all")
+            counts, wall, _ = run_cli(exps_image_all.main, [
+                "--contents", os.path.join(tmp, "grid", "contents"),
+                "--styles", os.path.join(tmp, "grid", "styles"),
+                "--results", res2, *backbones, *model_args])
+            head, rows = read_rows(os.path.join(res2, "results_all.csv"))
+            vals = np.array([[float(v) for v in r[2:]] for r in rows])
+            want = times_want((2, STYLE), (4, FS_FRAME))
+            good = (head == exps_image_all.FIELDNAMES and len(rows) == 5
+                    and np.isfinite(vals).all() and counts == want)
+            rec["exps_image_all"] = dict(launches=counts, wall_s=wall)
+            ok = phase("evals exps_image_all.main 2 x 2", good,
+                       f"{len(head)} columns x {len(rows)} rows, finite; "
+                       f"launches {counts} (want 2 style encodings + 4 "
+                       f"frames: {want}); {wall:.2f} s wall") and ok
+        except Exception as e:
+            ok = phase("evals exps_image_all.main 2 x 2", False,
+                       f"{type(e).__name__}: {e}")
+        secs["d_exps_image_all"] = time.perf_counter() - t0
+
+        # e. exps_sintel.main at 360 x 640: RAFT, then Farnebäck
+        t0 = time.perf_counter()
+        scenes = ["alley_2", "ambush_5"]
+        for k, scene in enumerate(scenes):
+            d = os.path.join(tmp, "sintel", "training", "final", scene)
+            os.makedirs(d)
+            for i in range(3):
+                Image.fromarray(eval_picture(SINTEL_FRAME_HW, rng,
+                                             0.5 * k + 0.02 * i)).save(
+                    os.path.join(d, f"frame_{i + 1:04d}.png"))
+        style = os.path.join(tmp, "style.png")
+        Image.fromarray(rng.integers(0, 256, (300, 300, 3), np.uint8)).save(
+            style)
+        make_flow = exps_video.make_flow_fn
+        for flow in (f"raft:{w['raft']}", "farneback"):
+            name = flow.split(":")[0]
+            flow_s = []
+
+            def timed_flow(*a, **k):
+                fn = make_flow(*a, **k)
+
+                def f(x, y):
+                    ts = time.perf_counter()
+                    out = fn(x, y)
+                    flow_s.append(time.perf_counter() - ts)
+                    return out
+                return f
+
+            exps_video.make_flow_fn = timed_flow
+            out_csv = os.path.join(tmp, f"sintel_{name}.csv")
+            try:
+                counts, wall, _ = run_cli(exps_sintel.main, [
+                    "--sintel", os.path.join(tmp, "sintel"), "--style",
+                    style, "--flow", flow, "--scenes", *scenes, "--csv",
+                    out_csv, *model_args])
+                head, rows = read_rows(out_csv)
+                losses = [float(r[1]) for r in rows]
+                want = times_want((1, STYLE), (8, FS_FRAME))
+                good = (head == ["Scene", "Optical Flow Loss"]
+                        and [r[0] for r in rows] == scenes
+                        and np.isfinite(losses).all() and counts == want
+                        and len(flow_s) == 8)
+                rec[f"sintel_{name}"] = dict(
+                    launches=counts, losses=losses, s_per_pair=wall / 4,
+                    flow_s=sum(flow_s) / len(flow_s))
+                ok = phase(f"evals exps_sintel.main 360x640 --flow {name}",
+                           good, f"losses {losses}; launches {counts} (want "
+                           f"1 style encoding + 8 frames: {want}); "
+                           f"{len(flow_s)} flows, {1e3 * sum(flow_s) / max(len(flow_s), 1):.1f} "
+                           f"ms wall each (host I/O included); "
+                           f"{wall / 4:.3f} s wall/pair ({card})") and ok
+            except Exception as e:
+                ok = phase(f"evals exps_sintel.main 360x640 --flow {name}",
+                           False, f"{type(e).__name__}: {e}")
+            finally:
+                exps_video.make_flow_fn = make_flow
+        try:   # RAFT's device time a flow, CUDA events
+            model = load_raft(w["raft"], "cuda")
+            g = torch.Generator().manual_seed(SEED)
+            raft_ms = {}
+            for hw in (SINTEL_HW, CLI_HW):
+                a, b = (torch.rand(1, *hw, 3, generator=g).to(
+                    resolve_device("cuda")) * 2 - 1 for _ in range(2))
+                raft_ms["x".join(map(str, hw))] = cuda_ms(
+                    lambda: model(a, b), 1, 5)
+            rec["raft_ms"] = raft_ms
+            phase("evals RAFT times", True, "device ms per flow (12 "
+                  "updates, CUDA events) " + ", ".join(
+                      f"{k} {v:.2f}" for k, v in raft_ms.items())
+                  + f" ({card})")
+            del model
+        except Exception as e:
+            ok = phase("evals RAFT times", False, f"{type(e).__name__}: {e}")
+        secs["e_sintel"] = time.perf_counter() - t0
+
+        # f. exps_video.main, RAFT, 4 pairs of 256 x 512, both dtypes
+        t0 = time.perf_counter()
+        clip = os.path.join(tmp, "clip.mp4")
+        h, w_ = CLI_CLIP_HW
+        vw = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"mp4v"), 30,
+                             (w_, h))
+        for i in range(EVAL_CLIP_FRAMES):
+            vw.write(eval_picture(CLI_CLIP_HW, rng, 0.01 * i))
+        vw.release()
+        for dname in DTYPE_NAMES:
+            label = f"evals exps_video.main 256x512 RAFT {dname}"
+            try:
+                counts, wall, out = run_cli(exps_video.main, [
+                    "--video", clip, "--style", style, "--flow",
+                    f"raft:{w['raft']}", "--max-pairs", str(EVAL_PAIRS),
+                    "--dtype", dname, *model_args])
+                vals = {k: float(m[1]) for k in ("Warping Error", "Flow MSE")
+                        for m in [re.search(rf"{k}: (\S+)", out)] if m}
+                want = times_want((1, STYLE), (2 * EVAL_PAIRS, FS_FRAME))
+                good = (len(vals) == 2 and np.isfinite(list(vals.values())).all()
+                        and counts == want)
+                rec[f"video_{dname}"] = dict(launches=counts, **vals,
+                                             s_per_pair=wall / EVAL_PAIRS)
+                ok = phase(label, good, f"{vals}; launches {counts} (want 1 "
+                           f"style encoding + {2 * EVAL_PAIRS} frames: "
+                           f"{want}); {wall / EVAL_PAIRS:.3f} s wall/pair, "
+                           f"3 RAFT flows a pair ({card})") and ok
+            except Exception as e:
+                ok = phase(label, False, f"{type(e).__name__}: {e}")
+        secs["f_video"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["seconds"] = secs
+    phase("evals seconds", True, ", ".join(f"{k} {v:.1f}"
+                                           for k, v in secs.items()))
+    return ok, rec
+
+
 def test_images(size, rng):
     """A smooth content picture with noise and a noise style, HWC 0-255."""
     yy, xx = np.mgrid[0:size, 0:size] / size
@@ -2440,6 +2951,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     video_s += time.perf_counter() - t0
 
+    # ---- 8. the evals, on the kernel build's weights from the seed
+    t0 = time.perf_counter()
+    emodels, epmodels = models_for("auto"), models_for("plain")
+    good, evals = evals_phase(emodels, epmodels, card, gates)
+    ok = good and ok
+    del emodels, epmodels
+    torch.cuda.empty_cache()
+    evals_s = time.perf_counter() - t0
+
     # ---- the kernels' summary: one row per TPU kernel the path replaces
     first_gate = {}
     for gate, row, *_ in gate_list:
@@ -2483,7 +3003,7 @@ def main() -> int:
         # the call that was timed, as the gate recorded it
         row["library"] = r32.get("library") or r16.get("library") or NO_LIB
         summary.append(row)
-    extra = {g: gates.get(g) for g, *_ in gate_list
+    extra = {g: gates.get(g) for g, *_ in gate_list + EVAL_GATES
              if g not in first_gate.values()}
     stopped = stop_children()
     left = _children()
@@ -2492,10 +3012,11 @@ def main() -> int:
                f"left: {left or 'none'}") and ok
     seconds = time.perf_counter() - t_start
     phase("run time", True, f"{seconds:.1f} s from start to summary, "
-          f"{video_s:.1f} s of it the video gates and step (phases 6, 7e)")
+          f"{video_s:.1f} s of it the video gates and step (phases 6, 7e), "
+          f"{evals_s:.1f} s the evals (phase 8)")
     print(json.dumps({"kernels": summary, "extra_gates": extra,
                       "launches": launches, "frame_ms": frame_ms,
-                      "video_cli": video_cli,
+                      "video_cli": video_cli, "evals": evals,
                       "train": train_extra, "step_ms": step_ms,
                       "step_peak_gb": step_peak_gb,
                       "card": card, "seconds": seconds}), flush=True)

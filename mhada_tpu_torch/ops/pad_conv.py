@@ -34,10 +34,11 @@ def reflect_pad2d(x: torch.Tensor, pad: int) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
-def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-           stride: int = 1, padding: int = 0) -> torch.Tensor:
-    """NHWC conv with an OIHW kernel, ``padding`` zeros on each side; the
-    output is contiguous NHWC.
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+           stride: int = 1,
+           padding: int | tuple[int, int] = 0) -> torch.Tensor:
+    """NHWC conv with an OIHW kernel, ``padding`` zeros on each side (an
+    int, or a (rows, columns) pair); the output is contiguous NHWC.
 
     TF32 is off for the call, so a float32 conv computes in float32, as the
     configuration states.  The conv returns channels-last (so the permute
@@ -57,6 +58,9 @@ def conv2d_reflect(x: torch.Tensor, w: torch.Tensor,
     return conv2d(reflect_pad2d(x, w.shape[-1] // 2), w, b)
 
 
-def max_pool2d(x: torch.Tensor) -> torch.Tensor:
-    """NHWC 2 x 2 max pool, stride 2, floor mode (torch MaxPool2d default)."""
-    return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+def max_pool2d(x: torch.Tensor, window: int = 2,
+               stride: int = 2) -> torch.Tensor:
+    """NHWC ``window`` x ``window`` max pool, no padding, floor mode (torch
+    MaxPool2d default)."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), window,
+                        stride).permute(0, 2, 3, 1)
