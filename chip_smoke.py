@@ -154,7 +154,30 @@
       pair), and RAFT's device ms per flow at 360 x 640 and 256 x 512;
    f. ``evals.exps_video.main`` on an 8-frame 540 x 960 mp4v clip at
       256 x 512, RAFT, 4 pairs, float32 and bfloat16 (finite errors, exact
-      launches, wall per pair).
+      launches, wall per pair);
+9. the analysis tools (``mhada_tpu_torch.analysis``) and the reference's
+   unused variants:
+   a. K6 at B = 1, L = 1024 and K7 at B = 1, N = M = 1024 (feature
+      inversion's shapes at 256^2) against their plain versions, forward,
+      backward and input gradients, float32 and bfloat16;
+   b, c. ``analysis.visualize.main --mode vit`` and ``--mode mhada`` at
+      256^2, 20 Adam steps, on random full-width weights written as the
+      .pth triple: the PNG, finite falling losses, exact launches (K6
+      3 (iters + 1) + 3 iters; mhada: K6 3 (iters + 2) + 3 iters, K7
+      6 (iters + 1) + 6 iters, K8 none);
+   d. the same 20-step inversions on the kernel and the plain training
+      builds from one image (every step's loss within 1e-3, the images
+      within 0.5 on 0-255), and device ms per Adam step of both builds in
+      turns, with the seconds the recipe's 3000 steps would take;
+   e. ``--mode vgg --last-layer 3`` and ``--mode vgg_progressive`` at
+      224^2 on random VGG weights: finite falling losses, five
+      reconstructions, no launches;
+   f. ``analysis.counts.report()`` on the card equal to the CPU's, and
+      ``count_flops`` refusing a kernel-build forward;
+   g. whether matplotlib imports, and the histogram plot if it does;
+   h. VisionTransformerMultiScale (256^2), AdaAttnTransformer (three
+      (1, 32, 32, 512) lists) and VGG19Classifier ((1, 14, 14, 512)) at
+      full width on the card against the CPU, float32, no launches.
 
 Each phase prints one line; any failure exits non-zero without the final
 result line.  The model is the full-width ``ModelConfig()`` with random
@@ -458,6 +481,27 @@ EVAL_GATES = [
     ("K5 180x320->360x640", "tail", (180, 320)),
     ("K4 N=2048 M=1024", "mhada", (2048, 1024)),
 ]
+# Phase 9, the analysis tools.  Feature inversion differentiates the
+# training build at B = 1: at the recipe's 256^2 that is 1024 tokens, K6
+# with 8 heads of 64 and K7 at N = M = 1024, a batch the step gates (B = 8)
+# do not take at that length.  Rows as TRAIN_GATES', recorded under their
+# own names.
+INVERSION_GATES = [
+    ("K6 B=1 L=1024", None, None, "attention", 1, 1024),
+    ("K7 B=1 N=M=1024", None, None, "mhada", 1, 1024),
+]
+# The inversions: Adam steps of the CLI and of the build comparison, the
+# side (the recipe's), the reference recipe's steps (visual_vit.py:88-120)
+# and the VGG modes' side (visual_cnn.py's 224^2).
+INVERT_ITERS, INVERT_SIZE, RECIPE_ITERS, VGG_SIZE = 20, 256, 3000, 224
+# Kernel build against plain build, the same float32 Adam steps from one
+# image: every step's loss, relative; the image's largest difference on
+# 0-255 (Adam moves a pixel by about lr = 0.5 a step).
+INVERT_LOSS_REL, INVERT_PIXEL = 1e-3, 0.5
+# The f32 kernels of K6 and K7 that an inversion step launches (names), to
+# take their device time apart from the step's.
+INVERSION_KERNELS = ("attention_f32_kernel", "mhada_f32_kernel",
+                     "flash_bwd_f32")
 # Sintel's frames (1024 x 436) and the eval's default working size; the
 # video eval's clip (phase 4g's frame size), its frames and pairs.
 SINTEL_FRAME_HW, SINTEL_HW = (436, 1024), (360, 640)
@@ -719,13 +763,14 @@ def cuda_ms(fn, warmup=2, iters=5):
     return start.elapsed_time(end) / iters
 
 
-def split_ms(fn, parts, iters=3, windows=3):
+def split_ms(fn, parts, iters=3, windows=6):
     """{part: device ms per call of the kernels whose names hold ``part``}
     from ``torch.profiler`` over ``iters`` calls of ``fn`` after one.  A
     window in which the profiler recorded no kernel of some part (CUPTI
-    has returned a window without device events on an H100) is profiled
-    again, up to ``windows`` windows; the last one's reading is returned,
-    and the callers fail on a part still at 0."""
+    has returned a window without device events on an H100, three in a
+    row once) is profiled again, up to ``windows`` windows; the
+    last one's reading is returned, and the callers fail on a part still
+    at 0."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -744,6 +789,29 @@ def split_ms(fn, parts, iters=3, windows=3):
         if all(out.values()):
             break
     return out
+
+
+def busy_ms(fn, parts=(), iters=3):
+    """(device ms per call of ``fn`` summed over every kernel that
+    ``torch.profiler`` records: the device's busy time, its idle gaps left
+    out; {part: that of the kernels whose names hold ``part``})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total, out = 0.0, dict.fromkeys(parts, 0.0)
+    for e in prof.key_averages():
+        t = e.self_device_time_total / 1e3 / iters
+        total += t
+        for part in parts:
+            if part in e.key:
+                out[part] += t
+    return total, out
 
 
 def tail_stage_ms(split):
@@ -2306,6 +2374,344 @@ def evals_phase(kmodels, pmodels, card, gates) -> tuple[bool, dict]:
     return ok, rec
 
 
+def inversion_want(mode, iters):
+    """The launches of ``analysis.visualize.main`` in ``mode``: the target
+    (and in mhada mode the style) encoded once, then per Adam step vit_c
+    (and the six MHAda blocks) forward and backward; the decoder (K8)
+    never runs."""
+    want = dict.fromkeys(FULL, 0)
+    if mode == "vit":
+        want.update({K6F: 3 * (iters + 1), K6B: 3 * iters})
+    elif mode == "mhada":
+        want.update({K6F: 3 * (iters + 2), K6B: 3 * iters,
+                     K7F: 6 * (iters + 1), K7B: 6 * iters})
+    return want
+
+
+def log_losses(log):
+    """The losses that ``visualize.main --log-every 1`` prints."""
+    return [float(ln.split("loss")[1]) for ln in log.splitlines()
+            if ln.strip().startswith("iter ")]
+
+
+def analysis_phase(card, train_extra) -> tuple[bool, dict]:
+    """Phase 9 -> (ok, record): (a) K6 at B = 1, L = 1024 and K7 at B = 1,
+    N = M = 1024 against their plain versions, forward, backward and input
+    gradients, both dtypes (recorded in ``train_extra``); (b, c)
+    ``analysis.visualize.main`` in vit and mhada modes at 256^2 on random
+    full-width weights written as the .pth triple, 20 Adam steps: the PNG,
+    finite falling losses, exact launches; (d) the same 20-step inversions
+    on the kernel and the plain training builds from one image, each
+    step's loss and the images held together, and device ms per Adam step
+    of both builds in turns; (e) the vgg and vgg_progressive modes at
+    224^2 with random VGG weights (no launches); (f) ``counts.report`` on
+    the card against the CPU's, and ``count_flops`` refusing a
+    kernel-build forward; (g) whether matplotlib imports, and the
+    histogram plot if it does; (h) VisionTransformerMultiScale,
+    AdaAttnTransformer and VGG19Classifier at full width on the card
+    against the CPU."""
+    import torch
+    from PIL import Image
+
+    from mhada_tpu_torch import _build
+    from mhada_tpu_torch.analysis import counts, hist, visualize
+    from mhada_tpu_torch.config import ModelConfig
+    from mhada_tpu_torch.models import build_models
+    from mhada_tpu_torch.models.adaformer import AdaAttnTransformer
+    from mhada_tpu_torch.models.layers import init_parameters
+    from mhada_tpu_torch.models.vgg19 import VGG19Classifier
+    from mhada_tpu_torch.models.vit import VisionTransformerMultiScale
+    from mhada_tpu_torch.ops.pad_conv import no_tf32
+    from mhada_tpu_torch.train.checkpoint import FILE_NAMES, save_weights
+    from mhada_tpu_torch.utils.image_io import load_image
+
+    ok, rec, secs = True, {}, {}
+    t0 = time.perf_counter()
+    for gate, _, _, kind, b, n in INVERSION_GATES:
+        for dname in DTYPE_NAMES:
+            try:
+                good, recs = run_train_gate(gate, kind, dname, card, b, n)
+            except Exception as e:  # report every kernel, then fail
+                ok = phase(f"train gate {gate} {dname}", False,
+                           f"{type(e).__name__}: {e}")
+                continue
+            train_extra.setdefault(gate, {})[dname] = recs
+            ok = good and ok
+    secs["a_gates"] = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_analysis_")
+    hw = (INVERT_SIZE, INVERT_SIZE)
+    try:
+        rng = np.random.default_rng(SEED + 9)
+
+        def training_build(backend):
+            m = build_models(ModelConfig(mhada_backend=backend), "cuda",
+                             torch.Generator().manual_seed(SEED),
+                             for_training=True)
+            for net in m.values():
+                net.requires_grad_(False)
+            return m
+
+        kmodels, pmodels = training_build("auto"), training_build("plain")
+        wdir = os.path.join(tmp, "weights")
+        save_weights(wdir, kmodels)
+        model_args = [a for n, key in (("ada", "adaFormer"), ("vitc", "vit_c"),
+                                       ("vits", "vit_s"))
+                      for a in (f"--{n}", os.path.join(
+                          wdir, f"{FILE_NAMES[key]}.pth"))]
+        paths = {name: os.path.join(tmp, f"{name}.png")
+                 for name in ("target", "style", "vgg_target")}
+        Image.fromarray(eval_picture(hw, rng)).save(paths["target"])
+        Image.fromarray(rng.integers(0, 256, (*hw, 3), np.uint8)).save(
+            paths["style"])
+        Image.fromarray(eval_picture((VGG_SIZE, VGG_SIZE), rng, 0.3)).save(
+            paths["vgg_target"])
+
+        # b, c. the CLI in vit and mhada modes, exact launches
+        t0 = time.perf_counter()
+        for mode in ("vit", "mhada"):
+            label = f"analysis visualize.main --mode {mode} {INVERT_SIZE}^2"
+            out = os.path.join(tmp, f"{mode}.png")
+            argv = ["--mode", mode, "--target", paths["target"], "--out", out,
+                    "--size", *map(str, hw), "--iters", str(INVERT_ITERS),
+                    "--log-every", "1", *model_args]
+            if mode == "mhada":
+                argv += ["--style", paths["style"]]
+            try:
+                got, wall, log = run_cli(visualize.main, argv)
+                losses = log_losses(log)
+                want = inversion_want(mode, INVERT_ITERS)
+                shape = (np.asarray(Image.open(out)).shape
+                         if os.path.exists(out) else None)
+                good = (shape == (*hw, 3) and len(losses) == INVERT_ITERS
+                        and np.isfinite(losses).all()
+                        and losses[-1] < losses[0] and got == want)
+                rec[f"cli_{mode}"] = dict(losses=losses, launches=got,
+                                          wall_s=wall)
+                ok = phase(label, good,
+                           f"{out.split('/')[-1]} {shape}; losses "
+                           f"{losses[0]:.6g} -> {losses[-1]:.6g} over "
+                           f"{len(losses)} steps; launches {got} (want "
+                           f"{want}); {wall:.1f} s wall with set-up") and ok
+            except Exception as e:
+                ok = phase(label, False, f"{type(e).__name__}: {e}")
+        secs["bc_cli"] = time.perf_counter() - t0
+
+        # d. kernel build against plain build, then ms per Adam step
+        t0 = time.perf_counter()
+        target, style = (torch.from_numpy(load_image(paths[k], hw))[None]
+                         .cuda() for k in ("target", "style"))
+        img0 = torch.rand((1, *hw, 3),
+                          generator=torch.Generator().manual_seed(SEED)) * 255
+
+        def features(models):
+            """mode -> (feature function of the image, its targets)."""
+            with torch.no_grad(), no_tf32():
+                fs = models["vit_s"](style)
+
+            def fcs(x):
+                return [models["adaFormer"].transform(models["vit_c"](x), fs)]
+
+            return {mode: (fn, visualize._targets(fn, target))
+                    for mode, fn in (("vit", models["vit_c"]),
+                                     ("mhada", fcs))}
+
+        builds = {"plain": features(pmodels), "kernel": features(kmodels)}
+        rec["ms_per_step"] = {}
+        for mode in ("vit", "mhada"):
+            label = (f"analysis inversion {mode} kernel vs plain build "
+                     f"{INVERT_ITERS} steps")
+            try:
+                runs = {b: visualize._invert(
+                    *builds[b][mode], (1, *hw, 3), 0.5, INVERT_ITERS,
+                    log_every=0, img0=img0, return_losses=True)
+                    for b in builds}
+                (ip, lp), (ik, lk) = runs["plain"], runs["kernel"]
+                rel = float(np.max(np.abs(lk - lp) / np.abs(lp)))
+                dpix = float(np.abs(ik - ip).max())
+                good = (np.isfinite(lk).all() and rel <= INVERT_LOSS_REL
+                        and dpix <= INVERT_PIXEL)
+
+                def adam_step(b):
+                    fn, tg = builds[b][mode]
+                    img = img0.to("cuda", copy=True).requires_grad_()
+                    loss_fn = visualize.feature_loss(fn, tg)
+                    opt = torch.optim.Adam([img], lr=0.5)
+
+                    def step():
+                        opt.zero_grad(set_to_none=True)
+                        loss_fn(img).backward()
+                        opt.step()
+                    return step
+
+                steps = {b: adam_step(b) for b in builds}
+                t = {b: [] for b in builds}
+                with no_tf32():
+                    for b in ("plain", "kernel", "kernel", "plain"):
+                        t[b].append(cuda_ms(steps[b], 2, 10))
+                    # the device's busy ms a step, and K6's and K7's
+                    busy = {b: busy_ms(steps[b], INVERSION_KERNELS)
+                            for b in builds}
+                ms = {b: sum(v) / len(v) for b, v in t.items()}
+                kern = sum(busy["kernel"][1].values())
+                rec["ms_per_step"][mode] = dict(
+                    ms, loss_rel=rel, dpix=dpix,
+                    busy_ms={b: v[0] for b, v in busy.items()},
+                    k6_k7_ms=kern,
+                    recipe_s={b: v * RECIPE_ITERS / 1e3
+                              for b, v in ms.items()})
+                ok = phase(label, good,
+                           f"losses {lk[0]:.6g} -> {lk[-1]:.6g}, max rel "
+                           f"{rel:.2e} (bound {INVERT_LOSS_REL:.0e}); image "
+                           f"max|d| {dpix:.4f} (bound {INVERT_PIXEL}); ms "
+                           f"per Adam step plain {t['plain']} kernel "
+                           f"{t['kernel']}, so {RECIPE_ITERS} steps "
+                           f"{ms['kernel'] * RECIPE_ITERS / 1e3:.1f} s on "
+                           f"the kernel build, "
+                           f"{ms['plain'] * RECIPE_ITERS / 1e3:.1f} s on "
+                           f"the plain; device busy ms a step (profiler) "
+                           f"plain {busy['plain'][0]:.3f} kernel "
+                           f"{busy['kernel'][0]:.3f}, K6 and K7 "
+                           f"{kern:.3f} of it ({card})") and ok
+            except Exception as e:
+                ok = phase(label, False, f"{type(e).__name__}: {e}")
+        del builds, kmodels, pmodels
+        torch.cuda.empty_cache()
+        secs["d_builds"] = time.perf_counter() - t0
+
+        # e. the VGG modes at 224^2 on random VGG weights
+        t0 = time.perf_counter()
+        none = dict.fromkeys(FULL, 0)
+        for mode, extra in (("vgg", ["--last-layer", "3", "--iters", "5",
+                                     "--log-every", "1"]),
+                            ("vgg_progressive", ["--iters", "4"])):
+            label = f"analysis visualize.main --mode {mode} {VGG_SIZE}^2"
+            out = os.path.join(tmp, mode, "inversion.png")
+            try:
+                got, wall, log = run_cli(visualize.main, [
+                    "--mode", mode, "--target", paths["vgg_target"], "--out",
+                    out, "--size", str(VGG_SIZE), str(VGG_SIZE), *extra])
+                if mode == "vgg":
+                    traces = [log_losses(log)]
+                    files = [os.path.basename(out)] * os.path.exists(out)
+                else:   # "saved <file> (loss a -> b)" per prefix
+                    traces = [[float(v) for v in ln.split("(loss ")[1]
+                               .rstrip(")").split(" -> ")]
+                              for ln in log.splitlines() if "(loss " in ln]
+                    files = sorted(os.listdir(os.path.dirname(out)))
+                good = (len(traces) == (1 if mode == "vgg" else 5)
+                        and len(files) == len(traces)
+                        and all(np.isfinite(tr).all() and tr[-1] < tr[0]
+                                for tr in traces)
+                        and got == none and "WARNING: random VGG" in log)
+                rec[f"cli_{mode}"] = dict(losses=traces, files=files,
+                                          wall_s=wall)
+                ok = phase(label, good,
+                           f"{len(files)} images; losses (first -> last) "
+                           + ", ".join(f"{tr[0]:.4g} -> {tr[-1]:.4g}"
+                                       for tr in traces)
+                           + f"; launches {'none' if got == none else got};"
+                           f" {wall:.1f} s wall") and ok
+            except Exception as e:
+                ok = phase(label, False, f"{type(e).__name__}: {e}")
+        secs["e_vgg"] = time.perf_counter() - t0
+
+        # f. the counts on the card against the CPU; a kernel build refused
+        t0 = time.perf_counter()
+        try:
+            reports = {d: counts.report(device=d) for d in ("cuda", "cpu")}
+            inference = build_models(ModelConfig(), "cuda")["vit_c"]
+            x = torch.zeros(1, *hw, 3, device="cuda")
+            try:
+                counts.count_flops(inference.requires_grad_(False), x)
+                refused = "no"
+            except RuntimeError as e:
+                refused = str(e)
+            good = (reports["cuda"] == reports["cpu"]
+                    and "launched during the count" in refused)
+            rec["counts"] = reports["cuda"]
+            ok = phase("analysis counts.report card vs CPU", good,
+                       f"card {reports['cuda']}; the CPU's equal: "
+                       f"{reports['cuda'] == reports['cpu']}; count_flops "
+                       f"over the kernel build's vit_c raised: "
+                       f"{refused[:160]}") and ok
+        except Exception as e:
+            ok = phase("analysis counts.report card vs CPU", False,
+                       f"{type(e).__name__}: {e}")
+        secs["f_counts"] = time.perf_counter() - t0
+
+        # g. the histograms, where matplotlib imports
+        try:
+            import matplotlib
+            out = hist.plot_bgr_histograms(
+                [paths["target"], paths["style"]],
+                os.path.join(tmp, "hist.png"))
+            good = os.path.getsize(out) > 0
+            txt = f"matplotlib {matplotlib.__version__} imports; plot drawn"
+        except ImportError as e:   # reported, never failed
+            good, txt = True, f"matplotlib does not import ({e}); no plot"
+        except Exception as e:
+            good, txt = False, f"{type(e).__name__}: {e}"
+        rec["histograms"] = txt
+        ok = phase("analysis histograms", good, txt) and ok
+
+        # h. the variants at full width, card against CPU, float32
+        t0 = time.perf_counter()
+
+        def randn(*shape, scale=1.0):
+            return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                    .astype(np.float32))
+
+        variants = [
+            ("VisionTransformerMultiScale 256^2", VisionTransformerMultiScale,
+             [torch.from_numpy(rng.uniform(0, 255, (1, *hw, 3))
+                               .astype(np.float32))]),
+            ("AdaAttnTransformer 3 x (1, 32, 32, 512)", AdaAttnTransformer,
+             [[randn(1, 32, 32, 512) for _ in range(3)] for _ in range(2)]),
+            ("VGG19Classifier (1, 14, 14, 512)", VGG19Classifier,
+             [randn(1, 14, 14, 512).abs()]),
+        ]
+        for name, make, inputs in variants:
+            label = f"analysis variant {name} card vs CPU"
+            try:
+                mod = make()
+                init_parameters(mod, torch.Generator().manual_seed(SEED))
+                mod.requires_grad_(False).eval()
+
+                def run(dev):
+                    args = [[t.to(dev) for t in a] if isinstance(a, list)
+                            else a.to(dev) for a in inputs]
+                    with torch.no_grad(), no_tf32():
+                        out = mod.to(dev)(*args)
+                    return [o.cpu() for o in (out if isinstance(out, list)
+                                              else [out])]
+
+                ref = run("cpu")
+                _build.reset_launches()
+                got = run("cuda")
+                launched = sum(_build.LAUNCHES.values())
+                rels = [float((g - r).abs().max() / r.abs().max())
+                        for g, r in zip(got, ref)]
+                good = (launched == 0 and max(rels) <= METRIC_REL
+                        and all(torch.isfinite(g).all() for g in got))
+                rec.setdefault("variants", {})[name] = rels
+                ok = phase(label, good,
+                           f"outputs {[tuple(g.shape) for g in got]}, max|d|"
+                           f" / max|CPU| {[f'{r:.2e}' for r in rels]} (bound "
+                           f"{METRIC_REL:.0e}); kernel launches {launched}"
+                           ) and ok
+                del mod
+            except Exception as e:
+                ok = phase(label, False, f"{type(e).__name__}: {e}")
+        torch.cuda.empty_cache()
+        secs["h_variants"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["seconds"] = secs
+    phase("analysis seconds", True, ", ".join(f"{k} {v:.1f}"
+                                              for k, v in secs.items()))
+    return ok, rec
+
+
 def test_images(size, rng):
     """A smooth content picture with noise and a noise style, HWC 0-255."""
     yy, xx = np.mgrid[0:size, 0:size] / size
@@ -2960,6 +3366,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     evals_s = time.perf_counter() - t0
 
+    # ---- 9. the analysis tools: feature inversion through K6 and K7
+    t0 = time.perf_counter()
+    good, analysis = analysis_phase(card, train_extra)
+    ok = good and ok
+    for mode in ("vit", "mhada"):
+        launches[f"inversion_{mode}"] = analysis.get(
+            f"cli_{mode}", {}).get("launches", {})
+    analysis_s = time.perf_counter() - t0
+
     # ---- the kernels' summary: one row per TPU kernel the path replaces
     first_gate = {}
     for gate, row, *_ in gate_list:
@@ -2978,9 +3393,11 @@ def main() -> int:
         row = dict(name=name, route="cuda", source=source,
                    replaces=replaces, gate=first, path=row_path,
                    launches=launches.get(path, {}).get(entry, 0))
-        if path == "train":   # K6, K7, K8: the video step's launches too
-            row["launches_video"] = launches.get("train_video", {}).get(
-                entry, 0)
+        if path == "train":   # K6, K7, K8: the video step's and the
+            # feature inversions' launches too
+            for key in ("train_video", "inversion_vit", "inversion_mhada"):
+                row["launches_" + key.replace("train_", "")] = launches.get(
+                    key, {}).get(entry, 0)
         if note:
             row["path_note"] = note
         if not r32:   # a bfloat16-only kernel (P1): its numbers stand first
@@ -3013,10 +3430,12 @@ def main() -> int:
     seconds = time.perf_counter() - t_start
     phase("run time", True, f"{seconds:.1f} s from start to summary, "
           f"{video_s:.1f} s of it the video gates and step (phases 6, 7e), "
-          f"{evals_s:.1f} s the evals (phase 8)")
+          f"{evals_s:.1f} s the evals (phase 8), {analysis_s:.1f} s the "
+          f"analysis tools (phase 9)")
     print(json.dumps({"kernels": summary, "extra_gates": extra,
                       "launches": launches, "frame_ms": frame_ms,
                       "video_cli": video_cli, "evals": evals,
+                      "analysis": analysis,
                       "train": train_extra, "step_ms": step_ms,
                       "step_peak_gb": step_peak_gb,
                       "card": card, "seconds": seconds}), flush=True)

@@ -8,8 +8,9 @@ kernel stacks and the position grid keep the JAX layouts.
 
 A reference ``.pth`` triple is read with ``torch.load(weights_only=True)``
 and mapped onto the JAX tree by this module's own copy of the JAX
-package's importers (mhada_tpu/interop/torch_import.py:22-176: the ViT,
-the MHAda block, the decoder, AdaFormer and torchvision's VGG19), then goes
+package's importers (mhada_tpu/interop/torch_import.py:22-176: the ViT and
+its multi-scale variant, the MHAda block, the decoder, AdaFormer, the
+single-head AdaAttnTransformer and torchvision's VGG19), then goes
 through the same bridge.  The way back, port modules -> reference-format
 state_dicts, is its copy of the exporters (torch_export.py:23-98).
 """
@@ -91,6 +92,18 @@ def import_vit(sd: dict, num_layers: int = 3) -> dict:
     return p
 
 
+def import_vit_multiscale(sd: dict, num_layers: int = 3) -> dict:
+    """Reference VisionTransformerMultiScale state_dict (vit.py:172-236) ->
+    JAX-layout tree: the ViT's plus the stride-2 re-patch embeddings
+    (torch_import.py:63-75)."""
+    p = import_vit(sd, num_layers)
+    for i in range(num_layers - 1):
+        p[f"repatch{i}"] = {"proj": {
+            "kernel": _conv(sd[f"repatch.{i}.conv_proj.weight"]),
+            "bias": sd[f"repatch.{i}.conv_proj.bias"]}}
+    return p
+
+
 def _import_mhada_block(sd: dict, prefix: str, num_heads: int) -> dict:
     """One AdaAttnMultiHead: per-head 1x1 convs -> (heads, d, d) stacks
     (torch_import.py:77-98)."""
@@ -131,6 +144,21 @@ def import_adaformer(sd: dict, num_layers: int = 3, num_heads: int = 8
     (torch_import.py:121-129)."""
     p = {f"ada{j}": _import_mhada_block(sd, f"adaAttnHead.{j}.", num_heads)
          for j in range(2 * num_layers)}
+    p["decoder"] = import_decoder(sd)
+    return p
+
+
+def import_adaattn_transformer(sd: dict, num_layers: int = 3) -> dict:
+    """Reference single-head AdaAttnTransformer (adaDecoder.py:209-232) ->
+    JAX-layout tree (torch_import.py:132-155): 1x1 convs -> (in, out)."""
+    p = {}
+    for j in range(num_layers):
+        t = f"adaAttNs.{j}."
+        p[f"ada{j}"] = {}
+        for name in ("f", "g", "h"):
+            p[f"ada{j}"][f"{name}_kernel"] = sd[t + name + ".weight"][
+                :, :, 0, 0].T
+            p[f"ada{j}"][f"{name}_bias"] = sd[t + name + ".bias"]
     p["decoder"] = import_decoder(sd)
     return p
 

@@ -7,11 +7,15 @@ from ..config import ModelConfig, resolve_device
 from .adaformer import AdaAttnMultiHead, AdaFormer
 from .decoder import Decoder
 from .layers import init_parameters
-from .vgg19 import VGG19Features
-from .vit import VisionTransformer
+from .raft import RAFT
+from .vgg19 import VGG19Features, imagenet_normalize
+from .vit import VisionTransformer, VisionTransformerMultiScale
+from ..train.losses import adaattn_for_loss
 
-__all__ = ["AdaAttnMultiHead", "AdaFormer", "Decoder", "VGG19Features",
-           "VisionTransformer", "build_models"]
+__all__ = ["AdaAttnMultiHead", "AdaFormer", "Decoder", "RAFT",
+           "VGG19Features", "VisionTransformer",
+           "VisionTransformerMultiScale", "adaattn_for_loss", "build_models",
+           "imagenet_normalize"]
 
 
 def build_models(cfg=None, device="cuda",

@@ -16,6 +16,13 @@ JAX package's M <= 4096 guard at mhada_tpu/models/adaformer.py:82 is a TPU
 VMEM limit).  Otherwise the softmax core is K4 in eval mode and the
 differentiable K7 (ops/mhada_train.py) in training mode; K3 and K4 are
 forward-only, as the JAX training build turns the fused prologue off.
+
+``AdaFormer.transform`` is the decoder-less call (the MHAda blocks alone),
+which feature inversion differentiates through.  The reference's unused
+single-head variants ``AdaAttnSingle`` and ``AdaAttnTransformer``
+(mhada_tpu/models/adaformer.py:145-171, 230-255) run the plain core of
+ops/mhada.py by name, as the JAX ones never reach a Pallas kernel: one head
+of d = 512 is not a shape the kernels take.
 """
 
 import math
@@ -26,6 +33,7 @@ import torch.nn as nn
 from .decoder import Decoder
 from .layers import uniform_
 from ..ops.instance_norm import instance_norm_stats, instance_norm_tokens
+from ..ops.mhada import mhada_attention
 from ..ops.mhada_kernel import mhada_tm, mhada_tm_plain
 from ..ops.mhada_prologue import mhada_fused_prologue
 from ..ops.mhada_train import mhada_train
@@ -125,6 +133,14 @@ class AdaFormer(nn.Module):
                 style_kv=None):
         """``style_kv``: 2 * num_layers cached (k, v) pairs, one per block,
         from ``infer.image.precompute_style_kv``; ``fs`` may then be None."""
+        fcs_map = self.transform(fc, fs, style_kv)
+        return fcs_map, self.decoder(fcs_map)
+
+    def transform(self, fc: list[torch.Tensor],
+                  fs: list[torch.Tensor] | None,
+                  style_kv=None) -> torch.Tensor:
+        """The MHAda blocks without the decoder -> fcs_map (B, h, w, C):
+        ``forward``'s first result."""
         b, h, w, c = fc[0].shape
         fc_tok = [f.reshape(b, h * w, c) for f in fc]
         if style_kv is None:
@@ -138,5 +154,62 @@ class AdaFormer(nn.Module):
                                                style_kv[2 * i])
             fcs = getattr(self, f"ada{2 * i + 1}")(fcs, fs_tok[i], fcs,
                                                    style_kv[2 * i + 1])
-        fcs_map = fcs.reshape(b, h, w, c)
-        return fcs_map, self.decoder(fcs_map)
+        return fcs.reshape(b, h, w, c)
+
+
+class AdaAttnSingle(nn.Module):
+    """Single-head learnable AdaAttN (reference adaDecoder.py:85-131).
+    ``{f,g,h}_kernel`` (C, C) keep the JAX layout (in, out)."""
+
+    def __init__(self, channels: int, activation: str = "softmax"):
+        super().__init__()
+        self.activation = activation
+        for name in ("f", "g", "h"):
+            self.register_parameter(
+                f"{name}_kernel", nn.Parameter(torch.empty(channels, channels)))
+            self.register_parameter(
+                f"{name}_bias", nn.Parameter(torch.empty(channels)))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        bound = 1 / math.sqrt(self.f_kernel.shape[0])
+        for name in ("f", "g", "h"):
+            uniform_(getattr(self, f"{name}_kernel"), bound, generator)
+            uniform_(getattr(self, f"{name}_bias"), bound, generator)
+
+    def _project(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        return (x @ getattr(self, f"{name}_kernel").to(x.dtype)
+                + getattr(self, f"{name}_bias").to(x.dtype))
+
+    def forward(self, fc: torch.Tensor, fs: torch.Tensor,
+                fcs: torch.Tensor) -> torch.Tensor:
+        """fc, fcs (B, N, C); fs (B, M, C) -> (B, N, C)."""
+        q = self._project(instance_norm_tokens(fc), "f")
+        k = self._project(instance_norm_tokens(fs), "g")
+        v = self._project(fs, "h")
+        out = mhada_attention(q[:, None], k[:, None], v[:, None],
+                              instance_norm_tokens(fcs)[:, None],
+                              self.activation)
+        return out[:, 0]
+
+
+class AdaAttnTransformer(nn.Module):
+    """Single-head stack (reference adaDecoder.py:209-232): num_layers
+    AdaAttnSingle blocks, then the decoder on its plain tail; returns cs."""
+
+    def __init__(self, num_layers: int = 3, hidden_dim: int = 512,
+                 activation: str = "softmax"):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"ada{i}", AdaAttnSingle(hidden_dim, activation))
+        self.decoder = Decoder(hidden_dim, backend="plain")
+
+    def forward(self, fc: list[torch.Tensor],
+                fs: list[torch.Tensor]) -> torch.Tensor:
+        b, h, w, c = fc[0].shape
+        fc_tok = [f.reshape(b, h * w, c) for f in fc]
+        fs_tok = [f.reshape(f.shape[0], -1, f.shape[-1]) for f in fs]
+        fcs = fc_tok[0]
+        for i in range(self.num_layers):
+            fcs = getattr(self, f"ada{i}")(fc_tok[i], fs_tok[i], fcs)
+        return self.decoder(fcs.reshape(b, h, w, c))

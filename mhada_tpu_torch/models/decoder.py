@@ -18,16 +18,65 @@ conv.py:93).  ``tail`` picks how up3 -> c5 -> c6 runs:
 The state_dict is the same for both.  The JAX package's TPU re-layouts
 (column packing, 2x2 packing, ``mega_min_grid``) do not exist here: the
 c6 tail runs ``col_tail``'s function on plain NHWC tensors.
+
+``ConvDepthwiseSeparable`` and ``ConvTanh`` (mhada_tpu/models/
+decoder.py:35-79) are the reference's unused components, kept for parity;
+they are plain PyTorch convolutions.
 """
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from .layers import Conv2d
+from .layers import Conv2d, uniform_
 from ..ops.decoder_c6 import c6_conv
 from ..ops.decoder_tail import decoder_tail, decoder_tail_train
-from ..ops.pad_conv import reflect_pad2d
+from ..ops.pad_conv import no_tf32, reflect_pad2d
 from ..ops.resize import upsample2x
+
+
+class ConvDepthwiseSeparable(nn.Module):
+    """Reflection-padded depthwise k x k + pointwise 1x1 (reference
+    conv.py:8-20; the ConvFF ViT variant's).  ``dw_kernel`` keeps the JAX
+    layout (k, k, 1, C), so ``interop.params_from_jax`` carries it across
+    unchanged; its weight and bias are U(+-1/k) (fan-in k * k, as the JAX
+    module draws them)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1):
+        super().__init__()
+        self.stride = stride
+        self.dw_kernel = nn.Parameter(
+            torch.empty(kernel_size, kernel_size, 1, in_channels))
+        self.dw_bias = nn.Parameter(torch.empty(in_channels))
+        self.pointwise = Conv2d(in_channels, out_channels, 1)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        bound = 1.0 / self.dw_kernel.shape[0]
+        uniform_(self.dw_kernel, bound, generator)
+        uniform_(self.dw_bias, bound, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.dw_kernel.shape[0]
+        x = reflect_pad2d(x, k // 2)
+        w = self.dw_kernel.permute(3, 2, 0, 1).to(x.dtype)   # (C, 1, k, k)
+        with no_tf32():
+            y = F.conv2d(x.permute(0, 3, 1, 2), w, self.dw_bias.to(x.dtype),
+                         stride=self.stride, groups=x.shape[-1])
+        return self.pointwise(y.permute(0, 2, 3, 1).contiguous())
+
+
+class ConvTanh(nn.Module):
+    """Conv + tanh rescaled to 0-255 (reference conv.py:48-58)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3):
+        super().__init__()
+        self.conv = Conv2d(in_channels, out_channels, kernel_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(reflect_pad2d(x, self.conv.weight.shape[-1] // 2))
+        return (torch.tanh(x) + 1.0) / 2.0 * 255.0
 
 
 class ConvReLU(nn.Module):

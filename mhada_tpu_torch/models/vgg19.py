@@ -8,12 +8,16 @@ convs are named after the JAX tree (``conv1_1`` ... ``conv5_1``), so
 ``interop.params_from_jax`` carries JAX VGG params across unchanged;
 ``interop.import_vgg19`` reads a torchvision ``.pth``.  Weights stay
 float32 and are cast to the input's dtype at use.
+
+``VGG19Classifier`` (mhada_tpu/models/vgg19.py:55-91) is the reference's
+dead classifier head, kept for parity, in plain PyTorch.
 """
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from .layers import Conv2d
+from .layers import Conv2d, Linear
 from ..ops.pad_conv import conv2d, max_pool2d
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -40,6 +44,33 @@ def imagenet_normalize(x: torch.Tensor) -> torch.Tensor:
     return (x / 255.0 - mean) / std
 
 
+class VGG19Classifier(nn.Module):
+    """VGG19's tail, features[30:37] + avgpool + classifier (reference
+    vgg19.py:73-93): relu5_1 maps (B, H, W, 512) -> (B, 1000) logits.
+    The 7 x 7 adaptive average pool is torch's bin rule, and the maps are
+    flattened in NHWC (h, w, c) order as the JAX module flattens them, so
+    its fc1 carries across unchanged."""
+
+    def __init__(self):
+        super().__init__()
+        for name in ("conv5_2", "conv5_3", "conv5_4"):
+            self.add_module(name, Conv2d(512, 512, 3))
+        self.fc1 = Linear(7 * 7 * 512, 4096)
+        self.fc2 = Linear(4096, 4096)
+        self.fc3 = Linear(4096, 1000)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for name in ("conv5_2", "conv5_3", "conv5_4"):
+            conv = getattr(self, name)
+            x = torch.relu(conv2d(x, conv.weight.to(x.dtype),
+                                  conv.bias.to(x.dtype), padding=1))
+        x = max_pool2d(x)
+        x = F.adaptive_avg_pool2d(x.permute(0, 3, 1, 2), (7, 7))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        x = torch.relu(self.fc1(x))
+        return self.fc3(torch.relu(self.fc2(x)))
+
+
 class VGG19Features(nn.Module):
     """(B, H, W, 3) in 0-255 -> {"relu1_1", ..., "relu5_1"} NHWC maps."""
 
@@ -50,6 +81,15 @@ class VGG19Features(nn.Module):
             if name != "pool":
                 self.add_module(name, Conv2d(cin, ch, 3))
                 cin = ch
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Seeded random weights: each conv's U(+-1/sqrt(fan_in)), drawn in
+        order (``layers.Conv2d.reset_parameters``).  For smoke runs
+        without a torchvision ``.pth``; the convs are empty until then.
+        ``layers.init_parameters`` would draw them twice: call this."""
+        for name, _ in VGG19_PREFIX:
+            if name != "pool":
+                getattr(self, name).reset_parameters(generator)
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
         x = imagenet_normalize(x)

@@ -9,11 +9,18 @@ network/vit.py:45-169).
 tokens through the kernels; ``"batch_coupled"`` reproduces the reference's
 attention over the image batch, through the plain path as in the JAX
 package (vit.py:127,138-141).
+
+The reference's unused variants (mhada_tpu/models/vit.py:64-104, 214-246):
+``ConvFF``, ``EncoderBlockConvFF`` and ``VisionTransformerMultiScale``.
+None of them sets ``use_pallas`` in the JAX package, so here they take the
+plain attention by name (``backend="plain"``): the multi-scale encoder's
+first stage has heads of 256 / 8 = 32, which the kernels do not take.
 """
 
 import torch
 import torch.nn as nn
 
+from .decoder import ConvDepthwiseSeparable
 from .layers import Conv2d, LayerNorm, Linear, MultiHeadSelfAttention
 from ..ops.ln_matmul import ln_matmul
 from ..ops.resize import resize_bilinear
@@ -24,9 +31,11 @@ ATTN_MODES = ("spatial", "batch_coupled")
 class PatchEmbedding(nn.Module):
     """Conv with kernel = stride = patch, flattened to (B, h*w, C) tokens."""
 
-    def __init__(self, patch_size: int, hidden_dim: int):
+    def __init__(self, patch_size: int, hidden_dim: int,
+                 in_channels: int = 3):
         super().__init__()
-        self.proj = Conv2d(3, hidden_dim, patch_size, stride=patch_size)
+        self.proj = Conv2d(in_channels, hidden_dim, patch_size,
+                           stride=patch_size)
 
     def forward(self, x: torch.Tensor):
         y = self.proj(x)
@@ -52,6 +61,49 @@ class PosEmbedding(nn.Module):
         if (h, w) != tuple(pos.shape[1:3]):
             pos = resize_bilinear(pos, (h, w))
         return pos.reshape(1, h * w, pos.shape[-1])
+
+
+class ConvFF(nn.Module):
+    """Conv feed-forward on the re-rasterised token grid: 1x1 ->
+    depthwise-separable 3x3 -> 1x1 (reference vit.py:10-24)."""
+
+    def __init__(self, hidden_dim: int, mlp_dim: int):
+        super().__init__()
+        self.conv_in = Conv2d(hidden_dim, mlp_dim, 1)
+        self.conv_dw = ConvDepthwiseSeparable(mlp_dim, mlp_dim)
+        self.conv_out = Conv2d(mlp_dim, hidden_dim, 1)
+
+    def forward(self, x: torch.Tensor, hw) -> torch.Tensor:
+        b, n, c = x.shape
+        y = self.conv_in(x.reshape(b, *hw, c))
+        y = self.conv_out(self.conv_dw(y))
+        return y.reshape(b, n, c)
+
+
+class EncoderBlockConvFF(nn.Module):
+    """Encoder block whose MLP is a ConvFF (reference vit.py:27-42); plain
+    attention in either ``attn_mode``."""
+
+    def __init__(self, hidden_dim: int, num_heads: int, mlp_dim: int,
+                 attn_mode: str = "spatial"):
+        super().__init__()
+        if attn_mode not in ATTN_MODES:
+            raise ValueError(f"unknown attn_mode: {attn_mode}")
+        self.attn_mode = attn_mode
+        self.ln1 = LayerNorm(hidden_dim)
+        self.attention = MultiHeadSelfAttention(hidden_dim, num_heads,
+                                                backend="plain")
+        self.ln2 = LayerNorm(hidden_dim)
+        self.mlp = ConvFF(hidden_dim, mlp_dim)
+
+    def forward(self, x: torch.Tensor, hw) -> torch.Tensor:
+        h = self.ln1(x)
+        if self.attn_mode == "spatial":
+            h = self.attention(h)
+        else:
+            h = self.attention(h.transpose(0, 1)).transpose(0, 1)
+        x = x + h
+        return x + self.mlp(self.ln2(x), hw)
 
 
 class EncoderBlock(nn.Module):
@@ -128,3 +180,38 @@ class VisionTransformer(nn.Module):
             feats.append(tokens.reshape(-1, h, w, self.hidden_dim))
         return feats
 
+
+class VisionTransformerMultiScale(nn.Module):
+    """Pyramid variant with stride-2 re-patching between stages (reference
+    vit.py:172-236); every stage on the plain attention."""
+
+    def __init__(self, patch_size: int = 4, num_layers: int = 3,
+                 num_heads: int = 8, hidden_dims=(256, 512, 512),
+                 mlp_dims=(1024, 2048, 2048), pos_embedding: bool = True,
+                 attn_mode: str = "spatial"):
+        super().__init__()
+        self.num_layers = num_layers
+        self.hidden_dims = tuple(hidden_dims)
+        self.patch_embedding = PatchEmbedding(patch_size, hidden_dims[0])
+        self.pos_embedding = (PosEmbedding(hidden_dims[0]) if pos_embedding
+                              else None)
+        for i in range(num_layers):
+            self.add_module(f"block{i}", EncoderBlock(
+                hidden_dims[i], num_heads, mlp_dims[i], attn_mode,
+                backend="plain"))
+            if i < num_layers - 1:
+                self.add_module(f"repatch{i}", PatchEmbedding(
+                    2, hidden_dims[i + 1], hidden_dims[i]))
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        tokens, (h, w) = self.patch_embedding(x)
+        if self.pos_embedding is not None:
+            tokens = tokens + self.pos_embedding((h, w)).to(tokens.dtype)
+        feats = []
+        for i in range(self.num_layers):
+            tokens = getattr(self, f"block{i}")(tokens)
+            y = tokens.reshape(-1, h, w, self.hidden_dims[i])
+            feats.append(y)
+            if i < self.num_layers - 1:
+                tokens, (h, w) = getattr(self, f"repatch{i}")(y)
+        return feats

@@ -26,7 +26,6 @@ from torch.utils.checkpoint import checkpoint
 from ..config import ImageTrainConfig, resolve_device
 from ..infer.image import DTYPES
 from ..models import VGG19Features, build_models
-from ..models.layers import init_parameters
 from ..ops.pad_conv import no_tf32
 from . import losses as L
 
@@ -42,7 +41,7 @@ def init_params(cfg: ImageTrainConfig, device="cuda",
         generator = torch.Generator().manual_seed(0)
     models = build_models(cfg, device, generator, for_training=True)
     vgg = VGG19Features()
-    init_parameters(vgg, generator)
+    vgg.reset_parameters(generator)
     models["vgg19"] = vgg.requires_grad_(False).to(
         resolve_device(device)).eval()
     return models

@@ -37,7 +37,9 @@ held at small and path shapes, the probes P1 (a tensor-core matmul) and P2
 (K3's function; at bf16 a wgmma + TMA kernel, also at the full width with M
 no multiple of 64 and N no multiple of its 192-query block), each also
 against K3 (float32 1e-6, bf16 1e-2); a misaligned, wrongly typed or
-grad-requiring input of P2 or K14 raises.
+grad-requiring input of P2 or K14 raises.  K6 and K7 also at feature
+inversion's B = 1 and 1024 tokens, and one inversion step of the ViT on
+the card against the CPU.
 
 Marked ``cuda``: each test skips without a card.  On a machine with one (the
 repo conftest imports jax, which that machine need not have):
@@ -823,6 +825,69 @@ def test_mhada_train_kernels_video_shapes(gen, dtype, n, m):
 
     _check_train(["mhada_mhada_train_fwd", "mhada_mhada_train_bwd"], run,
                  dtype, [q, k, v, f], cot)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_train_kernels_inversion_shape(gen, dtype):
+    """K6 at B = 1, L = 1024, 8 heads of 64 and K7 at B = 1, N = M = 1024,
+    forward and input gradients: feature inversion's shapes at 256^2
+    (analysis.visualize, the image's gradient through the training
+    build)."""
+    qkv = _rnd(gen, dtype, 1, 1024, 3 * 512, scale=0.5)
+
+    def attend(be, x):
+        return attention_train(x, 8, backend=be)
+
+    _check_train(["mhada_attention_train_fwd", "mhada_attention_train_bwd"],
+                 attend, dtype, [qkv], _rnd(gen, dtype, 1, 1024, 512))
+    q, k = (_rnd(gen, dtype, 1, 1024, 512, scale=0.35) for _ in range(2))
+    v, f = (_rnd(gen, dtype, 1, 1024, 512) for _ in range(2))
+
+    def mhada(be, *a):
+        return mhada_train(*a, 8, backend=be)
+
+    _check_train(["mhada_mhada_train_fwd", "mhada_mhada_train_bwd"], mhada,
+                 dtype, [q, k, v, f], _rnd(gen, dtype, 1, 1024, 512))
+
+
+def test_vit_inversion_step_against_cpu(gen):
+    """One feature-inversion step at full width and 256^2 on the card's
+    training build (K6 forward and backward, float32) against the plain
+    build on the CPU, same weights, target and first image: the loss to
+    1e-4 and the image's gradient to 1e-3 of its scale; one Adam step of
+    ``invert_vit_features`` launches K6 3 x 2 times forward and 3 times
+    backward, and moves each pixel within 2 x lr of the CPU's step (a
+    gradient within rounding of 0 may take the other sign)."""
+    from mhada_tpu_torch.analysis import visualize
+    from mhada_tpu_torch.config import ModelConfig
+    from mhada_tpu_torch.models import build_models
+
+    g = torch.Generator().manual_seed(3)
+    target = torch.rand(1, 256, 256, 3, generator=g) * 255
+    img0 = torch.rand(1, 256, 256, 3, generator=g) * 255
+    vits = {}
+    for dev in ("cpu", "cuda"):
+        vits[dev] = build_models(ModelConfig(), dev, for_training=True)[
+            "vit_c"].requires_grad_(False)
+    out = {}
+    for dev, vit in vits.items():
+        t = visualize._targets(vit, target.to(dev))
+        x = img0.to(dev, copy=True).requires_grad_()
+        loss = visualize.feature_loss(vit, t)(x)
+        loss.backward()
+        before = dict(_build.LAUNCHES)
+        img = visualize.invert_vit_features(vit, target.to(dev), iters=1,
+                                            img0=img0, log_every=0)
+        moved = {k: v - before[k] for k, v in _build.LAUNCHES.items()
+                 if v != before[k]}
+        out[dev] = (loss.item(), x.grad.cpu(), img, moved)
+    (l_cpu, g_cpu, img_cpu, moved_cpu), (l, gr, img, moved) = out.values()
+    assert moved_cpu == {}
+    assert moved == {"mhada_attention_train_fwd": 6,
+                     "mhada_attention_train_bwd": 3}
+    assert abs(l - l_cpu) <= 1e-4 * abs(l_cpu)
+    assert (gr - g_cpu).abs().max() <= 1e-3 * g_cpu.abs().max()
+    assert abs(img - img_cpu).max() <= 2 * 0.5
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -21,6 +21,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from interpret_diagnostics import explain, interpreter_busy, worker_state
 from mhada_tpu_torch.ops.instance_norm import instance_norm_stats
 from mhada_tpu_torch import _build
 from mhada_tpu_torch.probes import (c6_ablate, f32_tile_geometry,
@@ -166,7 +167,9 @@ def test_pipe_plain_matches_pipe_kernel():
     """K3's plain version against mhada_pipe_probe.py::_pipe_kernel at B = 1,
     N = M = 256, C = 128, 2 heads, tn = 128, float32; k at scale 0.35 keeps
     the unscaled logits' std near 1.6 (tests/test_torch_streaming.py:56-83),
-    with that test's bound."""
+    with that test's bound.  A failure names its largest error, its
+    non-finite values, the worker's peak RSS and any interpreter state left
+    over from an earlier kernel, as that test's does."""
     probe = _script("mhada_pipe_probe")
     rng = np.random.default_rng(82)
     b, n, c, h = 1, 256, 128, 2
@@ -179,14 +182,20 @@ def test_pipe_plain_matches_pipe_kernel():
     t = [torch.from_numpy(x) for x in (fc, fcs, wf, fb, k, v)]
     stats = torch.stack([*instance_norm_stats(t[0]),
                          *instance_norm_stats(t[1])], 1)
-    with pltpu.force_tpu_interpret_mode():
-        ref = np.asarray(probe.call_variant(
-            probe._pipe_kernel, *map(jnp.asarray, (fc, fcs, stats.numpy(),
-                                                   wf, fb, k, v)), 128))
+    stale = interpreter_busy()
+    try:
+        with pltpu.force_tpu_interpret_mode():
+            ref = np.asarray(probe.call_variant(
+                probe._pipe_kernel, *map(jnp.asarray, (fc, fcs, stats.numpy(),
+                                                       wf, fb, k, v)), 128))
+    except Exception as e:
+        raise AssertionError(f"the Pallas kernel raised in interpret mode: "
+                             f"{e!r}; {worker_state(stale)}") from e
     got = mhada_pipe_probe.mhada_fused_prologue_pipe(t[0], t[1], stats,
                                                      *t[2:]).numpy()
-    assert got.shape == ref.shape == (b, n, c)
-    np.testing.assert_allclose(got, ref, atol=5e-5, rtol=0)
+    assert got.shape == ref.shape == (b, n, c), worker_state(stale)
+    np.testing.assert_allclose(got, ref, atol=5e-5, rtol=0,
+                               err_msg=explain(got, ref, worker_state(stale)))
 
 
 def test_probe_clis_cpu(capsys, monkeypatch):

@@ -4,8 +4,6 @@ K/V, the with-K/V and with-features forwards, the latency harness, the
 contents x styles grid, and the CLIs' device rule."""
 
 import json
-import os
-import resource
 
 import numpy as np
 import pytest
@@ -13,6 +11,8 @@ import jax
 import jax.numpy as jnp
 import torch
 from jax.experimental.pallas import tpu as pltpu
+
+from interpret_diagnostics import explain, interpreter_busy, worker_state
 
 from mhada_tpu.config import ModelConfig as JaxModelConfig
 from mhada_tpu.infer import image as jax_image
@@ -58,38 +58,6 @@ def _images(b=2, size=64, seed=62):
             rng.uniform(0, 255, (b, size, size, 3)).astype(np.float32))
 
 
-def _worker_state(stale):
-    """Where a failure happened: the xdist worker, its peak RSS, and whether
-    the Pallas TPU interpreter held state from an earlier kernel of this
-    process when the comparison started (it is left behind when a kernel
-    raises while being interpreted, and is shared by every kernel of the
-    process)."""
-    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
-    return (f"worker {os.environ.get('PYTEST_XDIST_WORKER', 'main')}, peak "
-            f"RSS {peak:.2f} GiB, interpreter state left over: {stale}")
-
-
-def _interpreter_busy():
-    """Whether the TPU interpreter's process-wide simulated memory exists
-    (None where this JAX keeps it elsewhere)."""
-    try:
-        from jax._src.pallas.mosaic.interpret import interpret_pallas_call
-    except ImportError:
-        return None
-    return getattr(interpret_pallas_call, "_shared_memory", None) is not None
-
-
-def _explain(got, ref, state):
-    """The diagnostic of a failed comparison: the largest error, the count
-    of non-finite values on each side, and the worker's state."""
-    finite = np.isfinite(got) & np.isfinite(ref)
-    err = np.abs(got - ref)[finite]
-    return (f"max|d| {err.max() if err.size else float('nan'):.3e} over "
-            f"{err.size} finite pairs; non-finite: got "
-            f"{int((~np.isfinite(got)).sum())}, ref "
-            f"{int((~np.isfinite(ref)).sum())}; {state}")
-
-
 def test_prologue_plain_matches_pallas():
     """K3's plain version against mhada_fused_prologue (interpret mode) at
     ragged N = 200, M = 130; k at input scale 0.35 keeps the unscaled
@@ -110,23 +78,23 @@ def test_prologue_plain_matches_pallas():
     mc, rc = instance_norm_stats(t[0])
     ms, rs = instance_norm_stats(t[1])
     stats = torch.stack([mc, rc, ms, rs], 1)
-    stale = _interpreter_busy()
+    stale = interpreter_busy()
     try:
         with pltpu.force_tpu_interpret_mode():
             ref = np.asarray(jax_fused_prologue(
                 *map(jnp.asarray, (fc, fcs, stats.numpy(), wf, fb, k, v))))
     except Exception as e:
         raise AssertionError(f"the Pallas kernel raised in interpret mode: "
-                             f"{e!r}; {_worker_state(stale)}") from e
+                             f"{e!r}; {worker_state(stale)}") from e
     got = mhada_fused_prologue_plain(t[0], t[1], stats, *t[2:]).numpy()
-    assert got.shape == ref.shape == (b, n, c), _worker_state(stale)
+    assert got.shape == ref.shape == (b, n, c), worker_state(stale)
     np.testing.assert_allclose(got, ref, atol=5e-5, rtol=0,
-                               err_msg=_explain(got, ref,
-                                                _worker_state(stale)))
+                               err_msg=explain(got, ref,
+                                                worker_state(stale)))
     # the wrapper takes the plain version for CPU tensors
     again = mhada_fused_prologue(t[0], t[1], stats, *t[2:]).numpy()
-    np.testing.assert_array_equal(again, got, err_msg=_explain(
-        again, got, _worker_state(stale)))
+    np.testing.assert_array_equal(again, got, err_msg=explain(
+        again, got, worker_state(stale)))
 
 
 def test_precompute_style_kv_matches_jax(pair):
