@@ -177,7 +177,29 @@
    g. whether matplotlib imports, and the histogram plot if it does;
    h. VisionTransformerMultiScale (256^2), AdaAttnTransformer (three
       (1, 32, 32, 512) lists) and VGG19Classifier ((1, 14, 14, 512)) at
-      full width on the card against the CPU, float32, no launches.
+      full width on the card against the CPU, float32, no launches;
+10. the multi-rank serving paths (``mhada_tpu_torch.parallel``):
+   a. K1's cross form (``ops.attention_kernel.attention_cross``: N
+      queries against M keys, the TPU's K12 forwards at N != M) against
+      its plain version at the sequence-parallel shapes, B = 1, 8 heads:
+      1024 and 2048 queries against 4096 keys (512^2 over 4 and 2 ranks),
+      4096 against 16384 (1024^2 over 4), float32 and bfloat16, with time,
+      bound, SDPA's time on the same q, k, v, and phase 3's K1 time beside;
+   b. PAR_RANKS ranks sharing the card over gloo (``parallel_rank``), the
+      full-width model from the seed with c6's gain and a raised bias:
+      SP at 512^2 over all of them and over 2 (f32, bf16), with the
+      planted control (no decoder halo must leave the frame by more than
+      0.1) and margin 4 printed; SP at 1024^2 against a 1024^2 style over
+      all (bf16); PP over 3 stages, 6 frames at 512^2 (f32); DP at 512^2,
+      B = 2 a rank against one rank's B = 8 (f32); each frame against the
+      single-rank frame within the main paths' pixel bounds, the
+      reference more than 60 % mid-range, launches exact on every rank
+      (an SP frame: K1's cross form 3, K2 6, K3 6, K5 1; PP: rank 0 K1 3
+      and K2 6 a frame, every stage K3 2 a frame, the last K5 1), the
+      wall ms a frame printed, not gated; rank 0 also runs SP and DP over
+      a group of its own on NCCL (world size 1);
+   c. NCCL across cards, the same checks, where two or more cards are
+      visible; else one line says it did not run.
 
 Each phase prints one line; any failure exits non-zero without the final
 result line.  The model is the full-width ``ModelConfig()`` with random
@@ -214,6 +236,7 @@ K6F, K6B, K7F, K7B, K8 = ("mhada_attention_train_fwd",
                           "mhada_mhada_train_bwd", "mhada_decoder_tail_res")
 C6, MID, MM, PIPE = ("mhada_decoder_c6", "mhada_decoder_mid_conv",
                      "mhada_mm_probe", "mhada_mhada_prologue_pipe")
+XATTN = "mhada_attention_cross_fwd"   # K1's cross form (N queries, M keys)
 SRC = "mhada_tpu_torch/csrc/"
 K12_SINGLE = "K12 single-pass forward, by K1's kernel"
 K12_FWD = "K12 streaming forward with lse, by K6's forward"
@@ -221,6 +244,8 @@ K12_BWD = "K12 flash backward, by K6's backward"
 K10_RES = "K10 streaming forward with M1/E2/lse, by K7's forward"
 K11_BWD = "K11 flash backward, by K7's backward"
 K2_VJP = "K2 ln_matmul under its VJP (fused-LN training)"
+K12_CROSS = "K12 single-pass forward at N != M, by K1's cross form"
+K12_CROSS_STREAM = "K12 streaming forward at N != M, by K1's cross form"
 ROWS = [
     # row, C entry point, source, TPU kernel it replaces (pallas_call line),
     # the path whose launches the row reports
@@ -274,6 +299,12 @@ ROWS = [
      "probe_mm"),
     ("P2 mhada_prologue_pipe", PIPE, SRC + "mhada_prologue_pipe.cu",
      "scripts/mhada_pipe_probe.py:112", "probe_pipe"),
+    # K12 at N != M: the sequence-parallel ViT attention, each rank's
+    # queries against the keys gathered over the ranks (phase 10)
+    (K12_CROSS, XATTN, SRC + "attention_fwd.cu",
+     "mhada_tpu/ops/attention_pallas.py:62", "sp512"),
+    (K12_CROSS_STREAM, XATTN, SRC + "attention_fwd.cu",
+     "mhada_tpu/ops/attention_pallas.py:488", "sp1024"),
 ]
 # Rows whose launches come from a run that no inference or training entry
 # point makes: launches key -> (the row's path, why).
@@ -341,7 +372,7 @@ BF16_ONLY = {"mm"}
 # The inference paths launch none of the training kernels, and no path
 # launches K14 or the probes.
 NO_TRAIN = {K6F: 0, K6B: 0, K7F: 0, K7B: 0, K8: 0, C6: 0, MID: 0, MM: 0,
-            PIPE: 0}
+            PIPE: 0, XATTN: 0}
 FULL = {ATTN: 6, LN: 12, K3: 0, K4: 6, TAIL: 1, **NO_TRAIN}
 STYLE = {ATTN: 3, LN: 6, K3: 0, K4: 0, TAIL: 0, **NO_TRAIN}  # style set-up
 FRAME = {ATTN: 3, LN: 6, K3: 6, K4: 0, TAIL: 1, **NO_TRAIN}  # one frame
@@ -357,7 +388,7 @@ MID_DECODER = {**{k: 0 for k in FULL}, MID: 3, TAIL: 1}
 # The counts count sites, so 512^2 launches as 256^2 does.  The fused-LN
 # build adds K2 at both pre-LN sites of every block (4 x 3 x 2).
 TRAIN = {ATTN: 0, LN: 0, K3: 0, K4: 0, TAIL: 0, K6F: 12, K6B: 12, K7F: 18,
-         K7B: 18, K8: 3, C6: 0, MID: 0, MM: 0, PIPE: 0}
+         K7B: 18, K8: 3, C6: 0, MID: 0, MM: 0, PIPE: 0, XATTN: 0}
 TRAIN_FUSED = {**TRAIN, LN: 24}
 # One video training step (6 ViT applies x 3 blocks, 5 AdaFormer applies x
 # 6 MHAda blocks, 5 decoder tails; the VGG sweeps launch none).
@@ -928,6 +959,20 @@ def gate_inputs(kind, n, dtype, g, b=1):
         return (lambda be: attention_kernel.attention_tm(qkv, heads,
                                                          backend=be),
                 4 * n * n * c, 4 * n * c * es, (SDPA, sdpa))
+    if kind == "cross":   # K1's cross form: (queries, keys)
+        nq, nk = n
+        qkv, kv = rnd(b, nq, 3 * c), rnd(b, nk, 2 * c)
+        q = qkv[..., :c]
+
+        def sdpa():
+            qh, kh, vh = (t.unflatten(-1, (heads, 64)).transpose(1, 2)
+                          for t in (q, *kv.split(c, dim=-1)))
+            return F.scaled_dot_product_attention(qh, kh, vh)
+
+        return (lambda be: attention_kernel.attention_cross(q, kv, heads,
+                                                            backend=be),
+                4 * b * nq * nk * c, b * (2 * nq + 2 * nk) * c * es,
+                (SDPA, sdpa))
     if kind == "ln_matmul":
         x = rnd(1, n, c)
         lw = (1 + 0.1 * torch.randn(c, generator=g)).to(dev)
@@ -2712,6 +2757,329 @@ def analysis_phase(card, train_extra) -> tuple[bool, dict]:
     return ok, rec
 
 
+# Phase 10, the parallel serving paths (mhada_tpu_torch.parallel).  K1's
+# cross form at the sequence-parallel shapes, B = 1, 8 heads of 64: 512^2
+# over 4 and over 2 ranks, 1024^2 over 4 (gate, its row, (queries, keys)).
+CROSS_GATES = [
+    ("K1x Nq=1024 M=4096", K12_CROSS, (1024, 4096)),
+    ("K1x Nq=2048 M=4096", K12_CROSS, (2048, 4096)),
+    ("K1x Nq=4096 M=16384", K12_CROSS_STREAM, (4096, 16384)),
+]
+# Ranks sharing the one card over gloo; SP over all of them and over 2; PP
+# over 3 stages (the model's 2 x 3 MHAda blocks divide over 1, 2, 3 or 6);
+# DP at B = 2 a rank against one rank at B = 2 x ranks.
+PAR_RANKS, PP_STAGES, PP_FRAMES, DP_B = 4, 3, 6, 2
+# c6's weights: phase 4's gain, and its bias raised by this much (0-255):
+# with the gain alone one of seed 0's three channels sits at the ReLU's 0
+# and another half of it (48 % of pixels mid-range at 128^2, CPU), where a
+# slab fault would hide; raised, every channel is mid-range.
+PAR_C6_OFFSET = 50.0
+# The share of a reference frame's pixels that must lie in (0, 255)
+# (tests/test_sp.py:100).
+PAR_MID_SHARE = 0.6
+# The planted control: SP with no decoder halo (decode_margin = 0) must
+# leave the single-rank frame by more than the f32 pixel bound.
+SP_MARGINS = (0, 4)
+SHORT = {"float32": "f32", "bfloat16": "bf16"}
+PAR_TIMEOUT_S = 300
+
+
+def sp_want():
+    """One SP rank's launches for a frame at B = 1: its queries against the
+    gathered keys (K1's cross form) in 3 ViT blocks, K2 at their 6 pre-LN
+    sites, K3 in the 6 MHAda blocks, K5 on its slab."""
+    return {**dict.fromkeys(FULL, 0), XATTN: 3, LN: 6, K3: 6, TAIL: 1}
+
+
+def pp_want(rank, stages, frames):
+    """A PP rank's launches over ``frames`` frames: rank 0 encodes (K1 3, K2
+    6 a frame), every stage runs its 6 / stages MHAda blocks on K3, the
+    last decodes (K5 1 a frame)."""
+    want = dict.fromkeys(FULL, 0)
+    want[K3] = 6 // stages * frames
+    if rank == 0:
+        want.update({ATTN: 3 * frames, LN: 6 * frames})
+    if rank == stages - 1:
+        want[TAIL] = frames
+    return want
+
+
+def parallel_rank(group, nccl_one: bool) -> dict:
+    """One rank of phase 10: every check of the multi-rank paths on this
+    rank -> {check: {err, mid, launches, want, ms, ...}}.
+
+    Each rank builds the full-width model from its own seed and takes rank
+    0's weights by ``replicate``.  SP at 512^2 (f32 and bf16) over every
+    rank and over 2, with the margin controls; SP at 1024^2 against a
+    1024^2 style (bf16); PP over 3 stages, PP_FRAMES frames at 512^2 (f32);
+    DP at 512^2 (f32), DP_B a rank; with ``nccl_one``, rank 0 also runs SP
+    and DP over a group of its own on NCCL.  Each frame is held against
+    this rank's single-rank frame (``make_stylize_with_kv_fn``, the
+    streaming path; DP: ``make_stylize_fn``); ms are wall ms a frame of
+    this rank, the ranks sharing the card."""
+    import torch
+    import torch.distributed as dist
+
+    from mhada_tpu_torch import _build
+    from mhada_tpu_torch.config import ModelConfig
+    from mhada_tpu_torch.infer.image import (make_encode_style_fn,
+                                             make_stylize_fn,
+                                             make_stylize_with_kv_fn,
+                                             precompute_style_kv)
+    from mhada_tpu_torch.models import build_models
+    from mhada_tpu_torch.parallel import (Group, gather_batch,
+                                          make_pp_stylize_fn,
+                                          make_sp_stylize_fn, replicate,
+                                          shard_batch)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, rank, size = group.device, group.rank, group.size
+    models = build_models(ModelConfig(), dev,
+                          torch.Generator().manual_seed(SEED + rank))
+    c6 = models["adaFormer"].decoder.c6.conv
+    with torch.no_grad():
+        c6.weight.mul_(C6_GAIN)
+        c6.bias.mul_(C6_GAIN).add_(PAR_C6_OFFSET)
+    replicate(group, models)   # rank 0's (seed 0) weights on every rank
+
+    def sub(n, backend=None):   # every rank takes part in making it
+        if n == size and backend is None:
+            return group
+        pg = dist.new_group(list(range(n)), backend=backend)
+        return Group(pg, dev) if rank < n else None
+
+    g2 = sub(2) if size > 2 else None
+    stages = PP_STAGES if size >= PP_STAGES else 2
+    g_pp = sub(stages)
+    g_nccl = sub(1, "nccl") if nccl_one else None
+
+    rng = np.random.default_rng(SEED)
+    c512, s512 = (torch.from_numpy(a)[None].to(dev)
+                  for a in test_images(512, rng))
+    c1k, s1k = (torch.from_numpy(a)[None].to(dev)
+                for a in test_images(1024, rng))
+    kvs, refs, res = {}, {}, {}
+
+    def kv_of(style, dname):
+        key = (style.shape[1], dname)
+        if key not in kvs:
+            dtype = getattr(torch, dname)
+            kvs[key] = precompute_style_kv(
+                models, make_encode_style_fn(models, dtype)(style))
+        return kvs[key]
+
+    def ref_of(content, style, dname):
+        key = (content.shape[1], style.shape[1], dname)
+        if key not in refs:
+            refs[key] = make_stylize_with_kv_fn(
+                models, getattr(torch, dname))(content, kv_of(style, dname))
+        return refs[key]
+
+    def sync():   # the ranks also run on the CPU (a rehearsal)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def run(fn):
+        """(fn(), its launches, wall ms), counts set to 0 just before."""
+        sync()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, dict(_build.LAUNCHES), (time.perf_counter() - t0) * 1e3
+
+    def record(label, out, ref, counts, want, ms=None, **extra):
+        """ref None: this rank holds no reference (DP off rank 0)."""
+        res[label] = dict(
+            err=None if ref is None else float((out - ref).abs().max()),
+            mid=None if ref is None
+            else float(((ref > 0) & (ref < 255)).float().mean()),
+            shape=list(out.shape), finite=bool(torch.isfinite(out).all()),
+            launches=counts, want=want, ms=ms, **extra)
+
+    def sp(label, grp, content, style, dname, margin=None, timed=False):
+        if grp is None:
+            return
+        ref = ref_of(content, style, dname)
+        kv = kv_of(style, dname)
+        fn = make_sp_stylize_fn(models, grp, getattr(torch, dname),
+                                decode_margin=margin)
+        out, counts, _ = run(lambda: fn(content, kv))
+        ms = (float(np.median([run(lambda: fn(content, kv))[2]
+                               for _ in range(3)])) if timed else None)
+        record(label, out, ref, counts, sp_want(), ms, ranks=grp.size,
+               backend=grp.backend, margin=margin)
+
+    sp(f"sp512 f32 x{size}", group, c512, s512, "float32", timed=True)
+    for m in SP_MARGINS:
+        sp(f"sp512 f32 x{size} margin {m}", group, c512, s512, "float32",
+           margin=m)
+    sp(f"sp512 bf16 x{size}", group, c512, s512, "bfloat16", timed=True)
+    for dname in DTYPE_NAMES:
+        sp(f"sp512 {SHORT[dname]} x2", g2, c512, s512, dname, timed=True)
+    sp(f"sp1024 bf16 x{size}", group, c1k, s1k, "bfloat16", timed=True)
+
+    # PP: PP_FRAMES frames (the content rolled by 8 pixels a frame)
+    frames = torch.stack([torch.roll(c512, 8 * i, dims=1)
+                          for i in range(PP_FRAMES)])
+    if g_pp is not None:
+        kv = kv_of(s512, "float32")
+        fn = make_pp_stylize_fn(models, g_pp, torch.float32)
+        out, counts, ms = run(lambda: fn(frames, kv))
+        want = pp_want(rank, stages, PP_FRAMES)
+        if out is None:
+            res[f"pp512 f32 x{stages}"] = dict(launches=counts, want=want,
+                                                 ms=ms / PP_FRAMES)
+        else:
+            single = make_stylize_with_kv_fn(models, torch.float32)
+            ref = torch.stack([single(f, kv) for f in frames])
+            record(f"pp512 f32 x{stages}", out, ref, counts, want,
+                   ms / PP_FRAMES, stages=stages)
+
+    # DP: B = DP_B a rank, the full path (style re-encoded per pair)
+    dp_b = DP_B * size
+    contents = torch.stack([torch.roll(c512[0], 16 * i, dims=0)
+                            for i in range(dp_b)])
+    styles = torch.stack([torch.roll(s512[0], 16 * i, dims=1)
+                          for i in range(dp_b)])
+    full = make_stylize_fn(models, torch.float32)
+    local = shard_batch(group, contents, styles)
+    out, counts, ms = run(lambda: full(*local))
+    out = gather_batch(group, out)
+    record(f"dp512 f32 x{size}", out,
+           full(contents, styles) if rank == 0 else None, counts,
+           dict(FULL), ms / DP_B, batch=dp_b)
+
+    if g_nccl is not None:   # NCCL at world size 1: its collectives run
+        sp("nccl1 sp512 f32", g_nccl, c512, s512, "float32")
+        fn = make_stylize_fn(models, torch.float32)
+        replicate(g_nccl, models)
+        out, counts, ms = run(lambda: gather_batch(g_nccl, fn(
+            *shard_batch(g_nccl, contents[:DP_B], styles[:DP_B]))))
+        record("nccl1 dp512 f32", out, fn(contents[:DP_B], styles[:DP_B]),
+               counts, dict(FULL), ms / DP_B, backend=g_nccl.backend)
+    return res
+
+
+def parallel_checks(results, tag) -> bool:
+    """Print one phase line per check of ``parallel_rank``'s results (all
+    ranks): launches exact on every rank that ran it; every error that a
+    rank holds within PIXEL_BOUND (the margin-0 control: above the f32
+    bound; margin 4: printed, not gated), frames finite and their
+    references more than PAR_MID_SHARE mid-range."""
+    ok = True
+    for label in dict.fromkeys(k for r in results for k in r):
+        recs = [(i, r[label]) for i, r in enumerate(results) if label in r]
+        dname = "bfloat16" if "bf16" in label else "float32"
+        bound = PIXEL_BOUND[dname]
+        margin = next((e.get("margin") for _, e in recs), None)
+        launches_ok = all(e.get("launches") == e.get("want")
+                          for _, e in recs if "want" in e)
+        errs = [e["err"] for _, e in recs if e.get("err") is not None]
+        mids = [e["mid"] for _, e in recs if e.get("mid") is not None]
+        finite = all(e.get("finite", True) for _, e in recs)
+        if margin == 0:   # the planted control must be seen
+            good = bool(errs) and max(errs) > PIXEL_BOUND["float32"]
+            what = (f"control: no decoder halo, max|dpixel| per rank "
+                    f"{[round(x, 4) for x in errs]} (must exceed "
+                    f"{PIXEL_BOUND['float32']})")
+        elif margin is not None:
+            good = True
+            what = (f"margin {margin} (printed, not gated): max|dpixel| per "
+                    f"rank {[f'{x:.4g}' for x in errs]}")
+        else:
+            good = (bool(errs) and max(errs) <= bound and launches_ok
+                    and finite and all(m > PAR_MID_SHARE for m in mids))
+            what = (f"max|dpixel| against the single-rank frame "
+                    f"{max(errs) if errs else None} (bound {bound}), per rank "
+                    f"{[f'{x:.4g}' for x in errs]}; mid-range share of the "
+                    f"reference {[round(m, 3) for m in mids]} (> "
+                    f"{PAR_MID_SHARE})")
+        ms = [e.get("ms") for _, e in recs]
+        first = recs[0][1]
+        shape = next((e["shape"] for _, e in recs if e.get("shape")), None)
+        ok = phase(f"parallel {label} ({tag})", good and finite,
+                   f"{what}; output {shape}, finite {finite}; "
+                   f"launches exact on every rank {launches_ok} (rank 0: "
+                   f"{ {k: v for k, v in first.get('launches', {}).items() if v} }"
+                   f"); wall ms a frame per rank (ranks share the card; "
+                   f"not gated) {[None if m is None else round(m, 2) for m in ms]}"
+                   ) and ok
+    return ok
+
+
+def parallel_phase(card, gates, launches) -> tuple[bool, dict]:
+    """Phase 10: K1's cross form gated at the SP shapes, beside phase 3's
+    K1 self-attention time; then PAR_RANKS ranks sharing the card over gloo
+    (``parallel_rank``), with NCCL at world size 1 inside them; then NCCL
+    across cards where there are two or more."""
+    import torch
+
+    from mhada_tpu_torch.parallel.launch import run_ranks
+
+    ok, rec, secs = True, {}, {}
+    t0 = time.perf_counter()
+    for gate, _, n in CROSS_GATES:
+        for dname in DTYPE_NAMES:
+            try:
+                good, r = run_gate(gate, "cross", n, 1, dname, card)
+            except Exception as e:
+                ok = phase(f"gate {gate} {dname}", False,
+                           f"{type(e).__name__}: {e}")
+                continue
+            gates.setdefault(gate, {})[dname] = r
+            ok = good and ok
+    k1 = gates.get("K1 L=4096", {})
+    rec["k1_self_ms"] = {d: k1.get(d, {}).get("ms") for d in DTYPE_NAMES}
+    phase("parallel K1 self-attention 512^2", True,
+          "phase 3's K1 L=4096 in this run: " + ", ".join(
+              f"{d} {ms:.3f} ms" for d, ms in rec["k1_self_ms"].items()
+              if ms is not None)
+          + " (PERF.md's K1 row: 0.823 / 0.159 ms)")
+    secs["cross_gates"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    try:
+        results = run_ranks(parallel_rank, PAR_RANKS, (True,), device="cuda",
+                            backend="gloo", timeout_s=PAR_TIMEOUT_S)
+    except RuntimeError as e:
+        ok = phase(f"parallel {PAR_RANKS} ranks over gloo", False,
+                   str(e)[-3000:])
+    else:
+        rec["gloo"] = results
+        ok = parallel_checks(results, f"gloo, {PAR_RANKS} ranks share the "
+                             "card") and ok
+        launches["sp512"] = results[0][f"sp512 f32 x{PAR_RANKS}"]["launches"]
+        launches["sp1024"] = results[0][
+            f"sp1024 bf16 x{PAR_RANKS}"]["launches"]
+    secs["gloo_ranks"] = time.perf_counter() - t0
+
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        t0 = time.perf_counter()
+        n = min(cards, PAR_RANKS)
+        try:
+            results = run_ranks(parallel_rank, n, (False,), device="cuda",
+                                backend="nccl", timeout_s=PAR_TIMEOUT_S)
+        except RuntimeError as e:
+            ok = phase(f"parallel {n} ranks over NCCL", False, str(e)[-3000:])
+        else:
+            rec["nccl"] = results
+            ok = parallel_checks(results, f"NCCL, {n} cards") and ok
+        secs["nccl_ranks"] = time.perf_counter() - t0
+    else:
+        phase("parallel NCCL across cards", True,
+              f"not run: {cards} card visible, and NCCL puts no two ranks "
+              "of one communicator on one card; SP, PP and DP over NCCL "
+              "across cards stay unverified (NCCL at world size 1 ran "
+              "above)")
+    rec["seconds"] = secs
+    phase("parallel seconds", True, ", ".join(f"{k} {v:.1f}"
+                                              for k, v in secs.items()))
+    return ok, rec
+
+
 def test_images(size, rng):
     """A smooth content picture with noise and a noise style, HWC 0-255."""
     yy, xx = np.mgrid[0:size, 0:size] / size
@@ -3375,11 +3743,19 @@ def main() -> int:
             f"cli_{mode}", {}).get("launches", {})
     analysis_s = time.perf_counter() - t0
 
+    # ---- 10. the parallel serving paths: K1's cross form, SP, PP and DP
+    t0 = time.perf_counter()
+    good, parallel = parallel_phase(card, gates, launches)
+    ok = good and ok
+    parallel_s = time.perf_counter() - t0
+
     # ---- the kernels' summary: one row per TPU kernel the path replaces
     first_gate = {}
     for gate, row, *_ in gate_list:
         first_gate.setdefault(row, gate)
     first_gate[K12_SINGLE] = first_gate["K1 attention_tm"]
+    for gate, row, _ in CROSS_GATES:
+        first_gate.setdefault(row, gate)
     for _, row_f, row_b, *_ in TRAIN_GATES:   # recorded under the row
         for row in (row_f, row_b):
             if row is not None:
@@ -3421,7 +3797,7 @@ def main() -> int:
         row["library"] = r32.get("library") or r16.get("library") or NO_LIB
         summary.append(row)
     extra = {g: gates.get(g) for g, *_ in gate_list + EVAL_GATES
-             if g not in first_gate.values()}
+             + CROSS_GATES if g not in first_gate.values()}
     stopped = stop_children()
     left = _children()
     ok = phase("processes", not left,
@@ -3431,11 +3807,12 @@ def main() -> int:
     phase("run time", True, f"{seconds:.1f} s from start to summary, "
           f"{video_s:.1f} s of it the video gates and step (phases 6, 7e), "
           f"{evals_s:.1f} s the evals (phase 8), {analysis_s:.1f} s the "
-          f"analysis tools (phase 9)")
+          f"analysis tools (phase 9), {parallel_s:.1f} s the parallel "
+          f"paths (phase 10)")
     print(json.dumps({"kernels": summary, "extra_gates": extra,
                       "launches": launches, "frame_ms": frame_ms,
                       "video_cli": video_cli, "evals": evals,
-                      "analysis": analysis,
+                      "analysis": analysis, "parallel": parallel,
                       "train": train_extra, "step_ms": step_ms,
                       "step_peak_gb": step_peak_gb,
                       "card": card, "seconds": seconds}), flush=True)

@@ -7,7 +7,11 @@
 // K6 also the TPU's K9 and K12 forwards.  Per (batch b, head h):
 // out = softmax(scale Q K^T) V with Q, K and V read in place from the
 // (B, L, 3C) qkv at channel offsets h*64, C + h*64 and 2C + h*64; out is
-// (B, L, C) and lse (B, heads, L) float32 in natural-log units.
+// (B, L, C) and lse (B, heads, L) float32 in natural-log units.  K1's
+// cross form (kCross, attention_fwd.cu::mhada_attention_cross_fwd): N
+// queries from rows of their own stride against M keys and values of
+// another tensor, the TPU's K12 forwards at N != M; keys past M masked,
+// rows past N not stored.
 //
 // Bound: 4 L^2 d flops per head (34.4 GFLOP at L = 4096, 8 heads) against
 // 2 L (3C + C) bytes: compute-bound at the bf16 tensor-core rate.
@@ -43,26 +47,55 @@
 namespace mhada {
 
 struct AttnMmaArgs {
-  const __nv_bfloat16* qkv;   // (B, L, 3C)
+  const __nv_bfloat16* qkv;   // backward: (B, L, 3C)
   const __nv_bfloat16* g;     // backward: dO (B, L, C)
   const float* lse_in;        // backward: (B, heads, L)
   const float* delta;         // backward: (B, heads, L)
-  __nv_bfloat16* out;         // forward: (B, L, C); backward: d qkv
-  float* lse;                 // K6's forward: (B, heads, L)
-  int seq, channels;
+  __nv_bfloat16* out;         // forward: (B, seq, C); backward: d qkv
+  float* lse;                 // K6's forward: (B, heads, seq)
+  // K1's cross form: queries (B, seq, rows of q_rs), keys and values (B,
+  // n_kv, rows of kv_rs: K, then V at k + channels), head h's 64 channels
+  // at h*64 from q, k and v
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  long long q_rs, kv_rs;
+  int seq, n_kv, channels;
   float scale;
 };
 
-// Fill the bf16 kernels' arguments (g: the backward's dO, else unused) ->
-// false unless the pointers are 16-byte aligned and channels a multiple of
-// 8, as the 16-byte copies of the rows need.
+// Fill the bf16 kernels' arguments for self-attention on the packed (B,
+// L, 3C) qkv (g: the backward's dO, else unused) -> false unless the
+// pointers are 16-byte aligned and channels a multiple of 8, as the
+// 16-byte copies of the rows need.
 inline bool make_mma_args(AttnMmaArgs& a, const void* qkv, const void* g,
                           void* out, int seq, int channels, float scale) {
   if (!mma_aligned({qkv, g, out}, channels)) return false;
   a.qkv = static_cast<const __nv_bfloat16*>(qkv);
   a.g = static_cast<const __nv_bfloat16*>(g);
   a.out = static_cast<__nv_bfloat16*>(out);
-  a.seq = seq;
+  a.seq = a.n_kv = seq;
+  a.channels = channels;
+  a.scale = scale;
+  return true;
+}
+
+// The forward's arguments for K1's cross form: n_q queries of rows of q_rs
+// elements against n_kv keys and values, K and V side by side in rows of
+// kv_rs (K at 0, V at channels) -> false unless every pointer and row
+// stride keeps the 16-byte copies aligned.
+inline bool make_mma_cross_args(AttnMmaArgs& a, const void* q,
+                                const void* kv, void* out, int n_q, int n_kv,
+                                int channels, int q_rs, int kv_rs,
+                                float scale) {
+  if (!mma_aligned({q, kv, out}, channels) || q_rs % 8 || kv_rs % 8)
+    return false;
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(kv);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.q_rs = q_rs;
+  a.kv_rs = kv_rs;
+  a.seq = n_q;
+  a.n_kv = n_kv;
   a.channels = channels;
   a.scale = scale;
   return true;
@@ -71,7 +104,12 @@ inline bool make_mma_args(AttnMmaArgs& a, const void* qkv, const void* g,
 // Q tile + kMmaStages x (K, V) tiles.
 constexpr size_t kMmaFwdSmemBytes = (1 + 2 * kMmaStages) * mma::kMmaTileBytes;
 
-template <bool kRes>
+// kCross: K1's cross form, q and k (v = k + C) from their own pointers
+// and row strides, n_kv keys.  Otherwise self-attention on the packed qkv, with the
+// strides and offsets known from C: the general form's extra live values
+// take the kernel past 128 registers, 3 blocks an SM instead of 4, which
+// cost the self case ~20 % on an H100.
+template <bool kRes, bool kCross = false>
 __global__ void __launch_bounds__(kMmaThreads)
     attention_mma_fwd_kernel(AttnMmaArgs a) {
   using namespace mma;
@@ -82,19 +120,31 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int q0 = blockIdx.x * kMmaRows;
-  const int L = a.seq, C = a.channels;
-  const long long rs = 3LL * C, b = blockIdx.z;
-  const __nv_bfloat16* qb = a.qkv + b * L * rs + blockIdx.y * 64;
-  const __nv_bfloat16* kb = qb + C;
-  const __nv_bfloat16* vb = qb + 2 * C;
-  const int ntiles = (L + 63) / 64;
+  const int L = a.seq, M = kCross ? a.n_kv : a.seq, C = a.channels;
+  const long long b = blockIdx.z;
+  const __nv_bfloat16 *qb, *kb, *vb;
+  long long q_rs, kv_rs;
+  if constexpr (kCross) {
+    q_rs = a.q_rs;
+    kv_rs = a.kv_rs;
+    qb = a.q + b * L * q_rs + blockIdx.y * 64;
+    kb = a.k + b * M * kv_rs + blockIdx.y * 64;
+    vb = kb + C;
+  } else {
+    q_rs = kv_rs = 3LL * C;
+    qb = a.qkv + b * L * q_rs + blockIdx.y * 64;
+    kb = qb + C;
+    vb = qb + 2 * C;
+  }
+  const int ntiles = (M + 63) / 64;
 
   auto load_kv = [&](int tile) {
     __nv_bfloat16* st = ring + (tile % kMmaStages) * 2 * kMmaTileElems;
-    load_tile_async<kMmaThreads>(st, kb, rs, tile * 64, L);
-    load_tile_async<kMmaThreads>(st + kMmaTileElems, vb, rs, tile * 64, L);
+    load_tile_async<kMmaThreads>(st, kb, kv_rs, tile * 64, M);
+    load_tile_async<kMmaThreads>(st + kMmaTileElems, vb, kv_rs, tile * 64,
+                                 M);
   };
-  load_tile_async<kMmaThreads>(qs, qb, rs, q0, L);
+  load_tile_async<kMmaThreads>(qs, qb, q_rs, q0, L);
 #pragma unroll
   for (int s = 0; s < kMmaStages - 1; ++s) {
     if (s < ntiles) load_kv(s);
@@ -141,20 +191,20 @@ __global__ void __launch_bounds__(kMmaThreads)
 
     // Online softmax in log2 units; element e of n-tile n is row g + 8
     // (e / 2), key 64 j + 8 n + 2 t + e % 2.
-    const bool ragged = 64 * (j + 1) > L;
+    const bool ragged = 64 * (j + 1) > M;
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[n][e] * sl2;
-        if (ragged && 64 * j + 8 * n + 2 * t + (e % 2) >= L) x = -INFINITY;
+        if (ragged && 64 * j + 8 * n + 2 * t + (e % 2) >= M) x = -INFINITY;
         s[n][e] = x;
         mx[e / 2] = fmaxf(mx[e / 2], x);
       }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      // finite: key 64 j < L is in every tile
+      // finite: key 64 j < M is in every tile
       const float m_new = fmaxf(mrow[r], quad_max(mx[r]));
       const float alpha = exp2f(mrow[r] - m_new);
       mrow[r] = m_new;
@@ -205,11 +255,12 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-template <bool kRes>
+template <bool kRes, bool kCross = false>
 cudaError_t launch_attention_mma_fwd(const AttnMmaArgs& a, int heads,
                                      int batch, cudaStream_t stream) {
+  if (a.seq < 1 || a.n_kv < 1) return cudaErrorInvalidValue;
   const dim3 grid((a.seq + kMmaRows - 1) / kMmaRows, heads, batch);
-  return launch_with_smem(attention_mma_fwd_kernel<kRes>, grid,
+  return launch_with_smem(attention_mma_fwd_kernel<kRes, kCross>, grid,
                           dim3(kMmaThreads), kMmaFwdSmemBytes, stream, a);
 }
 

@@ -36,13 +36,9 @@ cudaError_t attention_train_fwd_f32(const void* qkv, void* out, float* lse,
                                     int batch, int seq, int channels,
                                     int heads, float scale,
                                     cudaStream_t stream) {
-  mhada::f32t::AttnArgs a{};
-  a.qkv = static_cast<const float*>(qkv);
-  a.out = static_cast<float*>(out);
+  mhada::f32t::AttnArgs a =
+      mhada::f32t::self_attention_args(qkv, out, seq, channels, scale);
   a.lse = lse;
-  a.n = seq;
-  a.channels = channels;
-  a.scale = scale;
   return mhada::f32t::launch_attention_f32<true>(a, heads, batch, stream);
 }
 

@@ -16,11 +16,13 @@
 // and f = IN(fcs) formed from raw fc, fcs and the float32 stats
 // [mean_fc, rstd_fc, mean_fcs, rstd_fcs] (K3).
 //
-// The scaled self-attention (attention_f32_kernel): K1's float32 build
-// (attention_fwd.cu; so K9's and K12's single pass) and K6's forward
+// The scaled attention (attention_f32_kernel): K1's float32 build
+// (attention_fwd.cu; so K9's and K12's single pass, and K1's cross form,
+// N queries against M keys of another tensor) and K6's forward
 // (attention_train.cu; so K12's streaming forward), out = softmax(scale q
-// k^T) V per head from the packed (B, L, 3C) qkv, K6 also with the row lse
-// of the scaled logits in natural-log units (what flash_bwd_f32.cuh reads).
+// k^T) V per head, self-attention from the packed (B, L, 3C) qkv, K6 also
+// with the row lse of the scaled logits in natural-log units (what
+// flash_bwd_f32.cuh reads).
 //
 // Everything is float32 FMAs on the CUDA cores: no TF32, no tensor-core
 // instruction.  What bounds it on the card: 6 N M d flops per head for
@@ -152,14 +154,36 @@ struct F32Args {
   int n, m, channels;
 };
 
+// Queries (B, n, rows of q_rs floats) and keys and values (B, m, rows of
+// kv_rs floats), head h's 64 channels at h*64 from q, k and v.  The self-
+// attention of K1 and K6 reads all three from one packed (B, L, 3C) qkv
+// (self_attention_args); K1's cross form takes q from this rank's qkv and
+// k, v from the keys and values gathered over the ranks (B, M, 2C).
 struct AttnArgs {
-  const float* qkv;  // (B, L, 3C): q, k, v of head h at h*64, C + h*64,
-                     // 2C + h*64
-  float* out;        // (B, L, C)
-  float* lse;        // K6 only: (B, H, L)
-  int n, channels;
+  const float* q;
+  const float* k;
+  const float* v;
+  float* out;        // (B, n, C)
+  float* lse;        // K6 only: (B, H, n)
+  int n, m, channels, q_rs, kv_rs;
   float scale;
 };
+
+// q, k, v of head h at h*64, C + h*64 and 2C + h*64 of the (B, L, 3C)
+// qkv (torch MultiheadAttention packing).
+inline AttnArgs self_attention_args(const void* qkv, void* out, int seq,
+                                    int channels, float scale) {
+  AttnArgs a{};
+  a.q = static_cast<const float*>(qkv);
+  a.k = a.q + channels;
+  a.v = a.q + 2 * channels;
+  a.out = static_cast<float*>(out);
+  a.n = a.m = seq;
+  a.channels = channels;
+  a.q_rs = a.kv_rs = 3 * channels;
+  a.scale = scale;
+  return a;
+}
 
 // One thread's accumulators: sum_k p V (o1) and, for MHAda, sum_k p V^2
 // (o2) of its R rows and J channels, the rows' running maxima (of the
@@ -606,8 +630,8 @@ cudaError_t launch_mhada_f32(const F32Args& a, int heads, int batch,
                           smem_bytes<MhadaGeom, true>(kRing), stream, a);
 }
 
-// out = softmax(scale q k^T) V per head; kLse (K6) also writes lse, from
-// the row's first thread.
+// out = softmax(scale q k^T) V per head, n queries against m keys; kLse
+// (K6) also writes lse, from the row's first thread.
 template <bool kLse>
 __global__ void __launch_bounds__(AttnGeom::kThreads, 1)
     attention_f32_kernel(AttnArgs a) {
@@ -619,29 +643,26 @@ __global__ void __launch_bounds__(AttnGeom::kThreads, 1)
   const int q0 = blockIdx.x * Gm::BQ;
   const int hoff = blockIdx.y * kD;
   const long long b = blockIdx.z;
-  const int rs = 3 * a.channels;
-  const float* k = a.qkv + a.channels;
-  const float* v = a.qkv + 2 * a.channels;
-  const long long kv_base = b * a.n * rs + hoff;
+  const long long kv_base = b * a.m * a.kv_rs + hoff;
 
-  const int tiles = (a.n + kBK - 1) / kBK;
+  const int tiles = (a.m + kBK - 1) / kBK;
 #pragma unroll
   for (int t = 0; t < kRingStages - 1; ++t) {
     if (t < tiles)
-      issue_tile<Gm::kThreads>(k, v, rs, a.n, t, kv_base,
+      issue_tile<Gm::kThreads>(a.k, a.v, a.kv_rs, a.m, t, kv_base,
                                ring + t * kStageFloats);
     mma::cp_async_commit();
   }
   const float sc = a.scale;
-  load_transposed<Gm>(a.qkv, rs, a.n, q0, b, hoff, qs, Gm::BQ,
+  load_transposed<Gm>(a.q, a.q_rs, a.n, q0, b, hoff, qs, Gm::BQ,
                       [sc](int, float4 x) {
                         return make_float4(x.x * sc, x.y * sc, x.z * sc,
                                            x.w * sc);
                       });
 
   Acc<Gm, false> acc;
-  key_loop<Gm, kRingStages>(k, v, rs, a.n, kv_base, qs, ps, nullptr, ring,
-                            acc);
+  key_loop<Gm, kRingStages>(a.k, a.v, a.kv_rs, a.m, kv_base, qs, ps, nullptr,
+                            ring, acc);
 
   const int tx = threadIdx.x % Gm::TX, ty = threadIdx.x / Gm::TX;
   float l[Gm::R];
@@ -667,7 +688,8 @@ __global__ void __launch_bounds__(AttnGeom::kThreads, 1)
 template <bool kLse>
 cudaError_t launch_attention_f32(const AttnArgs& a, int heads, int batch,
                                  cudaStream_t stream) {
-  if (a.n < 1 || !f32_aligned({a.qkv, a.out}, a.channels))
+  if (a.n < 1 || a.m < 1 || a.q_rs % 4 || a.kv_rs % 4 ||
+      !f32_aligned({a.q, a.k, a.v, a.out}, a.channels))
     return cudaErrorInvalidValue;
   const dim3 grid((a.n + AttnGeom::BQ - 1) / AttnGeom::BQ, heads, batch);
   return launch_with_smem(attention_f32_kernel<kLse>, grid,

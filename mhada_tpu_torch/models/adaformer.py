@@ -86,23 +86,28 @@ class AdaAttnMultiHead(nn.Module):
                 self._project(fs, "h").contiguous())
 
     def forward(self, fc: torch.Tensor, fs: torch.Tensor | None,
-                fcs: torch.Tensor, style_kv=None) -> torch.Tensor:
+                fcs: torch.Tensor, style_kv=None, group=None) -> torch.Tensor:
         """fc, fcs (B, N, C) queries / current stylised features; fs (B, M, C)
         style features, or None with ``style_kv``, this block's cached
-        ``(k, v)`` from ``style_kv(fs)``."""
+        ``(k, v)`` from ``style_kv(fs)``.  ``group``: fc's and fcs' tokens
+        are sharded over its ranks (sequence parallelism): their instance
+        norm statistics are reduced over the ranks and fed to K3 as they
+        are (K4's path normalises with them); the style side is whole on
+        every rank, so attention needs no communication."""
         k, v = self.style_kv(fs) if style_kv is None else style_kv
         dt = fc.dtype
         if (style_kv is not None and self.activation == "softmax"
                 and not self.training):
-            mean_fc, rstd_fc = instance_norm_stats(fc)
-            mean_fcs, rstd_fcs = instance_norm_stats(fcs)
+            mean_fc, rstd_fc = instance_norm_stats(fc, group=group)
+            mean_fcs, rstd_fcs = instance_norm_stats(fcs, group=group)
             stats = torch.stack([mean_fc, rstd_fc, mean_fcs, rstd_fcs], 1)
             out = mhada_fused_prologue(
                 fc.contiguous(), fcs.contiguous(), stats, self.f_kernel,
                 self.f_bias, k, v, backend=self.backend)
         else:
-            q = self._project(instance_norm_tokens(fc), "f").contiguous()
-            fcs_n = instance_norm_tokens(fcs).contiguous()
+            q = self._project(instance_norm_tokens(fc, group=group),
+                              "f").contiguous()
+            fcs_n = instance_norm_tokens(fcs, group=group).contiguous()
             if self.activation == "softmax":
                 core = mhada_train if self.training else mhada_tm
                 out = core(q, k, v, fcs_n, self.num_heads,
@@ -138,9 +143,10 @@ class AdaFormer(nn.Module):
 
     def transform(self, fc: list[torch.Tensor],
                   fs: list[torch.Tensor] | None,
-                  style_kv=None) -> torch.Tensor:
+                  style_kv=None, group=None) -> torch.Tensor:
         """The MHAda blocks without the decoder -> fcs_map (B, h, w, C):
-        ``forward``'s first result."""
+        ``forward``'s first result.  ``group``: fc holds this rank's rows
+        of the frame (sequence parallelism, parallel/sp.py)."""
         b, h, w, c = fc[0].shape
         fc_tok = [f.reshape(b, h * w, c) for f in fc]
         if style_kv is None:
@@ -151,9 +157,9 @@ class AdaFormer(nn.Module):
         fcs = fc_tok[0]
         for i in range(self.num_layers):
             fcs = getattr(self, f"ada{2 * i}")(fc_tok[i], fs_tok[i], fcs,
-                                               style_kv[2 * i])
+                                               style_kv[2 * i], group)
             fcs = getattr(self, f"ada{2 * i + 1}")(fcs, fs_tok[i], fcs,
-                                                   style_kv[2 * i + 1])
+                                                   style_kv[2 * i + 1], group)
         return fcs.reshape(b, h, w, c)
 
 

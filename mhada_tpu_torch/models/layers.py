@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention_kernel import attention_tm
+from ..ops.attention_kernel import attention_cross, attention_tm
 from ..ops.attention_train import attention_train
 from ..ops.ln_matmul import layer_norm, ln_matmul
 from ..ops.pad_conv import conv2d
@@ -107,6 +107,13 @@ class MultiHeadSelfAttention(nn.Module):
     eval mode the attention is the forward-only K1 (``attention_tm``); in
     training mode it is K6 (``attention_train``), as in the JAX package's
     training build (train_image.py:45-93).
+
+    ``group`` (a ``parallel.collectives.Group``, eval mode only): the tokens
+    are sharded over its ranks (sequence parallelism); the projection stays
+    local, the keys and values are gathered in rank order and the local
+    queries attend over all of them through K1's cross form
+    (``attention_cross``), as the JAX ``sp_axis`` branch does
+    (mhada_tpu/models/layers.py:204-208).
     """
 
     def __init__(self, embed_dim: int, num_heads: int, backend: str = "auto"):
@@ -122,15 +129,24 @@ class MultiHeadSelfAttention(nn.Module):
         uniform_(self.qkv_weight, math.sqrt(6.0 / (3 * e + e)), generator)
         nn.init.zeros_(self.qkv_bias)
 
-    def forward(self, x: torch.Tensor, ln: LayerNorm | None = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ln: LayerNorm | None = None,
+                group=None) -> torch.Tensor:
         if ln is not None:
             qkv = ln_matmul(x, ln.weight, ln.bias, self.qkv_weight,
                             self.qkv_bias, ln.eps, backend=self.backend)
         else:
             qkv = F.linear(x, self.qkv_weight.to(x.dtype),
                            self.qkv_bias.to(x.dtype))
-        hd = x.shape[-1] // self.num_heads
+        e = x.shape[-1]
+        hd = e // self.num_heads
+        if group is not None:
+            if self.training:
+                raise ValueError("sequence parallelism is inference-only")
+            kv = group.gather_rows(qkv[..., e:].contiguous(), dim=1)
+            o = attention_cross(qkv[..., :e], kv, self.num_heads,
+                                scale=1.0 / math.sqrt(hd),
+                                backend=self.backend)
+            return self.out_proj(o)
         attend = attention_train if self.training else attention_tm
         o = attend(qkv.contiguous(), self.num_heads,
                    scale=1.0 / math.sqrt(hd), backend=self.backend)

@@ -45,7 +45,12 @@ class PatchEmbedding(nn.Module):
 
 class PosEmbedding(nn.Module):
     """Learned (1, 32, 32, C) grid (NHWC, as in the JAX tree), regridded to
-    the token grid with torch bilinear sampling."""
+    the token grid with torch bilinear sampling.
+
+    ``group``: the grid's rows are sharded over its ranks in equal blocks
+    (sequence parallelism): regrid at the global grid (h * ranks, w) and
+    keep this rank's rows, as the JAX ``sp_axis`` branch does
+    (mhada_tpu/models/vit.py:186-197)."""
 
     def __init__(self, embed_dim: int):
         super().__init__()
@@ -55,11 +60,14 @@ class PosEmbedding(nn.Module):
         with torch.no_grad():
             self.pos_embed.normal_(0.0, 0.02, generator=generator)
 
-    def forward(self, grid_hw) -> torch.Tensor:
+    def forward(self, grid_hw, group=None) -> torch.Tensor:
         pos = self.pos_embed
         h, w = grid_hw
-        if (h, w) != tuple(pos.shape[1:3]):
-            pos = resize_bilinear(pos, (h, w))
+        n = 1 if group is None else group.size
+        if (h * n, w) != tuple(pos.shape[1:3]):
+            pos = resize_bilinear(pos, (h * n, w))
+        if group is not None:
+            pos = pos[:, group.rank * h:(group.rank + 1) * h]
         return pos.reshape(1, h * w, pos.shape[-1])
 
 
@@ -114,6 +122,8 @@ class EncoderBlock(nn.Module):
     (K2); without it the LNs run unfused.  The attention is K1 in eval mode
     and K6 in training mode.  ``batch_coupled`` takes the plain ln1 and
     attention either way, as the JAX package does (vit.py:132-140).
+    ``group``: sequence parallelism, passed to the spatial attention (the
+    batch-coupled one attends over the image batch, which stays whole).
     """
 
     def __init__(self, hidden_dim: int, num_heads: int, mlp_dim: int,
@@ -133,14 +143,14 @@ class EncoderBlock(nn.Module):
         self.mlp_fc1 = Linear(hidden_dim, mlp_dim)
         self.mlp_fc2 = Linear(mlp_dim, hidden_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
         if self.attn_mode == "batch_coupled":
             # sequence axis = image batch, batch axis = tokens
             h = self.attention(self.ln1(x).transpose(0, 1)).transpose(0, 1)
         elif self.fuse_ln:
-            h = self.attention(x, ln=self.ln1)
+            h = self.attention(x, ln=self.ln1, group=group)
         else:
-            h = self.attention(self.ln1(x))
+            h = self.attention(self.ln1(x), group=group)
         x = x + h
         if self.fuse_ln:
             y = ln_matmul(x, self.ln2.weight, self.ln2.bias,
@@ -154,7 +164,8 @@ class EncoderBlock(nn.Module):
 
 class VisionTransformer(nn.Module):
     """The trained encoder (reference vit.py:120-169); returns every block's
-    output as (B, H/p, W/p, C)."""
+    output as (B, H/p, W/p, C).  ``forward(x, group)``: x is this rank's
+    block of rows of the frame (sequence parallelism, parallel/sp.py)."""
 
     def __init__(self, patch_size: int = 8, num_layers: int = 3,
                  num_heads: int = 8, hidden_dim: int = 512,
@@ -170,13 +181,14 @@ class VisionTransformer(nn.Module):
             self.add_module(f"block{i}", EncoderBlock(
                 hidden_dim, num_heads, mlp_dim, attn_mode, backend, fuse_ln))
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+    def forward(self, x: torch.Tensor, group=None) -> list[torch.Tensor]:
         tokens, (h, w) = self.patch_embedding(x)
         if self.pos_embedding is not None:
-            tokens = tokens + self.pos_embedding((h, w)).to(tokens.dtype)
+            tokens = tokens + self.pos_embedding((h, w), group).to(
+                tokens.dtype)
         feats = []
         for i in range(self.num_layers):
-            tokens = getattr(self, f"block{i}")(tokens)
+            tokens = getattr(self, f"block{i}")(tokens, group)
             feats.append(tokens.reshape(-1, h, w, self.hidden_dim))
         return feats
 

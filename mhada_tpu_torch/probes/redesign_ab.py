@@ -1,6 +1,6 @@
-"""P1, K14, K13 and the float32 tail against another checkout's builds of
-them, on one card, in turns: the time a redesign saves, measured in one
-call.
+"""P1, K14, K13, the float32 tail and K1 against another checkout's builds
+of them, on one card, in turns: the time a redesign saves (or a change of
+a kernel's arguments costs), measured in one call.
 
     python -m mhada_tpu_torch.probes.redesign_ab --other DIR [--rounds 2]
 
@@ -22,7 +22,10 @@ events:
   488), float32 and bfloat16;
 - the float32 decoder tail, whose direct conv K14's float32 build shares:
   K5 from 256^2 to 512^2 (B = 1) and K8's forward from 128^2 to 256^2 (B =
-  8), ``chip_smoke.py``'s K5 and K8 gate shapes.
+  8), ``chip_smoke.py``'s K5 and K8 gate shapes;
+- K1 (``ops.attention_kernel.attention_tm``) and K6's forward, which share
+  its kernels, at B = 1 and L = 4096 (the 512^2 frame), float32 and
+  bfloat16: the self-attention case of K1's cross form.
 
 The sides run as other, this, this, other, repeated ``--rounds`` / 2
 times.  Prints the card's name and power limit, then one JSON line per
@@ -70,7 +73,8 @@ def worker(root: str) -> dict:
     import torch
 
     from mhada_tpu_torch import _build
-    from mhada_tpu_torch.ops import decoder_mid, decoder_tail
+    from mhada_tpu_torch.ops import (attention_kernel, attention_train,
+                                     decoder_mid, decoder_tail)
     from mhada_tpu_torch.probes import mm_probe
 
     if not Path(mm_probe.__file__).resolve().is_relative_to(Path(root)):
@@ -121,6 +125,12 @@ def worker(root: str) -> dict:
                                     (64,), (3, 64, 3, 3), (3,))]
             out[f"{name} {side}^2 B={batch} float32"] = _cuda_ms(
                 lambda: fn(x, *tail_w))
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = torch.randn(1, 4096, 1536, generator=g).to("cuda", dtype)
+            out[f"K1 L=4096 B=1 {str(dtype)[6:]}"] = _cuda_ms(
+                lambda: attention_kernel.attention_tm(qkv, 8))
+            out[f"K6 forward L=4096 B=1 {str(dtype)[6:]}"] = _cuda_ms(
+                lambda: attention_train._fwd_kernel(qkv, 8, 0.125))
     return out
 
 

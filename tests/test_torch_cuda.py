@@ -41,6 +41,10 @@ grad-requiring input of P2 or K14 raises.  K6 and K7 also at feature
 inversion's B = 1 and 1024 tokens, and one inversion step of the ViT on
 the card against the CPU.
 
+K1's cross form (N queries, a column slice of a packed qkv, against M
+keys and values) at the sequence-parallel shapes and ragged ones, the self
+case as its special case bit for bit, and its wrapper's refusals.
+
 Marked ``cuda``: each test skips without a card.  On a machine with one (the
 repo conftest imports jax, which that machine need not have):
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q``.
@@ -52,7 +56,9 @@ import torch.nn.functional as F
 
 from mhada_tpu_torch import _build
 from mhada_tpu_torch.ops import attention_train as attention_train_ops
-from mhada_tpu_torch.ops.attention_kernel import attention_tm
+from mhada_tpu_torch.ops.attention_kernel import (attention_cross,
+                                                  attention_cross_plain,
+                                                  attention_tm)
 from mhada_tpu_torch.ops.attention_train import attention_train
 from mhada_tpu_torch.ops.decoder_c6 import c6_conv
 from mhada_tpu_torch.ops.decoder_mid import mid3_fused
@@ -136,6 +142,88 @@ def test_attention_kernel(gen, dtype, b, l, heads):
            lambda be, dt: attention_tm(qkv.to(dt), heads, backend=be), dtype)
     first, again = (attention_tm(qkv.to(dtype), heads) for _ in range(2))
     assert torch.equal(first, again)
+
+
+# K1's cross form (batch, queries, keys, heads): the sequence-parallel
+# gate shapes at the full width (512^2 over 4 and 2 ranks, 1024^2 over 4)
+# and ragged lengths (no 64-key tile, 64- or 256-query block divides them).
+CROSS_SHAPES = [(1, 1024, 4096, 8), (1, 2048, 4096, 8), (1, 4096, 16384, 8),
+                (2, 200, 700, 2), (1, 1, 63, 2)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,n,m,heads", CROSS_SHAPES)
+def test_attention_cross_kernel(gen, dtype, b, n, m, heads):
+    """K1's cross form, q a column slice of a packed qkv (row stride 3C)
+    against a (B, M, 2C) kv, against attention_cross_plain; one launch a
+    call; a second call repeats the first bit for bit."""
+    c = 64 * heads
+    qkv = _rnd(gen, dtype, b, n, 3 * c)
+    kv = _rnd(gen, dtype, b, m, 2 * c)
+
+    def run(be, dt):
+        return attention_cross(qkv.to(dt)[..., :c], kv.to(dt), heads,
+                               backend=be)
+
+    _check("mhada_attention_cross_fwd", run, dtype)
+    assert torch.equal(run("kernel", dtype), run("kernel", dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,l,heads", [(2, 100, 2), (1, 4096, 8)])
+def test_attention_cross_self_case(gen, dtype, b, l, heads):
+    """Self-attention is the cross form's case q = qkv[..., :C], kv =
+    qkv[..., C:]: the same kernel on the same data, bit for bit; K1's own
+    launch count moves only on attention_tm."""
+    c = 64 * heads
+    qkv = _rnd(gen, dtype, b, l, 3 * c).to(dtype)
+    before = dict(_build.LAUNCHES)
+    own = attention_tm(qkv, heads)
+    cross = attention_cross(qkv[..., :c], qkv[..., c:], heads)
+    assert torch.equal(own, cross)
+    assert _build.LAUNCHES["mhada_attention_fwd"] == \
+        before["mhada_attention_fwd"] + 1
+    assert _build.LAUNCHES["mhada_attention_cross_fwd"] == \
+        before["mhada_attention_cross_fwd"] + 1
+
+
+def test_attention_cross_refusals(gen):
+    """The cross form's wrapper raises before any launch on: a float32 or
+    bf16 operand one element into its buffer, a row stride that is no
+    multiple of 16 bytes, channels that are not unit-stride, mismatched
+    widths, a head dim other than 64, and a CUDA input that requires grad
+    while grad mode is on (forward-only, as K1)."""
+    b, n, m, heads = 1, 70, 90, 2
+    c = 64 * heads
+    before = dict(_build.LAUNCHES)
+    for dt in DTYPES:
+        def off(*shape):
+            buf = torch.zeros(torch.Size(shape).numel() + 1, device="cuda",
+                              dtype=dt)
+            return buf[1:].view(shape)
+
+        q = torch.zeros(b, n, c, device="cuda", dtype=dt)
+        kv = torch.zeros(b, m, 2 * c, device="cuda", dtype=dt)
+        for args in ((off(b, n, c), kv), (q, off(b, m, 2 * c))):
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                attention_cross(*args, heads)
+        wide = torch.zeros(b, n, c + 1, device="cuda", dtype=dt)
+        with pytest.raises(ValueError, match="16 bytes"):
+            attention_cross(wide[..., :c], kv, heads)
+        with pytest.raises(ValueError, match="unit-stride"):
+            attention_cross(q.transpose(1, 2).contiguous().transpose(1, 2),
+                            kv, heads)
+        with pytest.raises(ValueError, match="bad shapes"):
+            attention_cross(q, kv[..., :c], heads)
+        with pytest.raises(ValueError, match="head dim"):
+            attention_cross(q, kv, 4)
+        with pytest.raises(RuntimeError, match="forward-only"):
+            attention_cross(q.requires_grad_(), kv, heads)
+    assert _build.LAUNCHES == before
+    with torch.no_grad():   # grad mode off: the same input launches
+        attention_cross(q, kv, heads)
+    assert _build.LAUNCHES["mhada_attention_cross_fwd"] == \
+        before["mhada_attention_cross_fwd"] + 1
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

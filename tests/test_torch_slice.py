@@ -137,6 +137,7 @@ def test_port_never_imports_jax(tmp_path):
         "import mhada_tpu_torch as pkg\n"
         "for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(mod.name)\n"
+        "import mhada_tpu_torch.parallel.dryrun\n"
         "import mhada_tpu_torch.infer.image as ii\n"
         "from mhada_tpu_torch.config import ModelConfig\n"
         "from mhada_tpu_torch.interop import load_params, load_pth_params\n"
