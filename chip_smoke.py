@@ -198,8 +198,33 @@
       and K2 6 a frame, every stage K3 2 a frame, the last K5 1), the
       wall ms a frame printed, not gated; rank 0 also runs SP and DP over
       a group of its own on NCCL (world size 1);
-   c. NCCL across cards, the same checks, where two or more cards are
-      visible; else one line says it did not run.
+   c. NCCL across cards, the same checks (and d's steps in float32 where
+      four cards are visible), where two or more cards are visible; else
+      one line says it did not run;
+   d. data-parallel and DP x TP training (``parallel.mesh``,
+      ``parallel.tp``): K6, K7 and K2 at one rank's share of the
+      tensor-parallel split (4 heads of 64, K6's packed qkv 768 wide, K7
+      on 256 channels, at the image step's 4 a rank and 1024 tokens and
+      the video step's 1 a rank at 2048 against 1024 tokens; K2's outputs
+      768 and 1024 wide), each against its plain version with time,
+      bound and library time, float32 and bfloat16; then, in the same
+      ranks as b, one step on the (data, model) mesh from the full-width
+      weights on each rank's shard of the global batch: the image step
+      (256^2, B = 8) on (4 x 1) and (2 x 2), the fused-LN step on
+      (2 x 2), the video step (B = 2, the second sample fully occluded)
+      on (2 x 2), float32 and bfloat16, each held on rank 0 against the
+      single-rank kernel build's step from the same weights on the global
+      batch with phase 7's bounds and rounding controls (the gradients
+      and the weights after Adam gathered over the model group), the
+      replicated weights bitwise equal over each model group, launches
+      exact on every rank (image: K6 12 + 12, K7 18 + 18, K8 3; fused-LN:
+      K2 24 more; video: K6 18 + 18, K7 30 + 30, K8 5), each rank's wall
+      ms and peak memory printed, not gated; two planted faults that the
+      gate must report (no sum in ``copy_to_model``'s backward; each
+      rank's temporal losses over its own mask); beside those ranks,
+      ``python -m mhada_tpu_torch.train.run_image --nproc 2`` for 2 steps
+      at 256^2, global B = 4, in a session of its own (exit 0, finite
+      losses, one checkpoint, nothing of its session left).
 
 Each phase prints one line; any failure exits non-zero without the final
 result line.  The model is the full-width ``ModelConfig()`` with random
@@ -210,6 +235,7 @@ FILE`` also writes phase 7's per-tensor gradient errors and bounds.
 
 import argparse
 import contextlib
+import copy
 import io
 import json
 import os
@@ -1219,9 +1245,11 @@ def run_probes(launches):
     return ok
 
 
-def train_gate_inputs(kind, dtype, g, b, n):
+def train_gate_inputs(kind, dtype, g, b, n, tp=1):
     """Seeded inputs of one training kernel at batch ``b`` and ``n`` tokens
-    (K7: n or (queries, keys); K8: an n x n or (height, width) input) ->
+    (K7: n or (queries, keys); K8: an n x n or (height, width) input), at
+    one rank's share of a ``tp``-way tensor-parallel split (K6, K7: 8 / tp
+    heads of 64; K2: the qkv and fc1 output widths over tp) ->
     dict: ``run(backend, *inputs)`` through the
     autograd Function (K2: against autograd of the unfused plain LayerNorm
     and linear), the ``inputs`` and output cotangent ``cot``; ``fwd`` /
@@ -1241,6 +1269,9 @@ def train_gate_inputs(kind, dtype, g, b, n):
     from mhada_tpu_torch.ops import mhada_train as mt
 
     dev, c, heads = "cuda", 512, 8
+    if kind in ("attention", "mhada"):
+        heads //= tp
+        c = 64 * heads
     es = torch.tensor([], dtype=dtype).element_size()
     n, m = (n, n) if isinstance(n, int) else n
 
@@ -1362,7 +1393,7 @@ def train_gate_inputs(kind, dtype, g, b, n):
         # one LN affine in front of both of a block's widths (ln1 -> qkv,
         # ln2 -> fc1), every input in the compute dtype as the fused step
         # casts them
-        fs = (3 * c, 2048)
+        fs = (3 * c // tp, 2048 // tp)
         x = rnd(b, n, c)
         lw, lb = 1 + rnd(c, scale=0.1), rnd(c, scale=0.1)
         wbs = [t for f in fs for t in (rnd(f, c, scale=c ** -0.5),
@@ -1451,17 +1482,18 @@ def tail_aligned_grads(d):
             flips / sum(r.numel() for r in ref))
 
 
-def run_train_gate(gate, kind, dname, card, b, n):
+def run_train_gate(gate, kind, dname, card, b, n, tp=1):
     """A training kernel against its plain versions on the same seeded
     inputs, each output against its own scale: the forward's outputs and
     residuals, the backward alone, and the input gradients through the
-    autograd Function -> (ok, {"fwd": rec, "bwd": rec or None, ...})."""
+    autograd Function -> (ok, {"fwd": rec, "bwd": rec or None, ...});
+    ``tp``: at one rank's share of a tensor-parallel split."""
     import torch
 
     dtype = getattr(torch, dname)
     g = torch.Generator().manual_seed(SEED)
     torch.cuda.reset_peak_memory_stats()
-    d = train_gate_inputs(kind, dtype, g, b, n)
+    d = train_gate_inputs(kind, dtype, g, b, n, tp)
     rel_fwd, rel_grad = TRAIN_REL[dname]
 
     def grads(backend):
@@ -2781,7 +2813,7 @@ PAR_MID_SHARE = 0.6
 # leave the single-rank frame by more than the f32 pixel bound.
 SP_MARGINS = (0, 4)
 SHORT = {"float32": "f32", "bfloat16": "bf16"}
-PAR_TIMEOUT_S = 300
+PAR_TIMEOUT_S = 450
 
 
 def sp_want():
@@ -3009,11 +3041,376 @@ def parallel_checks(results, tag) -> bool:
     return ok
 
 
+# Phase 10d: data-parallel and DP x TP training.  TP_GATES: the training
+# kernels at one rank's share of the (2 x 2) mesh's split (heads of the
+# ViT attention and the MHAda blocks over 2 ranks: 4 heads, K6's packed
+# qkv 768 wide, K7 on 256 channels; K2's qkv and fc1 outputs 768 and
+# 1024 wide) at the per-rank batch: the image step's global B = 8 over 2
+# data ranks, 4 a rank, at 1024 tokens; the video step's B = 2, 1 a rank,
+# at 2048 content against 1024 style tokens.  (gate, kind, batch, tokens.)
+TP_GATES = [
+    ("K6 TP/2 B=4 L=1024", "attention", 4, 1024),
+    ("K7 TP/2 B=4 N=M=1024", "mhada", 4, 1024),
+    ("K2 TP/2 B=4 L=1024", "ln_matmul", 4, 1024),
+    ("K6 TP/2 B=1 L=2048", "attention", 1, 2048),
+    ("K7 TP/2 B=1 N=2048 M=1024", "mhada", 1, (2048, 1024)),
+]
+TP = 2
+# The steps on the mesh, at the recipes' shapes (the image step 256^2 at a
+# global B = 8, the video step at a global B = 2 with the second sample
+# fully occluded): (label, recipe, (n_data, n_model), fuse_ln, launches
+# each rank must make).  Each is held on rank 0 against the single-rank
+# kernel build's step from the same weights on the global batch, with
+# phase 7's bounds and rounding controls.
+MESH_RUNS = [
+    ("image 4x1", "image", (4, 1), False, TRAIN),
+    ("image 2x2", "image", (2, 2), False, TRAIN),
+    ("fused 2x2", "image", (2, 2), True, TRAIN_FUSED),
+    ("video 2x2", "video", (2, 2), False, TRAIN_VIDEO),
+]
+# Planted faults the gate must report (float32): copy_to_model's backward
+# without its sum over the model group, and each rank's temporal losses
+# normalised by its own mask (the single-rank masked mean on its shard).
+MESH_CONTROLS = [
+    ("control: no sum in copy_to_model's backward, image 2x2", "image",
+     (2, 2), False, "copy"),
+    ("control: each rank's own nnz, video 2x2", "video", (2, 2), False,
+     "nnz"),
+]
+VIDEO_B = 2
+
+
+@contextlib.contextmanager
+def mesh_fault(kind):
+    """Plant one of MESH_CONTROLS' faults in this process (None: none)."""
+    from mhada_tpu_torch.parallel import tp
+    from mhada_tpu_torch.train import losses
+
+    if kind is None:
+        yield
+        return
+    real_copy, real_mean = tp._copy_grad, losses._masked_mean
+    if kind == "copy":
+        tp._copy_grad = lambda group, g: g
+    else:
+        losses._masked_mean = (lambda per_elem, nnz, group=None:
+                               real_mean(per_elem, nnz))
+    try:
+        yield
+    finally:
+        tp._copy_grad, losses._masked_mean = real_copy, real_mean
+
+
+def mesh_config(kind, fuse_ln, dname):
+    from mhada_tpu_torch.config import (ImageTrainConfig, ModelConfig,
+                                        VideoTrainConfig)
+
+    model = ModelConfig(fuse_ln=fuse_ln)
+    if kind == "image":
+        return ImageTrainConfig(model=model, batch_size=TRAIN_B,
+                                image_size=(TRAIN_SIZE, TRAIN_SIZE),
+                                compute_dtype=dname)
+    return VideoTrainConfig(model=model, batch_size=VIDEO_B,
+                            compute_dtype=dname)
+
+
+def mesh_batch(cfg, dev):
+    """The global batch from the seed (the recipe's random batch; the video
+    recipe's second sample fully occluded)."""
+    from mhada_tpu_torch.train.recipes import recipe
+
+    batch = recipe(cfg).random_batch(cfg, dev, np.random.default_rng(SEED))
+    if len(batch) == 5:
+        batch[4][1] = 0.0
+    return batch
+
+
+def mesh_reference(cfg, models, batch) -> dict:
+    """The single-rank kernel build's step on the global batch from the
+    weights ``models`` (a copy is trained): its metrics, gradients and
+    weights after Adam, and the gradients of two rounding controls (the
+    step on the images nudged by one unit in the last place)."""
+    import torch
+
+    from mhada_tpu_torch.train.recipes import recipe
+    from mhada_tpu_torch.train.train_image import TRAINABLE, make_optimizers
+
+    ref = dict(models, **{k: copy.deepcopy(models[k]) for k in TRAINABLE})
+    images = recipe(cfg).images
+    dtype = getattr(torch, cfg.compute_dtype)
+    gen = torch.Generator().manual_seed(SEED)
+    controls = [step_grads(ref, cfg, [nudged(x, dtype, gen) for x in
+                                      batch[:images]] + batch[images:])[1]
+                for _ in range(2)]
+    metrics = recipe(cfg).make_step(cfg, ref, make_optimizers(ref, cfg))(
+        *batch)
+    return dict(metrics={k: float(v) for k, v in metrics.items()},
+                grads={net: {k: p.grad for k, p in
+                             ref[net].named_parameters()}
+                       for net in TRAINABLE},
+                new={net: ref[net].state_dict() for net in TRAINABLE},
+                controls=controls)
+
+
+def mesh_gate(ref, cfg, metrics, grads, new, key_bias) -> dict:
+    """Rank 0's gate of one step on the mesh against ``mesh_reference``'s
+    step: the loss; every gradient, each live tensor against its own
+    largest value to max(TRAIN_REL, ROUNDING_FACTOR x the larger error of
+    the two rounding controls), the others to NOISE_BOUND or, with
+    ``key_bias``, the key biases to KEY_BIAS_BOUND, as phase 7; every
+    weight after Adam within 2 lr plus its float32 rounding -> a record of
+    errors and bounds."""
+    import torch
+
+    dname = cfg.compute_dtype
+    rg = ref["grads"]
+    live = live_tensors(rg)
+    errs, noise = grad_errors(grads, rg, live)
+    controls = [grad_errors(g, rg, live) for g in ref["controls"]]
+    rounding = {t: max(c[0][t] for c in controls) for t in live}
+    rel_grad = TRAIN_REL[dname][1]
+    bounds = {t: max(rel_grad, ROUNDING_FACTOR * rounding[t]) for t in live}
+    noise_bounds = {t: (KEY_BIAS_BOUND[dname] if key_bias
+                        and t[1].endswith("g_bias") else NOISE_BOUND[dname])
+                    for t in noise}
+    over, noise_over = over_bound(errs, bounds), over_bound(noise,
+                                                            noise_bounds)
+    eps = torch.finfo(torch.float32).eps
+    adam_over, within, total = 0, 0, 0
+    for net, sd in ref["new"].items():
+        for k, t in sd.items():
+            d = (new[net][k] - t).abs()
+            adam_over += int((d > 2 * cfg.lr + eps * t.abs()).sum())
+            within += int((d <= 1e-6).sum())
+            total += d.numel()
+    rm = ref["metrics"]
+    loss_rel = abs(metrics["loss"] - rm["loss"]) / abs(rm["loss"])
+    return dict(
+        ref_metrics=rm, loss_rel=loss_rel, loss_bound=STEP_LOSS_REL[dname],
+        grad_tensors_live=len(errs), grad_over=len(over),
+        grad_rel_worst=max(errs.values()),
+        grad_nearest=worst_txt(errs, bounds),
+        grad_rounding_worst=max(rounding.values()),
+        noise_over=len(noise_over),
+        noise_nearest=worst_txt(noise, noise_bounds),
+        adam_over=adam_over, adam_share_1e6=within / total,
+        good=(loss_rel <= STEP_LOSS_REL[dname] and not over
+              and not noise_over and adam_over == 0))
+
+
+def mesh_train_rank(group, shapes, runs) -> dict:
+    """One rank of phase 10d: each of ``runs`` ((label, recipe, mesh shape,
+    fuse_ln, want, fault, dtype names)) as one step on the mesh from the
+    seeded full-width weights (``shard_params``) on this rank's shard of
+    the global batch, its launches counted -> {label dtype: launches, wall
+    ms, peak GB, whether the replicated weights stayed bitwise equal over
+    the model group, the loss; on rank 0 the gate (``mesh_gate``) against
+    the single-rank step of the recipe and dtype, computed once (the
+    fused-LN build's too: the function is the unfused build's)}."""
+    import torch
+
+    from mhada_tpu_torch import _build
+    from mhada_tpu_torch.parallel.mesh import (gather_params, make_mesh,
+                                               replicas_equal, shard_batch,
+                                               shard_params)
+    from mhada_tpu_torch.train.recipes import recipe
+    from mhada_tpu_torch.train.train_image import (TRAINABLE, init_params,
+                                                   make_optimizers)
+
+    dev, rank = group.device, group.rank
+    meshes = {s: make_mesh(*s, dev) for s in shapes}
+    # the seeded weights of each build, copied for each step
+    builds = {fuse: init_params(mesh_config("image", fuse, "float32"), dev,
+                                torch.Generator().manual_seed(SEED))
+              for fuse in {run[3] for run in runs}}
+    refs, res = {}, {}
+    for label, kind, shape, fuse_ln, want, fault, dnames in runs:
+        mesh = meshes[shape]
+        for dname in dnames:
+            cfg = mesh_config(kind, fuse_ln, dname)
+            batch = mesh_batch(cfg, dev)
+            local = shard_params({k: copy.deepcopy(m) if k in TRAINABLE
+                                  else m
+                                  for k, m in builds[fuse_ln].items()},
+                                 mesh.model)
+            step = recipe(cfg).make_step(cfg, local,
+                                         make_optimizers(local, cfg),
+                                         mesh.data, mesh.model)
+            part = shard_batch(mesh.data, *batch)
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            with mesh_fault(fault):
+                metrics = step(*part)
+            torch.cuda.synchronize(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = dict(_build.LAUNCHES)
+            trained = {k: local[k] for k in TRAINABLE}
+            grads = gather_params(trained, mesh.model, grads=True)
+            new = gather_params(trained, mesh.model)
+            rec = dict(launches=counts, want=want, ms=ms,
+                       peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                       replicas_equal=replicas_equal(trained, mesh.model),
+                       mesh=list(shape),
+                       loss=float(metrics["loss"]),
+                       finite=all(bool(torch.isfinite(v))
+                                  for v in metrics.values()))
+            del local, step, part, trained
+            torch.cuda.empty_cache()
+            if rank == 0:
+                if (kind, dname) not in refs:
+                    refs[kind, dname] = mesh_reference(
+                        cfg, builds[False], batch)
+                rec.update(mesh_gate(
+                    refs[kind, dname], cfg,
+                    {k: float(v) for k, v in metrics.items()}, grads, new,
+                    kind == "video"))
+                torch.cuda.empty_cache()
+            res[f"{label} {SHORT[dname]}"] = rec
+            del grads, new, batch
+    return res
+
+
+def mesh_checks(results, tag) -> bool:
+    """One phase line per step of ``mesh_train_rank``'s results: a step
+    passes when rank 0's gate holds, its launches are exact on every rank,
+    the replicated weights bitwise equal and the losses finite; a control
+    passes when the gate fails it."""
+    ok = True
+    for label in results[0]:
+        recs = [r[label] for r in results]
+        gate = recs[0]
+        launches_ok = all(r["launches"] == r["want"] for r in recs)
+        sound = (all(r["replicas_equal"] for r in recs)
+                 and all(r["finite"] for r in recs))
+        control = label.startswith("control")
+        good = (not gate["good"] and sound) if control else (
+            gate["good"] and launches_ok and sound)
+        ok = phase(f"parallel train {label} ({tag})", good,
+                   f"{'(must fail the gate) ' if control else ''}mesh "
+                   f"{gate['mesh']}; loss {gate['loss']:.6g} against one "
+                   f"rank's {gate['ref_metrics']['loss']:.6g}: rel "
+                   f"{gate['loss_rel']:.3e} (bound {gate['loss_bound']:.0e});"
+                   f" gradients gathered over the model group: "
+                   f"{gate['grad_over']} of {gate['grad_tensors_live']} live "
+                   f"tensors over their bounds (nearest: "
+                   f"{gate['grad_nearest']}; the rounding controls' worst "
+                   f"{gate['grad_rounding_worst']:.3e}), {gate['noise_over']}"
+                   f" of the others (nearest: {gate['noise_nearest']}); "
+                   f"weights after Adam over 2 lr: {gate['adam_over']}, "
+                   f"within 1e-6: {100 * gate['adam_share_1e6']:.3f} %; "
+                   f"replicas bitwise equal on every rank {sound}; launches "
+                   f"exact on every rank {launches_ok} (rank 0: "
+                   f"{ {k: v for k, v in gate['launches'].items() if v} }); "
+                   f"wall ms of the step per rank (ranks share the card; "
+                   f"not gated) {[round(r['ms'], 1) for r in recs]}, peak "
+                   f"GB per rank {[round(r['peak_gb'], 2) for r in recs]}"
+                   ) and ok
+    return ok
+
+
+def mesh_runs(dnames=DTYPE_NAMES):
+    """MESH_RUNS at ``dnames``, then MESH_CONTROLS at float32, as
+    ``mesh_train_rank`` takes them."""
+    return ([(label, kind, shape, fuse, want, None, dnames)
+             for label, kind, shape, fuse, want in MESH_RUNS]
+            + [(label, kind, shape, fuse,
+                TRAIN_VIDEO if kind == "video" else TRAIN, fault,
+                ("float32",))
+               for label, kind, shape, fuse, fault in MESH_CONTROLS])
+
+
+# phase 10d's run_image --nproc 2: its global batch (2 a rank), run beside
+# the mesh steps (neither is timed), so their memory must fit together
+CLI_RANKS_B = 4
+
+
+def _session(sid) -> dict:
+    """{pid: command line} of the running processes of session ``sid``."""
+    found = {}
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            if int(fields[3]) != sid or fields[0] == "Z":
+                continue
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                found[int(pid)] = f.read().replace(b"\0", b" ").decode(
+                    errors="replace")
+        except (OSError, IndexError, ValueError):   # it ended meanwhile
+            continue
+    return found
+
+
+def start_run_image_ranks(tmp):
+    """``python -m mhada_tpu_torch.train.run_image --nproc 2`` (two ranks
+    sharing the card over gloo) for 2 steps at 256^2 over 16 synthetic
+    PNGs under ``tmp``, its output to ``tmp``/out.txt, in a session of its
+    own, so that what it leaves running can be found -> the process."""
+    synthetic_folders(tmp, 16, np.random.default_rng(SEED))
+    with open(f"{tmp}/out.txt", "w") as log:
+        return subprocess.Popen(
+            [sys.executable, "-m", "mhada_tpu_torch.train.run_image",
+             "--coco", f"{tmp}/coco", "--wikiart", f"{tmp}/wikiart",
+             "--models-dir", f"{tmp}/models", "--image-size",
+             str(TRAIN_SIZE), str(TRAIN_SIZE), "--batch-size",
+             str(CLI_RANKS_B), "--seed", str(SEED), "--log-every", "1",
+             "--metrics-jsonl", f"{tmp}/m.jsonl", "--epochs", "1",
+             "--steps-per-epoch", "2", "--nproc", "2"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            start_new_session=True, stdout=log, stderr=subprocess.STDOUT)
+
+
+def finish_run_image_ranks(proc, tmp, t0, card) -> tuple[bool, dict]:
+    """Wait for ``start_run_image_ranks``' run: exit 0, finite losses
+    logged once a step, one checkpoint written, nothing of its session
+    left running."""
+    try:
+        proc.wait(timeout=PAR_TIMEOUT_S)
+        left = _session(proc.pid)
+        rows = [json.loads(ln) for ln in open(f"{tmp}/m.jsonl")]
+        files = sorted(os.listdir(f"{tmp}/models"))
+        losses = [r["loss"] for r in rows]
+        good = (proc.returncode == 0 and len(rows) == 2
+                and all(np.isfinite(losses)) and files.count(
+                    f"checkpoint_epoch_1_batchSize_{CLI_RANKS_B}.pth") == 1
+                and not left)
+        rec = dict(rc=proc.returncode, losses=losses, files=files,
+                   left=left, seconds=time.perf_counter() - t0)
+        detail = (f"exit {proc.returncode}; losses {losses}; files {files};"
+                  f" processes of its session left {left or 'none'}; "
+                  f"{rec['seconds']:.1f} s wall beside the mesh steps, the "
+                  f"ranks' start included ({card})")
+    except Exception as e:
+        proc.kill()
+        proc.wait()
+        good, rec, detail = False, {}, f"{type(e).__name__}: {e}"
+    if not good:
+        with open(f"{tmp}/out.txt") as f:
+            detail += "; its output: " + f.read()[-2000:]
+    return phase(f"parallel train run_image --nproc 2, B = {CLI_RANKS_B}, "
+                 "2 steps 256^2", good, detail), rec
+
+
+def phase10_rank(group, nccl_one: bool, shapes, runs) -> dict:
+    """One rank of phase 10: the serving paths (``parallel_rank``), then
+    the training steps on the mesh (``mesh_train_rank``)."""
+    import torch
+
+    serve = parallel_rank(group, nccl_one)
+    torch.cuda.empty_cache()
+    return {"serve": serve,
+            "train": mesh_train_rank(group, shapes, runs) if runs else {}}
+
+
 def parallel_phase(card, gates, launches) -> tuple[bool, dict]:
     """Phase 10: K1's cross form gated at the SP shapes, beside phase 3's
-    K1 self-attention time; then PAR_RANKS ranks sharing the card over gloo
-    (``parallel_rank``), with NCCL at world size 1 inside them; then NCCL
-    across cards where there are two or more."""
+    K1 self-attention time; K6, K7 and K2 at one rank's share of the TP
+    split (TP_GATES); then PAR_RANKS ranks sharing the card over gloo
+    (``phase10_rank``: the serving paths, with NCCL at world size 1 inside
+    them, and the training steps on the mesh); ``run_image --nproc 2``;
+    then NCCL across cards where there are two or more."""
     import torch
 
     from mhada_tpu_torch.parallel.launch import run_ranks
@@ -3040,40 +3437,75 @@ def parallel_phase(card, gates, launches) -> tuple[bool, dict]:
     secs["cross_gates"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    for gate, kind, b, n in TP_GATES:
+        for dname in DTYPE_NAMES:
+            try:
+                good, r = run_train_gate(gate, kind, dname, card, b, n, TP)
+            except Exception as e:
+                ok = phase(f"train gate {gate} {dname}", False,
+                           f"{type(e).__name__}: {e}")
+                continue
+            rec.setdefault("tp_gates", {}).setdefault(gate, {})[dname] = r
+            ok = good and ok
+    secs["tp_gates"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    shapes = sorted({run[2] for run in MESH_RUNS})
+    cli_tmp = tempfile.TemporaryDirectory()
+    cli = start_run_image_ranks(cli_tmp.name)
     try:
-        results = run_ranks(parallel_rank, PAR_RANKS, (True,), device="cuda",
+        results = run_ranks(phase10_rank, PAR_RANKS,
+                            (True, shapes, mesh_runs()), device="cuda",
                             backend="gloo", timeout_s=PAR_TIMEOUT_S)
     except RuntimeError as e:
         ok = phase(f"parallel {PAR_RANKS} ranks over gloo", False,
                    str(e)[-3000:])
     else:
-        rec["gloo"] = results
-        ok = parallel_checks(results, f"gloo, {PAR_RANKS} ranks share the "
-                             "card") and ok
-        launches["sp512"] = results[0][f"sp512 f32 x{PAR_RANKS}"]["launches"]
-        launches["sp1024"] = results[0][
-            f"sp1024 bf16 x{PAR_RANKS}"]["launches"]
+        serve = [r["serve"] for r in results]
+        train = [r["train"] for r in results]
+        rec["gloo"], rec["gloo_train"] = serve, train
+        tag = f"gloo, {PAR_RANKS} ranks share the card"
+        ok = parallel_checks(serve, tag) and ok
+        ok = mesh_checks(train, tag) and ok
+        launches["sp512"] = serve[0][f"sp512 f32 x{PAR_RANKS}"]["launches"]
+        launches["sp1024"] = serve[0][f"sp1024 bf16 x{PAR_RANKS}"]["launches"]
+        for key, label in (("mesh_image", "image 2x2 f32"),
+                           ("mesh_fuseln", "fused 2x2 f32"),
+                           ("mesh_video", "video 2x2 f32")):
+            launches[key] = train[0][label]["launches"]
     secs["gloo_ranks"] = time.perf_counter() - t0
+    good, rec["run_image_nproc2"] = finish_run_image_ranks(cli, cli_tmp.name,
+                                                           t0, card)
+    cli_tmp.cleanup()
+    ok = good and ok
+    secs["gloo_ranks_and_cli"] = time.perf_counter() - t0
 
     cards = torch.cuda.device_count()
     if cards >= 2:
         t0 = time.perf_counter()
         n = min(cards, PAR_RANKS)
+        # the training steps need the 4 ranks of MESH_RUNS' meshes
+        runs = mesh_runs(("float32",))[:len(MESH_RUNS)] if n == 4 else []
         try:
-            results = run_ranks(parallel_rank, n, (False,), device="cuda",
-                                backend="nccl", timeout_s=PAR_TIMEOUT_S)
+            results = run_ranks(phase10_rank, n, (False, shapes, runs),
+                                device="cuda", backend="nccl",
+                                timeout_s=PAR_TIMEOUT_S)
         except RuntimeError as e:
             ok = phase(f"parallel {n} ranks over NCCL", False, str(e)[-3000:])
         else:
-            rec["nccl"] = results
-            ok = parallel_checks(results, f"NCCL, {n} cards") and ok
+            rec["nccl"] = [r["serve"] for r in results]
+            rec["nccl_train"] = [r["train"] for r in results]
+            ok = parallel_checks(rec["nccl"], f"NCCL, {n} cards") and ok
+            if runs:
+                ok = mesh_checks(rec["nccl_train"], f"NCCL, {n} cards") \
+                    and ok
         secs["nccl_ranks"] = time.perf_counter() - t0
     else:
         phase("parallel NCCL across cards", True,
               f"not run: {cards} card visible, and NCCL puts no two ranks "
-              "of one communicator on one card; SP, PP and DP over NCCL "
-              "across cards stay unverified (NCCL at world size 1 ran "
-              "above)")
+              "of one communicator on one card; SP, PP and DP inference "
+              "and DP and DP x TP training over NCCL across cards stay "
+              "unverified (NCCL at world size 1 ran above)")
     rec["seconds"] = secs
     phase("parallel seconds", True, ", ".join(f"{k} {v:.1f}"
                                               for k, v in secs.items()))
@@ -3613,7 +4045,7 @@ def main() -> int:
     ok = phase("train run_image 2 steps + 1 resumed", good, detail) and ok
 
     ok = interleaved_steps("train256", {"plain": plain, "kernel": kernel},
-                           [tc, ts], (1, 3), "256^2, B = 8") and ok
+                           [tc, ts], (1, 2), "256^2, B = 8") and ok
 
     # b. the fused-LN build (K2 and its VJP at every pre-LN), 256^2, B = 8
     fused = train_models("auto", fuse_ln=True)
@@ -3621,7 +4053,7 @@ def main() -> int:
                    train_models("plain", fuse_ln=True), [tc, ts],
                    "train_fuseln") and ok
     ok = interleaved_steps("fuseln256", {"unfused": kernel, "fused": fused},
-                           [tc, ts], (1, 3), "kernel builds, 256^2, B = 8") \
+                           [tc, ts], (1, 2), "kernel builds, 256^2, B = 8") \
         and ok
     del kernel, plain, fused, ktrain, ptrain, tc, ts
     torch.cuda.empty_cache()
@@ -3632,8 +4064,11 @@ def main() -> int:
     tc, ts = batch(kernel[0])
     ok = step_gate("512^2", TRAIN, kernel, plain, [tc, ts], "train512") \
         and ok
+    # one timed step a round here and two at 256^2 and in the video step,
+    # four rounds a build and dtype: the room phase 10d needs (~25 s on an
+    # H100)
     ok = interleaved_steps("train512", {"plain": plain, "kernel": kernel},
-                           [tc, ts], (1, 2), f"512^2, B = {BIG_B}") and ok
+                           [tc, ts], (1, 1), f"512^2, B = {BIG_B}") and ok
     del kernel, plain, tc, ts
     torch.cuda.empty_cache()
     if args.dump:
@@ -3717,7 +4152,7 @@ def main() -> int:
     ok = phase("train run_video 2 steps, resumed from run_image", good,
                detail) and ok
     ok = interleaved_steps("video", {"plain": vplain, "kernel": vkernel},
-                           vbatch, (1, 3), "the video recipe, B = {}, {} x {}"
+                           vbatch, (1, 2), "the video recipe, B = {}, {} x {}"
                            " frames, {}^2 styles".format(
                                vcfg.batch_size, *vcfg.content_size,
                                vcfg.style_size[0])) and ok
@@ -3769,11 +4204,15 @@ def main() -> int:
         row = dict(name=name, route="cuda", source=source,
                    replaces=replaces, gate=first, path=row_path,
                    launches=launches.get(path, {}).get(entry, 0))
-        if path == "train":   # K6, K7, K8: the video step's and the
-            # feature inversions' launches too
-            for key in ("train_video", "inversion_vit", "inversion_mhada"):
+        if path == "train":   # K6, K7, K8: the video step's, the feature
+            # inversions' and one rank's of the (2 x 2) mesh's steps too
+            for key in ("train_video", "inversion_vit", "inversion_mhada",
+                        "mesh_image", "mesh_video"):
                 row["launches_" + key.replace("train_", "")] = launches.get(
                     key, {}).get(entry, 0)
+        if path == "train_fuseln":   # K2: one rank's of the mesh's step
+            row["launches_mesh_fuseln"] = launches.get(
+                "mesh_fuseln", {}).get(entry, 0)
         if note:
             row["path_note"] = note
         if not r32:   # a bfloat16-only kernel (P1): its numbers stand first

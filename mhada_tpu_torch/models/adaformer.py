@@ -37,6 +37,7 @@ from ..ops.mhada import mhada_attention
 from ..ops.mhada_kernel import mhada_tm, mhada_tm_plain
 from ..ops.mhada_prologue import mhada_fused_prologue
 from ..ops.mhada_train import mhada_train
+from ..parallel import tp
 
 
 class AdaAttnMultiHead(nn.Module):
@@ -44,6 +45,14 @@ class AdaAttnMultiHead(nn.Module):
 
     Parameter names and layouts are the JAX tree's: ``{f,g,h}_kernel``
     (H, d, d), ``{f,g,h}_bias`` (H, d), ``out_kernel`` (C, C) as (in, out).
+
+    ``model_group`` (set by ``parallel.mesh.shard_params``): tensor
+    parallelism over the heads.  A head owns a contiguous d-channel slice
+    and the instance norm is per channel, so this rank takes its heads'
+    channels of fc, fs and fcs (their gradients summed over the ranks),
+    runs the core on its ``num_heads`` heads' f/g/h stacks, and gathers
+    the heads' outputs before the output projection, which stays
+    replicated as in the JAX rules.
     """
 
     def __init__(self, channels: int, num_heads: int = 8,
@@ -52,6 +61,7 @@ class AdaAttnMultiHead(nn.Module):
         self.num_heads = num_heads
         self.activation = activation
         self.backend = backend
+        self.model_group = None
         d = channels // num_heads
         for name in ("f", "g", "h"):
             self.register_parameter(
@@ -93,7 +103,21 @@ class AdaAttnMultiHead(nn.Module):
         are sharded over its ranks (sequence parallelism): their instance
         norm statistics are reduced over the ranks and fed to K3 as they
         are (K4's path normalises with them); the style side is whole on
-        every rank, so attention needs no communication."""
+        every rank, so attention needs no communication.  With
+        ``model_group`` set, fc, fs and fcs are whole and the cached
+        ``style_kv`` is not taken."""
+        model = self.model_group
+        if model is not None:
+            if group is not None or style_kv is not None:
+                raise ValueError("tensor parallelism takes neither sequence "
+                                 "parallelism nor cached style K/V")
+            c = fc.shape[-1] // model.size
+
+            def heads(t):   # this rank's heads' channels
+                return tp.copy_to_model(t, model).narrow(
+                    -1, model.rank * c, c)
+
+            fc, fs, fcs = heads(fc), heads(fs), heads(fcs)
         k, v = self.style_kv(fs) if style_kv is None else style_kv
         dt = fc.dtype
         if (style_kv is not None and self.activation == "softmax"
@@ -115,6 +139,8 @@ class AdaAttnMultiHead(nn.Module):
             else:
                 out = mhada_tm_plain(q, k, v, fcs_n, self.num_heads,
                                      self.activation)
+        if model is not None:
+            out = tp.gather_channels(out, model)
         return out @ self.out_kernel.to(dt) + self.out_bias.to(dt)
 
 

@@ -20,6 +20,7 @@ from ..ops.attention_kernel import attention_cross, attention_tm
 from ..ops.attention_train import attention_train
 from ..ops.ln_matmul import layer_norm, ln_matmul
 from ..ops.pad_conv import conv2d
+from ..parallel import tp
 
 
 def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> None:
@@ -114,12 +115,19 @@ class MultiHeadSelfAttention(nn.Module):
     queries attend over all of them through K1's cross form
     (``attention_cross``), as the JAX ``sp_axis`` branch does
     (mhada_tpu/models/layers.py:204-208).
+
+    ``model_group`` (set by ``parallel.mesh.shard_params``): tensor
+    parallelism over its ranks.  The module holds this rank's
+    ``num_heads`` heads: the packed qkv rows [q_r | k_r | v_r] of them
+    (column-parallel, K6 takes them as its packed qkv) and out_proj's
+    input columns (row-parallel, its bias added once after the sum).
     """
 
     def __init__(self, embed_dim: int, num_heads: int, backend: str = "auto"):
         super().__init__()
         self.num_heads = num_heads
         self.backend = backend
+        self.model_group = None
         self.qkv_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.qkv_bias = nn.Parameter(torch.empty(3 * embed_dim))
         self.out_proj = Linear(embed_dim, embed_dim, zero_bias=True)
@@ -131,15 +139,25 @@ class MultiHeadSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, ln: LayerNorm | None = None,
                 group=None) -> torch.Tensor:
+        model = self.model_group
         if ln is not None:
-            qkv = ln_matmul(x, ln.weight, ln.bias, self.qkv_weight,
-                            self.qkv_bias, ln.eps, backend=self.backend)
+            ln_w, ln_b = ln.weight, ln.bias
+            if model is not None:
+                x = tp.copy_to_model(x, model)
+                ln_w, ln_b = tp.ln_affine_to_model(model, ln_w, ln_b)
+            qkv = ln_matmul(x, ln_w, ln_b, self.qkv_weight, self.qkv_bias,
+                            ln.eps, backend=self.backend)
         else:
+            if model is not None:
+                x = tp.copy_to_model(x, model)
             qkv = F.linear(x, self.qkv_weight.to(x.dtype),
                            self.qkv_bias.to(x.dtype))
-        e = x.shape[-1]
+        e = qkv.shape[-1] // 3
         hd = e // self.num_heads
         if group is not None:
+            if model is not None:
+                raise ValueError("sequence and tensor parallelism do not "
+                                 "combine")
             if self.training:
                 raise ValueError("sequence parallelism is inference-only")
             kv = group.gather_rows(qkv[..., e:].contiguous(), dim=1)
@@ -150,4 +168,7 @@ class MultiHeadSelfAttention(nn.Module):
         attend = attention_train if self.training else attention_tm
         o = attend(qkv.contiguous(), self.num_heads,
                    scale=1.0 / math.sqrt(hd), backend=self.backend)
+        if model is not None:
+            return tp.row_parallel_linear(o, self.out_proj.weight,
+                                          self.out_proj.bias, model)
         return self.out_proj(o)

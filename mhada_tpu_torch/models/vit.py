@@ -24,6 +24,7 @@ from .decoder import ConvDepthwiseSeparable
 from .layers import Conv2d, LayerNorm, Linear, MultiHeadSelfAttention
 from ..ops.ln_matmul import ln_matmul
 from ..ops.resize import resize_bilinear
+from ..parallel import tp
 
 ATTN_MODES = ("spatial", "batch_coupled")
 
@@ -124,6 +125,10 @@ class EncoderBlock(nn.Module):
     attention either way, as the JAX package does (vit.py:132-140).
     ``group``: sequence parallelism, passed to the spatial attention (the
     batch-coupled one attends over the image batch, which stays whole).
+    ``model_group`` (set by ``parallel.mesh.shard_params``): tensor
+    parallelism, the attention split by heads and the MLP by hidden units
+    (mlp_fc1 column-parallel, mlp_fc2 row-parallel with its bias added
+    once); spatial attention only.
     """
 
     def __init__(self, hidden_dim: int, num_heads: int, mlp_dim: int,
@@ -142,9 +147,14 @@ class EncoderBlock(nn.Module):
         self.ln2 = LayerNorm(hidden_dim)
         self.mlp_fc1 = Linear(hidden_dim, mlp_dim)
         self.mlp_fc2 = Linear(mlp_dim, hidden_dim)
+        self.model_group = None
 
     def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        model = self.model_group
         if self.attn_mode == "batch_coupled":
+            if model is not None:
+                raise ValueError("tensor parallelism takes the spatial "
+                                 "attention only")
             # sequence axis = image batch, batch axis = tokens
             h = self.attention(self.ln1(x).transpose(0, 1)).transpose(0, 1)
         elif self.fuse_ln:
@@ -153,11 +163,20 @@ class EncoderBlock(nn.Module):
             h = self.attention(self.ln1(x), group=group)
         x = x + h
         if self.fuse_ln:
-            y = ln_matmul(x, self.ln2.weight, self.ln2.bias,
-                          self.mlp_fc1.weight, self.mlp_fc1.bias,
-                          self.ln2.eps, backend=self.backend)
+            xin, ln_w, ln_b = x, self.ln2.weight, self.ln2.bias
+            if model is not None:
+                xin = tp.copy_to_model(x, model)
+                ln_w, ln_b = tp.ln_affine_to_model(model, ln_w, ln_b)
+            y = ln_matmul(xin, ln_w, ln_b, self.mlp_fc1.weight,
+                          self.mlp_fc1.bias, self.ln2.eps,
+                          backend=self.backend)
         else:
-            y = self.mlp_fc1(self.ln2(x))
+            h = self.ln2(x)
+            y = self.mlp_fc1(h if model is None
+                             else tp.copy_to_model(h, model))
+        if model is not None:
+            return x + tp.row_parallel_linear(
+                torch.relu(y), self.mlp_fc2.weight, self.mlp_fc2.bias, model)
         y = self.mlp_fc2(torch.relu(y))
         return x + y
 

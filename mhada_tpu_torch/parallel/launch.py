@@ -7,7 +7,13 @@ there and returns the ranks' results in rank order.  A rank that raises, a
 rank that dies and ranks that do not finish within ``timeout_s`` raise
 ``RuntimeError`` here; every child is ended before it returns or raises.
 ``fn`` must be importable by name (a module-level function), and its
-result picklable; tensors in it come back as numpy arrays.
+result picklable; tensors in it come back as numpy arrays.  A rank may
+start processes of its own (a data loader's workers).
+
+``run_spmd(fn, nproc, device, *args)``: a CLI's ranks, ``fn(group,
+*args)`` on each: under ``torchrun`` (RANK and WORLD_SIZE set) this
+process is one rank; else ``nproc`` ranks spawned by ``run_ranks``, or
+``fn(None, *args)`` here for one.
 """
 
 import os
@@ -19,6 +25,9 @@ import traceback
 
 import numpy as np
 import torch
+
+# a collective's time limit where the run itself has none
+COLLECTIVE_TIMEOUT_S = 300.0
 
 
 def to_host(obj):
@@ -43,7 +52,7 @@ def _rank_main(fn, rank, nprocs, init_method, device, backend, timeout_s,
         torch.set_num_threads(1)
     try:
         group = init_group(rank, nprocs, init_method, device, backend,
-                           timeout_s)
+                           timeout_s or COLLECTIVE_TIMEOUT_S)
         out = ("ok", to_host(fn(group, *args)))
     except Exception:   # reported to the parent, which fails the run
         out = ("error", traceback.format_exc())
@@ -68,13 +77,16 @@ def _stop(procs, grace_s: float = 5.0) -> None:
 
 
 def run_ranks(fn, nprocs: int, args: tuple = (), device: str = "cuda",
-              backend: str | None = None, timeout_s: float = 600.0,
+              backend: str | None = None, timeout_s: float | None = 600.0,
               init_method: str | None = None) -> list:
     """``[fn(group, *args) of rank 0, ..., of rank nprocs - 1]``.
 
     ``device``/``backend`` as ``mesh.init_group``'s.  ``init_method``: a
     rendezvous URL; by default a file store in a temporary directory,
-    removed afterwards.  CPU ranks run one torch thread each."""
+    removed afterwards.  CPU ranks run one torch thread each.
+    ``timeout_s``: None waits for the ranks as long as they run (a
+    training run), each collective then timing out after
+    ``COLLECTIVE_TIMEOUT_S``."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
@@ -83,7 +95,7 @@ def run_ranks(fn, nprocs: int, args: tuple = (), device: str = "cuda",
         tmp = tempfile.mkdtemp(prefix="mhada_ranks_")
         init_method = f"file://{os.path.join(tmp, 'store')}"
     results = ctx.Queue()
-    procs = [ctx.Process(target=_rank_main, daemon=True,
+    procs = [ctx.Process(target=_rank_main,
                          args=(fn, r, nprocs, init_method, str(device),
                                backend, timeout_s, args, results))
              for r in range(nprocs)]
@@ -91,7 +103,7 @@ def run_ranks(fn, nprocs: int, args: tuple = (), device: str = "cuda",
     try:
         for p in procs:
             p.start()
-        deadline = time.monotonic() + timeout_s
+        deadline = time.monotonic() + (timeout_s or float("inf"))
         while len(got) + len(errors) < nprocs and not errors:
             try:
                 rank, status, value = results.get(timeout=1.0)
@@ -118,3 +130,31 @@ def run_ranks(fn, nprocs: int, args: tuple = (), device: str = "cuda",
     if errors:
         raise RuntimeError("; ".join(errors))
     return [got[r] for r in range(nprocs)]
+
+
+def run_spmd(fn, nproc: int, device, *args):
+    """``fn(group, *args)`` on each rank of a CLI run -> rank 0's result
+    (this process's under ``torchrun``).  Under ``torchrun`` (RANK and
+    WORLD_SIZE set) this process is one rank, rendezvousing by the
+    environment; else ``nproc`` > 1 ranks are spawned here (the kernels
+    built first, on a card), or ``fn(None, *args)`` runs here for one."""
+    import torch.distributed as dist
+
+    from ..config import resolve_device
+    from .mesh import init_group
+
+    device = resolve_device(device)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        group = init_group(int(os.environ["RANK"]),
+                           int(os.environ["WORLD_SIZE"]), "env://", device)
+        try:
+            return fn(group, *args)
+        finally:
+            dist.destroy_process_group()
+    if nproc == 1:
+        return fn(None, *args)
+    if device.type == "cuda":   # build once, before the ranks race to it
+        from .. import _build
+
+        _build.build()
+    return run_ranks(fn, nproc, args, device=str(device), timeout_s=None)[0]

@@ -83,23 +83,27 @@ def identity_loss_2(fcc: dict, fc: dict, fss: dict, fs: dict) -> torch.Tensor:
     return loss
 
 
-def output_level_temporal_loss(c1, c2, cs1, cs2, flow, mask) -> torch.Tensor:
+def output_level_temporal_loss(c1, c2, cs1, cs2, flow, mask,
+                               group=None) -> torch.Tensor:
     """Flow-warped output change against the luma change of the input
     (lossfn.py:50-66).  c*, cs*: (B, H, W, 3); flow: (B, H, W, 2); mask:
-    (B, H, W), float32 whatever the images' dtype."""
+    (B, H, W), float32 whatever the images' dtype.  ``group``: the batch is
+    sharded over its ranks (data parallelism; see ``_masked_mean``)."""
     diff = c2 - warp(c1, flow)
     luma = 0.2126 * diff[..., 0] + 0.7152 * diff[..., 1] + 0.0722 * diff[
         ..., 2]
     m = mask[..., None]
     per_elem = torch.square(cs2 - warp(cs1, flow) - luma[..., None]) * m
-    return _masked_mean(per_elem, m.sum() * c2.shape[-1])
+    return _masked_mean(per_elem, m.sum() * c2.shape[-1], group)
 
 
-def feature_level_temporal_loss(f1, f2, flow, mask) -> torch.Tensor:
+def feature_level_temporal_loss(f1, f2, flow, mask,
+                                group=None) -> torch.Tensor:
     """Flow-warped consistency of the pre-decoder fcs maps (lossfn.py:
     69-86).  f1, f2: (B, h, w, C); flow: (B, H, W, 2) at image resolution,
     resized to the feature grid with its vectors scaled by (w / W, h / H);
-    mask: (B, H, W), resized and kept where > 0."""
+    mask: (B, H, W), resized and kept where > 0.  ``group`` as
+    ``output_level_temporal_loss``'s."""
     fh, fw = f1.shape[1:3]
     flow_r = resize_bilinear(flow, (fh, fw))
     # scaled by Python floats: a device tensor made from a list would be a
@@ -109,12 +113,22 @@ def feature_level_temporal_loss(f1, f2, flow, mask) -> torch.Tensor:
     warped_f1 = warp(f1, flow_r)
     fmask = (resize_bilinear(mask[..., None], (fh, fw)) > 0).to(f1.dtype)
     per_elem = torch.square(f2 - warped_f1) * fmask
-    return _masked_mean(per_elem, fmask.sum() * f1.shape[-1])
+    return _masked_mean(per_elem, fmask.sum() * f1.shape[-1], group)
 
 
-def _masked_mean(per_elem, nnz) -> torch.Tensor:
+def _masked_mean(per_elem, nnz, group=None) -> torch.Tensor:
     """sum(per_elem) / nnz, and 0 where the mask is empty (the JAX
     package's deliberate deviation from the reference's NaN: one fully
-    occluded sample must not poison a run's gradients)."""
-    return torch.where(nnz > 0, per_elem.sum() / nnz.clamp_min(1),
+    occluded sample must not poison a run's gradients).
+
+    ``group``: per_elem is this rank's shard of the batch.  The JAX
+    package divides by the whole batch's nnz, so nnz is summed over the
+    ranks and the empty-mask guard tests that sum; the local sum is
+    scaled by the group's size, so that the ranks' mean (the gradients'
+    and the metrics' data-parallel mean) is the whole batch's loss.  A
+    rank whose shard is empty reads 0 only where the whole mask is."""
+    n = 1
+    if group is not None:
+        n, nnz = group.size, group.all_reduce_sum(nnz.detach())
+    return torch.where(nnz > 0, per_elem.sum() * n / nnz.clamp_min(1),
                        per_elem.new_zeros(()))

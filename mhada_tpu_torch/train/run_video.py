@@ -8,12 +8,14 @@ starts from ``checkpoint_epoch_{E-1}_batchSize_{image_batch_size}.pth``
 else from the newest video checkpoint ``..._batchSize_{batch_size}.pth``;
 weights and Adam state are restored.  Rolling 100-step weight snapshots,
 per-epoch weights and a combined checkpoint under the video batch size.
-Runs on the card unless ``--device cpu`` is given.
+Runs on the card unless ``--device cpu`` is given.  ``--nproc N`` or
+``torchrun``: data parallelism as ``train.run_image``'s (the temporal
+losses normalised by the whole global batch's mask).
 
 Usage:
   python -m mhada_tpu_torch.train.run_video --datasets ../datasets \\
       [--epoch-start 21] [--epochs 30] [--batch-size 2] [--vgg vgg19.pth] \\
-      [--models-dir ./models] [--dtype bfloat16]
+      [--models-dir ./models] [--dtype bfloat16] [--nproc N]
 """
 
 import argparse
@@ -21,12 +23,13 @@ import os
 
 import torch
 
-from ..config import ModelConfig, VideoTrainConfig, resolve_device
+from ..config import ModelConfig, VideoTrainConfig
 from ..data.coco_wikiart import make_loader
 from ..data.sceneflow import FlyingThings3DMonkaaWikiArt, collate_video
 from ..interop import load_vgg19
+from ..parallel.launch import run_spmd
 from . import checkpoint as ckpt
-from .run_image import train_epochs
+from .run_image import add_rank_args, rank_setup, train_epochs
 from .train_image import init_params, make_optimizers
 from .train_video import make_video_train_step
 
@@ -75,9 +78,15 @@ def main(argv=None):
     ap.add_argument("--metrics-jsonl", help="structured per-step metrics file")
     ap.add_argument("--device", default="cuda",
                     help="default: cuda; without a card pass --device cpu")
+    add_rank_args(ap)
     args = ap.parse_args(argv)
+    run_spmd(train_rank, args.nproc, args.device, args)
 
-    device = resolve_device(args.device)
+
+def train_rank(group, args) -> None:
+    """One rank of ``main`` (``group`` None: the only one)."""
+    device, args = rank_setup(group, args)
+    lead = group is None or group.rank == 0
     cfg = VideoTrainConfig(
         model=ModelConfig(attn_mode=args.attn_mode),
         epoch_start=args.epoch_start, epoch_end=args.epochs,
@@ -94,18 +103,19 @@ def main(argv=None):
                          torch.Generator().manual_seed(args.seed or 0))
     if args.vgg:
         models["vgg19"].load_state_dict(load_vgg19(args.vgg), strict=True)
-    else:
+    elif lead:
         print("WARNING: no --vgg weights; using random VGG (smoke mode only)")
     optimizers = make_optimizers(models, cfg)
     if cfg.epoch_start > 1:
         path = resume_path(args.models_dir, cfg)
         epoch = ckpt.restore_checkpoint(path, models, optimizers,
                                         m.num_layers, m.num_heads)
-        print(f"resumed from {path} (epoch {epoch})")
+        if lead:
+            print(f"resumed from {path} (epoch {epoch})")
 
     train_epochs(cfg, models, optimizers,
-                 make_video_train_step(cfg, models, optimizers), loader,
-                 device, args)
+                 make_video_train_step(cfg, models, optimizers, group),
+                 loader, device, args, group)
 
 
 if __name__ == "__main__":

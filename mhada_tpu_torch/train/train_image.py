@@ -15,9 +15,11 @@ same kernels as 256^2); ``ModelConfig(fuse_ln=True)`` also fuses the ViT's
 pre-LNs into their matmuls (K2 and its VJP).
 bfloat16 is the JAX package's: the inputs are cast and each module casts
 its float32 weights at use, so gradients and Adam state stay float32.
-``remat`` recomputes the encoder, AdaFormer and VGG forwards in the
-backward (``torch.utils.checkpoint``, non-reentrant).  Float32 runs with
-TF32 off for every conv and matmul.
+Data and tensor parallelism: ``make_image_train_step``'s ``data`` and
+``model`` groups (``parallel.mesh.make_mesh``), on the modules of
+``parallel.mesh.shard_params``.  ``remat`` recomputes the encoder,
+AdaFormer and VGG forwards in the backward (``torch.utils.checkpoint``,
+non-reentrant).  Float32 runs with TF32 off for every conv and matmul.
 """
 
 import torch
@@ -27,6 +29,7 @@ from ..config import ImageTrainConfig, resolve_device
 from ..infer.image import DTYPES
 from ..models import VGG19Features, build_models
 from ..ops.pad_conv import no_tf32
+from ..parallel.mesh import average_gradients
 from . import losses as L
 
 TRAINABLE = ("vit_c", "vit_s", "adaFormer")
@@ -92,23 +95,60 @@ def image_loss_fn(models: dict, content: torch.Tensor, style: torch.Tensor,
                   "loss_id1": loss_id1, "loss_id2": loss_id2}
 
 
+def make_train_step(loss_fn, cfg, models: dict, optimizers: dict,
+                    data=None, model=None):
+    """``step(*batch) -> metrics`` of a recipe's ``loss_fn(models, *batch,
+    cfg, data)``: one forward, backward and Adam update of ``models`` in
+    place, the images cast to float32 first.
+
+    ``data`` (a ``parallel.collectives.Group``): the batch is this rank's
+    shard of the global batch (``parallel.mesh.shard_batch``); every
+    gradient is averaged over the data ranks in float32 before Adam
+    (``parallel.mesh.average_gradients``), as the JAX step's mean loss over
+    the global batch makes it, and the metrics are the global batch's, the
+    data ranks' mean.  ``model``: ``models`` are this rank's tensor-parallel
+    share (``parallel.mesh.shard_params``); a split parameter keeps its
+    share of Adam's state, which equals the whole Adam since Adam is per
+    element."""
+    if model is not None and data is None:
+        raise ValueError("a tensor-parallel step needs its mesh's data group "
+                         "too (parallel.mesh.make_mesh)")
+    if cfg.model.attn_mode != "spatial" and data is not None \
+            and data.size * (1 if model is None else model.size) > 1:
+        raise ValueError("the batch-coupled attention attends over the "
+                         "whole batch: it runs on one rank")
+    params = [(k, p) for net in TRAINABLE
+              for k, p in models[net].named_parameters()]
+
+    def step(*batch) -> dict:
+        for opt in optimizers.values():
+            opt.zero_grad(set_to_none=True)
+        with no_tf32():
+            loss, metrics = loss_fn(models, *batch, cfg, data)
+            loss.backward()
+        if data is not None:
+            average_gradients(params, data, model)
+        for opt in optimizers.values():
+            opt.step()
+        metrics = {k: v.detach().float() for k, v in metrics.items()}
+        if data is not None and data.size > 1:
+            means = data.all_reduce_mean(torch.stack(list(metrics.values())))
+            metrics = dict(zip(metrics, means.unbind(0)))
+        return metrics
+
+    return step
+
+
 def make_image_train_step(cfg: ImageTrainConfig, models: dict,
-                          optimizers: dict):
+                          optimizers: dict, data=None, model=None):
     """``step(content, style) -> metrics``: one forward, backward and Adam
     update of ``models`` in place.  Batches are (B, H, W, 3) 0-255, float or
     uint8 (cast to float32 first, train_image.py:260-264).  The metrics are
     0-d float32 tensors on the device (no host sync); the gradients stay in
-    the parameters' ``.grad`` until the next step."""
+    the parameters' ``.grad`` until the next step.  ``data``, ``model``:
+    the mesh's groups (``make_train_step``)."""
 
-    def step(content: torch.Tensor, style: torch.Tensor) -> dict:
-        for opt in optimizers.values():
-            opt.zero_grad(set_to_none=True)
-        with no_tf32():
-            loss, metrics = image_loss_fn(models, content.float(),
-                                          style.float(), cfg)
-            loss.backward()
-        for opt in optimizers.values():
-            opt.step()
-        return {k: v.detach().float() for k, v in metrics.items()}
+    def loss_fn(models, content, style, cfg, data):
+        return image_loss_fn(models, content.float(), style.float(), cfg)
 
-    return step
+    return make_train_step(loss_fn, cfg, models, optimizers, data, model)

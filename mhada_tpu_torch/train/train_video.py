@@ -16,17 +16,18 @@ import torch
 
 from ..config import VideoTrainConfig
 from ..infer.image import DTYPES
-from ..ops.pad_conv import no_tf32
 from . import losses as L
-from .train_image import _maybe_remat
+from .train_image import _maybe_remat, make_train_step
 
 
 def video_loss_fn(models: dict, style, c1, c2, flow, mask,
-                  cfg: VideoTrainConfig):
+                  cfg: VideoTrainConfig, data=None):
     """The video objective (reference train_video.py:110-167) -> (loss,
     metrics).  style: (B, Hs, Ws, 3); c1, c2: (B, H, W, 3), float 0-255;
     flow: (B, H, W, 2), pixel flow from frame 2 into frame 1; mask: (B, H,
-    W).  bfloat16 casts the images only: flow and mask stay float32."""
+    W).  bfloat16 casts the images only: flow and mask stay float32.
+    ``data``: the batch is this rank's shard, and the temporal losses
+    normalise by the whole batch's mask (``losses._masked_mean``)."""
     dt = DTYPES[cfg.compute_dtype]
     style, c1, c2 = (x.to(dt) for x in (style, c1, c2))
     vit_c, vit_s, ada, vgg_grad = (
@@ -55,10 +56,10 @@ def video_loss_fn(models: dict, style, c1, c2, flow, mask,
     loss_lf = (L.local_feature_loss(vgg_fc1, vgg_fs, vgg_fcs1, act)
                + L.local_feature_loss(vgg_fc2, vgg_fs, vgg_fcs2, act)
                ) * cfg.lambda_lf
-    loss_ot = L.output_level_temporal_loss(c1, c2, cs1, cs2, flow,
-                                           mask) * cfg.lambda_ot
-    loss_ft = L.feature_level_temporal_loss(ada_fcs1, ada_fcs2, flow,
-                                            mask) * cfg.lambda_ft
+    loss_ot = L.output_level_temporal_loss(c1, c2, cs1, cs2, flow, mask,
+                                           data) * cfg.lambda_ot
+    loss_ft = L.feature_level_temporal_loss(ada_fcs1, ada_fcs2, flow, mask,
+                                            data) * cfg.lambda_ft
     loss_id1 = (L.mse(cc1, c1) + L.mse(cc2, c2)
                 + L.mse(ss, style)) * cfg.lambda_id1
     loss_id2 = 0.0
@@ -75,23 +76,16 @@ def video_loss_fn(models: dict, style, c1, c2, flow, mask,
 
 
 def make_video_train_step(cfg: VideoTrainConfig, models: dict,
-                          optimizers: dict):
+                          optimizers: dict, data=None, model=None):
     """``step(style, c1, c2, flow, mask) -> metrics``: one forward,
     backward and Adam update of ``models`` in place.  Images are 0-255,
     float or uint8 (cast to float32 first, train_video.py:102-106); flow
     and mask are float32.  The metrics are 0-d float32 tensors on the
-    device (no host sync)."""
+    device (no host sync).  ``data``, ``model``: the mesh's groups
+    (``train_image.make_train_step``)."""
 
-    def step(style, c1, c2, flow, mask) -> dict:
-        for opt in optimizers.values():
-            opt.zero_grad(set_to_none=True)
-        with no_tf32():
-            loss, metrics = video_loss_fn(
-                models, style.float(), c1.float(), c2.float(), flow, mask,
-                cfg)
-            loss.backward()
-        for opt in optimizers.values():
-            opt.step()
-        return {k: v.detach().float() for k, v in metrics.items()}
+    def loss_fn(models, style, c1, c2, flow, mask, cfg, data):
+        return video_loss_fn(models, style.float(), c1.float(), c2.float(),
+                             flow, mask, cfg, data)
 
-    return step
+    return make_train_step(loss_fn, cfg, models, optimizers, data, model)

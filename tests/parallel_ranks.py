@@ -228,3 +228,140 @@ def pp_ranks(group, cfg: dict) -> dict:
         out["dp_full_ref"] = full(c, s)
         out["dp_stream_ref"] = stream(c, tiled)
     return out
+
+
+# The training tests' model (tests/test_torch_train_step.py's TINY) and the
+# meshes they run on: (n_data, n_model) over 4 ranks.
+TRAIN_TINY = dict(hidden_dim=64, mlp_dim=128, num_heads=4)
+MESHES = ((4, 1), (2, 2))
+# (case, recipe, mesh, fuse_ln, planted fault): the steps held against the
+# JAX step, then the controls that must fail that hold.  "copy":
+# copy_to_model's backward without its sum over the model group; "ln": K2's
+# LN-affine gradient without it; "nnz": each rank's temporal losses over its
+# own mask (the single-rank masked mean on the rank's shard).
+TRAIN_CASES = (
+    ("image 4x1", "image", (4, 1), False, None),
+    ("image 2x2", "image", (2, 2), False, None),
+    ("fused 2x2", "image", (2, 2), True, None),
+    ("video 2x2", "video", (2, 2), False, None),
+    ("control copy", "image", (2, 2), False, "copy"),
+    ("control ln", "image", (2, 2), True, "ln"),
+    ("control nnz", "video", (2, 2), False, "nnz"),
+)
+
+
+def train_configs(fuse_ln: bool = False) -> dict:
+    """{recipe: config} at the CPU tests' sizes: the image step at B = 4,
+    32^2; the video step at B = 2, 32 x 64 frames against 32^2 styles."""
+    from mhada_tpu_torch.config import (ImageTrainConfig, ModelConfig,
+                                        VideoTrainConfig)
+
+    model = ModelConfig(fuse_ln=fuse_ln, **TRAIN_TINY)
+    return {"image": ImageTrainConfig(model=model, batch_size=4,
+                                      image_size=(32, 32)),
+            "video": VideoTrainConfig(model=model, batch_size=2,
+                                      style_size=(32, 32),
+                                      content_size=(32, 64))}
+
+
+def train_inputs() -> dict:
+    """The global batches, made from one seed: the image step's (content,
+    style) and the video step's (style, c1, c2, flow, mask), flow 2 N(0, 1)
+    and a U > 0.5 mask with sample 1 fully occluded
+    (tests/test_train_step.py:180): at 2 data ranks it is the second
+    rank's whole shard."""
+    rng = np.random.default_rng(21)
+
+    def px(*shape):
+        return rng.uniform(0, 255, shape).astype(np.float32)
+
+    mask = (rng.uniform(size=(2, 32, 64)) > 0.5).astype(np.float32)
+    mask[1] = 0.0
+    return {"image": [px(4, 32, 32, 3), px(4, 32, 32, 3)],
+            "video": [px(2, 32, 32, 3), px(2, 32, 64, 3), px(2, 32, 64, 3),
+                      (rng.standard_normal((2, 32, 64, 2)) * 2).astype(
+                          np.float32), mask]}
+
+
+def train_models(cfg, device="cpu"):
+    """The seeded training build every rank and the test start from, its
+    decoder treated (``treat_decoder``): untreated, the random decoder's
+    output sits at c6's ReLU, where the masks of two correct roundings
+    differ and move every gradient by their share (0.17 % between the
+    single-rank port and JAX steps on these weights)."""
+    from mhada_tpu_torch.train.train_image import init_params
+
+    models = init_params(cfg, device, torch.Generator().manual_seed(0))
+    treat_decoder(models)
+    return models
+
+
+def planted(fault: str | None):
+    """A context that plants ``fault`` (see TRAIN_CASES) in this
+    process."""
+    import contextlib
+
+    from mhada_tpu_torch.parallel import tp
+    from mhada_tpu_torch.train import losses
+
+    if fault is None:
+        return contextlib.nullcontext()
+    target, name, fake = {
+        "copy": (tp, "_copy_grad", lambda group, g: g),
+        "ln": (tp, "ln_affine_to_model", lambda group, *params: params),
+        "nnz": (losses, "_masked_mean",
+                lambda per_elem, nnz, group=None: real(per_elem, nnz)),
+    }[fault]
+    real = getattr(target, name)
+
+    @contextlib.contextmanager
+    def patch():
+        setattr(target, name, fake)
+        try:
+            yield
+        finally:
+            setattr(target, name, real)
+
+    return patch()
+
+
+def train_ranks(group) -> dict:
+    """Every case of TRAIN_CASES on this rank: one step of the tensor- and
+    data-parallel build from the seeded weights on this rank's shard of
+    the global batch -> on rank 0 {case: (metrics, gathered gradients,
+    gathered new parameters)}; on every rank {case "replicas": whether the
+    replicated parameters stayed bitwise equal across its model group,
+    "round trip": whether ``gather_params`` of ``shard_params`` on (2 x 2)
+    gave every tensor back bitwise}."""
+    from mhada_tpu_torch.parallel.mesh import (gather_params, make_mesh,
+                                               replicas_equal, shard_batch,
+                                               shard_params)
+    from mhada_tpu_torch.train.recipes import recipe
+    from mhada_tpu_torch.train.train_image import TRAINABLE, make_optimizers
+
+    meshes = {shape: make_mesh(*shape, group.device) for shape in MESHES}
+    data = {k: [torch.from_numpy(a) for a in v]
+            for k, v in train_inputs().items()}
+    whole = train_models(train_configs()["image"])
+    back = gather_params(shard_params(whole, meshes[2, 2].model),
+                         meshes[2, 2].model)
+    out = {"round trip": all(
+        torch.equal(t, back[k][name]) for k in TRAINABLE
+        for name, t in whole[k].state_dict().items())}
+    for case, kind, shape, fuse_ln, fault in TRAIN_CASES:
+        mesh = meshes[shape]
+        cfg = train_configs(fuse_ln)[kind]
+        local = shard_params(train_models(cfg), mesh.model)
+        step = recipe(cfg).make_step(cfg, local,
+                                     make_optimizers(local, cfg), mesh.data,
+                                     mesh.model)
+        with planted(fault):
+            metrics = step(*shard_batch(mesh.data, *data[kind]))
+        trained = {k: local[k] for k in TRAINABLE}
+        grads = gather_params(trained, mesh.model, grads=True)
+        new = gather_params(trained, mesh.model)
+        out[f"{case} replicas"] = replicas_equal(trained, mesh.model)
+        if group.rank == 0:
+            out[case] = ({k: float(v) for k, v in metrics.items()}, grads,
+                         new)
+    return out

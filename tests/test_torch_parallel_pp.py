@@ -7,9 +7,11 @@ PP over 2 and 3 ranks against the JAX package's ``make_pp_stylize_fn`` at
 the same stage count (weights from the port's seeded state_dicts), with
 the ViT and the decoder each running on one rank only (forward hooks); DP
 over 4 ranks at B = 2 against one rank at B = 8, the full and the
-streaming path; the dry run's CLI at 2 ranks.
+streaming path; the dry run's CLI at 4 ranks, its training steps on the
+(2 x 2) mesh too.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -119,15 +121,22 @@ def test_dp_matches_one_rank(ranks, path):
 
 
 def test_dryrun_cli_cpu():
-    """python -m mhada_tpu_torch.parallel.dryrun --device cpu --nproc 2
-    --tiny: SP, PP and DP at the dry run's sizes, each within 0.1 of the
-    single-rank path; every rank reports."""
+    """python -m mhada_tpu_torch.parallel.dryrun --device cpu --nproc 4
+    --tiny: the image and video training steps on the (2 x 2) mesh, each
+    within the single-rank step's bounds (the loss within 1e-4, every
+    weight within Adam's 2 lr), and SP, PP and DP at the dry run's sizes,
+    each within 0.1 of the single-rank path; every rank reports."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run(
         [sys.executable, "-m", "mhada_tpu_torch.parallel.dryrun", "--device",
-         "cpu", "--nproc", "2", "--tiny"], cwd=root, capture_output=True, text=True,
-        timeout=240)
+         "cpu", "--nproc", "4", "--tiny"], cwd=root, capture_output=True,
+        text=True, timeout=240)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     lines = proc.stdout.strip().splitlines()
-    assert lines[-1].startswith("dryrun OK: 2 ranks, gloo"), lines
-    assert sum(ln.startswith('{"rank"') for ln in lines) == 2
+    assert lines[-1].startswith("dryrun OK: 4 ranks, gloo"), lines
+    ranks = [json.loads(ln) for ln in lines if ln.startswith('{"rank"')]
+    assert len(ranks) == 4
+    for kind in ("image", "video"):
+        assert all(r[f"{kind}_mesh"] == [2, 2] for r in ranks)
+        assert ranks[0][f"{kind}_loss_rel"] <= 1e-4
+        assert ranks[0][f"{kind}_over"] <= 0
