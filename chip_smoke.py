@@ -11,7 +11,8 @@
    and of K13 must each hold HMMA.16816.F32.BF16 in their SASS (cuobjdump) and
    spill nothing (ptxas); the wgmma + TMA kernels, P2's bf16 kernel and
    every block tile of P1's, must hold HGMMA (wgmma) and UTMALDG (TMA
-   loads) and spill nothing; every instantiation that a bf16 path
+   loads) and spill nothing (so must K1's cross form's bf16 kernel,
+   attention_wgmma_kernel); every instantiation that a bf16 path
    launches must exist (K4's MHAda tile without prologue or
    residuals, the tail with and without residuals, K2's, K14's, K13's), no bf16
    instantiation of the CUDA-core kernels they replaced may exist (those
@@ -23,11 +24,15 @@
    dtype), nor a float32 instantiation of the old
    flash backward (flash_bwd_dkv_kernel, flash_bwd_dq_kernel) or of the
    old fused tail (decoder_tail_kernel<bool>, K5's and K8's before the
-   two-stage float32 tail); K2's float32 kernel, the float32 flash tile
+   two-stage float32 tail), nor K1's cross form on the mma.sync tile
+   (attention_mma_fwd_kernel<false, true>); K2's float32 kernel, the
+   float32 flash tile
    (csrc/mhada_f32_tile.cuh: the MHAda kernel <prologue, stages,
    residuals> of K4 <false, 2, false>, K3 <true, 2, false>, P2 <true, 1,
-   false> and K7's forward <false, 2, true>; the attention kernel <lse> of
-   K1 <false> and K6's forward <true>), the float32 flash backward
+   false> and K7's forward <false, 2, true>; the attention kernel <lse,
+   split> of K1 <false, false>, K6's forward <true, false> and K1's cross
+   form split over the keys <false, true>; the split's combine,
+   csrc/attention_combine.cuh), the float32 flash backward
    (csrc/flash_bwd_f32.cuh: the dK/dV and dQ kernels of K6 <false> and K7
    <true>) and the float32 tail (csrc/decoder_tail_f32.cuh: the up3
    kernel of K5 and K8, the upsample + c5 + c6 kernel <residuals> of K5
@@ -183,8 +188,17 @@
       queries against M keys, the TPU's K12 forwards at N != M) against
       its plain version at the sequence-parallel shapes, B = 1, 8 heads:
       1024 and 2048 queries against 4096 keys (512^2 over 4 and 2 ranks),
-      4096 against 16384 (1024^2 over 4), float32 and bfloat16, with time,
-      bound, SDPA's time on the same q, k, v, and phase 3's K1 time beside;
+      4096 against 16384 (1024^2 over 4), and at a ragged 1000 against 3000
+      at B = 2, float32 and bfloat16, with time, bound, SDPA's time on the
+      same q, k, v, the chooser's split over the keys (``cross_splits``)
+      and the device time of the split tile and of the combine apart, and
+      phase 3's K1 time beside; every split count the chooser can give
+      forced once (512 against 1000 keys) against the plain version and
+      repeated bit for bit; a planted control (the kernel's partials at the
+      first shape combined in PyTorch without the last split) that must
+      fail the gate while all of them pass it; ungated readings through
+      the cross entry: the self shape 4096^2 at bfloat16 beside K1's own
+      kernel and SDPA, 1024^2 at float32 beside K6's forward;
    b. PAR_RANKS ranks sharing the card over gloo (``parallel_rank``), the
       full-width model from the seed with c6's gain and a raised bias:
       SP at 512^2 over all of them and over 2 (f32, bf16), with the
@@ -593,10 +607,11 @@ HMMA = "HMMA.16816.F32.BF16"
 # The float32 tail's two kernels (csrc/decoder_tail_f32.cuh), timed apart
 # by name in the K5 and K8 gates.
 TAIL_STAGES = ("tail_up3_f32_kernel", "tail_c5c6_f32_kernel")
-# The bf16 wgmma + TMA kernels (P2: csrc/mhada_wgmma.cuh; P1, each block
-# tile: csrc/mm_wgmma.cuh) and the instructions each must contain: HGMMA
-# (wgmma) and UTMALDG (TMA loads).
-WGMMA_KERNELS = ("mhada_wgmma_kernel", "mm_wgmma_kernel")
+# The bf16 wgmma + TMA kernels (P2: csrc/mhada_wgmma.cuh; K1's cross form:
+# csrc/attention_wgmma.cuh; P1, each block tile: csrc/mm_wgmma.cuh) and the
+# instructions each must contain: HGMMA (wgmma) and UTMALDG (TMA loads).
+WGMMA_KERNELS = ("mhada_wgmma_kernel", "attention_wgmma_kernel",
+                 "mm_wgmma_kernel")
 WGMMA_SASS = ("HGMMA", "UTMALDG")
 # Instantiations (mangled-name parts) that the bf16 paths launch: K4's
 # MHAda tile (neither prologue nor residuals), K5's and K8's tail, K2,
@@ -617,7 +632,8 @@ MMA_REQUIRED = ("mhada_mma_fwd_kernelILb0ELb0E",
 # and K7's), the old fused float32 tail (decoder_tail_kernel<bool>: K5's
 # and K8's before csrc/decoder_tail_f32.cuh) and K13's first kernel at
 # either dtype (decoder_c6_kernel<T>, before csrc/decoder_c6_f32.cuh and
-# csrc/decoder_c6_mma.cuh).
+# csrc/decoder_c6_mma.cuh), and K1's cross form on the mma.sync tile
+# (attention_mma_fwd_kernel<false, true>, before csrc/attention_wgmma.cuh).
 OLD_BF16 = (r"flash_tile_kernel"
             r"|flash_bwd_(dkv|dq)_kernelI13__nv_bfloat16"
             r"|decoder_tail_kernelI13__nv_bfloat16"
@@ -626,7 +642,8 @@ OLD_BF16 = (r"flash_tile_kernel"
             r"|mm_probe_kernel"
             r"|flash_bwd_(dkv|dq)_kernelIf"
             r"|decoder_tail_kernelILb"
-            r"|decoder_c6_kernel")
+            r"|decoder_c6_kernel"
+            r"|attention_mma_fwd_kernelILb0ELb1E")
 # float32 kernels that compute in float32: they must exist, spill nothing
 # and hold no tensor-core instruction of any kind (HMMA, HGMMA: no TF32).
 # K2's float32 build, the float32 flash tile (csrc/mhada_f32_tile.cuh: the
@@ -635,24 +652,31 @@ OLD_BF16 = (r"flash_tile_kernel"
 # K6's and K7's dK/dV and dQ kernels) and the float32 tail
 # (csrc/decoder_tail_f32.cuh: K5's and K8's up3 kernel and upsample + c5 +
 # c6 kernel), K14's conv (csrc/decoder_mid_f32.cuh) and K13's
-# (csrc/decoder_c6_f32.cuh).
+# (csrc/decoder_c6_f32.cuh); the combine of K1's cross form split over the
+# keys (csrc/attention_combine.cuh, both output dtypes: float32 sums).
 F32_KERNELS = ("ln_matmul_f32_kernel", "mhada_f32_kernel",
-               "attention_f32_kernel", "flash_bwd_f32_dkv_kernel",
+               "attention_f32_kernel", "attention_combine_kernel",
+               "flash_bwd_f32_dkv_kernel",
                "flash_bwd_f32_dq_kernel", "tail_up3_f32_kernel",
                "tail_c5c6_f32_kernel", "decoder_mid_f32_kernel",
                "decoder_c6_f32_kernel")
 # The float32 instantiations that the paths and P2 launch (mangled): the
 # MHAda kernel's <prologue, ring stages, residuals>, K4 <false, 2, false>,
 # K3 <true, 2, false>, P2 <true, 1, false>, K7's forward <false, 2, true>;
-# the attention kernel's <lse>, K1 <false>, K6's forward <true>; the
-# backward's <mhada>, K6 <false>, K7 <true>; the tail's up3 kernel (K5 and
-# K8) and its c5 + c6 kernel <residuals>, K5 <false>, K8 <true>; K14's;
-# K13's.
+# the attention kernel's <lse, split>, K1 <false, false>, K6's forward
+# <true, false>, K1's cross form split over the keys <false, true>, and the
+# split's combine into float32 and bf16; the backward's <mhada>, K6
+# <false>, K7 <true>; the tail's up3 kernel (K5 and K8) and its c5 + c6
+# kernel <residuals>, K5 <false>, K8 <true>; K14's; K13's.
 F32_REQUIRED = ("mhada_f32_kernelILb0ELi2ELb0E",
                 "mhada_f32_kernelILb1ELi2ELb0E",
                 "mhada_f32_kernelILb1ELi1ELb0E",
                 "mhada_f32_kernelILb0ELi2ELb1E",
-                "attention_f32_kernelILb0E", "attention_f32_kernelILb1E",
+                "attention_f32_kernelILb0ELb0E",
+                "attention_f32_kernelILb1ELb0E",
+                "attention_f32_kernelILb0ELb1E",
+                "attention_combine_kernelIfE",
+                "attention_combine_kernelI13__nv_bfloat16E",
                 "flash_bwd_f32_dkv_kernelILb0E",
                 "flash_bwd_f32_dkv_kernelILb1E",
                 "flash_bwd_f32_dq_kernelILb0E",
@@ -995,9 +1019,13 @@ def gate_inputs(kind, n, dtype, g, b=1):
                           for t in (q, *kv.split(c, dim=-1)))
             return F.scaled_dot_product_attention(qh, kh, vh)
 
-        return (lambda be: attention_kernel.attention_cross(q, kv, heads,
-                                                            backend=be),
-                4 * b * nq * nk * c, b * (2 * nq + 2 * nk) * c * es,
+        def run(be):
+            return attention_kernel.attention_cross(q, kv, heads, backend=be)
+
+        run.splits = attention_kernel.cross_splits(
+            b, heads, nq, nk, dtype,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        return (run, 4 * b * nq * nk * c, b * (2 * nq + 2 * nk) * c * es,
                 (SDPA, sdpa))
     if kind == "ln_matmul":
         x = rnd(1, n, c)
@@ -2791,12 +2819,29 @@ def analysis_phase(card, train_extra) -> tuple[bool, dict]:
 
 # Phase 10, the parallel serving paths (mhada_tpu_torch.parallel).  K1's
 # cross form at the sequence-parallel shapes, B = 1, 8 heads of 64: 512^2
-# over 4 and over 2 ranks, 1024^2 over 4 (gate, its row, (queries, keys)).
+# over 4 and over 2 ranks, 1024^2 over 4; and at a ragged shape, B = 2
+# (no query block, no 64-key tile divides it) (gate, its row, (queries,
+# keys), batch).
 CROSS_GATES = [
-    ("K1x Nq=1024 M=4096", K12_CROSS, (1024, 4096)),
-    ("K1x Nq=2048 M=4096", K12_CROSS, (2048, 4096)),
-    ("K1x Nq=4096 M=16384", K12_CROSS_STREAM, (4096, 16384)),
+    ("K1x Nq=1024 M=4096", K12_CROSS, (1024, 4096), 1),
+    ("K1x Nq=2048 M=4096", K12_CROSS, (2048, 4096), 1),
+    ("K1x Nq=4096 M=16384", K12_CROSS_STREAM, (4096, 16384), 1),
+    ("K1x B=2 Nq=1000 M=3000", K12_CROSS, (1000, 3000), 2),
 ]
+# The cross form's kernels by name: the unsplit or split tile (f32, bf16)
+# and the split's combine, timed apart on the device (torch.profiler).
+CROSS_KERNELS = {
+    "float32": ("attention_f32_kernel", "attention_combine_kernel"),
+    "bfloat16": ("attention_wgmma_kernel", "attention_combine_kernel")}
+# Every split count the chooser can give (1 .. MAX_SPLITS), forced at one
+# shape: B = 1, 8 heads, 512 queries against 1000 keys (16 tiles, the last
+# of 40 keys).
+CROSS_FORCED = (512, 1000)
+# Ungated readings through the cross entry, B = 1: the self shape at bf16
+# (q = qkv[..., :C], kv = qkv[..., C:]) beside K1's own kernel, and 1024
+# queries against 1024 keys at f32, split, beside K6's forward.
+CROSS_READINGS = [("self 4096^2", 4096, 4096, "bfloat16"),
+                  ("1024^2", 1024, 1024, "float32")]
 # Ranks sharing the one card over gloo; SP over all of them and over 2; PP
 # over 3 stages (the model's 2 x 3 MHAda blocks divide over 1, 2, 3 or 6);
 # DP at B = 2 a rank against one rank at B = 2 x ranks.
@@ -3404,6 +3449,152 @@ def phase10_rank(group, nccl_one: bool, shapes, runs) -> dict:
             "train": mesh_train_rank(group, shapes, runs) if runs else {}}
 
 
+def run_cross_gate(gate, n, b, dname, card):
+    """run_gate of K1's cross form, and its split count and the device ms
+    of its kernels apart (the tile, and the combine when split;
+    ``split_ms``, printed as not measured when a part read 0) -> (ok,
+    record)."""
+    import torch
+
+    from mhada_tpu_torch.ops import attention_kernel
+
+    good, r = run_gate(gate, "cross", n, b, dname, card)
+    dtype = getattr(torch, dname)
+    g = torch.Generator().manual_seed(SEED)
+    run = gate_inputs("cross", n, dtype, g, b)[0]
+    parts = CROSS_KERNELS[dname][:1 if run.splits == 1 else 2]
+    with torch.inference_mode():
+        dev = split_ms(lambda: run("kernel"), parts)
+    r["splits"] = run.splits
+    dev_txt = "device time not measured (the profiler recorded no launch)"
+    if all(dev.values()):
+        tile_ms = dev[parts[0]]
+        combine_ms = dev[parts[1]] if run.splits > 1 else 0.0
+        r.update(device_ms=tile_ms + combine_ms, tile_ms=tile_ms,
+                 combine_ms=combine_ms)
+        dev_txt = (f"device {tile_ms:.3f} + combine {combine_ms:.3f} ms "
+                   f"({100 * r['bound_ms'] / r['device_ms']:.1f} %)")
+    phase(f"gate {gate} {dname} split", good,
+          f"{run.splits} split(s) of {-(-n[1] // attention_kernel.KEY_TILE)}"
+          f" key tiles; wrapper {r['ms']:.3f} ms "
+          f"({100 * r['bound_ms'] / r['ms']:.1f} % of the bound); {dev_txt}; "
+          f"plain {r['plain_ms']:.3f} ms; SDPA {r['library_ms']:.3f} ms")
+    return good, r
+
+
+def cross_split_checks(gates) -> tuple[bool, dict]:
+    """K1's cross form beyond its gates: every split count the chooser can
+    give forced at CROSS_FORCED against the plain version and repeated bit
+    for bit; the planted control (the partials of the chooser's split at
+    the first gate shape combined in plain PyTorch without the last split)
+    must fail the gate, and with every split it must pass; the ungated
+    readings (CROSS_READINGS) -> (ok, record)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mhada_tpu_torch.ops import attention_kernel as ak
+    from mhada_tpu_torch.ops.attention_train import _fwd_kernel
+
+    c, heads, ok, rec = 512, 8, True, {}
+    g = torch.Generator().manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    with torch.inference_mode():
+        for dname in DTYPE_NAMES:
+            dtype = getattr(torch, dname)
+            nq, nk = CROSS_FORCED
+            qkv = torch.randn(1, nq, 3 * c, generator=g).to("cuda", dtype)
+            kv = torch.randn(1, nk, 2 * c, generator=g).to("cuda", dtype)
+            q = qkv[..., :c]
+            ref = ak.attention_cross_plain(q, kv, heads).float()
+            rels, good = [], True
+            for s in range(1, ak.MAX_SPLITS + 1):
+                got = ak.attention_cross(q, kv, heads, splits=s)
+                again = ak.attention_cross(q, kv, heads, splits=s)
+                rel = ((got.float() - ref).abs().max()
+                       / ref.abs().max()).item()
+                rels.append(rel)
+                good = (good and rel <= REL_BOUND[dname]
+                        and torch.equal(got, again))
+            rec[f"forced {dname}"] = rels
+            ok = phase(f"parallel K1 cross form forced splits {dname}",
+                       good, f"{nq} x {nk}, splits 1..{ak.MAX_SPLITS}: rel "
+                       + ", ".join(f"{r:.2e}" for r in rels)
+                       + f" (bound {REL_BOUND[dname]:.0e}); each repeated "
+                       "bit for bit") and ok
+
+            # the planted control at the first gate shape
+            nq, nk = CROSS_GATES[0][2]
+            qkv = torch.randn(1, nq, 3 * c, generator=g).to("cuda", dtype)
+            kv = torch.randn(1, nk, 2 * c, generator=g).to("cuda", dtype)
+            q = qkv[..., :c]
+            splits = ak.cross_splits(1, heads, nq, nk, dtype, sms)
+            out, part = ak._cross_launch(q, kv, heads, splits=splits)
+            views = ak.split_partials(part, splits, 1, nq, c, heads)
+            ref = ak.attention_cross_plain(q, kv, heads).float()
+
+            def rel_to(x):
+                return ((x.float() - ref).abs().max()
+                        / ref.abs().max()).item()
+
+            kernel, whole = rel_to(out), rel_to(ak.combine_partials(
+                *views, dtype))
+            dropped = rel_to(ak.combine_partials(*views, dtype,
+                                                 keep=splits - 1))
+            good = (splits > 1 and kernel <= REL_BOUND[dname]
+                    and whole <= REL_BOUND[dname]
+                    and dropped > REL_BOUND[dname])
+            rec[f"control {dname}"] = dict(splits=splits, kernel=kernel,
+                                           combined=whole, dropped=dropped)
+            ok = phase(f"parallel K1 cross form control {dname}", good,
+                       f"{nq} x {nk}, {splits} splits: the kernel rel "
+                       f"{kernel:.2e}, its partials combined in PyTorch "
+                       f"{whole:.2e}, without the last split {dropped:.2e} "
+                       f"(must exceed {REL_BOUND[dname]:.0e}: the gate "
+                       "sees a dropped split)") and ok
+            del qkv, kv, q, out, part, views, ref
+
+        for label, nq, nk, dname in CROSS_READINGS:
+            dtype = getattr(torch, dname)
+            qkv = torch.randn(1, nq, 3 * c, generator=g).to("cuda", dtype)
+            kv = (qkv[..., c:] if nq == nk and label.startswith("self")
+                  else torch.randn(1, nk, 2 * c, generator=g).to("cuda",
+                                                                  dtype))
+            q = qkv[..., :c]
+            splits = ak.cross_splits(1, heads, nq, nk, dtype, sms)
+            ms = cuda_ms(lambda: ak.attention_cross(q, kv, heads), 3, 10)
+            dev = split_ms(lambda: ak.attention_cross(q, kv, heads),
+                           CROSS_KERNELS[dname][:1 if splits == 1 else 2])
+            dev = sum(dev.values()) if all(dev.values()) else None
+            qh, kh, vh = (t.unflatten(-1, (heads, 64)).transpose(1, 2)
+                          for t in (q, *kv.split(c, dim=-1)))
+            sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                           3, 10)
+            if label.startswith("self"):
+                k1 = ak.attention_tm(qkv, heads)
+                rel = ((ak.attention_cross(q, kv, heads).float() - k1.float())
+                       .abs().max() / k1.float().abs().max()).item()
+                other = gates.get("K1 L=4096", {}).get(dname, {}).get("ms")
+                other_txt = (f"K1's own kernel (phase 3) {other:.3f} ms, "
+                             f"rel to it {rel:.2e}" if other else
+                             f"rel to K1 {rel:.2e}")
+            else:
+                k6 = cuda_ms(lambda: _fwd_kernel(qkv, heads, 0.125), 3, 10)
+                other, other_txt = k6, f"K6's forward kernel {k6:.3f} ms"
+            bound_ms = bound(4 * nq * nk * c, (2 * nq + 2 * nk) * c
+                             * qkv.element_size(), dname)[0]
+            rec[f"reading {label} {dname}"] = dict(
+                splits=splits, ms=ms, device_ms=dev, sdpa_ms=sdpa,
+                other_ms=other, bound_ms=bound_ms)
+            dev_txt = (f"device {dev:.3f} ms ({100 * bound_ms / dev:.1f} % of "
+                       "the bound)" if dev else "device time not measured")
+            phase(f"parallel K1 cross form reading {label} {dname}", True,
+                  f"not gated: {splits} split(s), wrapper {ms:.3f} ms, "
+                  f"{dev_txt}; {other_txt}; SDPA {sdpa:.3f} ms")
+            del qkv, kv, q
+    torch.cuda.empty_cache()
+    return ok, rec
+
+
 def parallel_phase(card, gates, launches) -> tuple[bool, dict]:
     """Phase 10: K1's cross form gated at the SP shapes, beside phase 3's
     K1 self-attention time; K6, K7 and K2 at one rank's share of the TP
@@ -3417,16 +3608,25 @@ def parallel_phase(card, gates, launches) -> tuple[bool, dict]:
 
     ok, rec, secs = True, {}, {}
     t0 = time.perf_counter()
-    for gate, _, n in CROSS_GATES:
+    for gate, _, n, b in CROSS_GATES:
         for dname in DTYPE_NAMES:
             try:
-                good, r = run_gate(gate, "cross", n, 1, dname, card)
+                good, r = run_cross_gate(gate, n, b, dname, card)
             except Exception as e:
                 ok = phase(f"gate {gate} {dname}", False,
                            f"{type(e).__name__}: {e}")
                 continue
             gates.setdefault(gate, {})[dname] = r
             ok = good and ok
+    secs["cross_gates"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    try:
+        good, rec["cross_split_checks"] = cross_split_checks(gates)
+    except Exception as e:
+        good = phase("parallel K1 cross form splits", False,
+                     f"{type(e).__name__}: {e}")
+    ok = good and ok
+    secs["cross_split_checks"] = time.perf_counter() - t1
     k1 = gates.get("K1 L=4096", {})
     rec["k1_self_ms"] = {d: k1.get(d, {}).get("ms") for d in DTYPE_NAMES}
     phase("parallel K1 self-attention 512^2", True,
@@ -3434,7 +3634,6 @@ def parallel_phase(card, gates, launches) -> tuple[bool, dict]:
               f"{d} {ms:.3f} ms" for d, ms in rec["k1_self_ms"].items()
               if ms is not None)
           + " (PERF.md's K1 row: 0.823 / 0.159 ms)")
-    secs["cross_gates"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     for gate, kind, b, n in TP_GATES:
@@ -4189,7 +4388,7 @@ def main() -> int:
     for gate, row, *_ in gate_list:
         first_gate.setdefault(row, gate)
     first_gate[K12_SINGLE] = first_gate["K1 attention_tm"]
-    for gate, row, _ in CROSS_GATES:
+    for gate, row, *_ in CROSS_GATES:
         first_gate.setdefault(row, gate)
     for _, row_f, row_b, *_ in TRAIN_GATES:   # recorded under the row
         for row in (row_f, row_b):
@@ -4228,7 +4427,7 @@ def main() -> int:
         # K2's other timings; the backward's dK/dV and dQ kernels and the
         # float32 tail's two stages apart
         for key in ("kernel_ms", "wrapper_ms", "dkv_ms", "dq_ms", "up3_ms",
-                    "c5c6_ms", "tile"):
+                    "c5c6_ms", "tile", "splits", "device_ms", "combine_ms"):
             if key in r32 or key in r16:
                 row[key] = r32.get(key)
                 row[key + "_bf16"] = r16.get(key)

@@ -33,7 +33,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types (pointers and the stream as c_void_p).
 SIGNATURES = {
     "mhada_attention_fwd": [_P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "mhada_attention_cross_fwd": [_P, _P, _P] + [_I] * 7 + [_F, _I, _P],
+    "mhada_attention_cross_fwd": [_P] * 4 + [_I] * 8 + [_F, _I, _P],
     "mhada_mhada_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mhada_mhada_prologue": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _P],

@@ -8,10 +8,10 @@
 // out = softmax(scale Q K^T) V with Q, K and V read in place from the
 // (B, L, 3C) qkv at channel offsets h*64, C + h*64 and 2C + h*64; out is
 // (B, L, C) and lse (B, heads, L) float32 in natural-log units.  K1's
-// cross form (kCross, attention_fwd.cu::mhada_attention_cross_fwd): N
-// queries from rows of their own stride against M keys and values of
-// another tensor, the TPU's K12 forwards at N != M; keys past M masked,
-// rows past N not stored.
+// cross form (N queries against M keys and values of another tensor, the
+// TPU's K12 forwards at N != M) is not this tile's: since its redesign for
+// the H100 it runs on wgmma + TMA, split over the keys where the grid
+// leaves SMs idle (attention_wgmma.cuh, attention_combine.cuh).
 //
 // Bound: 4 L^2 d flops per head (34.4 GFLOP at L = 4096, 8 heads) against
 // 2 L (3C + C) bytes: compute-bound at the bf16 tensor-core rate.
@@ -53,13 +53,7 @@ struct AttnMmaArgs {
   const float* delta;         // backward: (B, heads, L)
   __nv_bfloat16* out;         // forward: (B, seq, C); backward: d qkv
   float* lse;                 // K6's forward: (B, heads, seq)
-  // K1's cross form: queries (B, seq, rows of q_rs), keys and values (B,
-  // n_kv, rows of kv_rs: K, then V at k + channels), head h's 64 channels
-  // at h*64 from q, k and v
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  long long q_rs, kv_rs;
-  int seq, n_kv, channels;
+  int seq, channels;
   float scale;
 };
 
@@ -73,29 +67,7 @@ inline bool make_mma_args(AttnMmaArgs& a, const void* qkv, const void* g,
   a.qkv = static_cast<const __nv_bfloat16*>(qkv);
   a.g = static_cast<const __nv_bfloat16*>(g);
   a.out = static_cast<__nv_bfloat16*>(out);
-  a.seq = a.n_kv = seq;
-  a.channels = channels;
-  a.scale = scale;
-  return true;
-}
-
-// The forward's arguments for K1's cross form: n_q queries of rows of q_rs
-// elements against n_kv keys and values, K and V side by side in rows of
-// kv_rs (K at 0, V at channels) -> false unless every pointer and row
-// stride keeps the 16-byte copies aligned.
-inline bool make_mma_cross_args(AttnMmaArgs& a, const void* q,
-                                const void* kv, void* out, int n_q, int n_kv,
-                                int channels, int q_rs, int kv_rs,
-                                float scale) {
-  if (!mma_aligned({q, kv, out}, channels) || q_rs % 8 || kv_rs % 8)
-    return false;
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = static_cast<const __nv_bfloat16*>(kv);
-  a.out = static_cast<__nv_bfloat16*>(out);
-  a.q_rs = q_rs;
-  a.kv_rs = kv_rs;
-  a.seq = n_q;
-  a.n_kv = n_kv;
+  a.seq = seq;
   a.channels = channels;
   a.scale = scale;
   return true;
@@ -104,12 +76,8 @@ inline bool make_mma_cross_args(AttnMmaArgs& a, const void* q,
 // Q tile + kMmaStages x (K, V) tiles.
 constexpr size_t kMmaFwdSmemBytes = (1 + 2 * kMmaStages) * mma::kMmaTileBytes;
 
-// kCross: K1's cross form, q and k (v = k + C) from their own pointers
-// and row strides, n_kv keys.  Otherwise self-attention on the packed qkv, with the
-// strides and offsets known from C: the general form's extra live values
-// take the kernel past 128 registers, 3 blocks an SM instead of 4, which
-// cost the self case ~20 % on an H100.
-template <bool kRes, bool kCross = false>
+// Self-attention on the packed qkv, the strides and offsets known from C.
+template <bool kRes>
 __global__ void __launch_bounds__(kMmaThreads)
     attention_mma_fwd_kernel(AttnMmaArgs a) {
   using namespace mma;
@@ -120,22 +88,12 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int q0 = blockIdx.x * kMmaRows;
-  const int L = a.seq, M = kCross ? a.n_kv : a.seq, C = a.channels;
+  const int L = a.seq, M = a.seq, C = a.channels;
   const long long b = blockIdx.z;
-  const __nv_bfloat16 *qb, *kb, *vb;
-  long long q_rs, kv_rs;
-  if constexpr (kCross) {
-    q_rs = a.q_rs;
-    kv_rs = a.kv_rs;
-    qb = a.q + b * L * q_rs + blockIdx.y * 64;
-    kb = a.k + b * M * kv_rs + blockIdx.y * 64;
-    vb = kb + C;
-  } else {
-    q_rs = kv_rs = 3LL * C;
-    qb = a.qkv + b * L * q_rs + blockIdx.y * 64;
-    kb = qb + C;
-    vb = qb + 2 * C;
-  }
+  const long long q_rs = 3LL * C, kv_rs = q_rs;
+  const __nv_bfloat16* qb = a.qkv + b * L * q_rs + blockIdx.y * 64;
+  const __nv_bfloat16* kb = qb + C;
+  const __nv_bfloat16* vb = qb + 2 * C;
   const int ntiles = (M + 63) / 64;
 
   auto load_kv = [&](int tile) {
@@ -255,12 +213,12 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-template <bool kRes, bool kCross = false>
+template <bool kRes>
 cudaError_t launch_attention_mma_fwd(const AttnMmaArgs& a, int heads,
                                      int batch, cudaStream_t stream) {
-  if (a.seq < 1 || a.n_kv < 1) return cudaErrorInvalidValue;
+  if (a.seq < 1) return cudaErrorInvalidValue;
   const dim3 grid((a.seq + kMmaRows - 1) / kMmaRows, heads, batch);
-  return launch_with_smem(attention_mma_fwd_kernel<kRes, kCross>, grid,
+  return launch_with_smem(attention_mma_fwd_kernel<kRes>, grid,
                           dim3(kMmaThreads), kMmaFwdSmemBytes, stream, a);
 }
 

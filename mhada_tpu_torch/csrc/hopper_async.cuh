@@ -1,9 +1,11 @@
 // The port's Hopper building blocks for warp-specialised kernels: mbarrier
 // waits and arrivals, TMA tensor loads completing on an mbarrier, named
-// barriers, the wgmma fence / commit / wait, the wgmma shared-memory
-// descriptor of a tile in the 128-byte swizzle, the host's encoder of
-// tensor maps, and 1-D bulk copies.  Used by P2 (mhada_wgmma.cuh), P1
-// (mm_wgmma.cuh) and K13 (decoder_c6_f32.cuh, decoder_c6_mma.cuh).
+// barriers, the wgmma fence / commit / wait, the register-A m64n64k16
+// product, the wgmma shared-memory descriptor of a tile in the 128-byte
+// swizzle, the host's encoder of tensor maps and the K / V map of 64 x 64
+// boxes, and 1-D bulk copies.  Used by P2 (mhada_wgmma.cuh), K1's cross
+// form at bf16 (attention_wgmma.cuh), P1 (mm_wgmma.cuh) and K13
+// (decoder_c6_f32.cuh, decoder_c6_mma.cuh).
 #pragma once
 
 #include <cuda.h>
@@ -124,6 +126,73 @@ __device__ __forceinline__ void fence_regs(float (&d)[kRegs]) {
 #pragma unroll
   for (int i = 0; i < kRegs; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+// fence_regs for a register-A product's A fragments (16 registers).
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    asm volatile("" : "+r"(a[i / 4][i % 4])::"memory");
+}
+
+// 2^x with denormal results flushed to 0 (one MUFU.EX2); 2^-inf = 0.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d[0..31] (+)= a b: m64n64k16, A (bf16) from registers in the
+// m16n8k16 A layout of each warp's 16 rows, B from shared memory by
+// descriptor; kTransB: B is MN-major.  scale_d = 0 overwrites d.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d),
+        "n"(kTransB));
+}
+
+// d[0..31] = a b: m64n64k16 as above, d written only: its old values are
+// no input, so nothing that defined them can serialise the products.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs_first(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(0),
+        "n"(kTransB));
+}
+
 // A wgmma shared-memory descriptor of a tile in the 128-byte swizzle (the
 // layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B; tiles 1024-byte
 // aligned, so the base offset is 0), at byte address `addr`.  K-major B:
@@ -154,6 +223,28 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
       fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
   }
   return fn;
+}
+
+// One 64 x 64 bf16 box a key tile of (B, M, C) K or V with rows of `rs`
+// elements (rs >= C, a multiple of 8; batches M rows apart): a 3-D tensor
+// map (C, M, B) in the 128-byte swizzle (a 64-wide bf16 row is 128 bytes),
+// so that a box past M is zero-filled inside its own batch (a 2-D (B M, C)
+// view would read the next batch's keys).
+inline bool kv_tensor_map(CUtensorMap* map, const void* ptr, int batch, int m,
+                          int c, long long rs) {
+  const auto encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(c),
+                              static_cast<cuuint64_t>(m),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(rs) * 2,
+                                 static_cast<cuuint64_t>(m) * rs * 2};
+  const cuuint32_t box[3] = {64, 64, 1}, elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace wg

@@ -16,13 +16,15 @@
 // and f = IN(fcs) formed from raw fc, fcs and the float32 stats
 // [mean_fc, rstd_fc, mean_fcs, rstd_fcs] (K3).
 //
-// The scaled attention (attention_f32_kernel): K1's float32 build
-// (attention_fwd.cu; so K9's and K12's single pass, and K1's cross form,
-// N queries against M keys of another tensor) and K6's forward
+// The scaled attention (attention_f32_kernel<lse, split>): K1's float32
+// build (attention_fwd.cu; so K9's and K12's single pass, and K1's cross
+// form, N queries against M keys of another tensor) and K6's forward
 // (attention_train.cu; so K12's streaming forward), out = softmax(scale q
 // k^T) V per head, self-attention from the packed (B, L, 3C) qkv, K6 also
 // with the row lse of the scaled logits in natural-log units (what
-// flash_bwd_f32.cuh reads).
+// flash_bwd_f32.cuh reads).  <false, true> is K1's cross form split over
+// the keys where its grid leaves SMs idle: each block walks one range of
+// whole key tiles and writes float32 partials for attention_combine.cuh.
 //
 // Everything is float32 FMAs on the CUDA cores: no TF32, no tensor-core
 // instruction.  What bounds it on the card: 6 N M d flops per head for
@@ -81,6 +83,7 @@
 
 #include <initializer_list>
 
+#include "attention_combine.cuh"
 #include "common.cuh"
 #include "flash_mma.cuh"  // mma::cp_async_16 / _commit / _wait, smem_addr
 
@@ -167,6 +170,10 @@ struct AttnArgs {
   float* lse;        // K6 only: (B, H, n)
   int n, m, channels, q_rs, kv_rs;
   float scale;
+  // K1's cross form split over the keys only (attention_f32_kernel<false,
+  // true>): the partials buffer (xsplit::Partials' layout) and the splits
+  float* part;
+  int splits;
 };
 
 // q, k, v of head h at h*64, C + h*64 and 2C + h*64 of the (B, L, 3C)
@@ -631,8 +638,14 @@ cudaError_t launch_mhada_f32(const F32Args& a, int heads, int batch,
 }
 
 // out = softmax(scale q k^T) V per head, n queries against m keys; kLse
-// (K6) also writes lse, from the row's first thread.
-template <bool kLse>
+// (K6) also writes lse, from the row's first thread.  kSplit (K1's cross
+// form split over the keys, attention_combine.cuh): blockIdx.x is split s
+// of a.splits times the query blocks plus the query block; the block walks
+// key tiles [s T / splits, (s + 1) T / splits) and writes the float32
+// partials (m_s in log2 units, l_s, the unnormalised O_s) into a.part for
+// attention_combine_kernel in place of out.  Without it the code is K1's
+// and K6's own: t0 = 0, m = a.m.
+template <bool kLse, bool kSplit = false>
 __global__ void __launch_bounds__(AttnGeom::kThreads, 1)
     attention_f32_kernel(AttnArgs a) {
   using Gm = AttnGeom;
@@ -640,16 +653,26 @@ __global__ void __launch_bounds__(AttnGeom::kThreads, 1)
   float* qs = reinterpret_cast<float*>(f32_smem);  // [d][query]  Q^T
   float* ps = qs + kD * Gm::BQ;                    // [key][query] P^T
   float* ring = ps + kBK * Gm::PS;                 // stages: K, V
-  const int q0 = blockIdx.x * Gm::BQ;
+  const int qblocks = (a.n + Gm::BQ - 1) / Gm::BQ;
+  const int split = kSplit ? blockIdx.x / qblocks : 0;
+  const int q0 = (kSplit ? blockIdx.x % qblocks : blockIdx.x) * Gm::BQ;
   const int hoff = blockIdx.y * kD;
   const long long b = blockIdx.z;
-  const long long kv_base = b * a.m * a.kv_rs + hoff;
+  const int all_tiles = (a.m + kBK - 1) / kBK;
+  const int t0 = kSplit ? xsplit::split_first(split, a.splits, all_tiles) : 0;
+  // the keys of this block's walk, from kv_base on
+  const int m = kSplit ? min(a.m - t0 * kBK,
+                             (xsplit::split_first(split + 1, a.splits,
+                                                  all_tiles) - t0) * kBK)
+                       : a.m;
+  const long long kv_base =
+      b * a.m * a.kv_rs + hoff + (long long)t0 * kBK * a.kv_rs;
 
-  const int tiles = (a.m + kBK - 1) / kBK;
+  const int tiles = (m + kBK - 1) / kBK;
 #pragma unroll
   for (int t = 0; t < kRingStages - 1; ++t) {
     if (t < tiles)
-      issue_tile<Gm::kThreads>(a.k, a.v, a.kv_rs, a.m, t, kv_base,
+      issue_tile<Gm::kThreads>(a.k, a.v, a.kv_rs, m, t, kv_base,
                                ring + t * kStageFloats);
     mma::cp_async_commit();
   }
@@ -661,7 +684,7 @@ __global__ void __launch_bounds__(AttnGeom::kThreads, 1)
                       });
 
   Acc<Gm, false> acc;
-  key_loop<Gm, kRingStages>(a.k, a.v, a.kv_rs, a.m, kv_base, qs, ps, nullptr,
+  key_loop<Gm, kRingStages>(a.k, a.v, a.kv_rs, m, kv_base, qs, ps, nullptr,
                             ring, acc);
 
   const int tx = threadIdx.x % Gm::TX, ty = threadIdx.x / Gm::TX;
@@ -671,17 +694,33 @@ __global__ void __launch_bounds__(AttnGeom::kThreads, 1)
   for (int i = 0; i < Gm::R; ++i) {
     const int row = q0 + Gm::row(ty, i);
     if (row >= a.n) continue;
-    const float inv = 1.f / l[i];
-    float* o = a.out + (b * a.n + row) * a.channels + hoff + 4 * tx;
+    if constexpr (kSplit) {
+      const xsplit::Partials part{a.part, a.splits, (int)gridDim.z, a.n,
+                                  a.channels, (int)gridDim.y};
+      float* o = part.o(split, b, row) + hoff + 4 * tx;
 #pragma unroll
-    for (int h = 0; h < Gm::J / 4; ++h)
-      st4(o + 4 * Gm::TX * h,
-          make_float4(acc.o1[i][4 * h] * inv, acc.o1[i][4 * h + 1] * inv,
-                      acc.o1[i][4 * h + 2] * inv,
-                      acc.o1[i][4 * h + 3] * inv));
-    if (kLse && tx == 0)
-      a.lse[(b * gridDim.y + blockIdx.y) * a.n + row] =
-          acc.mrow[i] + logf(l[i]);
+      for (int h = 0; h < Gm::J / 4; ++h)
+        st4(o + 4 * Gm::TX * h,
+            make_float4(acc.o1[i][4 * h], acc.o1[i][4 * h + 1],
+                        acc.o1[i][4 * h + 2], acc.o1[i][4 * h + 3]));
+      if (tx == 0) {
+        const long long at = part.stat(split, b, blockIdx.y, row);
+        part.m()[at] = acc.mrow[i] * kLog2e;
+        part.l()[at] = l[i];
+      }
+    } else {
+      const float inv = 1.f / l[i];
+      float* o = a.out + (b * a.n + row) * a.channels + hoff + 4 * tx;
+#pragma unroll
+      for (int h = 0; h < Gm::J / 4; ++h)
+        st4(o + 4 * Gm::TX * h,
+            make_float4(acc.o1[i][4 * h] * inv, acc.o1[i][4 * h + 1] * inv,
+                        acc.o1[i][4 * h + 2] * inv,
+                        acc.o1[i][4 * h + 3] * inv));
+      if (kLse && tx == 0)
+        a.lse[(b * gridDim.y + blockIdx.y) * a.n + row] =
+            acc.mrow[i] + logf(l[i]);
+    }
   }
 }
 

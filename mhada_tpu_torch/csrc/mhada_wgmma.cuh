@@ -116,73 +116,6 @@ struct WgArgs {
   int n, m, channels;
 };
 
-// fence_regs for a register-A product's A fragments.
-__device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-    asm volatile("" : "+r"(a[i / 4][i % 4])::"memory");
-}
-
-// 2^x with denormal results flushed to 0 (one MUFU.EX2); 2^-inf = 0.
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// d[0..31] (+)= a b: m64n64k16, A (bf16) from registers in the
-// m16n8k16 A layout of each warp's 16 rows, B from shared memory by
-// descriptor; kTransB: B is MN-major.  scale_d = 0 overwrites d.
-template <int kTransB>
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
-                                          const uint32_t (&a)[4],
-                                          uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d),
-        "n"(kTransB));
-}
-
-// d[0..31] = a b: m64n64k16 as above, d written only: its old values are
-// no input, so nothing that defined them can serialise the products.
-template <int kTransB>
-__device__ __forceinline__ void wgmma_m64n64k16_rs_first(float (&d)[32],
-                                                const uint32_t (&a)[4],
-                                                uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
-        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
-        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
-        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
-        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
-        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
-        "=f"(d[30]), "=f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(0),
-        "n"(kTransB));
-}
-
 // d[0..63] (+)= a b: m64n128k16, A (bf16) from registers in the
 // m16n8k16 A layout of each warp's 16 rows, B from shared memory by
 // descriptor; kTransB: B is MN-major.  scale_d = 0 overwrites d.
@@ -574,32 +507,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// K or V (B, M, C) bf16 as a 3-D tensor map (C, M, B) of 64 x 64 x 1 boxes
-// in the 128-byte swizzle; elements past M read as zero.
-inline bool kv_tensor_map(CUtensorMap* map, const void* ptr, int batch, int m,
-                          int c) {
-  const auto encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(c),
-                              static_cast<cuuint64_t>(m),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(c) * 2,
-                                 static_cast<cuuint64_t>(m) * c * 2};
-  const cuuint32_t box[3] = {64, 64, 1}, elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // k, v (B, M, C); every pointer 16-byte aligned, C % 8 == 0, C = 64 heads.
 inline cudaError_t launch_mhada_wgmma(const WgArgs& a, const void* k,
                                       const void* v, int batch, int heads,
                                       cudaStream_t stream) {
   CUtensorMap kmap, vmap;
-  if (!kv_tensor_map(&kmap, k, batch, a.m, a.channels) ||
-      !kv_tensor_map(&vmap, v, batch, a.m, a.channels))
+  if (!kv_tensor_map(&kmap, k, batch, a.m, a.channels, a.channels) ||
+      !kv_tensor_map(&vmap, v, batch, a.m, a.channels, a.channels))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       mhada_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -10,9 +10,15 @@ of another tensor: the port of the head-major ``_attention_pallas_call``
 ``_attn_stream_fwd_impl`` (:463-517), which the JAX ViT attention reaches
 under sequence parallelism with the keys and values gathered over the
 shards (mhada_tpu/models/layers.py:204-208).  Its twin is
-``attention_cross_plain``.
+``attention_cross_plain``.  Where one block per (batch, head, query block)
+would leave block slots of the card idle, the kernel splits the keys over
+``cross_splits`` blocks, each writing float32 partials (row max, row sum,
+unnormalised output) that a second kernel of the same C entry combines in a
+fixed order (csrc/attention_combine.cuh; ``combine_partials`` is that
+combine in plain PyTorch).
 """
 
+import functools
 import math
 
 import torch
@@ -81,6 +87,87 @@ def attention_cross_plain(q: torch.Tensor, kv: torch.Tensor, num_heads: int,
     return (a @ vh).transpose(1, 2).reshape(b, n, c).to(q.dtype)
 
 
+# K1's cross form at each dtype: queries a block, blocks an SM, and what a
+# block costs besides its key walk (set-up, pipeline fill, partial store),
+# in key tiles of its own walk -- float32 attention_f32_kernel (256
+# queries, 254 registers, ~12 us a tile on an H100), bf16
+# attention_wgmma_kernel (3 consumer warpgroups of 64 queries, 512 threads
+# at 128 registers, ~1 us a tile); fitted to probes/cross_split_sweep.py's
+# device times.  The key tile, the most splits, and the combine's cost.
+CROSS_BLOCKS = {torch.float32: (256, 1, 1.0), torch.bfloat16: (192, 1, 3.0)}
+KEY_TILE = 64
+MAX_SPLITS = 8
+COMBINE_TILES = 1.0
+
+
+@functools.cache
+def cross_splits(batch: int, heads: int, n: int, m: int,
+                 dtype: torch.dtype, sms: int = 132) -> int:
+    """How many blocks K1's cross form gives each (batch, head, query
+    block): each walks one contiguous range of whole 64-key tiles.
+
+    A wave of ``sms`` x (blocks an SM) block slots takes as long as its
+    longest block, so a grid of B x heads x query blocks that leaves slots
+    idle (B = 1, 8 heads, 1024 queries: 32 f32 blocks of 132 slots) costs a
+    whole key walk in one partial wave.  The count s of 1 .. min(tiles,
+    MAX_SPLITS) minimising waves(s) x (ceil(tiles / s) + the block's
+    overhead) + COMBINE_TILES (s > 1) is the one whose blocks come closest
+    to whole waves, weighed by what each block costs besides its keys;
+    ties go to the fewer splits.  So every split holds at least one key
+    tile, and a grid of whole waves keeps 1.  On an H100 (132 SMs), B = 1,
+    8 heads, it gives float32 4 at 1024 x 4096, 2 at 2048 x 4096, 1 at
+    4096 x 16384, and bfloat16 5, 3 and 3: at each the count fastest on
+    the device in probes/cross_split_sweep.py's sweep of 1 .. 8, or within
+    4 % of it (an H100 80GB HBM3 at 700 W: bf16 at 1024 x 4096, 2 splits
+    0.0375 ms against 5's 0.0388 in one run, 5 ahead in two others)."""
+    rows, per_sm, overhead = CROSS_BLOCKS[dtype]
+    blocks = batch * heads * -(-n // rows)
+    slots = sms * per_sm
+    tiles = -(-m // KEY_TILE)
+
+    def cost(s):
+        waves = -(-blocks * s // slots)
+        return (waves * (-(-tiles // s) + overhead)
+                + (COMBINE_TILES if s > 1 else 0.0))
+
+    return min(range(1, min(tiles, MAX_SPLITS) + 1),
+               key=lambda s: (cost(s), s))
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_partials(part: torch.Tensor, splits: int, batch: int, n: int,
+                   channels: int, heads: int):
+    """Views of the cross form's float32 partials buffer -> (O (splits, B,
+    N, C) unnormalised, m (splits, B, heads, N) the row max in log2 units,
+    l (splits, B, heads, N) the row sum), the layout of
+    csrc/attention_combine.cuh::Partials."""
+    no = splits * batch * n * channels
+    ns = splits * batch * heads * n
+    return (part[:no].view(splits, batch, n, channels),
+            part[no:no + ns].view(splits, batch, heads, n),
+            part[no + ns:no + 2 * ns].view(splits, batch, heads, n))
+
+
+def combine_partials(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                     dtype: torch.dtype, keep: int | None = None
+                     ) -> torch.Tensor:
+    """The combine kernel's function in plain PyTorch: out = sum_s 2^(m_s -
+    max m) O_s / sum_s 2^(m_s - max m) l_s over the first ``keep`` splits
+    (all by default), rounded once to ``dtype`` -> (B, N, C)."""
+    keep = o.shape[0] if keep is None else keep
+    o, m, l = o[:keep], m[:keep], l[:keep]
+    s, b, n, c = o.shape
+    w = torch.exp2(m - m.amax(0))                           # (s, B, H, N)
+    den = (w * l).sum(0)                                    # (B, H, N)
+    num = (o.view(s, b, n, -1, HEAD_DIM)
+           * w.permute(0, 1, 3, 2)[..., None]).sum(0)       # (B, N, H, 64)
+    return (num / den.transpose(1, 2)[..., None]).reshape(b, n, c).to(dtype)
+
+
 def _check_rows(name: str, t: torch.Tensor) -> None:
     """The cross form reads each of q and kv as rows of unit-stride channels
     at one row stride (a column slice of a contiguous tensor, such as the
@@ -95,19 +182,32 @@ def _check_rows(name: str, t: torch.Tensor) -> None:
 
 
 def attention_cross(q: torch.Tensor, kv: torch.Tensor, num_heads: int,
-                    scale: float | None = None,
-                    backend: str = "auto") -> torch.Tensor:
+                    scale: float | None = None, backend: str = "auto",
+                    splits: int | None = None) -> torch.Tensor:
     """Token-major attention of (B, N, C) queries against (B, M, 2C) keys and
     values (K in the first C channels, V in the next); the K1 kernel's cross
     form for CUDA tensors.  ``q`` may be a column slice of the packed qkv.
-    Forward-only, as K1."""
+    ``splits`` forces the kernel's split over the keys (1 .. ceil(M / 64));
+    by default ``cross_splits`` picks it.  Forward-only, as K1."""
+    if splits is not None and not 1 <= splits <= -(-kv.shape[1] // KEY_TILE):
+        raise ValueError(f"attention_cross: {splits} splits of "
+                         f"{kv.shape[1]} keys leave a split without a "
+                         f"{KEY_TILE}-key tile")
     if not use_kernel(backend, q):
         return attention_cross_plain(q, kv, num_heads, scale)
+    return _cross_launch(q, kv, num_heads, scale, splits)[0]
+
+
+def _cross_launch(q: torch.Tensor, kv: torch.Tensor, num_heads: int,
+                  scale: float | None = None, splits: int | None = None):
+    """Check the CUDA inputs and launch the cross form -> (out, the float32
+    partials buffer or None when unsplit)."""
     if (q.dim() != 3 or kv.dim() != 3 or kv.shape[0] != q.shape[0]
             or kv.shape[2] != 2 * q.shape[2] or q.shape[2] % num_heads):
         raise ValueError(f"attention_cross: bad shapes q {tuple(q.shape)}, "
                          f"kv {tuple(kv.shape)} for {num_heads} heads")
     b, n, c = q.shape
+    m = kv.shape[1]
     if c // num_heads != HEAD_DIM:
         raise ValueError(f"attention_cross: the kernel takes head dim "
                          f"{HEAD_DIM}, got {c // num_heads}")
@@ -120,9 +220,16 @@ def attention_cross(q: torch.Tensor, kv: torch.Tensor, num_heads: int,
     _build.check_forward_only("attention_cross", "no training route takes "
                               "the cross form", q, kv)
     scale = 1.0 / math.sqrt(HEAD_DIM) if scale is None else scale
+    if splits is None:
+        splits = cross_splits(b, num_heads, n, m, q.dtype,
+                              _sms(q.device.index or 0))
     out = torch.empty((b, n, c), device=q.device, dtype=q.dtype)
-    _build.check_aligned("attention_cross", q, kv, out, dtypes=ALIGNED)
-    _build.launch("mhada_attention_cross_fwd", q.device, q, kv, out, b, n,
-                  kv.shape[1], c, q.stride(1), kv.stride(1), num_heads,
+    part = None
+    if splits > 1:
+        part = torch.empty(splits * b * n * (c + 2 * num_heads),
+                           device=q.device, dtype=torch.float32)
+    _build.check_aligned("attention_cross", q, kv, out, part, dtypes=ALIGNED)
+    _build.launch("mhada_attention_cross_fwd", q.device, q, kv, out, part, b,
+                  n, m, c, q.stride(1), kv.stride(1), num_heads, splits,
                   float(scale), _build.dtype_code(q))
-    return out
+    return out, part

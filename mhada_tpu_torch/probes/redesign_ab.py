@@ -24,8 +24,14 @@ events:
   K5 from 256^2 to 512^2 (B = 1) and K8's forward from 128^2 to 256^2 (B =
   8), ``chip_smoke.py``'s K5 and K8 gate shapes;
 - K1 (``ops.attention_kernel.attention_tm``) and K6's forward, which share
-  its kernels, at B = 1 and L = 4096 (the 512^2 frame), float32 and
-  bfloat16: the self-attention case of K1's cross form.
+  the float32 attention kernel with K1's cross form, at B = 1 and L = 4096
+  (the 512^2 frame), float32 and bfloat16;
+- K1's cross form (``ops.attention_kernel.attention_cross``, q the first C
+  columns of a packed qkv) at its sequence-parallel gate shapes (B = 1, 8
+  heads: 1024 and 2048 queries against 4096 keys, 4096 against 16384),
+  float32 and bfloat16, as wall ms of back-to-back calls and as device ms
+  (the call's kernels, torch.profiler, from a window that recorded every
+  launch; the wrapper's host work paces the calls below ~0.06 ms).
 
 The sides run as other, this, this, other, repeated ``--rounds`` / 2
 times.  Prints the card's name and power limit, then one JSON line per
@@ -46,6 +52,8 @@ MM_REPS = 100
 # (side, batch) of K14's gates in chip_smoke.py
 MID_SHAPES = [(128, 1), (128, 8), (256, 1)]
 MID_C = 256
+# (queries, keys) of K1's cross form's gates in chip_smoke.py
+CROSS_SHAPES = [(1024, 4096), (2048, 4096), (4096, 16384)]
 # (height, width, batch) of K13's gates in chip_smoke.py
 C6_SHAPES = [(512, 512, 1), (512, 512, 8), (1024, 1024, 1), (256, 512, 8),
              (264, 488, 1)]
@@ -65,6 +73,29 @@ def _cuda_ms(fn, warmup=3, iters=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=10, windows=6):
+    """Device ms per call of ``fn``, which launches each of its kernels
+    once: their time from torch.profiler.  A window in which some kernel's
+    count is not ``iters`` (CUPTI has dropped events on an H100) is
+    profiled again, up to ``windows`` windows -> NaN if none was whole."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.self_device_time_total > 0]
+        if kernels and all(e.count == iters for e in kernels):
+            return sum(e.self_device_time_total for e in kernels) \
+                / 1e3 / iters
+    return float("nan")
 
 
 def worker(root: str) -> dict:
@@ -131,6 +162,18 @@ def worker(root: str) -> dict:
                 lambda: attention_kernel.attention_tm(qkv, 8))
             out[f"K6 forward L=4096 B=1 {str(dtype)[6:]}"] = _cuda_ms(
                 lambda: attention_train._fwd_kernel(qkv, 8, 0.125))
+            for n, m in CROSS_SHAPES:
+                qkv = torch.randn(1, n, 1536, generator=g).to("cuda", dtype)
+                kv = torch.randn(1, m, 1024, generator=g).to("cuda", dtype)
+
+                def cross():
+                    return attention_kernel.attention_cross(
+                        qkv[..., :512], kv, 8)
+
+                key = f"K1x {n}x{m} B=1 {str(dtype)[6:]}"
+                out[key] = _cuda_ms(cross)
+                out[key + " device"] = device_ms(cross)
+                del qkv, kv
     return out
 
 

@@ -42,8 +42,9 @@ inversion's B = 1 and 1024 tokens, and one inversion step of the ViT on
 the card against the CPU.
 
 K1's cross form (N queries, a column slice of a packed qkv, against M
-keys and values) at the sequence-parallel shapes and ragged ones, the self
-case as its special case bit for bit, and its wrapper's refusals.
+keys and values) at the sequence-parallel shapes and ragged ones, at
+every split count over the keys, the self case (unsplit at float32 bit for
+bit K1's, else against the twin), and its wrapper's refusals.
 
 Marked ``cuda``: each test skips without a card.  On a machine with one (the
 repo conftest imports jax, which that machine need not have):
@@ -56,7 +57,8 @@ import torch.nn.functional as F
 
 from mhada_tpu_torch import _build
 from mhada_tpu_torch.ops import attention_train as attention_train_ops
-from mhada_tpu_torch.ops.attention_kernel import (attention_cross,
+from mhada_tpu_torch.ops.attention_kernel import (MAX_SPLITS,
+                                                  attention_cross,
                                                   attention_cross_plain,
                                                   attention_tm)
 from mhada_tpu_torch.ops.attention_train import attention_train
@@ -173,18 +175,50 @@ def test_attention_cross_kernel(gen, dtype, b, n, m, heads):
 @pytest.mark.parametrize("b,l,heads", [(2, 100, 2), (1, 4096, 8)])
 def test_attention_cross_self_case(gen, dtype, b, l, heads):
     """Self-attention is the cross form's case q = qkv[..., :C], kv =
-    qkv[..., C:]: the same kernel on the same data, bit for bit; K1's own
-    launch count moves only on attention_tm."""
+    qkv[..., C:].  Unsplit at float32 the cross form runs K1's own kernel
+    on the same data: bit for bit.  Split, and at bfloat16 (its wgmma
+    tile, K1's is mma.sync), it is held against the twin as the cross
+    gates are.  K1's own launch count moves only on attention_tm."""
     c = 64 * heads
     qkv = _rnd(gen, dtype, b, l, 3 * c).to(dtype)
     before = dict(_build.LAUNCHES)
     own = attention_tm(qkv, heads)
-    cross = attention_cross(qkv[..., :c], qkv[..., c:], heads)
-    assert torch.equal(own, cross)
+    if dtype == torch.float32:
+        assert torch.equal(own, attention_cross(qkv[..., :c], qkv[..., c:],
+                                                heads, splits=1))
     assert _build.LAUNCHES["mhada_attention_fwd"] == \
         before["mhada_attention_fwd"] + 1
-    assert _build.LAUNCHES["mhada_attention_cross_fwd"] == \
-        before["mhada_attention_cross_fwd"] + 1
+    _check("mhada_attention_cross_fwd",
+           lambda be, dt: attention_cross(qkv.to(dt)[..., :c],
+                                          qkv.to(dt)[..., c:], heads,
+                                          backend=be), dtype)
+    assert _build.LAUNCHES["mhada_attention_fwd"] == \
+        before["mhada_attention_fwd"] + 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_cross_forced_splits(gen, dtype):
+    """Every split count the chooser can give (1 .. MAX_SPLITS), forced at
+    (2, 200, 700, 2): 11 key tiles, the last of 60 keys; one launch a call
+    (the combine included), each against the twin and repeated bit for
+    bit; a count that leaves a split without a key tile raises before any
+    launch."""
+    b, n, m, heads = 2, 200, 700, 2
+    c = 64 * heads
+    qkv = _rnd(gen, dtype, b, n, 3 * c)
+    kv = _rnd(gen, dtype, b, m, 2 * c)
+    for splits in range(1, MAX_SPLITS + 1):
+        def run(be, dt, splits=splits):
+            return attention_cross(qkv.to(dt)[..., :c], kv.to(dt), heads,
+                                   backend=be, splits=splits)
+
+        _check("mhada_attention_cross_fwd", run, dtype)
+        assert torch.equal(run("kernel", dtype), run("kernel", dtype))
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="without a 64-key tile"):
+        attention_cross(qkv.to(dtype)[..., :c], kv.to(dtype), heads,
+                        splits=12)
+    assert _build.LAUNCHES == before
 
 
 def test_attention_cross_refusals(gen):

@@ -4,11 +4,12 @@ it lists: every ``__global__`` kernel of the tensor-core headers
 MMA_KERNELS or WGMMA_KERNELS, and every one of the float32 MHAda tile
 (csrc/mhada_f32_tile.cuh), of the float32 flash backward
 (csrc/flash_bwd_f32.cuh), of the float32 tail (csrc/decoder_tail_f32.cuh),
-of K14's float32 conv (csrc/decoder_mid_f32.cuh) and of K13's
-(csrc/decoder_c6_f32.cuh) in F32_KERNELS (no tensor-core instruction, no
-spills), so that no kernel skips the check; each listed kernel exists,
-each instantiation required of a path is listed, and K13's replaced
-kernel is refused and gone.
+of K14's float32 conv (csrc/decoder_mid_f32.cuh), of K13's
+(csrc/decoder_c6_f32.cuh) and the combine of K1's split cross form
+(csrc/attention_combine.cuh) in F32_KERNELS (no tensor-core instruction,
+no spills), so that no kernel skips the check; each listed kernel exists,
+each instantiation required of a path is listed, and K13's and K1's cross
+form's replaced kernels are refused and gone.
 CPU: reads the sources and chip_smoke.py's constants (it imports torch only
 inside main)."""
 
@@ -52,6 +53,8 @@ def _kernels(pattern):
                                             ("decoder_mid_f32.cuh",
                                              "F32_KERNELS"),
                                             ("decoder_c6_f32.cuh",
+                                             "F32_KERNELS"),
+                                            ("attention_combine.cuh",
                                              "F32_KERNELS")])
 def test_tensor_core_kernels_are_listed(pattern, listed):
     kernels = _kernels(pattern)
@@ -90,3 +93,26 @@ def test_replaced_c6_kernel_is_refused():
         assert name in every and not re.search(smoke.OLD_BF16, name)
     assert "decoder_c6_f32_kernel" in smoke.F32_REQUIRED
     assert "decoder_c6_mma_kernel" in smoke.MMA_REQUIRED
+
+
+def test_replaced_cross_kernel_is_refused():
+    """K1's cross form on the mma.sync tile (attention_mma_fwd_kernel<false,
+    true>) is refused by phase 2 and instantiable nowhere: the tile keeps
+    one template argument, K1's self case <false> and K6's forward <true>.
+    Its redesign, the wgmma kernel, is listed and the float32 split's
+    instantiation and its combine are required."""
+    smoke = _chip_smoke()
+    old = ("_ZN5mhada24attention_mma_fwd_kernelILb0ELb1EEEvNS_11"
+           "AttnMmaArgsE")
+    assert re.search(smoke.OLD_BF16, old)
+    src = (CSRC / "attention_mma.cuh").read_text()
+    assert "template <bool kRes>\n__global__" in src
+    assert "kCross" not in src and "make_mma_cross_args" not in src
+    every = set(_kernels("*.cuh")) | set(_kernels("*.cu"))
+    assert "attention_wgmma_kernel" in every
+    assert "attention_wgmma_kernel" in smoke.WGMMA_KERNELS
+    for req in ("attention_f32_kernelILb0ELb0E",
+                "attention_f32_kernelILb1ELb0E",
+                "attention_f32_kernelILb0ELb1E", "attention_combine_kernelIfE",
+                "attention_combine_kernelI13__nv_bfloat16E"):
+        assert req in smoke.F32_REQUIRED and not re.search(smoke.OLD_BF16, req)
