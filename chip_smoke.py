@@ -6,17 +6,21 @@
 1. environment: torch / CUDA versions, the card's name and power limit,
    whether cv2 imports (reported, never failed);
 2. build: compile mhada_tpu_torch/csrc/*.cu with nvcc (one per source, in
-   parallel); the bf16 tensor-core kernels of K1, K6, K3, K4 and K7
-   (forward, dQ and dK/dV), of the decoder tail (K5, K8), of K2, of K14
-   and of K13 must each hold HMMA.16816.F32.BF16 in their SASS (cuobjdump) and
-   spill nothing (ptxas); the wgmma + TMA kernels, P2's bf16 kernel and
-   every block tile of P1's, must hold HGMMA (wgmma) and UTMALDG (TMA
-   loads) and spill nothing (so must K1's cross form's bf16 kernel,
-   attention_wgmma_kernel); every instantiation that a bf16 path
-   launches must exist (K4's MHAda tile without prologue or
-   residuals, the tail with and without residuals, K2's, K14's, K13's), no bf16
+   parallel); the bf16 tensor-core kernels of K1, K6 and K7 (forward, dQ
+   and dK/dV), of the decoder tail (K5, K8), of K2, of K14 and of K13 must
+   each hold HMMA.16816.F32.BF16 in their SASS (cuobjdump) and spill
+   nothing (ptxas); the wgmma + TMA kernels, the MHAda tile of K3, K4 and
+   P2 (mhada_wgmma_kernel <prologue, split>, all four instantiations
+   present) and every block tile of P1's, must hold HGMMA (wgmma) and
+   UTMALDG (TMA loads) and spill nothing (so must K1's cross form's bf16
+   kernel, attention_wgmma_kernel); every instantiation that a bf16 path
+   launches must exist (K7's forward on the mma.sync MHAda tile, the tail
+   with and without residuals, K2's, K14's, K13's), no bf16
    instantiation of the CUDA-core kernels they replaced may exist (those
-   of K1, K4, K5, K6, K7, K8 and K2), nor any instantiation of K14's old
+   of K1, K4, K5, K6, K7, K8 and K2), nor K3's and K4's on the mma.sync
+   MHAda tile (mhada_mma_fwd_kernel without residuals, or with the
+   prologue parameter it had before), nor
+   any instantiation of K14's old
    conv (conv3x3_relu_kernel, either dtype) or of P1's old wmma kernel
    (mm_probe_kernel), nor any instantiation of the old flash tile
    (flash_tile_kernel, the f32 forwards of K1, K4, K6 and K7 before the
@@ -32,7 +36,8 @@
    false> and K7's forward <false, 2, true>; the attention kernel <lse,
    split> of K1 <false, false>, K6's forward <true, false> and K1's cross
    form split over the keys <false, true>; the split's combine,
-   csrc/attention_combine.cuh), the float32 flash backward
+   csrc/attention_combine.cuh; the combine of K3 and K4 split over the
+   keys, csrc/mhada_combine.cuh, <prologue>), the float32 flash backward
    (csrc/flash_bwd_f32.cuh: the dK/dV and dQ kernels of K6 <false> and K7
    <true>) and the float32 tail (csrc/decoder_tail_f32.cuh: the up3
    kernel of K5 and K8, the upsample + c5 + c6 kernel <residuals> of K5
@@ -49,7 +54,16 @@
    video CLI's 256 x 512 with B = 8 and at 264 x 488 (sides that are not
    multiples of its 16 x 64 strip), also as the kernel alone; K14 (c1
    -> c3) at 128^2 with B = 1 and 8 and at 256^2; P2 at B = 8, N = M =
-   4096, also against K3 (float32 and bfloat16); P1 at its 8 shapes
+   4096, also against K3 (float32 and bfloat16); K3 also at an SP rank's
+   1024 queries against 4096 keys (B = 1) and at the video CLI's 2048
+   against 1024 (B = 8), each K3 and K4 gate with its split over the keys
+   (``mhada_splits``) and the device time of the tile and of the combine
+   apart; at bfloat16 every split count of K3 and K4 forced once (512
+   against 1000 keys) against the plain version and repeated bit for bit,
+   and a planted control (the kernel's partials at 1024 against 4096
+   combined in PyTorch without the last split) that must fail the gate
+   while the kernel passes it, the seconds all this adds printed; P1 at
+   its 8 shapes
    (bfloat16, each with its block tile), each with its time, the plain
    version's, the PyTorch library call's where one computes the same
    function or, for K3, K4, K7
@@ -405,7 +419,15 @@ GATES = [
     ("K14 128^2 B=8", "K14 mid3_fused", "mid", 128, 8),
     ("K14 256^2", "K14 mid3_fused", "mid", 256, 1),
     ("P2 B=8 N=M=4096", "P2 mhada_prologue_pipe", "pipe", 4096, 8),
+    # K3 where the split over the keys matters: an SP rank's 1024 queries
+    # (512^2 over 4 ranks) against the whole style, and the video CLI's
+    # 256 x 512 frame against a 256^2 style at its --chunk 8 batch
+    ("K3 B=1 N=1024 M=4096", "K3 mhada_fused_prologue", "prologue",
+     (1024, 4096), 1),
+    ("K3 B=8 N=2048 M=1024", "K3 mhada_fused_prologue", "prologue",
+     (2048, 1024), 8),
 ]
+SPLIT_K3_GATES = ("K3 B=1 N=1024 M=4096", "K3 B=8 N=2048 M=1024")
 BF16_ONLY = {"mm"}
 
 # Launches of each path (C entry point -> count).
@@ -593,8 +615,8 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 DTYPE_NAMES = ("float32", "bfloat16")
 # The bf16 mma.sync kernels of K1 and K6 (csrc/attention_mma.cuh,
-# csrc/attention_bwd_mma.cuh), K3, K4 and K7 (csrc/mhada_mma.cuh: K3, K4
-# and K7's forward; csrc/mhada_bwd_mma.cuh), K5 and K8
+# csrc/attention_bwd_mma.cuh), K7 (csrc/mhada_mma.cuh: K7's forward;
+# csrc/mhada_bwd_mma.cuh), K5 and K8
 # (csrc/decoder_tail_mma.cuh), K2 (csrc/ln_matmul_mma.cuh), K14
 # (csrc/decoder_mid_mma.cuh) and K13 (csrc/decoder_c6_mma.cuh) and the
 # instruction each must contain.
@@ -607,19 +629,24 @@ HMMA = "HMMA.16816.F32.BF16"
 # The float32 tail's two kernels (csrc/decoder_tail_f32.cuh), timed apart
 # by name in the K5 and K8 gates.
 TAIL_STAGES = ("tail_up3_f32_kernel", "tail_c5c6_f32_kernel")
-# The bf16 wgmma + TMA kernels (P2: csrc/mhada_wgmma.cuh; K1's cross form:
-# csrc/attention_wgmma.cuh; P1, each block tile: csrc/mm_wgmma.cuh) and the
-# instructions each must contain: HGMMA (wgmma) and UTMALDG (TMA loads).
+# The bf16 wgmma + TMA kernels (the MHAda tile of K3, K4 and P2, split or
+# not: csrc/mhada_wgmma.cuh; K1's cross form: csrc/attention_wgmma.cuh; P1,
+# each block tile: csrc/mm_wgmma.cuh) and the instructions each must
+# contain: HGMMA (wgmma) and UTMALDG (TMA loads).
 WGMMA_KERNELS = ("mhada_wgmma_kernel", "attention_wgmma_kernel",
                  "mm_wgmma_kernel")
 WGMMA_SASS = ("HGMMA", "UTMALDG")
-# Instantiations (mangled-name parts) that the bf16 paths launch: K4's
-# MHAda tile (neither prologue nor residuals), K5's and K8's tail, K2,
-# K14, K13.
-MMA_REQUIRED = ("mhada_mma_fwd_kernelILb0ELb0E",
+# Instantiations (mangled-name parts) that the bf16 paths launch: K7's
+# forward on the mma.sync MHAda tile (<kRes = true>), K5's and
+# K8's tail, K2, K14, K13; the MHAda wgmma tile's <prologue, split>: K3
+# (and P2) <true, false>, K3 split <true, true>, K4 <false, false>, K4 split
+# <false, true>.
+MMA_REQUIRED = ("mhada_mma_fwd_kernelILb1EEEv",
                 "decoder_tail_mma_kernelILb0E", "decoder_tail_mma_kernelILb1E",
                 "ln_matmul_mma_kernel", "decoder_mid_mma_kernel",
                 "decoder_c6_mma_kernel")
+WGMMA_REQUIRED = ("mhada_wgmma_kernelILb1ELb0E", "mhada_wgmma_kernelILb1ELb1E",
+                  "mhada_wgmma_kernelILb0ELb0E", "mhada_wgmma_kernelILb0ELb1E")
 # bf16 instantiations of the CUDA-core kernels that no path may reach any
 # more (mangled names): the attention and MHAda tile (K1, K4, K6's and
 # K7's forwards) and backward (K6, K7), the decoder tail (K5, K8), K2's
@@ -632,8 +659,11 @@ MMA_REQUIRED = ("mhada_mma_fwd_kernelILb0ELb0E",
 # and K7's), the old fused float32 tail (decoder_tail_kernel<bool>: K5's
 # and K8's before csrc/decoder_tail_f32.cuh) and K13's first kernel at
 # either dtype (decoder_c6_kernel<T>, before csrc/decoder_c6_f32.cuh and
-# csrc/decoder_c6_mma.cuh), and K1's cross form on the mma.sync tile
-# (attention_mma_fwd_kernel<false, true>, before csrc/attention_wgmma.cuh).
+# csrc/decoder_c6_mma.cuh), K1's cross form on the mma.sync tile
+# (attention_mma_fwd_kernel<false, true>, before csrc/attention_wgmma.cuh),
+# and K3 and K4 on the mma.sync MHAda tile (mhada_mma_fwd_kernel<false>,
+# or any instantiation with the <kPrologue, kRes> parameters it had before
+# the wgmma tile of csrc/mhada_wgmma.cuh).
 OLD_BF16 = (r"flash_tile_kernel"
             r"|flash_bwd_(dkv|dq)_kernelI13__nv_bfloat16"
             r"|decoder_tail_kernelI13__nv_bfloat16"
@@ -643,7 +673,8 @@ OLD_BF16 = (r"flash_tile_kernel"
             r"|flash_bwd_(dkv|dq)_kernelIf"
             r"|decoder_tail_kernelILb"
             r"|decoder_c6_kernel"
-            r"|attention_mma_fwd_kernelILb0ELb1E")
+            r"|attention_mma_fwd_kernelILb0ELb1E"
+            r"|mhada_mma_fwd_kernelILb0EEEv|mhada_mma_fwd_kernelILb[01]ELb")
 # float32 kernels that compute in float32: they must exist, spill nothing
 # and hold no tensor-core instruction of any kind (HMMA, HGMMA: no TF32).
 # K2's float32 build, the float32 flash tile (csrc/mhada_f32_tile.cuh: the
@@ -652,10 +683,12 @@ OLD_BF16 = (r"flash_tile_kernel"
 # K6's and K7's dK/dV and dQ kernels) and the float32 tail
 # (csrc/decoder_tail_f32.cuh: K5's and K8's up3 kernel and upsample + c5 +
 # c6 kernel), K14's conv (csrc/decoder_mid_f32.cuh) and K13's
-# (csrc/decoder_c6_f32.cuh); the combine of K1's cross form split over the
-# keys (csrc/attention_combine.cuh, both output dtypes: float32 sums).
+# (csrc/decoder_c6_f32.cuh); the combines of K1's cross form and of K3 and
+# K4 split over the keys (csrc/attention_combine.cuh, both output dtypes;
+# csrc/mhada_combine.cuh: float32 sums).
 F32_KERNELS = ("ln_matmul_f32_kernel", "mhada_f32_kernel",
                "attention_f32_kernel", "attention_combine_kernel",
+               "mhada_combine_kernel",
                "flash_bwd_f32_dkv_kernel",
                "flash_bwd_f32_dq_kernel", "tail_up3_f32_kernel",
                "tail_c5c6_f32_kernel", "decoder_mid_f32_kernel",
@@ -665,7 +698,8 @@ F32_KERNELS = ("ln_matmul_f32_kernel", "mhada_f32_kernel",
 # K3 <true, 2, false>, P2 <true, 1, false>, K7's forward <false, 2, true>;
 # the attention kernel's <lse, split>, K1 <false, false>, K6's forward
 # <true, false>, K1's cross form split over the keys <false, true>, and the
-# split's combine into float32 and bf16; the backward's <mhada>, K6
+# split's combine into float32 and bf16; the MHAda split's combine
+# <prologue>, K3 <true>, K4 <false>; the backward's <mhada>, K6
 # <false>, K7 <true>; the tail's up3 kernel (K5 and K8) and its c5 + c6
 # kernel <residuals>, K5 <false>, K8 <true>; K14's; K13's.
 F32_REQUIRED = ("mhada_f32_kernelILb0ELi2ELb0E",
@@ -677,6 +711,7 @@ F32_REQUIRED = ("mhada_f32_kernelILb0ELi2ELb0E",
                 "attention_f32_kernelILb0ELb1E",
                 "attention_combine_kernelIfE",
                 "attention_combine_kernelI13__nv_bfloat16E",
+                "mhada_combine_kernelILb1E", "mhada_combine_kernelILb0E",
                 "flash_bwd_f32_dkv_kernelILb0E",
                 "flash_bwd_f32_dkv_kernelILb1E",
                 "flash_bwd_f32_dq_kernelILb0E",
@@ -766,8 +801,9 @@ def mma_report(lib):
     """The bf16 tensor-core kernels in the built library -> (ok, text): each
     kernel's registers and spilled bytes (ptxas), its count of HMMA in the
     SASS (cuobjdump; the wgmma kernels: HGMMA and UTMALDG), any
-    instantiation of MMA_REQUIRED or F32_REQUIRED that is missing, and any
-    instantiation of a CUDA-core kernel that a redesign replaced
+    instantiation of MMA_REQUIRED, WGMMA_REQUIRED or F32_REQUIRED that is
+    missing, and any instantiation of a CUDA-core kernel that a redesign
+    replaced
     (OLD_BF16), which no path may reach; the float32 kernels (F32_KERNELS)
     with their registers and spills (none allowed) and no tensor-core
     instruction."""
@@ -811,7 +847,7 @@ def mma_report(lib):
                        f"{info.get('spill')} B spilled, " + ", ".join(
                            f"{n} x {ins}" for ins, n in counts.items())
                        + f", {funcs[f].count(HMMA)} x {HMMA}")
-    missing = [m for m in MMA_REQUIRED + F32_REQUIRED
+    missing = [m for m in MMA_REQUIRED + WGMMA_REQUIRED + F32_REQUIRED
                if not any(m in f for f in funcs)]
     out.append(f"missing instantiations: {missing or 'none'}")
     old = [f for f in funcs if re.search(OLD_BF16, f)]
@@ -975,10 +1011,12 @@ def prologue_library(fc, stats, wf, fb, k, v, heads):
 
 
 def gate_inputs(kind, n, dtype, g, b=1):
-    """Seeded inputs of one kernel at ``n`` tokens (K4: n or (queries,
+    """Seeded inputs of one kernel at ``n`` tokens (K3, K4: n or (queries,
     keys); K5, K13: an n x n input or (height, width); K14: an n x n
     input; P1: the probe's shape number n) and batch ``b`` -> (call(backend),
-    flops, bytes moved, (name, call) of one library call or None).
+    flops, bytes moved, (name, call) of one library call or None).  K1's
+    cross form, K3 and K4 give the call a ``splits`` attribute: the
+    chooser's split over the keys.
 
     Bytes count each input read once and each output written once; flops
     count the products (and the projection of K3)."""
@@ -994,6 +1032,7 @@ def gate_inputs(kind, n, dtype, g, b=1):
 
     dev, c, heads = "cuda", 512, 8
     es = torch.tensor([], dtype=dtype).element_size()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
@@ -1022,9 +1061,8 @@ def gate_inputs(kind, n, dtype, g, b=1):
         def run(be):
             return attention_kernel.attention_cross(q, kv, heads, backend=be)
 
-        run.splits = attention_kernel.cross_splits(
-            b, heads, nq, nk, dtype,
-            torch.cuda.get_device_properties(0).multi_processor_count)
+        run.splits = attention_kernel.cross_splits(b, heads, nq, nk, dtype,
+                                                   sms)
         return (run, 4 * b * nq * nk * c, b * (2 * nq + 2 * nk) * c * es,
                 (SDPA, sdpa))
     if kind == "ln_matmul":
@@ -1051,27 +1089,49 @@ def gate_inputs(kind, n, dtype, g, b=1):
         return (run, sum(2 * n * c * f for f in fs),
                 sum((n * c + f * c + n * f + 2 * c + f) * es for f in fs),
                 (LN_CHAIN, ln_chain(x, lwt, lbt, pairs)))
-    if kind == "prologue":
-        fc, fcs = rnd(1, n, c, scale=2.0) + 1, rnd(1, n, c, scale=3.0) - 1
+    if kind == "prologue":   # n queries against n keys, or (N, M)
+        nq, nk = (n, n) if isinstance(n, int) else n
+        fc = rnd(b, nq, c, scale=2.0) + 1
+        fcs = rnd(b, nq, c, scale=3.0) - 1
         mc, rc = instance_norm_stats(fc)
         ms, rs = instance_norm_stats(fcs)
         stats = torch.stack([mc, rc, ms, rs], 1)
         # the block's init U(-1/8, 1/8); k at scale 0.35: logit std ~1.6
         wf = ((torch.rand(heads, 64, 64, generator=g) * 2 - 1) / 8).to(dev)
         fb = ((torch.rand(heads, 64, generator=g) * 2 - 1) / 8).to(dev)
-        k, v = rnd(1, n, c, scale=0.35), rnd(1, n, c)
-        return (lambda be: mhada_prologue.mhada_fused_prologue(
-            fc, fcs, stats, wf, fb, k, v, backend=be),
-            6 * n * n * c + 2 * n * c * 64,
-            5 * n * c * es + 4 * c * 4 + heads * 64 * (64 * es + 4),
-            prologue_library(fc, stats, wf, fb, k, v, heads))
+        k, v = rnd(b, nk, c, scale=0.35), rnd(b, nk, c)
+
+        def run(be):
+            return mhada_prologue.mhada_fused_prologue(fc, fcs, stats, wf, fb,
+                                                       k, v, backend=be)
+
+        run.splits = mhada_kernel.mhada_splits(b, heads, nq, nk, sms) \
+            if dtype == torch.bfloat16 else 1
+        # K3 at a forced split -> (out, the partials or None); -> out; the
+        # epilogue's factor IN(fcs)
+        run.launch = lambda s: mhada_prologue.launch_prologue(
+            "mhada_mhada_prologue", fc, fcs, stats, wf, fb, k, v, s)
+        run.forced = lambda s: run.launch(s)[0]
+        run.f = (fcs.float() - ms[:, None]) * rs[:, None]
+        return (run, b * (6 * nq * nk * c + 2 * nq * c * 64),
+                b * (3 * nq + 2 * nk) * c * es + b * 4 * c * 4
+                + heads * 64 * (64 * es + 4),
+                prologue_library(fc, stats, wf, fb, k, v, heads))
     if kind == "mhada":   # n queries against n keys, or (N, M)
         nq, nk = (n, n) if isinstance(n, int) else n
-        q, k = rnd(1, nq, c, scale=0.35), rnd(1, nk, c, scale=0.35)
-        v, f = rnd(1, nk, c), rnd(1, nq, c)
-        return (lambda be: mhada_kernel.mhada_tm(q, k, v, f, heads,
-                                                 backend=be),
-                6 * nq * nk * c, (3 * nq + 2 * nk) * c * es,
+        q, k = rnd(b, nq, c, scale=0.35), rnd(b, nk, c, scale=0.35)
+        v, f = rnd(b, nk, c), rnd(b, nq, c)
+
+        def run(be):
+            return mhada_kernel.mhada_tm(q, k, v, f, heads, backend=be)
+
+        run.splits = mhada_kernel.mhada_splits(b, heads, nq, nk, sms) \
+            if dtype == torch.bfloat16 else 1
+        run.launch = lambda s: mhada_kernel._mhada_launch(q, k, v, f, heads,
+                                                          s)
+        run.forced = lambda s: run.launch(s)[0]
+        run.f = f.float()
+        return (run, b * 6 * nq * nk * c, b * (3 * nq + 2 * nk) * c * es,
                 mhada_library(q, k, v, heads, "the MHAda epilogue"))
     def conv(co, ci):
         """A conv's init U(-1/sqrt(fan_in), 1/sqrt(fan_in)), float32."""
@@ -1220,6 +1280,78 @@ def run_gate(gate, kind, n, b, dname, card):
         f"{bound_ms:.3f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP, "
         f"{nbytes / 1e6:.1f} MB at the published 700 W peaks; this card: "
         f"{card}); peak memory {peak_gb:.2f} GB"), rec
+
+
+# K3 and K4 at bfloat16 split over the keys beyond their gates: every split
+# count the chooser can give forced at one shape, B = 1, 8 heads: 512
+# queries against 1000 keys (16 tiles, the last of 40 keys); the planted
+# control at an SP rank's 1024 queries against 4096 keys.
+MHADA_FORCED = (512, 1000)
+MHADA_CONTROL = (1024, 4096)
+
+
+def mhada_split_checks() -> tuple[bool, dict]:
+    """K3 and K4 at bfloat16: every split count the chooser can give (1 ..
+    MAX_SPLITS) forced at MHADA_FORCED against the plain version and
+    repeated bit for bit; the planted control, the kernel's partials at
+    MHADA_CONTROL (the chooser's split) combined in plain PyTorch
+    (``mhada_combine_partials``) without the last split, must fail the gate
+    while the kernel and the whole combine pass it -> (ok, record)."""
+    import torch
+
+    from mhada_tpu_torch.ops.key_split import MAX_SPLITS, split_partials
+    from mhada_tpu_torch.ops.mhada_kernel import mhada_combine_partials
+
+    dname, dtype, c, heads = "bfloat16", torch.bfloat16, 512, 8
+    bound_, ok, rec = REL_BOUND["bfloat16"], True, {}
+    with torch.inference_mode():
+        for kind, label in (("prologue", "K3"), ("mhada", "K4")):
+            g = torch.Generator().manual_seed(SEED)
+            run = gate_inputs(kind, MHADA_FORCED, dtype, g)[0]
+            ref = run("plain").float()
+            rels, good = [], True
+            for s in range(1, min(MAX_SPLITS, -(-MHADA_FORCED[1] // 64)) + 1):
+                got, again = run.forced(s), run.forced(s)
+                rel = ((got.float() - ref).abs().max()
+                       / ref.abs().max()).item()
+                rels.append(rel)
+                good = good and rel <= bound_ and torch.equal(got, again)
+            rec[f"{label} forced"] = rels
+            ok = phase(f"{label} forced splits {dname}", good,
+                       f"{MHADA_FORCED[0]} x {MHADA_FORCED[1]}, splits "
+                       f"1..{len(rels)}: rel "
+                       + ", ".join(f"{r:.2e}" for r in rels)
+                       + f" (bound {bound_:.0e}); each repeated bit for "
+                       "bit") and ok
+
+            nq, nk = MHADA_CONTROL
+            run = gate_inputs(kind, MHADA_CONTROL, dtype, g)[0]
+            out, part = run.launch(run.splits)
+            ref = run("plain").float()
+
+            def rel_to(x):
+                return ((x.float() - ref).abs().max()
+                        / ref.abs().max()).item()
+
+            kernel, whole, dropped = rel_to(out), None, None
+            if part is not None:
+                views = split_partials(part, run.splits, 1, nq, 2 * c, heads)
+                whole = rel_to(mhada_combine_partials(*views, run.f, dtype))
+                dropped = rel_to(mhada_combine_partials(
+                    *views, run.f, dtype, keep=run.splits - 1))
+            good = (part is not None and kernel <= bound_
+                    and whole <= bound_ and dropped > bound_)
+            rec[f"{label} control"] = dict(splits=run.splits, kernel=kernel,
+                                           combined=whole, dropped=dropped)
+            ok = phase(f"{label} split control {dname}", good,
+                       f"{nq} x {nk}, {run.splits} splits: the kernel rel "
+                       f"{kernel:.2e}, its partials combined in PyTorch "
+                       f"{whole}, without the last split {dropped} (must "
+                       f"exceed {bound_:.0e}: the gate sees a dropped "
+                       "split)") and ok
+            del run, out, part, ref
+    torch.cuda.empty_cache()
+    return ok, rec
 
 
 def pipe_against_k3(dname):
@@ -2186,7 +2318,8 @@ def evals_phase(kmodels, pmodels, card, gates) -> tuple[bool, dict]:
     for gate, kind, n in EVAL_GATES:
         for dname in DTYPE_NAMES:
             try:
-                good, r = run_gate(gate, kind, n, 1, dname, card)
+                good, r = (run_split_gate if kind in SPLIT_KERNELS
+                           else run_gate)(gate, kind, n, 1, dname, card)
             except Exception as e:
                 ok = phase(f"gate {gate} {dname}", False,
                            f"{type(e).__name__}: {e}")
@@ -2828,11 +2961,16 @@ CROSS_GATES = [
     ("K1x Nq=4096 M=16384", K12_CROSS_STREAM, (4096, 16384), 1),
     ("K1x B=2 Nq=1000 M=3000", K12_CROSS, (1000, 3000), 2),
 ]
-# The cross form's kernels by name: the unsplit or split tile (f32, bf16)
-# and the split's combine, timed apart on the device (torch.profiler).
-CROSS_KERNELS = {
-    "float32": ("attention_f32_kernel", "attention_combine_kernel"),
-    "bfloat16": ("attention_wgmma_kernel", "attention_combine_kernel")}
+# The kernels of K1's cross form, K3 and K4 by name, each dtype's unsplit or
+# split tile and the split's combine, timed apart on the device
+# (torch.profiler).  K3's and K4's float32 tile takes no split.
+SPLIT_KERNELS = {
+    "cross": {
+        "float32": ("attention_f32_kernel", "attention_combine_kernel"),
+        "bfloat16": ("attention_wgmma_kernel", "attention_combine_kernel")},
+    **dict.fromkeys(("prologue", "mhada"), {
+        "float32": ("mhada_f32_kernel",),
+        "bfloat16": ("mhada_wgmma_kernel", "mhada_combine_kernel")})}
 # Every split count the chooser can give (1 .. MAX_SPLITS), forced at one
 # shape: B = 1, 8 heads, 512 queries against 1000 keys (16 tiles, the last
 # of 40 keys).
@@ -3449,23 +3587,21 @@ def phase10_rank(group, nccl_one: bool, shapes, runs) -> dict:
             "train": mesh_train_rank(group, shapes, runs) if runs else {}}
 
 
-def run_cross_gate(gate, n, b, dname, card):
-    """run_gate of K1's cross form, and its split count and the device ms
-    of its kernels apart (the tile, and the combine when split;
+def run_split_gate(gate, kind, n, b, dname, card):
+    """run_gate of K1's cross form, K3 or K4, and its split count and the
+    device ms of its kernels apart (the tile, and the combine when split;
     ``split_ms``, printed as not measured when a part read 0) -> (ok,
     record)."""
     import torch
 
-    from mhada_tpu_torch.ops import attention_kernel
-
-    good, r = run_gate(gate, "cross", n, b, dname, card)
-    dtype = getattr(torch, dname)
+    good, r = run_gate(gate, kind, n, b, dname, card)
     g = torch.Generator().manual_seed(SEED)
-    run = gate_inputs("cross", n, dtype, g, b)[0]
-    parts = CROSS_KERNELS[dname][:1 if run.splits == 1 else 2]
+    run = gate_inputs(kind, n, getattr(torch, dname), g, b)[0]
+    parts = SPLIT_KERNELS[kind][dname][:1 if run.splits == 1 else 2]
+    t0 = time.perf_counter()
     with torch.inference_mode():
         dev = split_ms(lambda: run("kernel"), parts)
-    r["splits"] = run.splits
+    r["splits"], r["split_s"] = run.splits, time.perf_counter() - t0
     dev_txt = "device time not measured (the profiler recorded no launch)"
     if all(dev.values()):
         tile_ms = dev[parts[0]]
@@ -3474,11 +3610,12 @@ def run_cross_gate(gate, n, b, dname, card):
                  combine_ms=combine_ms)
         dev_txt = (f"device {tile_ms:.3f} + combine {combine_ms:.3f} ms "
                    f"({100 * r['bound_ms'] / r['device_ms']:.1f} %)")
+    keys = n if isinstance(n, int) else n[1]
     phase(f"gate {gate} {dname} split", good,
-          f"{run.splits} split(s) of {-(-n[1] // attention_kernel.KEY_TILE)}"
-          f" key tiles; wrapper {r['ms']:.3f} ms "
-          f"({100 * r['bound_ms'] / r['ms']:.1f} % of the bound); {dev_txt}; "
-          f"plain {r['plain_ms']:.3f} ms; SDPA {r['library_ms']:.3f} ms")
+          f"{run.splits} split(s) of {-(-keys // 64)} key tiles; wrapper "
+          f"{r['ms']:.3f} ms ({100 * r['bound_ms'] / r['ms']:.1f} % of the "
+          f"bound); {dev_txt}; plain {r['plain_ms']:.3f} ms; SDPA "
+          f"{r['library_ms']:.3f} ms")
     return good, r
 
 
@@ -3563,7 +3700,8 @@ def cross_split_checks(gates) -> tuple[bool, dict]:
             splits = ak.cross_splits(1, heads, nq, nk, dtype, sms)
             ms = cuda_ms(lambda: ak.attention_cross(q, kv, heads), 3, 10)
             dev = split_ms(lambda: ak.attention_cross(q, kv, heads),
-                           CROSS_KERNELS[dname][:1 if splits == 1 else 2])
+                           SPLIT_KERNELS["cross"][dname][:1 if splits == 1
+                                                         else 2])
             dev = sum(dev.values()) if all(dev.values()) else None
             qh, kh, vh = (t.unflatten(-1, (heads, 64)).transpose(1, 2)
                           for t in (q, *kv.split(c, dim=-1)))
@@ -3611,7 +3749,7 @@ def parallel_phase(card, gates, launches) -> tuple[bool, dict]:
     for gate, _, n, b in CROSS_GATES:
         for dname in DTYPE_NAMES:
             try:
-                good, r = run_cross_gate(gate, n, b, dname, card)
+                good, r = run_split_gate(gate, "cross", n, b, dname, card)
             except Exception as e:
                 ok = phase(f"gate {gate} {dname}", False,
                            f"{type(e).__name__}: {e}")
@@ -3774,20 +3912,41 @@ def main() -> int:
 
     # ---- 3. per-kernel gates, kernel against plain on the card
     gate_list = all_gates()
+    # seconds of what the split of K3 and K4 over the keys added: the two K3
+    # gates at its shapes, the split lines' profiler windows, the checks
+    split_s = dict.fromkeys(("K3 gates", "split lines", "checks"), 0.0)
     for gate, _, kind, n, b in gate_list:
         for dname in DTYPE_NAMES:
             if kind in BF16_ONLY and dname != "bfloat16":
                 continue
+            t_gate = time.perf_counter()
             try:
-                good, rec = run_gate(gate, kind, n, b, dname, card)
+                good, rec = (run_split_gate if kind in SPLIT_KERNELS
+                             else run_gate)(gate, kind, n, b, dname, card)
             except Exception as e:  # report every kernel, then fail
                 ok = phase(f"gate {gate} {dname}", False,
                            f"{type(e).__name__}: {e}")
                 continue
             gates.setdefault(gate, {})[dname] = rec
             ok = good and ok
+            if gate in SPLIT_K3_GATES:
+                split_s["K3 gates"] += time.perf_counter() - t_gate
+            elif kind in ("prologue", "mhada"):
+                split_s["split lines"] += rec.get("split_s", 0.0)
     for dname in DTYPE_NAMES:
         ok = pipe_against_k3(dname) and ok
+    t0 = time.perf_counter()
+    try:
+        good, mhada_split = mhada_split_checks()
+    except Exception as e:
+        good, mhada_split = phase("K3 and K4 split checks", False,
+                                  f"{type(e).__name__}: {e}"), {}
+    ok = good and ok
+    split_s["checks"] = time.perf_counter() - t0
+    mhada_split["seconds"] = split_s
+    phase("K3 and K4 split seconds", True,
+          f"{sum(split_s.values()):.1f} s added: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in split_s.items()))
     launches = {}   # path -> launch counts of its float32 run
     ok = run_probes(launches) and ok
 
@@ -4451,6 +4610,7 @@ def main() -> int:
                       "launches": launches, "frame_ms": frame_ms,
                       "video_cli": video_cli, "evals": evals,
                       "analysis": analysis, "parallel": parallel,
+                      "mhada_split": mhada_split,
                       "train": train_extra, "step_ms": step_ms,
                       "step_peak_gb": step_peak_gb,
                       "card": card, "seconds": seconds}), flush=True)

@@ -34,9 +34,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "mhada_attention_fwd": [_P, _P, _I, _I, _I, _I, _F, _I, _P],
     "mhada_attention_cross_fwd": [_P] * 4 + [_I] * 8 + [_F, _I, _P],
-    "mhada_mhada_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "mhada_mhada_prologue": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _P],
+    "mhada_mhada_fwd": [_P] * 6 + [_I] * 7 + [_P],
+    "mhada_mhada_prologue": [_P] * 9 + [_I] * 7 + [_P],
     "mhada_ln_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "mhada_decoder_tail": [_P] * 9 + [_I] * 4 + [_P],
     "mhada_attention_train_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
@@ -48,7 +47,7 @@ SIGNATURES = {
     "mhada_decoder_c6": [_P] * 4 + [_I] * 4 + [_P],
     "mhada_decoder_mid_conv": [_P] * 4 + [_I] * 5 + [_P],
     "mhada_mm_probe": [_P] * 3 + [_I] * 6 + [_P],
-    "mhada_mhada_prologue_pipe": [_P] * 8 + [_I] * 6 + [_P],
+    "mhada_mhada_prologue_pipe": [_P] * 9 + [_I] * 7 + [_P],
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -33,14 +33,20 @@
 //
 // What bounds it on the card: 6 N M d flops per head for the attention and
 // 2 N d^2 for the projection (51.5 + 0.3 GFLOP at N = M = 4096, 8 heads)
-// against (3 N + 2 M) C element reads and writes: compute-bound.  bfloat16
-// runs on the tensor cores (mhada_mma.cuh: the prologue's projection, Q
-// K^T and P [V | V^2] on mma.sync with bf16 operands and float32
-// accumulators, q kept in registers); float32 keeps computing in float32,
-// as FMAs on the CUDA cores (the tile above).
-
+// against (3 N + 2 M) C element reads and writes: compute-bound.  float32
+// keeps computing in float32, as FMAs on the CUDA cores (the tile above).
+// bfloat16 runs the MHAda tile of mhada_wgmma.cuh with K3's prologue
+// (mhada_wgmma_kernel<true, kSplit>): a warp-specialised wgmma + TMA kernel,
+// a producer warpgroup keeping 64-key TMA boxes of K and V in flight and
+// squaring V into V^2, three consumer warpgroups of 64 queries each running
+// the prologue on mma.sync into q's A fragments, then S = q K^T and P [V |
+// V^2] on wgmma in turns.  Where one block a (b, h, 192-query block) would
+// leave SMs idle (B = 1: 176 blocks on 132 SMs at 512^2), each takes
+// `splits` blocks over the keys, whose float32 partials a second kernel
+// combines in a fixed order and finishes with the epilogue
+// (mhada_combine.cuh; ops/mhada_kernel.py::mhada_splits picks the count).
 #include "mhada_f32_tile.cuh"
-#include "mhada_mma.cuh"
+#include "mhada_wgmma.cuh"
 
 namespace {
 
@@ -69,34 +75,35 @@ cudaError_t mhada_prologue_f32(const void* fc, const void* fcs,
 
 // fc, fcs, out (B, N, C), k, v (B, M, C) and wf (H, 64, 64) in T; stats
 // (B, 4, C) and fb (H, 64) float32.  float32: every pointer 16-byte aligned,
-// channels a multiple of 4; bfloat16: every bf16 pointer 16-byte aligned,
-// channels a multiple of 8.
+// channels a multiple of 4, splits 1; bfloat16: every bf16 pointer 16-byte
+// aligned, channels = 64 heads, 1 <= splits <= ceil(m / 64), and with splits
+// > 1 part holds xsplit::partial_floats(splits, batch, n, 2 channels,
+// heads) float32 (16-byte aligned).
 extern "C" int mhada_mhada_prologue(const void* fc, const void* fcs,
                                     const void* stats, const void* wf,
                                     const void* fb, const void* k,
-                                    const void* v, void* out, int batch,
-                                    int n, int m, int channels, int heads,
-                                    int dtype, void* stream) {
+                                    const void* v, void* out, void* part,
+                                    int batch, int n, int m, int channels,
+                                    int heads, int splits, int dtype,
+                                    void* stream) {
   if (dtype == mhada::kF32)
-    return (int)mhada_prologue_f32(fc, fcs, stats, wf, fb, k, v, out, batch,
-                                   n, m, channels, heads,
-                                   (cudaStream_t)stream);
-  if (dtype != mhada::kBF16 ||
-      !mhada::mma_aligned({fc, fcs, wf, k, v, out}, channels))
-    return (int)cudaErrorInvalidValue;
+    return splits != 1 ? (int)cudaErrorInvalidValue
+                       : (int)mhada_prologue_f32(fc, fcs, stats, wf, fb, k, v,
+                                                 out, batch, n, m, channels,
+                                                 heads, (cudaStream_t)stream);
+  if (dtype != mhada::kBF16) return (int)cudaErrorInvalidValue;
   using bf16 = __nv_bfloat16;
-  mhada::MhadaMmaArgs a{};
+  mhada::wg::WgArgs a{};
   a.q = static_cast<const bf16*>(fc);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
   a.f = static_cast<const bf16*>(fcs);
-  a.out = static_cast<bf16*>(out);
   a.stats = static_cast<const float*>(stats);
   a.wf = static_cast<const bf16*>(wf);
   a.fb = static_cast<const float*>(fb);
+  a.out = static_cast<bf16*>(out);
   a.n = n;
   a.m = m;
   a.channels = channels;
-  return (int)mhada::launch_mhada_mma_fwd<true, false>(a, heads, batch,
-                                                       (cudaStream_t)stream);
+  return (int)mhada::wg::launch_mhada_wgmma<true>(
+      a, k, v, batch, heads, splits, static_cast<float*>(part),
+      (cudaStream_t)stream);
 }

@@ -1,7 +1,9 @@
 // P2: K3's function, the repo's probe of the MHAda tile (mhada_mhada_
 // prologue_pipe).  bfloat16 launches the warp-specialised wgmma + TMA kernel
-// of mhada_wgmma.cuh; float32 launches K3's float32 tile with a one-stage
-// ring.
+// of mhada_wgmma.cuh, never split over the keys (mhada_wgmma_kernel<true,
+// false>, K3's own tile where K3 takes one split): the control that
+// mhada_wgmma_ablate.py rebuilds piece by piece; float32 launches K3's
+// float32 tile with a one-stage ring.
 //
 // Counterpart of scripts/mhada_pipe_probe.py::_pipe_kernel (pallas_call at
 // mhada_pipe_probe.py:112), an A/B probe of the fused-prologue MHAda kernel
@@ -26,17 +28,20 @@
 #include "mhada_f32_tile.cuh"
 #include "mhada_wgmma.cuh"
 
-// As mhada_mhada_prologue (mhada_prologue.cu): fc, fcs, out (B, N, C), k,
-// v (B, M, C) and wf (H, 64, 64) in T; stats (B, 4, C) and fb (H, 64)
-// float32.  float32: every pointer 16-byte aligned, C % 4 == 0; bfloat16:
-// every bf16 pointer 16-byte aligned, C = 64 H.
+// The arguments of mhada_mhada_prologue (mhada_prologue.cu): fc, fcs, out
+// (B, N, C), k, v (B, M, C) and wf (H, 64, 64) in T; stats (B, 4, C) and
+// fb (H, 64) float32; splits must be 1 (part is not read).  float32: every
+// pointer 16-byte aligned, C % 4 == 0; bfloat16: every bf16 pointer
+// 16-byte aligned, C = 64 H.
 extern "C" int mhada_mhada_prologue_pipe(const void* fc, const void* fcs,
                                          const void* stats, const void* wf,
                                          const void* fb, const void* k,
-                                         const void* v, void* out, int batch,
-                                         int n, int m, int channels,
-                                         int heads, int dtype, void* stream) {
-  if (m < 1) return (int)cudaErrorInvalidValue;
+                                         const void* v, void* out,
+                                         void* part, int batch, int n, int m,
+                                         int channels, int heads, int splits,
+                                         int dtype, void* stream) {
+  (void)part;
+  if (m < 1 || splits != 1) return (int)cudaErrorInvalidValue;
   if (dtype == mhada::kF32) {
     mhada::f32t::F32Args a{};
     a.q = static_cast<const float*>(fc);
@@ -53,13 +58,11 @@ extern "C" int mhada_mhada_prologue_pipe(const void* fc, const void* fcs,
     return (int)mhada::f32t::launch_mhada_f32<true, 1>(a, heads, batch,
                                                       (cudaStream_t)stream);
   }
-  if (dtype != mhada::kBF16 || channels != 64 * heads ||
-      !mhada::mma_aligned({fc, fcs, wf, k, v, out}, channels))
-    return (int)cudaErrorInvalidValue;
+  if (dtype != mhada::kBF16) return (int)cudaErrorInvalidValue;
   using bf16 = __nv_bfloat16;
   mhada::wg::WgArgs a{};
-  a.fc = static_cast<const bf16*>(fc);
-  a.fcs = static_cast<const bf16*>(fcs);
+  a.q = static_cast<const bf16*>(fc);
+  a.f = static_cast<const bf16*>(fcs);
   a.stats = static_cast<const float*>(stats);
   a.wf = static_cast<const bf16*>(wf);
   a.fb = static_cast<const float*>(fb);
@@ -67,6 +70,6 @@ extern "C" int mhada_mhada_prologue_pipe(const void* fc, const void* fcs,
   a.n = n;
   a.m = m;
   a.channels = channels;
-  return (int)mhada::wg::launch_mhada_wgmma(a, k, v, batch, heads,
-                                            (cudaStream_t)stream);
+  return (int)mhada::wg::launch_mhada_wgmma<true>(
+      a, k, v, batch, heads, 1, nullptr, (cudaStream_t)stream);
 }

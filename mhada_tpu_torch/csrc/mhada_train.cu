@@ -116,8 +116,8 @@ extern "C" int mhada_mhada_train_fwd(const void* q, const void* k,
   a.n = n;
   a.m = m;
   a.channels = channels;
-  return (int)mhada::launch_mhada_mma_fwd<false, true>(a, heads, batch,
-                                                       (cudaStream_t)stream);
+  return (int)mhada::launch_mhada_mma_fwd<true>(a, heads, batch,
+                                                (cudaStream_t)stream);
 }
 
 // dm1, de2 (B, N, C) in T; lse, delta (B, heads, N) float32; dq (B, N, C),

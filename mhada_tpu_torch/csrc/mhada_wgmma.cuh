@@ -1,30 +1,40 @@
-// P2 at bf16: the MHAda tile of K3 as a warp-specialised wgmma + TMA kernel,
-// each consumer's softmax running under the other consumers' products.
+// The MHAda tile at bf16 as a warp-specialised wgmma + TMA kernel, each
+// consumer's softmax running under the other consumers' products: K3, K4
+// and the probe P2, optionally split over the keys (mhada_combine.cuh).
 //
-// Replaces, at bf16, scripts/mhada_pipe_probe.py::_pipe_kernel (pallas_call
-// at mhada_pipe_probe.py:112), the TPU probe that ordered two heads' work so
-// that one head's vector work (exp, softmax) could hide under the other's
-// matrix-unit work (mhada_pipe_probe.py:1-11).  Its function is K3's
-// (mhada_tpu/ops/mhada_pallas.py::_fused_kernel), with K3's rounding points
-// (mhada_mma.cuh, whose tile this kernel does not share): per (b, h),
+// Replaces, at bf16, mhada_tpu/ops/mhada_pallas.py::mhada_fused_prologue
+// (K3: _fused_kernel, pallas_call at mhada_pallas.py:239), which the JAX
+// AdaAttnMultiHead runs on cached style K/V (mhada_tpu/models/
+// adaformer.py:80-97), and _mhada_pallas_fwd_impl (K4: _kernel,
+// pallas_call at mhada_pallas.py:114; through K4 also the TPU's K10
+// forward without residuals, :622); and scripts/mhada_pipe_probe.py::
+// _pipe_kernel (P2, pallas_call at mhada_pipe_probe.py:112), the TPU probe
+// that ordered two heads' work so that one head's vector work could hide
+// under the other's matrix-unit work, whose function is K3's.  Per (b, h),
+// with every tensor token-major and head h at channels [h*64, (h+1)*64),
+// and the JAX kernels' rounding points (mhada_pallas.py:63-72, 182-191):
 //
-//   qn  = (fc - mean_fc) * rstd_fc              float32, rounded to bf16
-//   q   = qn Wf_h + fb_h                        float32, rounded to bf16
+//   K3, P2 (kPrologue):
+//       qn  = (fc - mean_fc) * rstd_fc              float32, rounded to bf16
+//       q   = qn Wf_h + fb_h                        float32, rounded to bf16
+//   K4: q given
 //   S   = q K^T, UNSCALED; keys >= M set to -inf
 //   P   = online softmax of S, rounded to bf16 before the product (the row
 //         sum takes P before rounding); V^2 = each bf16 squared, rounded
 //   M1  = (P V) / l,  E2 = (P V^2) / l          float32, divided after
-//   out = sqrt(max(E2 - M1^2, 1e-6)) * IN(fcs) + M1, rounded to bf16
+//   out = sqrt(max(E2 - M1^2, 1e-6)) * f + M1, rounded to bf16, with
+//         f = IN(fcs) (K3, P2: from raw fcs and the stats) or fcs_n (K4)
 //
-// ops/mhada_prologue.py::mhada_fused_prologue_plain is the plain version.
+// ops/mhada_prologue.py::mhada_fused_prologue_plain and
+// ops/mhada_kernel.py::mhada_tm_plain are the plain versions.
 //
-// Bound: 6 N M d flops per head plus 2 N d^2 for the projection (414.5
-// GFLOP at B = 8, N = M = 4096, 8 heads: 0.419 ms at the bf16 tensor-core
-// rate) against (3 N + 2 M) C bf16 values moved: operations.
+// Bound: 6 N M d flops per head (K3 and P2 add 2 N d^2 for the projection;
+// 414.5 GFLOP at B = 8, N = M = 4096, 8 heads: 0.419 ms at the bf16
+// tensor-core rate) against (3 N + 2 M) C bf16 values moved: operations.
 //
-// Design (Hopper's asynchronous units; the card's answer to the TPU
-// probe's question).  A block of four warpgroups owns kRows = 192 queries
-// of one (b, h) and streams the keys in tiles of 64:
+// Design (Hopper's asynchronous units).  A block of four warpgroups owns
+// kRows = 192 queries of one (b, h) and streams its range of keys in tiles
+// of 64:
 // - Producer (the last warpgroup, registers lowered to kProducerRegs by
 //   setmaxnreg.dec): one thread keeps TMA loads of K and V in flight, each
 //   a 64-key x 64-channel box of a 3-D tensor map (C, M, B) in the 128-byte
@@ -40,13 +50,14 @@
 //   arrival per consumer warp).
 // - Three consumers (registers raised to kConsumerRegs by setmaxnreg.inc)
 //   own 64 queries each and share every K/V tile read from L2 (two
-//   consumers are slower: probes/mhada_wgmma_ablate.py times both).  Each
-//   runs K3's prologue for its rows: fc and
-//   Wf_h by cp.async into padded tiles, fc normalised in place, q = qn Wf_h
-//   + fb_h on mma.sync (flash_mma.cuh), rounded straight into q's A
-//   fragments; q never reaches memory.  Per tile: S = q K^T by wgmma
-//   m64n64k16 (A = q from registers, B = the K tile, K-major; the first
-//   k-step writes S without reading it), O = P [V | V^2] by wgmma
+//   consumers are slower: probes/mhada_wgmma_ablate.py times both).  With
+//   kPrologue each runs K3's prologue for its rows: fc and Wf_h by
+//   cp.async into padded tiles, fc normalised in place, q = qn Wf_h + fb_h
+//   on mma.sync (flash_mma.cuh), rounded straight into q's A fragments; q
+//   never reaches memory.  Without it (K4) q's rows arrive by cp.async in
+//   the same padded tile and its A fragments by ldmatrix.  Per tile: S = q
+//   K^T by wgmma m64n64k16 (A = q from registers, B = the K tile, K-major;
+//   the first k-step writes S without reading it), O = P [V | V^2] by wgmma
 //   m64n128k16 (A = P from registers: the m64nN accumulator of S is, per
 //   warp, the m16n8k16 accumulator layout, so its bf16 pairs are P's A
 //   fragments; B = V and V^2 as one MN-major operand, the two tiles
@@ -57,27 +68,40 @@
 //   products do.  Within a consumer, turn j issues tile j's S and tile
 //   j - 1's P V and runs tile j's softmax after wgmma.wait_group 1; but
 //   ptxas places the wait for P V at the start of the softmax, before its
-//   row maximum, so the exps run after it (SASS of this build).  A register that a product
-//   reads (P's A fragments, S, O) is written only between a wait and the
-//   next wgmma.fence, and S's first k-step does not read S: otherwise
-//   ptxas serialises every product (C7513).
-// - The epilogue is K3's: divide by the row sum, IN(fcs) from raw fcs and
-//   the stats, clamp the variance, bf16 pairs to the output.  The raw fcs
-//   rows and the stats land by cp.async in the prologue's tiles during the
-//   key loop.
+//   row maximum, so the exps run after it (SASS of P2's build).  A register
+//   that a product reads (P's A fragments, S, O) is written only between a
+//   wait and the next wgmma.fence, and S's first k-step does not read S:
+//   otherwise ptxas serialises every product (C7513).
+// - Unsplit, the epilogue divides by the row sum, takes f (K3: IN(fcs)
+//   from raw fcs and the stats; K4: fcs_n), clamps the variance and writes
+//   bf16 pairs; f's rows (and K3's stats) land by cp.async in the
+//   prologue's tiles during the key loop.
+// - Split over the keys (kSplit): at B = 1 a grid of one block a (b, h,
+//   query block) leaves SMs idle (512^2: 176 blocks on 132 SMs, a second
+//   wave a third full; an SP rank's 1024 queries: 48 blocks), and a
+//   partial wave costs a full one.  So each (b, h, query block) takes
+//   `splits` blocks, each walking one contiguous range of whole 64-key
+//   tiles (blockIdx.x = split x query blocks + query block) and writing
+//   float32 partials for its rows (m in log2 units, l, unnormalised O1 and
+//   O2); P is rounded against the split's own running maximum.
+//   mhada_combine.cuh's kernel, launched by the same entry on the same
+//   stream, combines them in a fixed order and applies the epilogue.
+//   ops/mhada_kernel.py::mhada_splits picks the count.
 //
 // Registers: 3 x 128 x kConsumerRegs + 128 x kProducerRegs = 65,536, the
 // block's allocation at 128 a thread (__launch_bounds__(512, 1)).  Shared
-// memory: the ring, three fc and three Wf_h tiles, the barriers: 155 KB,
-// one block an SM.
+// memory: the ring, three q (fc) and three Wf_h tiles, the barriers:
+// 155 KB, one block an SM: 132 block slots on an H100.
 #pragma once
 
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_combine.cuh"
 #include "common.cuh"
 #include "flash_mma.cuh"
 #include "hopper_async.cuh"
+#include "mhada_combine.cuh"
 
 namespace mhada {
 namespace wg {
@@ -98,7 +122,7 @@ static_assert(kConsumers * 128 * kConsumerRegs + 128 * kProducerRegs <=
                   65536 / kThreads / 8 * 8 * kThreads,
               "setmaxnreg must stay within the block's allocation");
 // Byte offsets from the 1024-aligned base of shared memory.
-constexpr int kFcOff = kStages * kStageBytes;   // per consumer: fc tile
+constexpr int kFcOff = kStages * kStageBytes;   // per consumer: q (fc) tile
 constexpr int kWfOff = kFcOff + kConsumers * mma::kMmaTileBytes;
 constexpr int kBarOff = kWfOff + kConsumers * mma::kMmaTileBytes;
 constexpr size_t kSmemBytes = kBarOff + 3 * kStages * 8 + 1024;
@@ -107,11 +131,12 @@ constexpr size_t kSmemBytes = kBarOff + 3 * kStages * 8 + 1024;
 constexpr int kBarOwn = 1, kBarTurn = 1 + kConsumers;
 
 struct WgArgs {
-  const bf16* fc;        // (B, N, C) raw
-  const bf16* fcs;       // (B, N, C) raw
-  const float* stats;    // (B, 4, C): mean_fc, rstd_fc, mean_fcs, rstd_fcs
-  const bf16* wf;        // (heads, 64, 64) as (in, out)
-  const float* fb;       // (heads, 64)
+  const bf16* q;         // K3, P2: raw fc; K4: q (B, N, C)
+  const bf16* f;         // K3, P2: raw fcs; K4: fcs_n (B, N, C)
+  const float* stats;    // K3, P2: (B, 4, C): mean_fc, rstd_fc, mean_fcs,
+                         // rstd_fcs
+  const bf16* wf;        // K3, P2: (heads, 64, 64) as (in, out)
+  const float* fb;       // K3, P2: (heads, 64)
   bf16* out;             // (B, N, C)
   int n, m, channels;
 };
@@ -153,9 +178,13 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "n"(kTransB));
 }
 
+// part: kSplit's partials (attention_combine.cuh's layout with channels =
+// 2 C; see mhada_combine.cuh); unsplit, part.splits = 1 and it is unused.
+template <bool kPrologue, bool kSplit>
 __global__ void __launch_bounds__(kThreads, 1)
     mhada_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
-                       const __grid_constant__ CUtensorMap vmap, WgArgs a) {
+                       const __grid_constant__ CUtensorMap vmap, WgArgs a,
+                       xsplit::Partials part) {
   using namespace mma;
   extern __shared__ unsigned char smem_raw[];
   // The 128-byte swizzle repeats every 1024 bytes: align the base to it.
@@ -172,7 +201,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int role = warp / 4;   // a consumer below kConsumers, or the producer
   const int h = blockIdx.y, b = blockIdx.z;
   const int N = a.n, M = a.m, C = a.channels;
-  const int ntiles = (M + 63) / 64;
+  // This block's query block and its split's key tiles [t0, t0 + ntiles).
+  const int qblocks = (N + kRows - 1) / kRows;
+  const int split = kSplit ? blockIdx.x / qblocks : 0;
+  const int qb = kSplit ? blockIdx.x % qblocks : blockIdx.x;
+  const int tiles = (M + 63) / 64;
+  const int t0 = kSplit ? xsplit::split_first(split, part.splits, tiles) : 0;
+  const int ntiles =
+      kSplit ? xsplit::split_first(split + 1, part.splits, tiles) - t0
+             : tiles;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -195,8 +232,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (j >= kStages) mbar_wait(empty(s), ((j / kStages) & 1) ^ 1);
           const uint32_t kt = base + s * kStageBytes;
           mbar_expect_tx(landed(s), 2 * kTileBytes);
-          tma_load_3d(kt, &kmap, landed(s), h * 64, j * 64, b);
-          tma_load_3d(kt + kTileBytes, &vmap, landed(s), h * 64, j * 64, b);
+          tma_load_3d(kt, &kmap, landed(s), h * 64, (t0 + j) * 64, b);
+          tma_load_3d(kt + kTileBytes, &vmap, landed(s), h * 64,
+                      (t0 + j) * 64, b);
         }
       }
     } else {
@@ -237,50 +275,51 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
     const int tid = threadIdx.x % 128, w = warp % 4;
     const int g = lane / 4, t = lane % 4;
-    const int q0 = blockIdx.x * kRows + role * 64;
+    const int q0 = qb * kRows + role * 64;
     const int hoff = h * 64;
     bf16* qs = reinterpret_cast<bf16*>(smem + kFcOff) + role * kMmaTileElems;
     bf16* ws = reinterpret_cast<bf16*>(smem + kWfOff) + role * kMmaTileElems;
-    const bf16* fcb = a.fc + static_cast<long long>(b) * N * C + hoff;
+    const bf16* qbase = a.q + static_cast<long long>(b) * N * C + hoff;
     const float* mean = a.stats + static_cast<long long>(b) * 4 * C + hoff;
     const float* rstd = mean + C;
 
-    // K3's prologue: the raw fc rows (rows past N zero) and Wf_h.
+    // The q rows (K3: raw fc; rows past N zero) and K3's Wf_h.
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int i = tid + 128 * j;
       const int r = i / 8, c = (i % 8) * 8;
       const bool valid = q0 + r < N;
       cp_async_16(smem_addr(qs + r * kMmaStride + c),
-                  fcb + (valid ? static_cast<long long>(q0 + r) * C + c : 0),
+                  qbase + (valid ? static_cast<long long>(q0 + r) * C + c : 0),
                   valid);
-      cp_async_16(smem_addr(ws + r * kMmaStride + c),
-                  a.wf + hoff * 64 + r * 64 + c, true);
+      if (kPrologue)
+        cp_async_16(smem_addr(ws + r * kMmaStride + c),
+                    a.wf + hoff * 64 + r * 64 + c, true);
     }
     cp_async_commit();
     cp_async_wait<0>();
     named_sync(kBarOwn + role, 128);
-    // qn = (fc - mean_fc) * rstd_fc in float32, rounded to bf16 in place
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = tid + 128 * j;
-      const int r = i / 8, c = (i % 8) * 8;
-      uint4* p = reinterpret_cast<uint4*>(qs + r * kMmaStride + c);
-      uint4 chunk = *p;
-      __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&chunk);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 raw = __bfloat1622float2(x[e]);
-        const int ch = c + 2 * e;
-        x[e] = __floats2bfloat162_rn((raw.x - mean[ch]) * rstd[ch],
-                                     (raw.y - mean[ch + 1]) * rstd[ch + 1]);
-      }
-      *p = chunk;
-    }
-    named_sync(kBarOwn + role, 128);
-    // q = qn Wf_h + fb_h in float32, rounded to bf16 into q's A fragments
     uint32_t qf[4][4];
-    {
+    if constexpr (kPrologue) {
+      // qn = (fc - mean_fc) * rstd_fc in float32, rounded to bf16 in place
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = tid + 128 * j;
+        const int r = i / 8, c = (i % 8) * 8;
+        uint4* p = reinterpret_cast<uint4*>(qs + r * kMmaStride + c);
+        uint4 chunk = *p;
+        __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&chunk);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 raw = __bfloat1622float2(x[e]);
+          const int ch = c + 2 * e;
+          x[e] = __floats2bfloat162_rn((raw.x - mean[ch]) * rstd[ch],
+                                       (raw.y - mean[ch + 1]) * rstd[ch + 1]);
+        }
+        *p = chunk;
+      }
+      named_sync(kBarOwn + role, 128);
+      // q = qn Wf_h + fb_h in float32, rounded to bf16 into q's A fragments
       uint32_t xf[4][4];
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
@@ -311,28 +350,36 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         acc_to_a(qf[kk], acc[2 * kk], acc[2 * kk + 1]);
-    }
-    // The epilogue's inputs land during the key loop: the raw fcs rows into
-    // the fc tile, mean_fcs and rstd_fcs of the head into Wf_h's tile, once
-    // every warp of the consumer has read both.
-    named_sync(kBarOwn + role, 128);
-    const bf16* fcsb = a.fcs + static_cast<long long>(b) * N * C + hoff;
-    float* fstat = reinterpret_cast<float*>(ws);   // [mean 64][rstd 64]
+    } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = tid + 128 * j;
-      const int r = i / 8, c = (i % 8) * 8;
-      const bool valid = q0 + r < N;
-      cp_async_16(smem_addr(qs + r * kMmaStride + c),
-                  fcsb + (valid ? static_cast<long long>(q0 + r) * C + c : 0),
-                  valid);
+      for (int kk = 0; kk < 4; ++kk)
+        ldmatrix_x4(qf[kk], a_addr(qs, w * 16, kk * 16));
     }
-    if (tid < 32) {   // mean_fcs (threads 0-15), then rstd_fcs, 4 floats each
-      const int half = tid / 16, q = 4 * (tid % 16);
-      cp_async_16(smem_addr(fstat + 64 * half + q), mean + (2 + half) * C + q,
-                  true);
+    // Unsplit, the epilogue's inputs land during the key loop: f's rows
+    // (K3: raw fcs; K4: fcs_n) into the q tile and K3's mean_fcs and
+    // rstd_fcs of the head into Wf_h's tile, once every warp of the
+    // consumer has read both.
+    float* fstat = reinterpret_cast<float*>(ws);   // [mean 64][rstd 64]
+    if constexpr (!kSplit) {
+      named_sync(kBarOwn + role, 128);
+      const bf16* fbase = a.f + static_cast<long long>(b) * N * C + hoff;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = tid + 128 * j;
+        const int r = i / 8, c = (i % 8) * 8;
+        const bool valid = q0 + r < N;
+        cp_async_16(
+            smem_addr(qs + r * kMmaStride + c),
+            fbase + (valid ? static_cast<long long>(q0 + r) * C + c : 0),
+            valid);
+      }
+      if (kPrologue && tid < 32) {   // mean_fcs (threads 0-15), then
+        const int half = tid / 16, q = 4 * (tid % 16);   // rstd_fcs
+        cp_async_16(smem_addr(fstat + 64 * half + q),
+                    mean + (2 + half) * C + q, true);
+      }
+      cp_async_commit();
     }
-    cp_async_commit();
 
     // S: element e of n8 tile n is s[4 n + e], row g + 8 (e / 2) of the
     // warp's 16, key 8 n + 2 t + e % 2.  O: n8 tiles 0-7 are M1's channels
@@ -361,18 +408,19 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_m64n128k16_rs<1>(
             o, p[kk], sw128_desc(vt + 2048 * kk, kTileBytes, 1024), 1);
     };
-    // Online softmax of tile j's scores: s becomes P (float32); alpha is
-    // the factor by which O must be rescaled before P V is added.  The row
-    // maximum is kept unscaled; exponents in log2 units, one FFMA each.
-    // Only the last tile can hold keys past M: the others skip the mask.
+    // Online softmax of walk tile j's scores: s becomes P (float32); alpha
+    // is the factor by which O must be rescaled before P V is added.  The
+    // row maximum is kept unscaled; exponents in log2 units, one FFMA each.
+    // Only the ragged last tile of the keys can hold keys past M: the
+    // others skip the mask.
     auto softmax = [&](int j, float (&alpha)[2]) {
-      const bool ragged = 64 * (j + 1) > M;
+      const int k0 = 64 * (t0 + j);
+      const bool ragged = k0 + 64 > M;
       float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
       if (ragged) {
 #pragma unroll
         for (int i = 0; i < 32; ++i)
-          if (64 * j + 8 * (i / 4) + 2 * t + (i % 2) >= M) s[i] = -INFINITY;
+          if (k0 + 8 * (i / 4) + 2 * t + (i % 2) >= M) s[i] = -INFINITY;
       }
 #pragma unroll
       for (int i = 0; i < 32; ++i)
@@ -380,7 +428,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       float mb[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        // finite: key 64 j < M is in every tile
+        // finite: key k0 < M is in every tile
         const float m_new = fmaxf(mrow[r], quad_max(mx[r]));
         alpha[r] = exp2_ftz((mrow[r] - m_new) * kLog2e);
         mrow[r] = m_new;
@@ -476,52 +524,95 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(o);
     release(sl);
 
-    // Epilogue (K3's): element 2 r + (0, 1) of n8 tile n is row g + 8 r,
+    // Epilogue: element 2 r + (0, 1) of n8 tile n is row g + 8 r,
     // channels 8 n + 2 t and 8 n + 2 t + 1.
-    cp_async_wait<0>();   // fcs and its stats, for every thread
-    named_sync(kBarOwn + role, 128);
+    if constexpr (kSplit) {
+      // the float32 partials: O1 and O2 unnormalised, m in log2 units
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q0 + w * 16 + g + 8 * r;
-      const float l = quad_sum(lrow[r]);
-      if (row >= N) continue;
-      const bf16* frow = qs + (w * 16 + g + 8 * r) * kMmaStride;
-      bf16* orow = a.out + (static_cast<long long>(b) * N + row) * C + hoff;
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + w * 16 + g + 8 * r;
+        const float l = quad_sum(lrow[r]);
+        if (row >= N) continue;
+        float* orow = part.o(split, b, row) + hoff;   // O1; O2 C further
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float m1x = o[4 * n + 2 * r] / l, m1y = o[4 * n + 2 * r + 1] / l;
-        const float e2x = o[32 + 4 * n + 2 * r] / l;
-        const float e2y = o[32 + 4 * n + 2 * r + 1] / l;
-        const int ch = 8 * n + 2 * t;
-        float2 f = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(frow + ch));
-        f.x = (f.x - fstat[ch]) * fstat[64 + ch];
-        f.y = (f.y - fstat[ch + 1]) * fstat[64 + ch + 1];
-        // E2 - M1^2 cancels: both stay float32 until the clamp.
-        const float sdx = sqrtf(fmaxf(e2x - m1x * m1x, 1e-6f));
-        const float sdy = sqrtf(fmaxf(e2y - m1y * m1y, 1e-6f));
-        *reinterpret_cast<uint32_t*>(orow + ch) =
-            pack_bf16(sdx * f.x + m1x, sdy * f.y + m1y);
+        for (int n = 0; n < 8; ++n) {
+          *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) =
+              make_float2(o[4 * n + 2 * r], o[4 * n + 2 * r + 1]);
+          *reinterpret_cast<float2*>(orow + C + 8 * n + 2 * t) =
+              make_float2(o[32 + 4 * n + 2 * r], o[32 + 4 * n + 2 * r + 1]);
+        }
+        if (t == 0) {
+          const long long at = part.stat(split, b, h, row);
+          part.m()[at] = mrow[r] * kLog2e;
+          part.l()[at] = l;
+        }
+      }
+    } else {
+      cp_async_wait<0>();   // f (and K3's stats), for every thread
+      named_sync(kBarOwn + role, 128);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + w * 16 + g + 8 * r;
+        const float l = quad_sum(lrow[r]);
+        if (row >= N) continue;
+        const bf16* frow = qs + (w * 16 + g + 8 * r) * kMmaStride;
+        bf16* orow = a.out + (static_cast<long long>(b) * N + row) * C + hoff;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float m1x = o[4 * n + 2 * r] / l;
+          const float m1y = o[4 * n + 2 * r + 1] / l;
+          const float e2x = o[32 + 4 * n + 2 * r] / l;
+          const float e2y = o[32 + 4 * n + 2 * r + 1] / l;
+          const int ch = 8 * n + 2 * t;
+          float2 f = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(frow + ch));
+          if (kPrologue) {   // IN(fcs) from raw fcs and the stats
+            f.x = (f.x - fstat[ch]) * fstat[64 + ch];
+            f.y = (f.y - fstat[ch + 1]) * fstat[64 + ch + 1];
+          }
+          // E2 - M1^2 cancels: both stay float32 until the clamp.
+          const float sdx = sqrtf(fmaxf(e2x - m1x * m1x, 1e-6f));
+          const float sdy = sqrtf(fmaxf(e2y - m1y * m1y, 1e-6f));
+          *reinterpret_cast<uint32_t*>(orow + ch) =
+              pack_bf16(sdx * f.x + m1x, sdy * f.y + m1y);
+        }
       }
     }
   }
 }
 
-// k, v (B, M, C); every pointer 16-byte aligned, C % 8 == 0, C = 64 heads.
+// k, v (B, M, C); every pointer 16-byte aligned, C = 64 heads; 1 <= splits
+// <= ceil(M / 64).  splits > 1: the split tile into `part`, which holds
+// xsplit::partial_floats(splits, batch, n, 2 C, heads) floats (16-byte
+// aligned), then the combine into a.out on the same stream.
+template <bool kPrologue>
 inline cudaError_t launch_mhada_wgmma(const WgArgs& a, const void* k,
                                       const void* v, int batch, int heads,
+                                      int splits, float* part,
                                       cudaStream_t stream) {
+  const int tiles = (a.m + 63) / 64;
+  if (a.n < 1 || a.m < 1 || splits < 1 || splits > tiles ||
+      a.channels != 64 * heads ||
+      !mma_aligned({a.q, a.f, a.out, k, v}, a.channels) ||
+      (kPrologue && !mma_aligned({a.wf}, a.channels)) ||
+      (splits > 1 && (part == nullptr || !mma_aligned({part}, 8))))
+    return cudaErrorInvalidValue;
   CUtensorMap kmap, vmap;
   if (!kv_tensor_map(&kmap, k, batch, a.m, a.channels, a.channels) ||
       !kv_tensor_map(&vmap, v, batch, a.m, a.channels, a.channels))
     return cudaErrorInvalidValue;
+  const xsplit::Partials p{part, splits, batch, a.n, 2 * a.channels, heads};
+  const dim3 grid((a.n + kRows - 1) / kRows * splits, heads, batch);
+  auto* kernel = splits > 1 ? mhada_wgmma_kernel<kPrologue, true>
+                            : mhada_wgmma_kernel<kPrologue, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      mhada_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.n + kRows - 1) / kRows, heads, batch);
-  mhada_wgmma_kernel<<<grid, kThreads, kSmemBytes, stream>>>(kmap, vmap, a);
-  return cudaGetLastError();
+  kernel<<<grid, kThreads, kSmemBytes, stream>>>(kmap, vmap, a, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  return launch_mhada_combine<kPrologue>(p, a.f, a.stats, a.out, stream);
 }
 
 }  // namespace wg

@@ -15,7 +15,8 @@ would leave block slots of the card idle, the kernel splits the keys over
 ``cross_splits`` blocks, each writing float32 partials (row max, row sum,
 unnormalised output) that a second kernel of the same C entry combines in a
 fixed order (csrc/attention_combine.cuh; ``combine_partials`` is that
-combine in plain PyTorch).
+combine in plain PyTorch; the count's cost model is ops/key_split.py's,
+shared with the MHAda tile).
 """
 
 import functools
@@ -25,6 +26,10 @@ import torch
 
 from .. import _build
 from ..config import use_kernel
+# MAX_SPLITS and split_partials are the cross form's too (its callers and
+# tests import them from here)
+from .key_split import (KEY_TILE, MAX_SPLITS, check_splits,  # noqa: F401
+                        pick_splits, sm_count, split_partials)
 from .mhada_kernel import ALIGNED
 
 HEAD_DIM = 64
@@ -93,11 +98,8 @@ def attention_cross_plain(q: torch.Tensor, kv: torch.Tensor, num_heads: int,
 # queries, 254 registers, ~12 us a tile on an H100), bf16
 # attention_wgmma_kernel (3 consumer warpgroups of 64 queries, 512 threads
 # at 128 registers, ~1 us a tile); fitted to probes/cross_split_sweep.py's
-# device times.  The key tile, the most splits, and the combine's cost.
+# device times.
 CROSS_BLOCKS = {torch.float32: (256, 1, 1.0), torch.bfloat16: (192, 1, 3.0)}
-KEY_TILE = 64
-MAX_SPLITS = 8
-COMBINE_TILES = 1.0
 
 
 @functools.cache
@@ -106,50 +108,19 @@ def cross_splits(batch: int, heads: int, n: int, m: int,
     """How many blocks K1's cross form gives each (batch, head, query
     block): each walks one contiguous range of whole 64-key tiles.
 
-    A wave of ``sms`` x (blocks an SM) block slots takes as long as its
-    longest block, so a grid of B x heads x query blocks that leaves slots
-    idle (B = 1, 8 heads, 1024 queries: 32 f32 blocks of 132 slots) costs a
-    whole key walk in one partial wave.  The count s of 1 .. min(tiles,
-    MAX_SPLITS) minimising waves(s) x (ceil(tiles / s) + the block's
-    overhead) + COMBINE_TILES (s > 1) is the one whose blocks come closest
-    to whole waves, weighed by what each block costs besides its keys;
-    ties go to the fewer splits.  So every split holds at least one key
-    tile, and a grid of whole waves keeps 1.  On an H100 (132 SMs), B = 1,
-    8 heads, it gives float32 4 at 1024 x 4096, 2 at 2048 x 4096, 1 at
-    4096 x 16384, and bfloat16 5, 3 and 3: at each the count fastest on
-    the device in probes/cross_split_sweep.py's sweep of 1 .. 8, or within
-    4 % of it (an H100 80GB HBM3 at 700 W: bf16 at 1024 x 4096, 2 splits
-    0.0375 ms against 5's 0.0388 in one run, 5 ahead in two others)."""
+    ``key_split.pick_splits`` at this form's geometry (CROSS_BLOCKS) on a
+    grid of B x heads x query blocks and ``sms`` x (blocks an SM) slots: a
+    grid that leaves slots idle (B = 1, 8 heads, 1024 queries: 32 f32
+    blocks of 132 slots) costs a whole key walk in one partial wave.  On an
+    H100 (132 SMs), B = 1, 8 heads, it gives float32 4 at 1024 x 4096, 2 at
+    2048 x 4096, 1 at 4096 x 16384, and bfloat16 5, 3 and 3: at each the
+    count fastest on the device in probes/cross_split_sweep.py's sweep of 1
+    .. 8, or within 4 % of it (an H100 80GB HBM3 at 700 W: bf16 at 1024 x
+    4096, 2 splits 0.0375 ms against 5's 0.0388 in one run, 5 ahead in two
+    others)."""
     rows, per_sm, overhead = CROSS_BLOCKS[dtype]
-    blocks = batch * heads * -(-n // rows)
-    slots = sms * per_sm
-    tiles = -(-m // KEY_TILE)
-
-    def cost(s):
-        waves = -(-blocks * s // slots)
-        return (waves * (-(-tiles // s) + overhead)
-                + (COMBINE_TILES if s > 1 else 0.0))
-
-    return min(range(1, min(tiles, MAX_SPLITS) + 1),
-               key=lambda s: (cost(s), s))
-
-
-@functools.cache
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def split_partials(part: torch.Tensor, splits: int, batch: int, n: int,
-                   channels: int, heads: int):
-    """Views of the cross form's float32 partials buffer -> (O (splits, B,
-    N, C) unnormalised, m (splits, B, heads, N) the row max in log2 units,
-    l (splits, B, heads, N) the row sum), the layout of
-    csrc/attention_combine.cuh::Partials."""
-    no = splits * batch * n * channels
-    ns = splits * batch * heads * n
-    return (part[:no].view(splits, batch, n, channels),
-            part[no:no + ns].view(splits, batch, heads, n),
-            part[no + ns:no + 2 * ns].view(splits, batch, heads, n))
+    return pick_splits(batch * heads * -(-n // rows), -(-m // KEY_TILE),
+                       sms * per_sm, overhead)
 
 
 def combine_partials(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
@@ -189,10 +160,7 @@ def attention_cross(q: torch.Tensor, kv: torch.Tensor, num_heads: int,
     form for CUDA tensors.  ``q`` may be a column slice of the packed qkv.
     ``splits`` forces the kernel's split over the keys (1 .. ceil(M / 64));
     by default ``cross_splits`` picks it.  Forward-only, as K1."""
-    if splits is not None and not 1 <= splits <= -(-kv.shape[1] // KEY_TILE):
-        raise ValueError(f"attention_cross: {splits} splits of "
-                         f"{kv.shape[1]} keys leave a split without a "
-                         f"{KEY_TILE}-key tile")
+    check_splits("attention_cross", splits, kv.shape[1])
     if not use_kernel(backend, q):
         return attention_cross_plain(q, kv, num_heads, scale)
     return _cross_launch(q, kv, num_heads, scale, splits)[0]
@@ -222,7 +190,7 @@ def _cross_launch(q: torch.Tensor, kv: torch.Tensor, num_heads: int,
     scale = 1.0 / math.sqrt(HEAD_DIM) if scale is None else scale
     if splits is None:
         splits = cross_splits(b, num_heads, n, m, q.dtype,
-                              _sms(q.device.index or 0))
+                              sm_count(q.device.index or 0))
     out = torch.empty((b, n, c), device=q.device, dtype=q.dtype)
     part = None
     if splits > 1:

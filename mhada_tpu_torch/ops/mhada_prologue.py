@@ -2,19 +2,23 @@
 the Q projection fused in (csrc/mhada_prologue.cu).
 
 Port of mhada_tpu/ops/mhada_pallas.py::mhada_fused_prologue.  At bfloat16
-the kernel runs on the tensor cores; at float32 it computes in float32 on
-the CUDA cores (csrc/mhada_f32_tile.cuh).  Both raise on a tensor that is
-not 16-byte aligned.  The plain version follows its ``_fused_kernel``
-(mhada_pallas.py:143-198) step by step, with its rounding points, for all
-heads at once.  Everything stays token-major: head h is the channel slice
-[h*64, (h+1)*64) of fc, fcs, k, v and the output.
+the kernel runs on the tensor cores (the warp-specialised wgmma + TMA MHAda
+tile of csrc/mhada_wgmma.cuh with the prologue, split over the keys by
+``mhada_kernel.mhada_splits`` where the grid leaves block slots idle); at
+float32 it computes in float32 on the CUDA cores (csrc/mhada_f32_tile.cuh).
+Both raise on a tensor that is not 16-byte aligned.  The plain version
+follows its ``_fused_kernel`` (mhada_pallas.py:143-198) step by step, with
+its rounding points, for all heads at once.  Everything stays token-major:
+head h is the channel slice [h*64, (h+1)*64) of fc, fcs, k, v and the
+output.
 """
 
 import torch
 
 from .. import _build
 from ..config import use_kernel
-from .mhada_kernel import ALIGNED, HEAD_DIM, _heads, mhada_softmax_plain
+from .mhada_kernel import (ALIGNED, HEAD_DIM, _heads, mhada_partials,
+                           mhada_softmax_plain)
 
 
 def mhada_fused_prologue_plain(fc, fcs, stats, wf, fb, k, v) -> torch.Tensor:
@@ -54,13 +58,17 @@ def mhada_fused_prologue(fc: torch.Tensor, fcs: torch.Tensor,
         "block in training mode (unfused projections and K7)",
         fc, fcs, stats, wf, fb, k, v)
     return launch_prologue("mhada_mhada_prologue", fc, fcs, stats, wf, fb, k,
-                           v)
+                           v)[0]
 
 
-def launch_prologue(entry: str, fc, fcs, stats, wf, fb, k, v) -> torch.Tensor:
+def launch_prologue(entry: str, fc, fcs, stats, wf, fb, k, v,
+                    splits: int | None = None):
     """Check the inputs and launch C entry point ``entry``, K3
     (``mhada_mhada_prologue``) or the probe P2 of the same function and
-    arguments (``mhada_mhada_prologue_pipe``)."""
+    arguments (``mhada_mhada_prologue_pipe``, which takes 1 split only),
+    split over the keys as ``mhada_partials`` says (``splits`` forces the
+    count, 1 .. ceil(M / 64)) -> (out, the float32 partials buffer or None
+    when unsplit)."""
     if fc.dim() != 3 or fcs.shape != fc.shape or k.dim() != 3 \
             or v.shape != k.shape or k.shape[0] != fc.shape[0] \
             or k.shape[2] != fc.shape[2] \
@@ -72,6 +80,7 @@ def launch_prologue(entry: str, fc, fcs, stats, wf, fb, k, v) -> torch.Tensor:
             f"{tuple(wf.shape)} fb {tuple(fb.shape)} k {tuple(k.shape)} "
             f"v {tuple(v.shape)}")
     b, n, c = fc.shape
+    m = k.shape[1]
     heads = wf.shape[0]
     if wf.shape[1:] != (HEAD_DIM, HEAD_DIM) or heads * HEAD_DIM != c:
         raise ValueError(f"mhada_fused_prologue: the kernel takes {c // 64} "
@@ -83,11 +92,13 @@ def launch_prologue(entry: str, fc, fcs, stats, wf, fb, k, v) -> torch.Tensor:
     if f32[0].device != fc.device:
         raise ValueError("mhada_fused_prologue: all tensors must be on one "
                          "CUDA device")
+    splits, part = mhada_partials("mhada_fused_prologue", splits, fc, m,
+                                  heads)
     out = torch.empty_like(fc)
     # at float32 the float32 operands are copied 16 bytes at a time too
-    _build.check_aligned("mhada_fused_prologue", fc, fcs, k, v, wt, out,
+    _build.check_aligned("mhada_fused_prologue", fc, fcs, k, v, wt, out, part,
                          *(f32 if fc.dtype == torch.float32 else ()),
                          dtypes=ALIGNED)
     _build.launch(entry, fc.device, fc, fcs, f32[0], wt, f32[1], k, v, out,
-                  b, n, k.shape[1], c, heads, _build.dtype_code(fc))
-    return out
+                  part, b, n, m, c, heads, splits, _build.dtype_code(fc))
+    return out, part

@@ -5,10 +5,12 @@ Counterpart of scripts/mhada_pipe_probe.py, which A/B-tested a
 software-pipelined variant of the fused-prologue MHAda kernel
 (``_pipe_kernel``) against the one in use.  The function is K3's, so its
 plain version is ``ops.mhada_prologue.mhada_fused_prologue_plain``.  At
-bfloat16 P2 is a warp-specialised wgmma + TMA kernel (csrc/mhada_wgmma.cuh;
-K3 runs mma.sync behind a cp.async ring); at float32 it is K3's float32
-tile (csrc/mhada_f32_tile.cuh) with a one-stage ring, each key tile waited
-for before it is computed, so the pair times what K3's second stage buys.
+bfloat16 P2 is the warp-specialised wgmma + TMA tile (csrc/mhada_wgmma.cuh)
+never split over the keys, which K3 also runs (split where its grid leaves
+SMs idle; at this shape K3 takes one split, so the two are one kernel); at
+float32 it is K3's float32 tile (csrc/mhada_f32_tile.cuh) with a one-stage
+ring, each key tile waited for before it is computed, so the pair times
+what K3's second stage buys.
 
     python -m mhada_tpu_torch.probes.mhada_pipe_probe [--iters 30]
 
@@ -68,7 +70,7 @@ def mhada_fused_prologue_pipe(fc, fcs, stats, wf, fb, k, v,
         raise ValueError("mhada_fused_prologue_pipe: k and v must be 16-byte "
                          "aligned")
     return launch_prologue("mhada_mhada_prologue_pipe", fc, fcs, stats, wf,
-                           fb, k, v)
+                           fb, k, v, splits=1)[0]
 
 
 def probe_inputs(b, n, m, c, heads, dtype, device, seed=0):

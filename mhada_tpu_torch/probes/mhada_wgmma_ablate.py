@@ -34,7 +34,7 @@ from .mhada_pipe_probe import SHAPE, probe_inputs
 
 HEADER = "mhada_wgmma.cuh"
 ENTRY = "mhada_mhada_prologue_pipe"
-_SOFTMAX_HEAD = ("      const bool ragged = 64 * (j + 1) > M;\n"
+_SOFTMAX_HEAD = ("      const bool ragged = k0 + 64 > M;\n"
                  "      float mx[2]")
 # variant -> [(text in the header, its replacement)]
 VARIANTS = {
@@ -54,10 +54,10 @@ VARIANTS = {
     # the key mask on every tile, not only on the ragged last one
     "mask every tile": [("      if (ragged) {\n#pragma unroll\n"
                          "        for (int i = 0; i < 32; ++i)\n"
-                         "          if (64 * j",
+                         "          if (k0",
                          "      {\n#pragma unroll\n"
                          "        for (int i = 0; i < 32; ++i)\n"
-                         "          if (ragged && 64 * j")],
+                         "          if (ragged && k0")],
     # O rescaled every tile, also when no row maximum of the warp moved
     "always rescale": [("__any_sync(0xffffffffu, alpha[0] != 1.f || "
                         "alpha[1] != 1.f)", "true")],
@@ -84,7 +84,7 @@ def ptxas_notes(log: str) -> dict:
     kernel = False
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            kernel = "mhada_wgmma_kernel" in ln
+            kernel = "mhada_wgmma_kernelILb1ELb0E" in ln   # P2's
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if kernel and m:
             notes["spill_bytes"] = int(m[1]) + int(m[2])
@@ -143,8 +143,8 @@ def main(argv=None) -> None:
             stream = torch.cuda.current_stream(device).cuda_stream
             err = fn(fc.data_ptr(), fcs.data_ptr(), stats.data_ptr(),
                      wt.data_ptr(), fbf.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), out.data_ptr(), b, n, n, c, heads,
-                     _build.DTYPE_CODES[torch.bfloat16], stream)
+                     v.data_ptr(), out.data_ptr(), None, b, n, n, c, heads,
+                     1, _build.DTYPE_CODES[torch.bfloat16], stream)
             if err:
                 raise RuntimeError(f"{ENTRY} failed: CUDA error {err}")
 
@@ -163,7 +163,8 @@ def main(argv=None) -> None:
             rows[name]["rel_err_vs_k3"] = ((out.float() - k3).abs().max()
                                            / k3.abs().max()).item()
             rows[name].update(notes)
-        rows["K3"] = {"variant": "K3 (csrc/mhada_mma.cuh)", "ms": []}
+        rows["K3"] = {"variant": "K3 (the same tile, split as "
+                                 "mhada_splits picks)", "ms": []}
         for order in (list(built), list(built)[::-1]):
             for name in order:
                 rows[name].setdefault("ms", []).append(

@@ -1,8 +1,10 @@
-"""P1, K14, K13, the float32 tail and K1 against another checkout's builds
-of them, on one card, in turns: the time a redesign saves (or a change of
-a kernel's arguments costs), measured in one call.
+"""P1, K14, K13, the float32 tail, K1, K3, K4 and the bf16 frames against
+another checkout's builds of them, on one card, in turns: the time a
+redesign saves (or a change of a kernel's arguments costs), measured in one
+call.
 
     python -m mhada_tpu_torch.probes.redesign_ab --other DIR [--rounds 2]
+        [--groups P1 K14 K13 tail K1 K1x mhada frames]
 
 DIR is the root of another checkout of the repository (for example the
 parent commit, unpacked with ``git archive``).  Each side runs in a process
@@ -31,7 +33,20 @@ events:
   heads: 1024 and 2048 queries against 4096 keys, 4096 against 16384),
   float32 and bfloat16, as wall ms of back-to-back calls and as device ms
   (the call's kernels, torch.profiler, from a window that recorded every
-  launch; the wrapper's host work paces the calls below ~0.06 ms).
+  launch; the wrapper's host work paces the calls below ~0.06 ms);
+- K3 (``ops.mhada_prologue.mhada_fused_prologue`` on P2's probe inputs)
+  and K4 (``ops.mhada_kernel.mhada_tm``) at bfloat16, B = 1, N = M = 4096
+  (the 512^2 frame) and 16384 (1024^2), and K3 at B = 8, 4096 (P2's
+  shape), each at its wrapper's default split, and K7's forward
+  (``ops.mhada_train._fwd_kernel``, the mma.sync MHAda tile with its
+  residuals) at B = 8, N = M = 1024 (the training step's), as wall ms and
+  as device ms of the MHAda kernels (names holding "mhada"; K3's wrapper
+  also casts fb per call, which is left out);
+- the bf16 frames of ``chip_smoke.py``'s phase 5 on full-width models from
+  seed 0: the full path at 512^2, B = 1, the streaming path at 512^2, B =
+  1 and 8 (ms a frame), and at 1024^2, B = 1.
+
+``--groups`` runs only the named groups (all by default).
 
 The sides run as other, this, this, other, repeated ``--rounds`` / 2
 times.  Prints the card's name and power limit, then one JSON line per
@@ -57,6 +72,10 @@ CROSS_SHAPES = [(1024, 4096), (2048, 4096), (4096, 16384)]
 # (height, width, batch) of K13's gates in chip_smoke.py
 C6_SHAPES = [(512, 512, 1), (512, 512, 8), (1024, 1024, 1), (256, 512, 8),
              (264, 488, 1)]
+# (kernel, batch, tokens) of K3's and K4's gates in chip_smoke.py
+MHADA_SHAPES = [("K3", 1, 4096), ("K4", 1, 4096), ("K3", 1, 16384),
+                ("K4", 1, 16384), ("K3", 8, 4096), ("K7 forward", 8, 1024)]
+GROUPS = ("P1", "K14", "K13", "tail", "K1", "K1x", "mhada", "frames")
 
 
 def _cuda_ms(fn, warmup=3, iters=10):
@@ -75,11 +94,12 @@ def _cuda_ms(fn, warmup=3, iters=10):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=10, windows=6):
+def device_ms(fn, iters=10, windows=6, only=None):
     """Device ms per call of ``fn``, which launches each of its kernels
-    once: their time from torch.profiler.  A window in which some kernel's
-    count is not ``iters`` (CUPTI has dropped events on an H100) is
-    profiled again, up to ``windows`` windows -> NaN if none was whole."""
+    once: their time from torch.profiler (only the kernels whose names hold
+    ``only``, if given).  A window in which some kernel's count is not
+    ``iters`` (CUPTI has dropped events on an H100) is profiled again, up
+    to ``windows`` windows -> NaN if none was whole."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -91,15 +111,16 @@ def device_ms(fn, iters=10, windows=6):
                 fn()
             torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages()
-                   if e.self_device_time_total > 0]
+                   if e.self_device_time_total > 0
+                   and (only is None or only in e.key)]
         if kernels and all(e.count == iters for e in kernels):
             return sum(e.self_device_time_total for e in kernels) \
                 / 1e3 / iters
     return float("nan")
 
 
-def worker(root: str) -> dict:
-    """Times of the checkout at ``root``: key -> ms."""
+def worker(root: str, groups=GROUPS) -> dict:
+    """Times of the checkout at ``root`` in ``groups``: key -> ms."""
     sys.path.insert(0, root)
     import torch
 
@@ -114,12 +135,13 @@ def worker(root: str) -> dict:
         raise RuntimeError("redesign_ab times the kernels: it needs the card")
     out = {}
     with torch.inference_mode():
-        for m, k, n in mm_probe.SHAPES:
+        for m, k, n in mm_probe.SHAPES if "P1" in groups else ():
             a, b = mm_probe.operands(m, k, n, "cuda")
             out[f"P1 {m}x{k}x{n}"] = _cuda_ms(
                 lambda: mm_probe.mm(a, b, MM_REPS))
         g = torch.Generator().manual_seed(0)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16) if "K14" in groups \
+                else ():
             bound = 1 / (MID_C * 9) ** 0.5
             ws = [(torch.rand(MID_C, MID_C, 3, 3, generator=g) * 2 - 1)
                   * bound for _ in range(3)]
@@ -134,7 +156,8 @@ def worker(root: str) -> dict:
                     lambda: decoder_mid._kernel(x, hwio, bias))
                 del x
             torch.cuda.empty_cache()
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16) if "K13" in groups \
+                else ():
             w6 = ((torch.rand(3, 64, 3, 3, generator=g) * 2 - 1) / 24).cuda()
             hwio = w6.to(dtype).permute(2, 3, 1, 0).contiguous()
             bias = ((torch.rand(3, generator=g) * 2 - 1) / 24).cuda()
@@ -149,20 +172,23 @@ def worker(root: str) -> dict:
             torch.cuda.empty_cache()
         for name, fn, batch, side in (
                 ("K5", decoder_tail.decoder_tail, 1, 256),
-                ("K8", decoder_tail.decoder_tail_train, 8, 128)):
+                ("K8", decoder_tail.decoder_tail_train, 8, 128)) \
+                if "tail" in groups else ():
             x = torch.rand(batch, side, side, 128, generator=g).cuda()
             tail_w = [((torch.rand(shape, generator=g) * 2 - 1) / 24).cuda()
                       for shape in ((64, 128, 3, 3), (64,), (64, 64, 3, 3),
                                     (64,), (3, 64, 3, 3), (3,))]
             out[f"{name} {side}^2 B={batch} float32"] = _cuda_ms(
                 lambda: fn(x, *tail_w))
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16) \
+                if {"K1", "K1x"} & set(groups) else ():
             qkv = torch.randn(1, 4096, 1536, generator=g).to("cuda", dtype)
-            out[f"K1 L=4096 B=1 {str(dtype)[6:]}"] = _cuda_ms(
-                lambda: attention_kernel.attention_tm(qkv, 8))
-            out[f"K6 forward L=4096 B=1 {str(dtype)[6:]}"] = _cuda_ms(
-                lambda: attention_train._fwd_kernel(qkv, 8, 0.125))
-            for n, m in CROSS_SHAPES:
+            if "K1" in groups:
+                out[f"K1 L=4096 B=1 {str(dtype)[6:]}"] = _cuda_ms(
+                    lambda: attention_kernel.attention_tm(qkv, 8))
+                out[f"K6 forward L=4096 B=1 {str(dtype)[6:]}"] = _cuda_ms(
+                    lambda: attention_train._fwd_kernel(qkv, 8, 0.125))
+            for n, m in CROSS_SHAPES if "K1x" in groups else ():
                 qkv = torch.randn(1, n, 1536, generator=g).to("cuda", dtype)
                 kv = torch.randn(1, m, 1024, generator=g).to("cuda", dtype)
 
@@ -174,6 +200,77 @@ def worker(root: str) -> dict:
                 out[key] = _cuda_ms(cross)
                 out[key + " device"] = device_ms(cross)
                 del qkv, kv
+        for kind, batch, n in MHADA_SHAPES if "mhada" in groups else ():
+            call = _mhada_call(kind, batch, n)
+            key = f"{kind} N=M={n} B={batch} bfloat16"
+            out[key] = _cuda_ms(call)
+            out[key + " device"] = device_ms(call, only="mhada")
+            del call
+            torch.cuda.empty_cache()
+    if "frames" in groups:
+        out.update(_frames())
+    return out
+
+
+def _mhada_call(kind, batch, n):
+    """K3, K4 or K7's forward at bf16 on seeded inputs, 8 heads of 64 ->
+    call()."""
+    import torch
+
+    from mhada_tpu_torch.ops import mhada_kernel, mhada_prologue, mhada_train
+    from mhada_tpu_torch.probes.mhada_pipe_probe import probe_inputs
+
+    if kind == "K3":
+        x = probe_inputs(batch, n, n, 512, 8, torch.bfloat16, "cuda")
+        return lambda: mhada_prologue.mhada_fused_prologue(*x)
+    g = torch.Generator().manual_seed(0)
+    q, k = (0.35 * torch.randn(batch, n, 512, generator=g) for _ in "qk")
+    v, f = (torch.randn(batch, n, 512, generator=g) for _ in "vf")
+    q, k, v, f = (t.to("cuda", torch.bfloat16) for t in (q, k, v, f))
+    if kind == "K7 forward":
+        return lambda: mhada_train._fwd_kernel(q, k, v, f, 8)
+    return lambda: mhada_kernel.mhada_tm(q, k, v, f, 8)
+
+
+def _frames() -> dict:
+    """ms a frame of the bf16 paths of chip_smoke.py's phase 5 on
+    full-width models from seed 0 (random pictures on 0-255)."""
+    import torch
+
+    from mhada_tpu_torch.config import ModelConfig
+    from mhada_tpu_torch.infer.image import (make_encode_style_fn,
+                                             make_stylize_fn,
+                                             make_stylize_with_kv_fn,
+                                             precompute_style_kv)
+    from mhada_tpu_torch.models import build_models
+
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(0)
+    models = build_models(ModelConfig(), "cuda", g)
+
+    def pictures(b, side):
+        return (torch.rand(b, side, side, 3, generator=g) * 255).cuda()
+
+    def style_kv(style, batch):
+        kv = precompute_style_kv(models,
+                                 make_encode_style_fn(models, bf)(style))
+        return [(k.repeat(batch, 1, 1), v.repeat(batch, 1, 1))
+                for k, v in kv]
+
+    out = {}
+    c, s = pictures(1, 512), pictures(1, 512)
+    full = make_stylize_fn(models, bf)
+    out["frame full 512^2 B=1 bfloat16"] = _cuda_ms(lambda: full(c, s), 2, 5)
+    stream = make_stylize_with_kv_fn(models, bf)
+    kv1 = style_kv(s, 1)
+    out["frame streaming 512^2 B=1 bfloat16"] = _cuda_ms(
+        lambda: stream(c, kv1), 5, 20)
+    c8, kv8 = pictures(8, 512), style_kv(s, 8)
+    out["frame streaming 512^2 B=8 bfloat16 (a frame)"] = _cuda_ms(
+        lambda: stream(c8, kv8), 2, 5) / 8
+    c1k, kv1k = pictures(1, 1024), style_kv(pictures(1, 1024), 1)
+    out["frame streaming 1024^2 B=1 bfloat16"] = _cuda_ms(
+        lambda: stream(c1k, kv1k), 1, 3)
     return out
 
 
@@ -191,10 +288,12 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other", help="root of the other checkout")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--groups", nargs="+", default=list(GROUPS),
+                    choices=GROUPS)
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        print(json.dumps(worker(args.worker)), flush=True)
+        print(json.dumps(worker(args.worker, args.groups)), flush=True)
         return
     if not args.other:
         ap.error("--other DIR is required")
@@ -206,7 +305,8 @@ def main(argv=None) -> None:
     for side in order:
         proc = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--worker",
-             sides[side]], capture_output=True, text=True, cwd=sides[side])
+             sides[side], "--groups", *args.groups], capture_output=True,
+            text=True, cwd=sides[side])
         if proc.returncode:
             raise RuntimeError(f"{side} worker failed:\n{proc.stderr[-3000:]}")
         runs[side].append(json.loads(proc.stdout.strip().splitlines()[-1]))

@@ -44,7 +44,8 @@ the card against the CPU.
 K1's cross form (N queries, a column slice of a packed qkv, against M
 keys and values) at the sequence-parallel shapes and ragged ones, at
 every split count over the keys, the self case (unsplit at float32 bit for
-bit K1's, else against the twin), and its wrapper's refusals.
+bit K1's, else against the twin), and its wrapper's refusals.  K3 and K4
+at bf16 (the wgmma + TMA MHAda tile) at every split count over the keys.
 
 Marked ``cuda``: each test skips without a card.  On a machine with one (the
 repo conftest imports jax, which that machine need not have):
@@ -67,11 +68,12 @@ from mhada_tpu_torch.ops.decoder_mid import mid3_fused
 from mhada_tpu_torch.ops import decoder_tail as decoder_tail_ops
 from mhada_tpu_torch.ops.decoder_tail import decoder_tail, decoder_tail_train
 from mhada_tpu_torch.ops.ln_matmul import layer_norm, ln_matmul
-from mhada_tpu_torch.ops.mhada_kernel import mhada_tm
+from mhada_tpu_torch.ops.mhada_kernel import _mhada_launch, mhada_tm
 from mhada_tpu_torch.ops import mhada_train as mhada_train_ops
 from mhada_tpu_torch.ops.mhada_train import mhada_train
 from mhada_tpu_torch.ops.instance_norm import instance_norm_stats
-from mhada_tpu_torch.ops.mhada_prologue import mhada_fused_prologue
+from mhada_tpu_torch.ops.mhada_prologue import (launch_prologue,
+                                                mhada_fused_prologue)
 from mhada_tpu_torch.probes.mhada_pipe_probe import mhada_fused_prologue_pipe
 from mhada_tpu_torch.probes import mm_probe
 from mhada_tpu_torch.probes.mm_probe import mm, mm_plain
@@ -221,6 +223,51 @@ def test_attention_cross_forced_splits(gen, dtype):
     assert _build.LAUNCHES == before
 
 
+@pytest.mark.parametrize("entry", ["mhada_mhada_prologue",
+                                   "mhada_mhada_fwd"])
+def test_mhada_forced_splits(gen, entry):
+    """K3 and K4 at bf16 on the MHAda tile at every split count over the
+    keys (1 .. MAX_SPLITS), forced through ``_mhada_launch`` and
+    ``launch_prologue`` at (2, 200, 700) with V = 3 + 0.3 N(0, 1): 11 key
+    tiles, the last of 60 keys; one launch a call (the combine
+    included), each against the twin and repeated bit for bit; a count
+    that leaves a split without a key tile, and a split of the float32
+    tile, raise before any launch."""
+    b, n, m, heads = 2, 200, 700, 2
+    c = 64 * heads
+    fc = _rnd(gen, torch.bfloat16, b, n, c, scale=2.0) + 1
+    fcs = _rnd(gen, torch.bfloat16, b, n, c, scale=3.0) - 1
+    stats = torch.stack([*instance_norm_stats(fc), *instance_norm_stats(fcs)],
+                        1)
+    wf = _rnd(gen, torch.bfloat16, heads, 64, 64, scale=1 / 8)
+    fb = _rnd(gen, torch.bfloat16, heads, 64, scale=1 / 8)
+    k = _rnd(gen, torch.bfloat16, b, m, c, scale=0.35)
+    v = _v(gen, torch.bfloat16, b, m, 3.0)
+
+    def call(be, dt, splits):
+        if entry == "mhada_mhada_fwd":
+            x = fc.to(dt), k.to(dt), v.to(dt), fcs.to(dt)
+            return (mhada_tm(*x, heads, backend=be) if be == "plain"
+                    else _mhada_launch(*x, heads, splits)[0])
+        x = fc.to(dt), fcs.to(dt), stats, wf, fb, k.to(dt), v.to(dt)
+        return (mhada_fused_prologue(*x, backend=be) if be == "plain"
+                else launch_prologue(entry, *x, splits)[0])
+
+    for splits in range(1, MAX_SPLITS + 1):
+        def run(be, dt, splits=splits):
+            return call(be, dt, splits)
+
+        _check(entry, run, torch.bfloat16)
+        assert torch.equal(run("kernel", torch.bfloat16),
+                           run("kernel", torch.bfloat16))
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="without a 64-key tile"):
+        call("kernel", torch.bfloat16, 12)
+    with pytest.raises(ValueError, match="float32 tile takes no split"):
+        call("kernel", torch.float32, 2)
+    assert _build.LAUNCHES == before
+
+
 def test_attention_cross_refusals(gen):
     """The cross form's wrapper raises before any launch on: a float32 or
     bf16 operand one element into its buffer, a row stride that is no
@@ -310,8 +357,9 @@ def test_mhada_kernel_v_offset(gen, dtype, b, n, m, shift):
 def test_mhada_prologue_kernel(gen, dtype, b, n, m, shift, entry):
     """K3, and the probe P2 of the same function, against the plain
     version; P2 also against K3 (PIPE_K3_REL): at float32 the same
-    arithmetic in the same order, at bf16 the same rounding points with
-    sums in another order (wgmma against mma.sync)."""
+    arithmetic in the same order, at bf16 the same tile (P2 never split,
+    K3 split as its chooser picks: P rounded against each split's own
+    maximum)."""
     fn = {"mhada_mhada_prologue": mhada_fused_prologue,
           "mhada_mhada_prologue_pipe": mhada_fused_prologue_pipe}[entry]
     fc = _rnd(gen, dtype, b, n, 128, scale=2.0) + 1
@@ -619,8 +667,8 @@ def test_f32_mhada_rejects_unaligned(gen, entry):
     args = ([t["q"], t["k"], t["v"], t["f"], out] if fn is None else
             [t["q"], t["f"], t["stats"], t["wf"], t["fb"], t["k"], t["v"],
              out])
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        _build.launch(entry, out.device, *args, b, n, m, 130, 2, 0)
+    with pytest.raises(RuntimeError, match="CUDA error"):   # unsplit
+        _build.launch(entry, out.device, *args, None, b, n, m, 130, 2, 1, 0)
     assert _build.LAUNCHES == before
     call(tensors(c))   # aligned: launches
     assert _build.LAUNCHES[entry] == before[entry] + 1

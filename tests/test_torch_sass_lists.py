@@ -5,11 +5,12 @@ MMA_KERNELS or WGMMA_KERNELS, and every one of the float32 MHAda tile
 (csrc/mhada_f32_tile.cuh), of the float32 flash backward
 (csrc/flash_bwd_f32.cuh), of the float32 tail (csrc/decoder_tail_f32.cuh),
 of K14's float32 conv (csrc/decoder_mid_f32.cuh), of K13's
-(csrc/decoder_c6_f32.cuh) and the combine of K1's split cross form
-(csrc/attention_combine.cuh) in F32_KERNELS (no tensor-core instruction,
-no spills), so that no kernel skips the check; each listed kernel exists,
-each instantiation required of a path is listed, and K13's and K1's cross
-form's replaced kernels are refused and gone.
+(csrc/decoder_c6_f32.cuh) and the combines of K1's split cross form
+(csrc/attention_combine.cuh) and of K3's and K4's split MHAda tile
+(csrc/mhada_combine.cuh) in F32_KERNELS (no tensor-core instruction, no
+spills), so that no kernel skips the check; each listed kernel exists,
+each instantiation required of a path is listed, and K13's, K1's cross
+form's, K3's and K4's replaced kernels are refused and gone.
 CPU: reads the sources and chip_smoke.py's constants (it imports torch only
 inside main)."""
 
@@ -55,6 +56,8 @@ def _kernels(pattern):
                                             ("decoder_c6_f32.cuh",
                                              "F32_KERNELS"),
                                             ("attention_combine.cuh",
+                                             "F32_KERNELS"),
+                                            ("mhada_combine.cuh",
                                              "F32_KERNELS")])
 def test_tensor_core_kernels_are_listed(pattern, listed):
     kernels = _kernels(pattern)
@@ -73,10 +76,13 @@ def test_listed_kernels_exist():
     # a required instantiation names a listed kernel
     for req in smoke.MMA_REQUIRED:
         assert any(n in req for n in smoke.MMA_KERNELS), req
+    for req in smoke.WGMMA_REQUIRED:
+        assert any(n in req for n in smoke.WGMMA_KERNELS), req
     for req in smoke.F32_REQUIRED:
         assert any(n in req for n in smoke.F32_KERNELS), req
     # no required instantiation is one that phase 2 refuses as replaced
-    for req in (*smoke.MMA_REQUIRED, *smoke.F32_REQUIRED):
+    for req in (*smoke.MMA_REQUIRED, *smoke.WGMMA_REQUIRED,
+                *smoke.F32_REQUIRED):
         assert not re.search(smoke.OLD_BF16, req), req
 
 
@@ -116,3 +122,31 @@ def test_replaced_cross_kernel_is_refused():
                 "attention_f32_kernelILb0ELb1E", "attention_combine_kernelIfE",
                 "attention_combine_kernelI13__nv_bfloat16E"):
         assert req in smoke.F32_REQUIRED and not re.search(smoke.OLD_BF16, req)
+
+
+def test_replaced_mhada_instantiations_are_refused():
+    """K3 and K4 on the mma.sync MHAda tile (mhada_mma_fwd_kernel<true,
+    false> and <false, false> of its old <kPrologue, kRes> template, or
+    <false> of its <kRes> template) are refused by phase 2; K7's forward,
+    <true>, is required and not refused.  Their redesign, the wgmma tile's
+    four <prologue, split> instantiations, is required, and the split's
+    combine (both epilogues) is a listed float32 kernel."""
+    smoke = _chip_smoke()
+    for old in ("_ZN5mhada20mhada_mma_fwd_kernelILb1ELb0EEEvNS_12"
+                "MhadaMmaArgsE",
+                "_ZN5mhada20mhada_mma_fwd_kernelILb0ELb0EEEvNS_12"
+                "MhadaMmaArgsE",
+                "_ZN5mhada20mhada_mma_fwd_kernelILb0EEEvNS_12MhadaMmaArgsE"):
+        assert re.search(smoke.OLD_BF16, old), old
+    k7 = "_ZN5mhada20mhada_mma_fwd_kernelILb1EEEvNS_12MhadaMmaArgsE"
+    assert not re.search(smoke.OLD_BF16, k7)
+    assert any(req in k7 for req in smoke.MMA_REQUIRED)
+    for entry in ("mhada_prologue.cu", "mhada_fwd.cu"):
+        text = (CSRC / entry).read_text()
+        assert "launch_mhada_mma_fwd" not in text
+        assert "launch_mhada_wgmma" in text
+    assert set(smoke.WGMMA_REQUIRED) == {
+        f"mhada_wgmma_kernelILb{p}ELb{s}E" for p in (0, 1) for s in (0, 1)}
+    for req in ("mhada_combine_kernelILb1E", "mhada_combine_kernelILb0E"):
+        assert req in smoke.F32_REQUIRED
+    assert "mhada_combine_kernel" in smoke.F32_KERNELS
