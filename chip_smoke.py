@@ -6,14 +6,16 @@
 1. environment: torch / CUDA versions, the card's name and power limit,
    whether cv2 imports (reported, never failed);
 2. build: compile mhada_tpu_torch/csrc/*.cu with nvcc (one per source, in
-   parallel); the bf16 tensor-core kernels of K1, K6 and K7 (forward, dQ
-   and dK/dV), of the decoder tail (K5, K8), of K2, of K14 and of K13 must
-   each hold HMMA.16816.F32.BF16 in their SASS (cuobjdump) and spill
-   nothing (ptxas); the wgmma + TMA kernels, the MHAda tile of K3, K4 and
-   P2 (mhada_wgmma_kernel <prologue, split>, all four instantiations
-   present) and every block tile of P1's, must hold HGMMA (wgmma) and
-   UTMALDG (TMA loads) and spill nothing (so must K1's cross form's bf16
-   kernel, attention_wgmma_kernel); every instantiation that a bf16 path
+   parallel); the bf16 mma.sync kernels of K6's backward (dQ and dK/dV),
+   of K7 (forward, dQ and dK/dV), of the decoder tail (K5, K8), of K2, of
+   K14 and of K13 must each hold HMMA.16816.F32.BF16 in their SASS
+   (cuobjdump) and spill nothing (ptxas); the wgmma + TMA kernels, the
+   MHAda tile of K3, K4 and P2 (mhada_wgmma_kernel <prologue, split>, all
+   four instantiations present), the attention tile of K1, K6's forward
+   and K1's cross form (attention_wgmma_kernel <split>, both
+   instantiations present) and every block tile of P1's, must hold HGMMA
+   (wgmma) and UTMALDG (TMA loads) and spill nothing; every instantiation
+   that a bf16 path
    launches must exist (K7's forward on the mma.sync MHAda tile, the tail
    with and without residuals, K2's, K14's, K13's), no bf16
    instantiation of the CUDA-core kernels they replaced may exist (those
@@ -28,8 +30,9 @@
    dtype), nor a float32 instantiation of the old
    flash backward (flash_bwd_dkv_kernel, flash_bwd_dq_kernel) or of the
    old fused tail (decoder_tail_kernel<bool>, K5's and K8's before the
-   two-stage float32 tail), nor K1's cross form on the mma.sync tile
-   (attention_mma_fwd_kernel<false, true>); K2's float32 kernel, the
+   two-stage float32 tail), nor any instantiation of the mma.sync
+   attention forward (attention_mma_fwd_kernel: K1, K6's forward and K1's
+   cross form before the attention wgmma tile); K2's float32 kernel, the
    float32 flash tile
    (csrc/mhada_f32_tile.cuh: the MHAda kernel <prologue, stages,
    residuals> of K4 <false, 2, false>, K3 <true, 2, false>, P2 <true, 1,
@@ -56,10 +59,11 @@
    -> c3) at 128^2 with B = 1 and 8 and at 256^2; P2 at B = 8, N = M =
    4096, also against K3 (float32 and bfloat16); K3 also at an SP rank's
    1024 queries against 4096 keys (B = 1) and at the video CLI's 2048
-   against 1024 (B = 8), each K3 and K4 gate with its split over the keys
-   (``mhada_splits``) and the device time of the tile and of the combine
-   apart; at bfloat16 every split count of K3 and K4 forced once (512
-   against 1000 keys) against the plain version and repeated bit for bit,
+   against 1024 (B = 8), each K1, K3 and K4 gate (phase 8's K1 too) with
+   its split over the keys (``self_splits``, ``mhada_splits``) and the
+   device time of the tile and of the combine apart; at bfloat16 every
+   split count of K3 and K4 forced once (512 against 1000 keys) against
+   the plain version and repeated bit for bit,
    and a planted control (the kernel's partials at 1024 against 4096
    combined in PyTorch without the last split) that must fail the gate
    while the kernel passes it, the seconds all this adds printed; P1 at
@@ -117,13 +121,19 @@
    unfused LayerNorm and linear (its forward timed as the kernel alone,
    through the wrapper and as the library chain of phase 3); float32 and
    bfloat16: each output, residual and input gradient against its own
-   scale, with times, bounds and the library yardstick, and K6's and K7's
+   scale, with times, bounds and the library yardstick, K6's forward also
+   with its split over the keys (``self_splits``), its device time
+   (tile and combine apart) and its lse against the plain lse (LSE_REL),
+   and K6's and K7's
    backward also as its dK/dV and dQ kernels' device times apart
    (``torch.profiler``), K8's float32 forward as its two kernels' (up3;
    the upsample, c5 and c6); and at the video step's shapes (B = 2; 256 x
    512 frames are 2048 tokens, 256^2 styles 1024): K6 at L = 2048, K7 at
    N = 2048 against M = 1024, K8 from 128 x 256 to 256 x 512, the first
-   non-square tail at full width;
+   non-square tail at full width; and a planted control of K6's forward
+   split over the keys (B = 2, L = 2048, bfloat16: the kernel's partials
+   combined in PyTorch without the last split must fail the gate's out
+   and lse bounds while the kernel and the whole combine pass them);
 7. the training paths: one step (``train.train_image``) on the kernel build
    and one on the plain build from the same weights and batch, losses and
    every gradient held together (each tensor against its own scale, to a
@@ -211,8 +221,8 @@
       repeated bit for bit; a planted control (the kernel's partials at the
       first shape combined in PyTorch without the last split) that must
       fail the gate while all of them pass it; ungated readings through
-      the cross entry: the self shape 4096^2 at bfloat16 beside K1's own
-      kernel and SDPA, 1024^2 at float32 beside K6's forward;
+      the cross entry: the self shape 4096^2 at bfloat16 (K1's own tile)
+      beside SDPA, 1024^2 at float32 beside K6's forward;
    b. PAR_RANKS ranks sharing the card over gloo (``parallel_rank``), the
       full-width model from the seed with c6's gain and a raised bias:
       SP at 512^2 over all of them and over 2 (f32, bf16), with the
@@ -491,6 +501,10 @@ SCENEFLOW_HW = (540, 960)
 # (float32) or round P and dS to bf16 at the same points but after sums in
 # another order (bfloat16).
 TRAIN_REL = {"float32": (1e-4, 1e-3), "bfloat16": (3e-2, 5e-2)}
+# K6's lse against the plain lse, relative to its scale, at both dtypes:
+# it is float32 on every side (P rounds to bf16 only inside P V), and a
+# split dropped from the combine moves it by log of the kept share.
+LSE_REL = 1e-5
 # K8: the share of rgb, y1 and c5 positions whose ReLU masks may differ
 # between the kernel and plain forwards (pre-activations within rounding of
 # 0; see tail_aligned_grads); at most 2.4e-7 (float32) and 2.7e-6
@@ -614,13 +628,12 @@ PIXEL_BOUND = {"float32": 0.1, "bfloat16": 4.0}
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 DTYPE_NAMES = ("float32", "bfloat16")
-# The bf16 mma.sync kernels of K1 and K6 (csrc/attention_mma.cuh,
-# csrc/attention_bwd_mma.cuh), K7 (csrc/mhada_mma.cuh: K7's forward;
-# csrc/mhada_bwd_mma.cuh), K5 and K8
+# The bf16 mma.sync kernels of K6's backward (csrc/attention_bwd_mma.cuh),
+# K7 (csrc/mhada_mma.cuh: K7's forward; csrc/mhada_bwd_mma.cuh), K5 and K8
 # (csrc/decoder_tail_mma.cuh), K2 (csrc/ln_matmul_mma.cuh), K14
 # (csrc/decoder_mid_mma.cuh) and K13 (csrc/decoder_c6_mma.cuh) and the
 # instruction each must contain.
-MMA_KERNELS = ("attention_mma_fwd_kernel", "attention_mma_dkv_kernel",
+MMA_KERNELS = ("attention_mma_dkv_kernel",
                "attention_mma_dq_kernel", "mhada_mma_fwd_kernel",
                "mhada_mma_dkv_kernel", "mhada_mma_dq_kernel",
                "decoder_tail_mma_kernel", "ln_matmul_mma_kernel",
@@ -630,9 +643,10 @@ HMMA = "HMMA.16816.F32.BF16"
 # by name in the K5 and K8 gates.
 TAIL_STAGES = ("tail_up3_f32_kernel", "tail_c5c6_f32_kernel")
 # The bf16 wgmma + TMA kernels (the MHAda tile of K3, K4 and P2, split or
-# not: csrc/mhada_wgmma.cuh; K1's cross form: csrc/attention_wgmma.cuh; P1,
-# each block tile: csrc/mm_wgmma.cuh) and the instructions each must
-# contain: HGMMA (wgmma) and UTMALDG (TMA loads).
+# not: csrc/mhada_wgmma.cuh; the attention tile of K1, K6's forward and K1's
+# cross form, split or not: csrc/attention_wgmma.cuh; P1, each block tile:
+# csrc/mm_wgmma.cuh) and the instructions each must contain: HGMMA (wgmma)
+# and UTMALDG (TMA loads).
 WGMMA_KERNELS = ("mhada_wgmma_kernel", "attention_wgmma_kernel",
                  "mm_wgmma_kernel")
 WGMMA_SASS = ("HGMMA", "UTMALDG")
@@ -640,13 +654,15 @@ WGMMA_SASS = ("HGMMA", "UTMALDG")
 # forward on the mma.sync MHAda tile (<kRes = true>), K5's and
 # K8's tail, K2, K14, K13; the MHAda wgmma tile's <prologue, split>: K3
 # (and P2) <true, false>, K3 split <true, true>, K4 <false, false>, K4 split
-# <false, true>.
+# <false, true>; the attention wgmma tile's <split>: K1, K6's forward and
+# K1's cross form, <false> unsplit and <true> split over the keys.
 MMA_REQUIRED = ("mhada_mma_fwd_kernelILb1EEEv",
                 "decoder_tail_mma_kernelILb0E", "decoder_tail_mma_kernelILb1E",
                 "ln_matmul_mma_kernel", "decoder_mid_mma_kernel",
                 "decoder_c6_mma_kernel")
 WGMMA_REQUIRED = ("mhada_wgmma_kernelILb1ELb0E", "mhada_wgmma_kernelILb1ELb1E",
-                  "mhada_wgmma_kernelILb0ELb0E", "mhada_wgmma_kernelILb0ELb1E")
+                  "mhada_wgmma_kernelILb0ELb0E", "mhada_wgmma_kernelILb0ELb1E",
+                  "attention_wgmma_kernelILb0E", "attention_wgmma_kernelILb1E")
 # bf16 instantiations of the CUDA-core kernels that no path may reach any
 # more (mangled names): the attention and MHAda tile (K1, K4, K6's and
 # K7's forwards) and backward (K6, K7), the decoder tail (K5, K8), K2's
@@ -659,11 +675,12 @@ WGMMA_REQUIRED = ("mhada_wgmma_kernelILb1ELb0E", "mhada_wgmma_kernelILb1ELb1E",
 # and K7's), the old fused float32 tail (decoder_tail_kernel<bool>: K5's
 # and K8's before csrc/decoder_tail_f32.cuh) and K13's first kernel at
 # either dtype (decoder_c6_kernel<T>, before csrc/decoder_c6_f32.cuh and
-# csrc/decoder_c6_mma.cuh), K1's cross form on the mma.sync tile
-# (attention_mma_fwd_kernel<false, true>, before csrc/attention_wgmma.cuh),
-# and K3 and K4 on the mma.sync MHAda tile (mhada_mma_fwd_kernel<false>,
-# or any instantiation with the <kPrologue, kRes> parameters it had before
-# the wgmma tile of csrc/mhada_wgmma.cuh).
+# csrc/decoder_c6_mma.cuh), every instantiation of the mma.sync attention
+# forward (attention_mma_fwd_kernel: K1's cross form <false, true> before
+# csrc/attention_wgmma.cuh, K1 <false> and K6's forward <true> before the
+# attention wgmma tile took them), and K3 and K4 on the mma.sync MHAda tile
+# (mhada_mma_fwd_kernel<false>, or any instantiation with the <kPrologue,
+# kRes> parameters it had before the wgmma tile of csrc/mhada_wgmma.cuh).
 OLD_BF16 = (r"flash_tile_kernel"
             r"|flash_bwd_(dkv|dq)_kernelI13__nv_bfloat16"
             r"|decoder_tail_kernelI13__nv_bfloat16"
@@ -673,7 +690,7 @@ OLD_BF16 = (r"flash_tile_kernel"
             r"|flash_bwd_(dkv|dq)_kernelIf"
             r"|decoder_tail_kernelILb"
             r"|decoder_c6_kernel"
-            r"|attention_mma_fwd_kernelILb0ELb1E"
+            r"|attention_mma_fwd_kernel"
             r"|mhada_mma_fwd_kernelILb0EEEv|mhada_mma_fwd_kernelILb[01]ELb")
 # float32 kernels that compute in float32: they must exist, spill nothing
 # and hold no tensor-core instruction of any kind (HMMA, HGMMA: no TF32).
@@ -1045,9 +1062,11 @@ def gate_inputs(kind, n, dtype, g, b=1):
                        for t in qkv.split(c, dim=-1))
             return F.scaled_dot_product_attention(q, k, v)
 
-        return (lambda be: attention_kernel.attention_tm(qkv, heads,
-                                                         backend=be),
-                4 * n * n * c, 4 * n * c * es, (SDPA, sdpa))
+        def run(be):
+            return attention_kernel.attention_tm(qkv, heads, backend=be)
+
+        run.splits = attention_kernel.self_splits(1, heads, n, dtype, sms)
+        return run, 4 * n * n * c, 4 * n * c * es, (SDPA, sdpa)
     if kind == "cross":   # K1's cross form: (queries, keys)
         nq, nk = n
         qkv, kv = rnd(b, nq, 3 * c), rnd(b, nk, 2 * c)
@@ -1427,6 +1446,7 @@ def train_gate_inputs(kind, dtype, g, b, n, tp=1):
     from mhada_tpu_torch.ops import decoder_tail as dtl
     from mhada_tpu_torch.ops import ln_matmul as lm
     from mhada_tpu_torch.ops import mhada_train as mt
+    from mhada_tpu_torch.ops.attention_kernel import self_splits
 
     dev, c, heads = "cuda", 512, 8
     if kind in ("attention", "mhada"):
@@ -1441,6 +1461,7 @@ def train_gate_inputs(kind, dtype, g, b, n, tp=1):
     if kind == "attention":
         scale = 0.125
         qkv, cot = rnd(b, n, 3 * c), rnd(b, n, c)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
         out, lse = at.attention_train_fwd_plain(qkv, heads, scale)
         delta = at.row_delta(cot, out, heads)
         lib_in = qkv.detach().requires_grad_()
@@ -1451,7 +1472,7 @@ def train_gate_inputs(kind, dtype, g, b, n, tp=1):
         return dict(
             run=lambda be, x: at.attention_train(x, heads, scale, be),
             inputs=[qkv], cot=cot,
-            fwd={"kernel": lambda: at._fwd_kernel(qkv, heads, scale),
+            fwd={"kernel": lambda: at.fwd_launch(qkv, heads, scale)[:2],
                  "plain": lambda: at.attention_train_fwd_plain(
                      qkv, heads, scale)},
             bwd={"kernel": lambda: at._bwd_kernel(
@@ -1461,6 +1482,7 @@ def train_gate_inputs(kind, dtype, g, b, n, tp=1):
             bwd_plain=None,
             names={"fwd": ["out", "lse"], "bwd": ["dq", "dk", "dv"],
                    "grad": ["dq", "dk", "dv"]},
+            splits=self_splits(b, heads, n, dtype, sms),
             flops=(4 * b * n * n * c, 10 * b * n * n * c),
             bytes=(4 * b * n * c * es + 4 * b * heads * n,
                    7 * b * n * c * es + 8 * b * heads * n),
@@ -1697,6 +1719,26 @@ def run_train_gate(gate, kind, dname, card, b, n, tp=1):
             good = good and all(t > 0 for t in split.values())
             split_txt = (f" (profiler: dK/dV kernel {split['dkv_kernel']:.3f}"
                          f" + dQ kernel {split['dq_kernel']:.3f} ms)")
+        elif kind == "attention":   # K6's forward: its split, its lse
+            parts = SPLIT_KERNELS[kind][dname][:1 if d["splits"] == 1
+                                               else 2]
+            dev = split_ms(calls["kernel"], parts)
+            lse_rel = errs["lse"][1]
+            recs[part].update(splits=d["splits"], lse_rel=lse_rel)
+            good = good and lse_rel <= LSE_REL
+            dev_txt = "device time not measured (the profiler recorded no " \
+                "launch)"
+            if all(dev.values()):
+                recs[part].update(device_ms=sum(dev.values()),
+                                  tile_ms=dev[parts[0]],
+                                  combine_ms=dev[parts[1]]
+                                  if len(parts) > 1 else 0.0)
+                dev_txt = (f"device {dev[parts[0]]:.3f}"
+                           + (f" + combine {dev[parts[1]]:.3f}"
+                              if len(parts) > 1 else "") + " ms")
+            split_txt = (f" ({d['splits']} split(s) of {-(-n // 64)} key "
+                         f"tiles; {dev_txt}; lse rel {lse_rel:.2e}, bound "
+                         f"{LSE_REL:.0e})")
         elif kind == "tail" and dname == "float32":   # K8's two stages
             split = split_ms(calls["kernel"], TAIL_STAGES)
             recs[part].update(tail_stage_ms(split))
@@ -1741,6 +1783,59 @@ def run_train_gate(gate, kind, dname, card, b, n, tp=1):
         f"{flip_txt if kind == 'tail' else ''}against the plain build "
         f"{aligned}rel {_errs_txt(errs)} (bound {rel_grad:.0e} each; max|d| "
         f"{mx:.3e}); peak memory {peak_gb:.2f} GB ({card})"), recs
+
+
+# K6's forward split over the keys: the planted control's shape, the video
+# step's frames (B = 2, L = 2048, 8 heads; self_splits gives it 2).
+K6_CONTROL = (2, 2048)
+
+
+def k6_split_control() -> tuple[bool, dict]:
+    """K6's forward at bfloat16, split as ``self_splits`` picks at
+    K6_CONTROL: its partials combined in plain PyTorch
+    (``combine_partials``) without the last split must fail the K6 gate
+    (out over TRAIN_REL's forward bound, lse over LSE_REL) while the kernel
+    and the whole combine pass it -> (ok, record)."""
+    import torch
+
+    from mhada_tpu_torch.ops import attention_kernel as ak
+    from mhada_tpu_torch.ops import attention_train as at
+
+    b, n = K6_CONTROL
+    c, heads, dtype = 512, 8, torch.bfloat16
+    g = torch.Generator().manual_seed(SEED)
+    qkv = torch.randn(b, n, 3 * c, generator=g).to("cuda", dtype)
+    with torch.inference_mode():
+        out, lse, part = at.fwd_launch(qkv, heads, 0.125)
+        splits = 1 if part is None else part.numel() // (b * n * (c + 2
+                                                                  * heads))
+        ref, ref_lse = at.attention_train_fwd_plain(qkv, heads, 0.125)
+        ref = ref.float()
+
+        def rels(o, l):
+            return (((o.float() - ref).abs().max() / ref.abs().max()).item(),
+                    ((l - ref_lse).abs().max() / ref_lse.abs().max()).item())
+
+        kernel = rels(out, lse)
+        rec = dict(splits=splits, kernel=kernel)
+        if splits > 1:
+            views = ak.split_partials(part, splits, b, n, c, heads)
+            rec["combined"] = rels(*ak.combine_partials(*views, dtype))
+            rec["dropped"] = rels(*ak.combine_partials(*views, dtype,
+                                                       keep=splits - 1))
+    bound = TRAIN_REL["bfloat16"][0]
+    good = (splits > 1 and kernel[0] <= bound and kernel[1] <= LSE_REL
+            and rec["combined"][0] <= bound and rec["combined"][1] <= LSE_REL
+            and rec["dropped"][0] > bound and rec["dropped"][1] > LSE_REL)
+    del qkv, out, lse, part
+    torch.cuda.empty_cache()
+    txt = ", ".join(f"{k} out rel {v[0]:.2e}, lse rel {v[1]:.2e}"
+                    for k, v in rec.items() if k != "splits")
+    return phase("train gate K6 split control", good,
+                 f"B = {b}, L = {n}, bfloat16, {splits} splits: {txt} (the "
+                 f"kernel and the whole combine within {bound:.0e} and "
+                 f"{LSE_REL:.0e}; without the last split both must exceed "
+                 "them: the gate sees a dropped split)"), rec
 
 
 def step_grads(models, cfg, batch):
@@ -2961,13 +3056,14 @@ CROSS_GATES = [
     ("K1x Nq=4096 M=16384", K12_CROSS_STREAM, (4096, 16384), 1),
     ("K1x B=2 Nq=1000 M=3000", K12_CROSS, (1000, 3000), 2),
 ]
-# The kernels of K1's cross form, K3 and K4 by name, each dtype's unsplit or
-# split tile and the split's combine, timed apart on the device
-# (torch.profiler).  K3's and K4's float32 tile takes no split.
+# The kernels of K1 (and K6's forward), K1's cross form, K3 and K4 by name,
+# each dtype's unsplit or split tile and the split's combine, timed apart on
+# the device (torch.profiler).  K1's, K6's, K3's and K4's float32 tiles take
+# no split.
 SPLIT_KERNELS = {
-    "cross": {
+    **dict.fromkeys(("cross", "attention"), {
         "float32": ("attention_f32_kernel", "attention_combine_kernel"),
-        "bfloat16": ("attention_wgmma_kernel", "attention_combine_kernel")},
+        "bfloat16": ("attention_wgmma_kernel", "attention_combine_kernel")}),
     **dict.fromkeys(("prologue", "mhada"), {
         "float32": ("mhada_f32_kernel",),
         "bfloat16": ("mhada_wgmma_kernel", "mhada_combine_kernel")})}
@@ -2976,8 +3072,9 @@ SPLIT_KERNELS = {
 # of 40 keys).
 CROSS_FORCED = (512, 1000)
 # Ungated readings through the cross entry, B = 1: the self shape at bf16
-# (q = qkv[..., :C], kv = qkv[..., C:]) beside K1's own kernel, and 1024
-# queries against 1024 keys at f32, split, beside K6's forward.
+# (q = qkv[..., :C], kv = qkv[..., C:]; K1's own tile, read against SDPA
+# alone), and 1024 queries against 1024 keys at f32, split, beside K6's
+# forward.
 CROSS_READINGS = [("self 4096^2", 4096, 4096, "bfloat16"),
                   ("1024^2", 1024, 1024, "float32")]
 # Ranks sharing the one card over gloo; SP over all of them and over 2; PP
@@ -3619,7 +3716,7 @@ def run_split_gate(gate, kind, n, b, dname, card):
     return good, r
 
 
-def cross_split_checks(gates) -> tuple[bool, dict]:
+def cross_split_checks() -> tuple[bool, dict]:
     """K1's cross form beyond its gates: every split count the chooser can
     give forced at CROSS_FORCED against the plain version and repeated bit
     for bit; the planted control (the partials of the chooser's split at
@@ -3630,7 +3727,7 @@ def cross_split_checks(gates) -> tuple[bool, dict]:
     import torch.nn.functional as F
 
     from mhada_tpu_torch.ops import attention_kernel as ak
-    from mhada_tpu_torch.ops.attention_train import _fwd_kernel
+    from mhada_tpu_torch.ops.attention_train import fwd_launch
 
     c, heads, ok, rec = 512, 8, True, {}
     g = torch.Generator().manual_seed(SEED)
@@ -3674,9 +3771,9 @@ def cross_split_checks(gates) -> tuple[bool, dict]:
                         / ref.abs().max()).item()
 
             kernel, whole = rel_to(out), rel_to(ak.combine_partials(
-                *views, dtype))
+                *views, dtype)[0])
             dropped = rel_to(ak.combine_partials(*views, dtype,
-                                                 keep=splits - 1))
+                                                 keep=splits - 1)[0])
             good = (splits > 1 and kernel <= REL_BOUND[dname]
                     and whole <= REL_BOUND[dname]
                     and dropped > REL_BOUND[dname])
@@ -3707,16 +3804,10 @@ def cross_split_checks(gates) -> tuple[bool, dict]:
                           for t in (q, *kv.split(c, dim=-1)))
             sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh),
                            3, 10)
-            if label.startswith("self"):
-                k1 = ak.attention_tm(qkv, heads)
-                rel = ((ak.attention_cross(q, kv, heads).float() - k1.float())
-                       .abs().max() / k1.float().abs().max()).item()
-                other = gates.get("K1 L=4096", {}).get(dname, {}).get("ms")
-                other_txt = (f"K1's own kernel (phase 3) {other:.3f} ms, "
-                             f"rel to it {rel:.2e}" if other else
-                             f"rel to K1 {rel:.2e}")
+            if label.startswith("self"):   # K1's own tile
+                other, other_txt = None, "the tile against SDPA alone"
             else:
-                k6 = cuda_ms(lambda: _fwd_kernel(qkv, heads, 0.125), 3, 10)
+                k6 = cuda_ms(lambda: fwd_launch(qkv, heads, 0.125), 3, 10)
                 other, other_txt = k6, f"K6's forward kernel {k6:.3f} ms"
             bound_ms = bound(4 * nq * nk * c, (2 * nq + 2 * nk) * c
                              * qkv.element_size(), dname)[0]
@@ -3759,7 +3850,7 @@ def parallel_phase(card, gates, launches) -> tuple[bool, dict]:
     secs["cross_gates"] = time.perf_counter() - t0
     t1 = time.perf_counter()
     try:
-        good, rec["cross_split_checks"] = cross_split_checks(gates)
+        good, rec["cross_split_checks"] = cross_split_checks()
     except Exception as e:
         good = phase("parallel K1 cross form splits", False,
                      f"{type(e).__name__}: {e}")
@@ -3770,8 +3861,7 @@ def parallel_phase(card, gates, launches) -> tuple[bool, dict]:
     phase("parallel K1 self-attention 512^2", True,
           "phase 3's K1 L=4096 in this run: " + ", ".join(
               f"{d} {ms:.3f} ms" for d, ms in rec["k1_self_ms"].items()
-              if ms is not None)
-          + " (PERF.md's K1 row: 0.823 / 0.159 ms)")
+              if ms is not None))
 
     t0 = time.perf_counter()
     for gate, kind, b, n in TP_GATES:
@@ -4288,6 +4378,12 @@ def main() -> int:
             ok = good and ok
         if (gate, row_f, row_b, kind, b, n) in VIDEO_GATES:
             video_s += time.perf_counter() - t0
+    try:
+        good, train_extra["K6 split control"] = k6_split_control()
+    except Exception as e:
+        good = phase("train gate K6 split control", False,
+                     f"{type(e).__name__}: {e}")
+    ok = good and ok
 
     # ---- 7. the training paths: ModelConfig() at full width
     from dataclasses import replace

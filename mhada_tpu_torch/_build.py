@@ -32,13 +32,13 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types (pointers and the stream as c_void_p).
 SIGNATURES = {
-    "mhada_attention_fwd": [_P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "mhada_attention_fwd": [_P] * 3 + [_I] * 5 + [_F, _I, _P],
     "mhada_attention_cross_fwd": [_P] * 4 + [_I] * 8 + [_F, _I, _P],
     "mhada_mhada_fwd": [_P] * 6 + [_I] * 7 + [_P],
     "mhada_mhada_prologue": [_P] * 9 + [_I] * 7 + [_P],
     "mhada_ln_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "mhada_decoder_tail": [_P] * 9 + [_I] * 4 + [_P],
-    "mhada_attention_train_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "mhada_attention_train_fwd": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
     "mhada_attention_train_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                                   _P],
     "mhada_mhada_train_fwd": [_P] * 8 + [_I] * 6 + [_P],

@@ -37,9 +37,38 @@
 // the operand of dS K and dS^T Q; every product accumulates in float32.
 #pragma once
 
-#include "attention_mma.cuh"
+#include <math.h>
+#include <stdint.h>
+
+#include "common.cuh"
+#include "flash_mma.cuh"
 
 namespace mhada {
+
+struct AttnMmaArgs {
+  const __nv_bfloat16* qkv;   // (B, L, 3C)
+  const __nv_bfloat16* g;     // dO (B, L, C)
+  const float* lse_in;        // (B, heads, L), natural-log units
+  const float* delta;         // (B, heads, L)
+  __nv_bfloat16* out;         // d qkv (B, L, 3C)
+  int seq, channels;
+  float scale;
+};
+
+// Fill the kernels' arguments for the packed (B, L, 3C) qkv -> false
+// unless the pointers are 16-byte aligned and channels a multiple of 8, as
+// the 16-byte copies of the rows need.
+inline bool make_mma_args(AttnMmaArgs& a, const void* qkv, const void* g,
+                          void* out, int seq, int channels, float scale) {
+  if (!mma_aligned({qkv, g, out}, channels)) return false;
+  a.qkv = static_cast<const __nv_bfloat16*>(qkv);
+  a.g = static_cast<const __nv_bfloat16*>(g);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.seq = seq;
+  a.channels = channels;
+  a.scale = scale;
+  return true;
+}
 
 // One stage of the dkv kernel's ring: Q and dO tiles, then 64 lse and 64
 // delta values.

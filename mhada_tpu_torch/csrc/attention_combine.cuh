@@ -1,15 +1,18 @@
-// K1's cross form split over the keys: the layout of the float32 partials
-// that each split's block writes, and the kernel that combines them.
+// The attention tiles split over the keys: the layout of the float32
+// partials that each split's block writes, and the kernel that combines
+// them.
 //
-// Part of the redesign of attention_fwd.cu::mhada_attention_cross_fwd (the
-// counterpart of mhada_tpu/ops/attention_pallas.py::_attention_pallas_call,
-// pallas_call at attention_pallas.py:62, and of _attn_stream_fwd_impl,
-// :488).  The TPU kernels walk every key of a query block in one program;
-// on the H100 a grid of (query blocks x heads x batch) blocks of one key
-// walk each leaves most SMs idle at the sequence-parallel shapes (32 blocks
-// of 132 at 1024 queries, f32), so each (b, h, query block) takes `splits`
-// blocks, split s walking key tiles [s T / splits, (s + 1) T / splits) of
-// the T = ceil(M / 64).  Each writes, for its rows,
+// Part of the bf16 attention tile (attention_wgmma.cuh: K1, K6's forward and
+// K1's cross form, the counterparts of mhada_tpu/ops/attention_pallas.py's
+// _tm_kernel, _tm_res_kernel, _attention_pallas_call and _attn_stream_fwd_impl,
+// pallas_calls at attention_pallas.py:154, :236, :62 and :488) and of K1's
+// cross form at float32 (mhada_f32_tile.cuh).  The TPU kernels walk every key
+// of a query block in one program; on the H100 a grid of (query blocks x heads
+// x batch) blocks of one key walk each leaves most SMs idle at the
+// sequence-parallel shapes (32 blocks of 132 at 1024 queries, f32), so each
+// (b, h, query block) takes `splits` blocks, split s walking key tiles
+// [s T / splits, (s + 1) T / splits) of the T = ceil(M / 64).  Each writes,
+// for its rows,
 //
 //   m_s = the row maximum of the scaled logits, in log2 units
 //   l_s = sum_k 2^(x_k - m_s)          (x: scaled logits in log2 units)
@@ -20,8 +23,13 @@
 //
 //   m = max_s m_s,  w_s = 2^(m_s - m),  out = sum_s w_s O_s / sum_s w_s l_s
 //
-// rounded once to the output's type.  Every split holds at least one key
-// tile with a key below M, so every m_s is finite and l_s >= 1.
+// rounded once to the output's type, and, where the caller asks for it (K6's
+// forward), the row log-sum-exp in natural-log units,
+//
+//   lse = m ln 2 + log sum_s w_s l_s
+//
+// Every split holds at least one key tile with a key below M, so every m_s
+// is finite and l_s >= 1.
 //
 // Bound: the combine reads splits (C + 2 heads) floats a row and writes C
 // values: bytes, a few microseconds at the path's shapes (8 MB of
@@ -71,11 +79,14 @@ __host__ __device__ inline int split_first(int s, int splits, int tiles) {
 }
 
 constexpr int kCombineThreads = 256;
+constexpr float kCombineLn2 = 0.6931471805599453f;
 
 // out (B, N, C) in T from the partials; thread: 4 channels of one row.
+// lse: null, or (B, heads, N) float32, written by the thread that holds a
+// head's first four channels.
 template <typename T>
 __global__ void __launch_bounds__(kCombineThreads)
-    attention_combine_kernel(Partials p, T* out) {
+    attention_combine_kernel(Partials p, T* out, float* lse) {
   const int quads = p.channels / 4;
   const long long i = blockIdx.x * (long long)kCombineThreads + threadIdx.x;
   if (i >= (long long)p.batch * p.n * quads) return;
@@ -105,15 +116,17 @@ __global__ void __launch_bounds__(kCombineThreads)
   dst[1] = from_f32<T>(o.y / l);
   dst[2] = from_f32<T>(o.z / l);
   dst[3] = from_f32<T>(o.w / l);
+  if (lse != nullptr && ch % 64 == 0)
+    lse[(b * p.heads + h) * p.n + row] = mx * kCombineLn2 + logf(l);
 }
 
 template <typename T>
-cudaError_t launch_combine(const Partials& p, void* out,
-                           cudaStream_t stream) {
+cudaError_t launch_combine(const Partials& p, void* out, cudaStream_t stream,
+                           float* lse = nullptr) {
   const long long threads = (long long)p.batch * p.n * (p.channels / 4);
   const long long blocks = (threads + kCombineThreads - 1) / kCombineThreads;
   attention_combine_kernel<T><<<(unsigned)blocks, kCombineThreads, 0,
-                                stream>>>(p, static_cast<T*>(out));
+                                stream>>>(p, static_cast<T*>(out), lse);
   return cudaGetLastError();
 }
 

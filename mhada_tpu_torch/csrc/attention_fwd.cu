@@ -9,13 +9,17 @@
 //
 // What bounds it on the card: 4 L^2 d flops per head (34 GFLOP per call at
 // L = 4096, 8 heads) against 2 L (3C + C) element reads, so it is
-// compute-bound.  bfloat16 runs on the tensor cores (attention_mma.cuh:
-// mma.sync with bf16 operands, float32 accumulators, a cp.async K/V ring);
-// float32 keeps computing in float32, as FMAs on the CUDA cores, with no
-// TF32: the attention variant of the register-tiled, cp.async-pipelined
-// f32 tile (mhada_f32_tile.cuh, attention_f32_kernel<false>: 256 queries a
-// block, the scale folded into Q^T).  The scores never leave shared memory
-// and registers.
+// compute-bound.  bfloat16 runs the warp-specialised wgmma + TMA attention
+// tile (attention_wgmma.cuh: a TMA producer warpgroup, three consumer
+// warpgroups of 64 queries taking turns on the tensor cores) on the packed
+// qkv, split over the keys where the grid leaves SMs idle (`splits` from
+// ops/attention_kernel.py::self_splits; the float32 partials in `part`,
+// combined by attention_combine.cuh in the same entry call); float32 keeps
+// computing in float32, as FMAs on the CUDA cores, with no TF32: the
+// attention variant of the register-tiled, cp.async-pipelined f32 tile
+// (mhada_f32_tile.cuh, attention_f32_kernel<false>: 256 queries a block,
+// the scale folded into Q^T), unsplit.  The scores never leave shared
+// memory and registers.
 //
 // K1's cross form (mhada_attention_cross_fwd): N queries against M keys and
 // values of another tensor, the counterpart of the head-major
@@ -47,7 +51,6 @@
 // consumer warpgroups of 64 queries, a producer keeping 64-key TMA boxes
 // of K and V in flight), split or not.
 #include "attention_combine.cuh"
-#include "attention_mma.cuh"
 #include "attention_wgmma.cuh"
 #include "mhada_f32_tile.cuh"
 
@@ -89,19 +92,22 @@ cudaError_t attention_fwd_f32(const void* qkv, void* out, int batch,
 }  // namespace
 
 // qkv and out 16-byte aligned; channels a multiple of 4 (float32) or 8
-// (bfloat16).
-extern "C" int mhada_attention_fwd(const void* qkv, void* out, int batch,
-                                   int seq, int channels, int heads,
-                                   float scale, int dtype, void* stream) {
+// (bfloat16).  bfloat16: 1 <= splits <= ceil(seq / 64), and with splits >
+// 1 part holds xsplit::partial_floats(splits, batch, seq, channels, heads)
+// float32 (16-byte aligned); float32 takes splits = 1 and no part.
+extern "C" int mhada_attention_fwd(const void* qkv, void* out, void* part,
+                                   int batch, int seq, int channels,
+                                   int heads, int splits, float scale,
+                                   int dtype, void* stream) {
   if (dtype == mhada::kF32)
-    return (int)attention_fwd_f32(qkv, out, batch, seq, channels, heads,
-                                  scale, (cudaStream_t)stream);
-  mhada::AttnMmaArgs a{};
-  if (dtype != mhada::kBF16 ||
-      !mhada::make_mma_args(a, qkv, qkv, out, seq, channels, scale))
-    return (int)cudaErrorInvalidValue;
-  return (int)mhada::launch_attention_mma_fwd<false>(a, heads, batch,
-                                                     (cudaStream_t)stream);
+    return splits == 1 ? (int)attention_fwd_f32(qkv, out, batch, seq,
+                                                channels, heads, scale,
+                                                (cudaStream_t)stream)
+                       : (int)cudaErrorInvalidValue;
+  if (dtype != mhada::kBF16) return (int)cudaErrorInvalidValue;
+  return (int)mhada::xwg::launch_self_attention_wgmma(
+      qkv, out, nullptr, batch, seq, channels, heads, splits,
+      static_cast<float*>(part), scale, (cudaStream_t)stream);
 }
 
 // q: rows of q_stride elements, the queries in the first `channels`; kv:

@@ -7,27 +7,29 @@
 // (_tm_bwd_kernel, pallas_call at attention_pallas.py:351).
 //
 // Forward: K1's kernel that also writes the row log-sum-exp, (B, heads, L)
-// float32; the TPU kernel broadcast it over 64 lanes for its tiles, which
-// Hopper does not need.  Backward: two kernels (dK and dV per key tile, dQ
-// per query tile), reading Q, K and V in place from the (B, L, 3C)
-// qkv and writing dQ, dK and dV straight into the packed (B, L, 3C)
-// gradient at channel offsets h*64, C + h*64 and 2C + h*64, so no
-// head-split copy exists in either direction.  The row term
-// delta = rowsum(dO * O) per head comes from the wrapper
-// (attention_pallas.py:322-327).
+// float32 in natural-log units; the TPU kernel broadcast it over 64 lanes for
+// its tiles, which Hopper does not need.  Backward: two kernels (dK and dV per
+// key tile, dQ per query tile), reading Q, K and V in place from the (B, L, 3C)
+// qkv and writing dQ, dK and dV straight into the packed (B, L, 3C) gradient at
+// channel offsets h*64, C + h*64 and 2C + h*64, so no head-split copy exists in
+// either direction.  The row term delta = rowsum(dO * O) per head comes from
+// the wrapper (attention_pallas.py:322-327).
 //
 // What bounds it on the card: the forward does 4 L^2 d flops per head, the
 // backward 14 L^2 d (S and dP in both kernels, P^T dO, dS^T Q, dS K; 10 L^2
 // d without the recompute), i.e. 17 and 60 GFLOP per call at the training
 // shape (B = 8, L = 1024, 8 heads) against 2 L (3C + C) element reads:
-// compute-bound.  bfloat16 runs on the tensor cores (attention_mma.cuh,
-// attention_bwd_mma.cuh: mma.sync with bf16 operands and float32
-// accumulators); float32 keeps computing in float32, as FMAs on the CUDA
-// cores (the forward: mhada_f32_tile.cuh, attention_f32_kernel<true>; the
-// backward: flash_bwd_f32.cuh; float32 operands 16-byte aligned and
-// channels a multiple of 4, or the entry point refuses).
+// compute-bound.  bfloat16 runs on the tensor cores: the forward on the
+// wgmma + TMA attention tile (attention_wgmma.cuh, split over the keys where
+// the grid leaves SMs idle, the combine also forming the lse), the backward
+// on mma.sync (attention_bwd_mma.cuh); float32 keeps computing in float32,
+// as FMAs on the CUDA cores (the forward: mhada_f32_tile.cuh,
+// attention_f32_kernel<true>; the backward: flash_bwd_f32.cuh; float32
+// operands 16-byte aligned and channels a multiple of 4, or the entry
+// point refuses).
 
 #include "attention_bwd_mma.cuh"
+#include "attention_wgmma.cuh"
 #include "flash_bwd_f32.cuh"  // and mhada_f32_tile.cuh
 
 namespace {
@@ -75,21 +77,23 @@ cudaError_t attention_train_bwd_f32(const void* qkv, const void* g,
 }  // namespace
 
 // qkv (B, L, 3C) in T; out (B, L, C) in T; lse (B, heads, L) float32.
+// splits and part as mhada_attention_fwd's.
 extern "C" int mhada_attention_train_fwd(const void* qkv, void* out,
-                                         void* lse, int batch, int seq,
-                                         int channels, int heads, float scale,
-                                         int dtype, void* stream) {
+                                         void* lse, void* part, int batch,
+                                         int seq, int channels, int heads,
+                                         int splits, float scale, int dtype,
+                                         void* stream) {
   if (dtype == mhada::kF32)
-    return (int)attention_train_fwd_f32(qkv, out, static_cast<float*>(lse),
-                                        batch, seq, channels, heads, scale,
-                                        (cudaStream_t)stream);
-  mhada::AttnMmaArgs a{};
-  if (dtype != mhada::kBF16 ||
-      !mhada::make_mma_args(a, qkv, qkv, out, seq, channels, scale))
+    return splits == 1
+               ? (int)attention_train_fwd_f32(
+                     qkv, out, static_cast<float*>(lse), batch, seq,
+                     channels, heads, scale, (cudaStream_t)stream)
+               : (int)cudaErrorInvalidValue;
+  if (dtype != mhada::kBF16 || lse == nullptr)
     return (int)cudaErrorInvalidValue;
-  a.lse = static_cast<float*>(lse);
-  return (int)mhada::launch_attention_mma_fwd<true>(a, heads, batch,
-                                                    (cudaStream_t)stream);
+  return (int)mhada::xwg::launch_self_attention_wgmma(
+      qkv, out, static_cast<float*>(lse), batch, seq, channels, heads, splits,
+      static_cast<float*>(part), scale, (cudaStream_t)stream);
 }
 
 // g = dO (B, L, C) in T; lse, delta (B, heads, L) float32; dqkv (B, L, 3C)

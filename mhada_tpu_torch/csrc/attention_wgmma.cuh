@@ -1,29 +1,37 @@
-// K1's cross form at bf16 as a warp-specialised wgmma + TMA kernel: N
-// queries against M keys and values of another tensor, optionally split
-// over the keys (attention_combine.cuh).
+// The bf16 attention tile: a warp-specialised wgmma + TMA kernel of N
+// queries against M keys and values, optionally split over the keys
+// (attention_combine.cuh).  It serves K1 (self-attention on the packed
+// qkv), K6's forward (the same, also writing the row log-sum-exp) and K1's
+// cross form (a rank's queries against the keys and values gathered over
+// the ranks).
 //
-// Replaces, at bf16, mhada_tpu/ops/attention_pallas.py::_attention_pallas_call
-// (_kernel, pallas_call at attention_pallas.py:62) and the forward of
-// _attn_stream_fwd_impl (with_res=False, _stream_kernel, pallas_call at
-// :488), which the JAX ViT attention reaches under sequence parallelism
-// (mhada_tpu/models/layers.py:204-212): a rank's queries against the keys
-// and values gathered over the ranks.  Per (b, h):
+// Replaces, at bf16, mhada_tpu/ops/attention_pallas.py::_tm_kernel
+// (attention_pallas_tm, pallas_call at attention_pallas.py:154) and
+// _tm_res_kernel (_attn_tm_fwd_impl, pallas_call at :236); through K1 and
+// K6 the TPU's K9 (attention_stream_wide, :624) and K12's forwards
+// (_attention_pallas_call, :62; _attn_stream_fwd_impl, :488), which the JAX
+// ViT attention also reaches under sequence parallelism
+// (mhada_tpu/models/layers.py:204-212).  Per (b, h):
 //
 //   S   = Q K^T in float32, times `scale` (applied to the float32 scores,
 //         as _kernel does after its product); keys >= M set to -inf
 //   P   = online softmax of S, rounded to bf16 before the product (the row
-//         sum takes P before rounding, as the JAX denominators do)
+//         sum takes P before rounding, as the JAX denominators do,
+//         attention_pallas.py:110-117, 193-200)
 //   out = (P V) / l in float32, rounded once to bf16
+//   lse = m ln 2 + log l, float32 in natural-log units (K6's backward reads
+//         it), when the caller passes a pointer for it
 //
 // with Q read from rows of q_rs elements (a column slice of the packed qkv
-// qualifies) and K and V from one (B, M, 2C) tensor side by side in rows
-// of kv_rs.  ops/attention_kernel.py::attention_cross_plain is the plain
-// version.
+// qualifies) and K and V from one tensor side by side in rows of kv_rs
+// (the self form: q = qkv at q_rs = 3C, kv = qkv + C at kv_rs = 3C).
+// ops/attention_kernel.py::attention_plain, attention_cross_plain and
+// ops/attention_train.py::attention_train_fwd_plain are the plain versions.
 //
-// Bound: 4 N M d flops per head (137.4 GFLOP at N = 4096, M = 16384, 8
-// heads: 0.139 ms at the bf16 tensor-core rate) against (2 N + 2 M) C bf16
-// values moved: operations.  The exps are as many as the products' k-steps
-// allow: 4096 a tile and consumer against 2 x 64 x 64 x 64 x 2 flops, so at
+// Bound: 4 N M d flops per head (34.4 GFLOP at N = M = 4096, 8 heads: 0.035
+// ms at the bf16 tensor-core rate) against (2 N + 2 M) C bf16 values
+// moved: operations.  The exps are as many as the products' k-steps allow:
+// 4096 a 64-key tile and consumer against 2 x 64 x 64 x 64 x 2 flops, so at
 // 16 MUFU.EX2 a clock an SM the softmax takes as long as the tensor cores
 // (about 768 clocks a tile of three consumers each) unless it runs under
 // them.
@@ -52,8 +60,9 @@
 //   written only between a wgmma.wait_group and the next wgmma.fence, and
 //   S's first k-step does not read S: otherwise ptxas serialises every
 //   product (C7513).
-// - Epilogue: unsplit, O / l rounded to bf16 for rows < N; split, the
-//   float32 partials (m_s in log2 units, l_s, O_s) for the combine.
+// - Epilogue: unsplit (kSplit false), O / l rounded to bf16 and, with a.lse,
+//   the lse for rows < N; split, the float32 partials (m_s in log2 units,
+//   l_s, O_s) for the combine, which also forms the lse.
 //
 // Registers: 3 x 128 x kConsumerRegs + 128 x kProducerRegs = 65,536, the
 // block's allocation at 128 a thread (__launch_bounds__(512, 1)).  Shared
@@ -95,11 +104,13 @@ constexpr int kBarOwn = 1, kBarTurn = 1 + kConsumers;
 struct XArgs {
   const bf16* q;     // (B, N, rows of q_rs): head h at h*64
   bf16* out;         // (B, N, C)
+  float* lse;        // (B, heads, N) natural-log row lse, or null
   long long q_rs;
   int n, m, channels;
   float scale;
 };
 
+template <bool kSplit>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
                            const __grid_constant__ CUtensorMap vmap,
@@ -206,9 +217,13 @@ __global__ void __launch_bounds__(kThreads, 1)
                                                  1024), 1);
   };
   // Online softmax of walk tile j's scores: s becomes P (float32); alpha
-  // is the factor by which O must be rescaled before P V is added.  The
-  // scores are scaled into log2 units; only the ragged last tile of the
-  // keys can hold keys past M.
+  // is the factor by which O must be rescaled before P V is added.  The row
+  // maximum m is kept in log2 units of the scaled scores: the raw maximum
+  // times the scale (the same float32 value as the maximum of the scaled
+  // scores, the scale being positive: the launch refuses any other), so
+  // that each exponent, s sl2 - m, is one FFMA (5-8 % faster than a
+  // multiply a score in probes/attention_wgmma_ablate.py on an H100).
+  // Only the ragged last tile of the keys can hold keys past M.
   const float sl2 = a.scale * kLog2e;
   auto softmax = [&](int j, float (&alpha)[2]) {
     const int k0 = 64 * (t0 + j);
@@ -216,22 +231,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      float x = s[i] * sl2;
-      if (ragged && k0 + 8 * (i / 4) + 2 * t + (i % 2) >= M) x = -INFINITY;
-      s[i] = x;
-      mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], x);
+      if (ragged && k0 + 8 * (i / 4) + 2 * t + (i % 2) >= M)
+        s[i] = -INFINITY;
+      mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], s[i]);
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       // finite: key k0 < M is in every tile
-      const float m_new = fmaxf(mrow[r], quad_max(mx[r]));
+      const float m_new = fmaxf(mrow[r], quad_max(mx[r]) * sl2);
       alpha[r] = exp2_ftz(mrow[r] - m_new);
       mrow[r] = m_new;
       lrow[r] *= alpha[r];
     }
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      const float e = exp2_ftz(s[i] - mrow[(i % 4) / 2]);
+      const float e = exp2_ftz(fmaf(s[i], sl2, -mrow[(i % 4) / 2]));
       lrow[(i % 4) / 2] += e;
       s[i] = e;
     }
@@ -323,7 +337,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int row = q0 + w * 16 + g + 8 * r;
     const float l = quad_sum(lrow[r]);
     if (row >= N) continue;
-    if (part.splits > 1) {
+    if constexpr (kSplit) {
       float* orow = part.o(split, b, row) + hoff;
 #pragma unroll
       for (int n = 0; n < 8; ++n)
@@ -340,19 +354,23 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int n = 0; n < 8; ++n)
         *reinterpret_cast<uint32_t*>(orow + 8 * n + 2 * t) =
             pack_bf16(o[4 * n + 2 * r] / l, o[4 * n + 2 * r + 1] / l);
+      if (a.lse != nullptr && t == 0)
+        a.lse[(static_cast<long long>(b) * gridDim.y + h) * N + row] =
+            mrow[r] * kLn2 + logf(l);
     }
   }
 }
 
 // kv: (B, M, rows of kv_rs) with K at 0 and V at C; pointers 16-byte
-// aligned, C and the row strides multiples of 8, C = 64 heads.  splits > 1:
-// the partials (xsplit::partial_floats floats), then the combine.
+// aligned, C and the row strides multiples of 8, C = 64 heads, a.scale >
+// 0; a.lse null or (B, heads, N) float32.  splits > 1: the partials
+// (xsplit::partial_floats floats), then the combine (and the lse).
 inline cudaError_t launch_attention_wgmma(const XArgs& a, const void* kv,
                                           long long kv_rs, int heads,
                                           int batch, int splits, float* part,
                                           cudaStream_t stream) {
   const int tiles = (a.m + 63) / 64;
-  if (a.n < 1 || a.m < 1 || splits < 1 || splits > tiles ||
+  if (a.n < 1 || a.m < 1 || splits < 1 || splits > tiles || !(a.scale > 0.f) ||
       a.channels != 64 * heads || a.q_rs % 8 || kv_rs % 8 ||
       !mma_aligned({a.q, kv, a.out}, a.channels) ||
       (splits > 1 && (part == nullptr || !mma_aligned({part}, 8))))
@@ -363,17 +381,39 @@ inline cudaError_t launch_attention_wgmma(const XArgs& a, const void* kv,
       !wg::kv_tensor_map(&vmap, k + a.channels, batch, a.m, a.channels,
                          kv_rs))
     return cudaErrorInvalidValue;
+  auto* kernel = splits > 1 ? attention_wgmma_kernel<true>
+                            : attention_wgmma_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return err;
   const xsplit::Partials p{part, splits, batch, a.n, a.channels, heads};
   const dim3 grid((a.n + kRows - 1) / kRows * splits, heads, batch);
-  attention_wgmma_kernel<<<grid, kThreads, kSmemBytes, stream>>>(kmap, vmap,
-                                                                 a, p);
+  kernel<<<grid, kThreads, kSmemBytes, stream>>>(kmap, vmap, a, p);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  return xsplit::launch_combine<bf16>(p, a.out, stream);
+  return xsplit::launch_combine<bf16>(p, a.out, stream, a.lse);
+}
+
+// K1 and K6's forward: self-attention on the packed (B, L, 3C) qkv (Q, K
+// and V of head h at channels h*64, C + h*64 and 2C + h*64, rows of 3C),
+// out (B, L, C); lse null (K1) or (B, heads, L) float32 (K6).
+inline cudaError_t launch_self_attention_wgmma(const void* qkv, void* out,
+                                               float* lse, int batch, int seq,
+                                               int channels, int heads,
+                                               int splits, float* part,
+                                               float scale,
+                                               cudaStream_t stream) {
+  XArgs a{};
+  a.q = static_cast<const bf16*>(qkv);
+  a.out = static_cast<bf16*>(out);
+  a.lse = lse;
+  a.q_rs = 3LL * channels;
+  a.n = a.m = seq;
+  a.channels = channels;
+  a.scale = scale;
+  return launch_attention_wgmma(a, a.q + channels, 3LL * channels, heads,
+                                batch, splits, part, stream);
 }
 
 }  // namespace xwg

@@ -15,7 +15,7 @@
 // against (3 N + 2 M) C bf16 values moved and M1 and E2 in float32:
 // compute-bound at the bf16 tensor-core rate.
 //
-// Design: K1's tile (attention_mma.cuh) with a second product.  A block of
+// Design: K1's former mma.sync tile with a second product.  A block of
 // 4 warps owns 64 queries of one (b, h), 16 rows a warp, and streams the
 // keys in tiles of 64 through the two-stage cp.async ring of K and V, rows
 // past M zero-filled:

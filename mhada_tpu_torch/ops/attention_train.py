@@ -9,7 +9,9 @@ attention_pallas.py:488), and its flash backward,
 ``_attn_stream_bwd_impl`` (dQ at :868, dK/dV at :888).  Both compute the
 same function in another layout; the kernels stream 64-key tiles, so one
 pair serves every length.  Forward: K1's tile also writing the row
-log-sum-exp, (B, heads, L) float32.  Backward: dQ, dK and dV written
+log-sum-exp, (B, heads, L) float32 (at bfloat16 the wgmma + TMA attention
+tile, split over the keys as ``attention_kernel.self_splits`` picks, the
+combine forming the lse of a split call).  Backward: dQ, dK and dV written
 straight into the packed (B, L, 3C) gradient, P rebuilt from lse, dO in
 the storage dtype, float32 accumulation; the row term delta = rowsum(dO *
 O) per head is computed here, as attention_pallas.py:322-327 and :807 do in
@@ -24,7 +26,7 @@ import torch
 
 from .. import _build
 from ..config import use_kernel
-from .attention_kernel import HEAD_DIM
+from .attention_kernel import HEAD_DIM, check_scale, self_split_args
 from .mhada_kernel import ALIGNED
 
 
@@ -82,15 +84,21 @@ def attention_train_bwd_plain(qkv: torch.Tensor, lse: torch.Tensor,
     return torch.cat([torch.cat(gs, dim=-1) for gs in grads], dim=-1).to(dt)
 
 
-def _fwd_kernel(qkv, num_heads, scale):
+def fwd_launch(qkv, num_heads, scale, splits=None):
+    """K6's forward kernel on a CUDA qkv, split over the keys ``splits``
+    ways (``self_splits`` picks by default) -> (out, lse, the float32
+    partials buffer or None when unsplit)."""
+    check_scale("attention_train", qkv.dtype, scale)
     b, l, c3 = qkv.shape
     out = qkv.new_empty((b, l, c3 // 3))
     lse = torch.empty((b, num_heads, l), device=qkv.device,
                       dtype=torch.float32)
-    _build.check_aligned("attention_train", qkv, out, dtypes=ALIGNED)
-    _build.launch("mhada_attention_train_fwd", qkv.device, qkv, out, lse, b,
-                  l, c3 // 3, num_heads, float(scale), _build.dtype_code(qkv))
-    return out, lse
+    splits, part = self_split_args("attention_train", qkv, num_heads, splits)
+    _build.check_aligned("attention_train", qkv, out, part, dtypes=ALIGNED)
+    _build.launch("mhada_attention_train_fwd", qkv.device, qkv, out, lse,
+                  part, b, l, c3 // 3, num_heads, splits, float(scale),
+                  _build.dtype_code(qkv))
+    return out, lse, part
 
 
 def _bwd_kernel(qkv, lse, delta, g, num_heads, scale):
@@ -107,8 +115,10 @@ def _bwd_kernel(qkv, lse, delta, g, num_heads, scale):
 class _AttentionTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, num_heads, scale, kernel):
-        fwd = _fwd_kernel if kernel else attention_train_fwd_plain
-        out, lse = fwd(qkv, num_heads, scale)
+        if kernel:
+            out, lse = fwd_launch(qkv, num_heads, scale)[:2]
+        else:
+            out, lse = attention_train_fwd_plain(qkv, num_heads, scale)
         ctx.save_for_backward(qkv, out, lse)
         ctx.num_heads, ctx.scale, ctx.kernel = num_heads, scale, kernel
         return out

@@ -19,6 +19,10 @@ KEY_TILE = 64
 MAX_SPLITS = 8
 # What the combine costs, in key tiles of one block's walk.
 COMBINE_TILES = 1.0
+# The bytes of float32 partials the combine reads, at the card's memory
+# rate, in the time of one key tile of the bf16 tiles' walk (~1 us on an
+# H100).
+TILE_BYTES = 3.35e6
 
 
 def pick_splits(blocks: int, tiles: int, slots: int, overhead: float,

@@ -24,7 +24,8 @@ import torch
 
 from .. import _build
 from ..config import use_kernel
-from .key_split import KEY_TILE, check_splits, pick_splits, sm_count
+from .key_split import (KEY_TILE, TILE_BYTES, check_splits, pick_splits,
+                        sm_count)
 from .mhada import mhada_attention
 
 HEAD_DIM = 64
@@ -41,10 +42,9 @@ ALIGNED = (torch.float32, torch.bfloat16)
 # costs besides its walk and what a split block's store of its float32
 # partials (192 rows of 2 x 64 + 2 floats) adds; fitted to
 # probes/mhada_split_sweep.py's device times.  The combine reads each
-# split's [O1 | O2] rows, 8 C bytes a row, at the card's memory rate: 3.35
-# MB in the time of one key tile.
+# split's [O1 | O2] rows, 8 C bytes a row, at the card's memory rate
+# (key_split.TILE_BYTES in the time of one key tile).
 MHADA_BLOCK = (192, 1, 4.0, 4.0)
-TILE_BYTES = 3.35e6
 
 
 @functools.cache

@@ -132,8 +132,8 @@ def main(argv=None) -> None:
         def run(fn, s):
             (b, n), qkv, out = SHAPES[s], inputs[s], outs[s]
             stream = torch.cuda.current_stream(device).cuda_stream
-            err = fn(qkv.data_ptr(), out.data_ptr(), b, n, C, HEADS, 0.125,
-                     _build.DTYPE_CODES[torch.float32], stream)
+            err = fn(qkv.data_ptr(), out.data_ptr(), None, b, n, C, HEADS, 1,
+                     0.125, _build.DTYPE_CODES[torch.float32], stream)
             if err:
                 raise RuntimeError(f"{ENTRY} failed: CUDA error {err}")
 

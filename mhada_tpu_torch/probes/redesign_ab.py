@@ -1,7 +1,7 @@
-"""P1, K14, K13, the float32 tail, K1, K3, K4 and the bf16 frames against
-another checkout's builds of them, on one card, in turns: the time a
-redesign saves (or a change of a kernel's arguments costs), measured in one
-call.
+"""P1, K14, K13, the float32 tail, K1, K6's forward, K1's cross form, K3,
+K4 and the bf16 frames against another checkout's builds of them, on one
+card, in turns: the time a redesign saves (or a change of a kernel's
+arguments costs), measured in one call.
 
     python -m mhada_tpu_torch.probes.redesign_ab --other DIR [--rounds 2]
         [--groups P1 K14 K13 tail K1 K1x mhada frames]
@@ -25,9 +25,15 @@ events:
 - the float32 decoder tail, whose direct conv K14's float32 build shares:
   K5 from 256^2 to 512^2 (B = 1) and K8's forward from 128^2 to 256^2 (B =
   8), ``chip_smoke.py``'s K5 and K8 gate shapes;
-- K1 (``ops.attention_kernel.attention_tm``) and K6's forward, which share
-  the float32 attention kernel with K1's cross form, at B = 1 and L = 4096
-  (the 512^2 frame), float32 and bfloat16;
+- K1 (``ops.attention_kernel.attention_tm``) and K6's forward
+  (``ops.attention_train.fwd_launch``; ``_fwd_kernel`` in a checkout that
+  predates it), which share the attention tiles
+  with K1's cross form (float32 attention_f32_kernel, bfloat16 the wgmma +
+  TMA tile), at their gate shapes: K1 at B = 1, L = 4096 (the 512^2 frame)
+  and 16384 (1024^2), K6's forward at B = 1, L = 4096, B = 8, L = 1024
+  (the 256^2 step), B = 4, L = 4096 (512^2) and B = 1, L = 16384, float32
+  and bfloat16, each at its wrapper's default split, as wall ms and as
+  device ms (the tile and the combine);
 - K1's cross form (``ops.attention_kernel.attention_cross``, q the first C
   columns of a packed qkv) at its sequence-parallel gate shapes (B = 1, 8
   heads: 1024 and 2048 queries against 4096 keys, 4096 against 16384),
@@ -67,6 +73,10 @@ MM_REPS = 100
 # (side, batch) of K14's gates in chip_smoke.py
 MID_SHAPES = [(128, 1), (128, 8), (256, 1)]
 MID_C = 256
+# (kernel, batch, tokens) of K1's and K6's forward's gates in chip_smoke.py
+SELF_SHAPES = [("K1", 1, 4096), ("K1", 1, 16384), ("K6 forward", 1, 4096),
+               ("K6 forward", 8, 1024), ("K6 forward", 4, 4096),
+               ("K6 forward", 1, 16384)]
 # (queries, keys) of K1's cross form's gates in chip_smoke.py
 CROSS_SHAPES = [(1024, 4096), (2048, 4096), (4096, 16384)]
 # (height, width, batch) of K13's gates in chip_smoke.py
@@ -182,12 +192,22 @@ def worker(root: str, groups=GROUPS) -> dict:
                 lambda: fn(x, *tail_w))
         for dtype in (torch.float32, torch.bfloat16) \
                 if {"K1", "K1x"} & set(groups) else ():
-            qkv = torch.randn(1, 4096, 1536, generator=g).to("cuda", dtype)
-            if "K1" in groups:
-                out[f"K1 L=4096 B=1 {str(dtype)[6:]}"] = _cuda_ms(
-                    lambda: attention_kernel.attention_tm(qkv, 8))
-                out[f"K6 forward L=4096 B=1 {str(dtype)[6:]}"] = _cuda_ms(
-                    lambda: attention_train._fwd_kernel(qkv, 8, 0.125))
+            k6_fwd = getattr(attention_train, "fwd_launch", None) \
+                or attention_train._fwd_kernel
+            for kind, batch, n in SELF_SHAPES if "K1" in groups else ():
+                qkv = torch.randn(batch, n, 1536, generator=g).to("cuda",
+                                                                  dtype)
+
+                def self_call(kind=kind, qkv=qkv):
+                    if kind == "K1":
+                        return attention_kernel.attention_tm(qkv, 8)
+                    return k6_fwd(qkv, 8, 0.125)
+
+                key = f"{kind} L={n} B={batch} {str(dtype)[6:]}"
+                out[key] = _cuda_ms(self_call)
+                out[key + " device"] = device_ms(self_call)
+                del qkv
+                torch.cuda.empty_cache()
             for n, m in CROSS_SHAPES if "K1x" in groups else ():
                 qkv = torch.randn(1, n, 1536, generator=g).to("cuda", dtype)
                 kv = torch.randn(1, m, 1024, generator=g).to("cuda", dtype)

@@ -202,17 +202,18 @@ def test_split_model_matches_streaming_forward(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_combine_partials_and_layout(dtype):
     """``combine_partials`` on the model's partials repeats the model's
-    combine (float32, summed in another order), and without the last split
+    combine (float32, summed in another order; its lse is held in
+    tests/test_torch_attention_wgmma.py), and without the last split
     it is far off (the planted control
     of chip_smoke.py's phase 10); ``split_partials`` reads O, m and l at
     csrc/attention_combine.cuh's offsets."""
     b, n, m, splits = 2, 200, 700, 3
     want, o_s, m_s, l_s = _model(b, n, m, 7, splits, dtype)
     o_tm = o_s.permute(0, 1, 3, 2, 4).reshape(splits, b, n, HEADS * D)
-    got = combine_partials(o_tm, m_s, l_s, torch.float32)
+    got = combine_partials(o_tm, m_s, l_s, torch.float32)[0]
     _close(got.numpy(), want.numpy(), torch.float32)
-    assert combine_partials(o_tm, m_s, l_s, dtype).dtype == dtype
-    dropped = combine_partials(o_tm, m_s, l_s, dtype, keep=splits - 1)
+    assert combine_partials(o_tm, m_s, l_s, dtype)[0].dtype == dtype
+    dropped = combine_partials(o_tm, m_s, l_s, dtype, keep=splits - 1)[0]
     assert (dropped.float() - want).abs().max() > 0.05 * want.abs().max()
     c = HEADS * D
     part = torch.cat([o_tm.reshape(-1), m_s.reshape(-1), l_s.reshape(-1)])
@@ -245,7 +246,7 @@ def test_cross_splits_invariants(dtype):
     """Over a grid of shapes: 1 <= splits <= MAX_SPLITS, no split without a
     key tile, and 1 where the grid is whole waves of the card's block
     slots; a count past the tiles is refused before any work."""
-    rows, per_sm, _ = CROSS_BLOCKS[dtype]
+    rows, per_sm = CROSS_BLOCKS[dtype][:2]
     for sms in (132, 114, 16):
         for b in (1, 2, 8):
             for heads in (1, 2, 8):

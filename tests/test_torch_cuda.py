@@ -58,11 +58,14 @@ import torch.nn.functional as F
 
 from mhada_tpu_torch import _build
 from mhada_tpu_torch.ops import attention_train as attention_train_ops
-from mhada_tpu_torch.ops.attention_kernel import (MAX_SPLITS,
+from mhada_tpu_torch.ops.attention_kernel import (MAX_SPLITS, _tm_launch,
                                                   attention_cross,
                                                   attention_cross_plain,
-                                                  attention_tm)
-from mhada_tpu_torch.ops.attention_train import attention_train
+                                                  attention_tm,
+                                                  combine_partials,
+                                                  split_partials)
+from mhada_tpu_torch.ops.attention_train import (attention_train,
+                                                 attention_train_fwd_plain)
 from mhada_tpu_torch.ops.decoder_c6 import c6_conv
 from mhada_tpu_torch.ops.decoder_mid import mid3_fused
 from mhada_tpu_torch.ops import decoder_tail as decoder_tail_ops
@@ -177,17 +180,16 @@ def test_attention_cross_kernel(gen, dtype, b, n, m, heads):
 @pytest.mark.parametrize("b,l,heads", [(2, 100, 2), (1, 4096, 8)])
 def test_attention_cross_self_case(gen, dtype, b, l, heads):
     """Self-attention is the cross form's case q = qkv[..., :C], kv =
-    qkv[..., C:].  Unsplit at float32 the cross form runs K1's own kernel
-    on the same data: bit for bit.  Split, and at bfloat16 (its wgmma
-    tile, K1's is mma.sync), it is held against the twin as the cross
+    qkv[..., C:].  Unsplit, the cross form runs K1's own kernel on the same
+    data at both dtypes (float32 attention_f32_kernel, bfloat16 the wgmma
+    tile): bit for bit.  Split, it is held against the twin as the cross
     gates are.  K1's own launch count moves only on attention_tm."""
     c = 64 * heads
     qkv = _rnd(gen, dtype, b, l, 3 * c).to(dtype)
     before = dict(_build.LAUNCHES)
-    own = attention_tm(qkv, heads)
-    if dtype == torch.float32:
-        assert torch.equal(own, attention_cross(qkv[..., :c], qkv[..., c:],
-                                                heads, splits=1))
+    own = _tm_launch(qkv, heads, splits=1)
+    assert torch.equal(own, attention_cross(qkv[..., :c], qkv[..., c:],
+                                            heads, splits=1))
     assert _build.LAUNCHES["mhada_attention_fwd"] == \
         before["mhada_attention_fwd"] + 1
     _check("mhada_attention_cross_fwd",
@@ -221,6 +223,91 @@ def test_attention_cross_forced_splits(gen, dtype):
         attention_cross(qkv.to(dtype)[..., :c], kv.to(dtype), heads,
                         splits=12)
     assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("b,l,heads", [(2, 200, 2), (2, 700, 2),
+                                       (1, 1000, 8)])
+def test_attention_self_forced_splits(gen, b, l, heads):
+    """K1 and K6's forward at bfloat16 on the wgmma tile at every split
+    count over the keys (1 .. MAX_SPLITS, as far as the key tiles allow) at
+    ragged L and B = 2: one launch a call (the combine included), out
+    against the twins and repeated bit for bit, K6's lse against the plain
+    lse (float32, 1e-5 of its scale: P rounds to bf16 only inside P V);
+    float32 takes no split, and a count past the key tiles or a scale
+    that is not positive raises before any launch; the C entries refuse
+    that scale too."""
+    dtype = torch.bfloat16
+    c = 64 * heads
+    qkv = _rnd(gen, dtype, b, l, 3 * c, scale=0.5)
+    tiles = -(-l // 64)
+    _, lse_ref = attention_train_fwd_plain(qkv, heads, 0.125)
+    for splits in range(1, min(tiles, MAX_SPLITS) + 1):
+        def k1(be, dt, splits=splits):
+            if be == "plain":
+                return attention_tm(qkv.to(dt), heads, backend=be)
+            return _tm_launch(qkv.to(dt), heads, splits=splits)
+
+        def k6(be, dt, splits=splits):
+            if be == "plain":
+                return attention_train_fwd_plain(qkv.to(dt), heads, 0.125)[0]
+            return attention_train_ops.fwd_launch(qkv.to(dt), heads, 0.125,
+                                                  splits)[0]
+
+        _check("mhada_attention_fwd", k1, dtype)
+        _check("mhada_attention_train_fwd", k6, dtype)
+        assert torch.equal(k1("kernel", dtype), k1("kernel", dtype))
+        out, lse, _ = attention_train_ops.fwd_launch(qkv.to(dtype), heads,
+                                                     0.125, splits)
+        again = attention_train_ops.fwd_launch(qkv.to(dtype), heads, 0.125,
+                                               splits)
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        assert torch.equal(out, k1("kernel", dtype))   # one tile, one split
+        err = (lse - lse_ref).abs().max().item()
+        assert err <= 1e-5 * lse_ref.abs().max().item(), (splits, err)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="without a 64-key tile"):
+        _tm_launch(qkv.to(dtype), heads, splits=tiles + 1)
+    with pytest.raises(ValueError, match="takes no split"):
+        _tm_launch(qkv, heads, splits=2)
+    with pytest.raises(ValueError, match="takes no split"):
+        attention_train_ops.fwd_launch(qkv, heads, 0.125, 2)
+    with pytest.raises(ValueError, match="positive scale"):
+        _tm_launch(qkv.to(dtype), heads, -0.125)
+    with pytest.raises(ValueError, match="positive scale"):
+        attention_train_ops.fwd_launch(qkv.to(dtype), heads, 0.0)
+    with pytest.raises(ValueError, match="positive scale"):
+        attention_cross(qkv.to(dtype)[..., :c], qkv.to(dtype)[..., c:],
+                        heads, -0.125)
+    out = torch.empty(b, l, c, device="cuda", dtype=dtype)
+    lse = torch.empty(b, heads, l, device="cuda")
+    for entry, args in (("mhada_attention_fwd", (out,)),
+                        ("mhada_attention_train_fwd", (out, lse))):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _build.launch(entry, qkv.device, qkv.to(dtype), *args, None, b,
+                          l, c, heads, 1, -0.125, _build.dtype_code(out))
+    assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("b,l,heads", [(2, 700, 2), (1, 4096, 8)])
+def test_attention_self_split_control(gen, b, l, heads):
+    """K6's forward split over the keys: its partials combined in plain
+    PyTorch (``combine_partials``) give the kernel's out within one bf16
+    step and its lse within 1e-5 of its scale; without the last split both
+    are far off (the planted control of chip_smoke.py's K6 gate)."""
+    c = 64 * heads
+    qkv = _rnd(gen, torch.bfloat16, b, l, 3 * c, scale=0.5).to(torch.bfloat16)
+    splits = 3
+    out, lse, part = attention_train_ops.fwd_launch(qkv, heads, 0.125, splits)
+    views = split_partials(part, splits, b, l, c, heads)
+    whole, whole_lse = combine_partials(*views, torch.float32)
+    scale = out.float().abs().max().item()
+    assert (whole - out.float()).abs().max().item() <= 2 ** -8 * scale
+    assert (whole_lse - lse).abs().max().item() <= \
+        1e-5 * lse.abs().max().item()
+    dropped, dropped_lse = combine_partials(*views, torch.float32,
+                                            keep=splits - 1)
+    assert (dropped - out.float()).abs().max().item() > 0.05 * scale
+    assert (dropped_lse - lse).abs().max().item() > 1e-3
 
 
 @pytest.mark.parametrize("entry", ["mhada_mhada_prologue",
@@ -736,7 +823,7 @@ def test_f32_forwards_full_width(gen, b, n, m, shift):
     before = [_build.LAUNCHES[e] for e in entries]
     qkv = _rnd(gen, torch.float32, b, n, 3 * c)
     k1 = attention_tm(qkv, heads)
-    k6 = attention_train_ops._fwd_kernel(qkv, heads, 0.125)
+    k6 = attention_train_ops.fwd_launch(qkv, heads, 0.125)[:2]
     q = _rnd(gen, torch.float32, b, n, c, scale=0.35)
     k = _rnd(gen, torch.float32, b, m, c, scale=0.35)
     v = _rnd(gen, torch.float32, b, m, c, scale=0.3 if shift else 1.0) + shift
@@ -783,7 +870,7 @@ def test_f32_forwards_reject_unaligned(gen, entry):
         def call(t):
             if entry == "mhada_attention_fwd":
                 return attention_tm(t["qkv"], heads)
-            return attention_train_ops._fwd_kernel(t["qkv"], heads, 0.125)
+            return attention_train_ops.fwd_launch(t["qkv"], heads, 0.125)
 
     before = dict(_build.LAUNCHES)
     for name in shapes:
@@ -799,14 +886,14 @@ def test_f32_forwards_reject_unaligned(gen, entry):
         q, kv = torch.zeros(b, n, c, device="cuda"), torch.zeros(
             b, m, c, device="cuda")
         args = [q, kv, kv, q, out, out.clone(), out.clone(), lse, b, n, m]
-    else:
+    else:   # (qkv, out[, lse], part, b, n), then C, heads, splits, scale
         args = [torch.zeros(b, n, 3 * c, device="cuda"), out]
         args += [lse] if entry == "mhada_attention_train_fwd" else []
-        args += [b, n]
+        args += [None, b, n]
     with pytest.raises(RuntimeError, match="CUDA error"):
         _build.launch(entry, out.device, *args, c, heads,
-                      *([] if entry == "mhada_mhada_train_fwd" else [0.125]),
-                      0)
+                      *([] if entry == "mhada_mhada_train_fwd"
+                        else [1, 0.125]), 0)
     assert _build.LAUNCHES == before
     call({key: torch.zeros(shape, device="cuda")
           for key, shape in shapes.items()})   # aligned: launches

@@ -21,10 +21,13 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from interpret_diagnostics import explain, interpreter_busy, worker_state
+from interpret_diagnostics import (explain, fresh_interpreter,
+                                   interpreter_busy, mhada_prologue_f64,
+                                   nearest_on_this_thread, worker_state)
 from mhada_tpu_torch.ops.instance_norm import instance_norm_stats
 from mhada_tpu_torch import _build
-from mhada_tpu_torch.probes import (c6_ablate, f32_tile_geometry,
+from mhada_tpu_torch.probes import (attention_wgmma_ablate, c6_ablate,
+                                    f32_tile_geometry,
                                     ln_matmul_split, mhada_pipe_probe,
                                     mhada_wgmma_ablate, mm_probe, redesign_ab,
                                     tail_f32_geometry)
@@ -168,8 +171,12 @@ def test_pipe_plain_matches_pipe_kernel():
     N = M = 256, C = 128, 2 heads, tn = 128, float32; k at scale 0.35 keeps
     the unscaled logits' std near 1.6 (tests/test_torch_streaming.py:56-83),
     with that test's bound.  A failure names its largest error, its
-    non-finite values, the worker's peak RSS and any interpreter state left
-    over from an earlier kernel, as that test's does."""
+    non-finite values, each side's error against a float64 evaluation, the
+    worker's peak RSS and floating-point environment and any interpreter
+    state left over from an earlier kernel, as that test's does.  As
+    there, the plain version runs on the calling thread rounding to
+    nearest and the interpreter starts from fresh state, whatever earlier
+    files of the worker left behind."""
     probe = _script("mhada_pipe_probe")
     rng = np.random.default_rng(82)
     b, n, c, h = 1, 256, 128, 2
@@ -183,6 +190,7 @@ def test_pipe_plain_matches_pipe_kernel():
     stats = torch.stack([*instance_norm_stats(t[0]),
                          *instance_norm_stats(t[1])], 1)
     stale = interpreter_busy()
+    fresh_interpreter()
     try:
         with pltpu.force_tpu_interpret_mode():
             ref = np.asarray(probe.call_variant(
@@ -191,11 +199,14 @@ def test_pipe_plain_matches_pipe_kernel():
     except Exception as e:
         raise AssertionError(f"the Pallas kernel raised in interpret mode: "
                              f"{e!r}; {worker_state(stale)}") from e
-    got = mhada_pipe_probe.mhada_fused_prologue_pipe(t[0], t[1], stats,
-                                                     *t[2:]).numpy()
+    with nearest_on_this_thread():
+        got = mhada_pipe_probe.mhada_fused_prologue_pipe(t[0], t[1], stats,
+                                                         *t[2:]).numpy()
     assert got.shape == ref.shape == (b, n, c), worker_state(stale)
+    exact = mhada_prologue_f64(fc, fcs, stats.numpy(), wf, fb, k, v)
     np.testing.assert_allclose(got, ref, atol=5e-5, rtol=0,
-                               err_msg=explain(got, ref, worker_state(stale)))
+                               err_msg=explain(got, ref, worker_state(stale),
+                                               exact))
 
 
 def test_probe_clis_cpu(capsys, monkeypatch):
@@ -258,6 +269,47 @@ def test_wgmma_ablate_edits_apply(variant):
     assert (out != src) == bool(edits)
     with pytest.raises(ValueError, match="not found"):
         mhada_wgmma_ablate.patched(src, [("no such text", "")])
+
+
+def _tile_constants(text):
+    """The attention tile's geometry constants from its header's text, and
+    its keys a tile (kTileBytes = keys x 64 channels x 2 bytes)."""
+    code = "\n".join(ln for ln in text.splitlines()
+                     if not ln.lstrip().startswith("//"))
+    names = ("kConsumers", "kStages", "kConsumerRegs", "kProducerRegs")
+    k = {n: int(re.search(rf"\b{n} = (\d+)", code)[1]) for n in names}
+    k["keys"] = int(re.search(r"\bkTileBytes = (\d+) \* 64 \* 2;", code)[1])
+    return k
+
+
+@pytest.mark.parametrize("variant", list(attention_wgmma_ablate.VARIANTS))
+def test_attention_ablate_edits_apply(variant):
+    """Each variant of the attention tile's ablation probe still finds its
+    text in csrc/attention_wgmma.cuh (the probe raises otherwise) and
+    changes it; each variant's setmaxnreg split stays within the block's
+    registers (the header's static_assert: a setmaxnreg.inc past them
+    hangs the card) and its ring and Q tiles within 227 KB."""
+    src = (_build.CSRC / attention_wgmma_ablate.HEADER).read_text()
+    edits = attention_wgmma_ablate.VARIANTS[variant]
+    out = attention_wgmma_ablate.patched(src, edits)
+    assert (out != src) == bool(edits)
+    k = _tile_constants(out)
+    threads = 128 * (k["kConsumers"] + 1)
+    assert (k["kConsumers"] * 128 * k["kConsumerRegs"]
+            + 128 * k["kProducerRegs"]) <= 65536 // threads // 8 * 8 * threads
+    assert k["keys"] in (64, 128)
+    assert (k["keys"] == 128) == ("128-key" in variant)
+    smem = (k["kStages"] * 2 * k["keys"] * 128 + k["kConsumers"] * 64 * 144
+            + 2 * k["kStages"] * 8 + 1024)
+    assert smem <= 232448
+    with pytest.raises(ValueError, match="not found"):
+        attention_wgmma_ablate.patched(src, [("no such text", "")])
+
+
+def test_attention_ablate_needs_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        attention_wgmma_ablate.main(["--variants", "as built"])
 
 
 @pytest.mark.parametrize("variant", list(c6_ablate.VARIANTS))

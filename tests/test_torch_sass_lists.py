@@ -10,7 +10,8 @@ of K14's float32 conv (csrc/decoder_mid_f32.cuh), of K13's
 (csrc/mhada_combine.cuh) in F32_KERNELS (no tensor-core instruction, no
 spills), so that no kernel skips the check; each listed kernel exists,
 each instantiation required of a path is listed, and K13's, K1's cross
-form's, K3's and K4's replaced kernels are refused and gone.
+form's, K1's and K6's forward's, K3's and K4's replaced kernels are refused
+and gone.
 CPU: reads the sources and chip_smoke.py's constants (it imports torch only
 inside main)."""
 
@@ -103,18 +104,20 @@ def test_replaced_c6_kernel_is_refused():
 
 def test_replaced_cross_kernel_is_refused():
     """K1's cross form on the mma.sync tile (attention_mma_fwd_kernel<false,
-    true>) is refused by phase 2 and instantiable nowhere: the tile keeps
-    one template argument, K1's self case <false> and K6's forward <true>.
-    Its redesign, the wgmma kernel, is listed and the float32 split's
-    instantiation and its combine are required."""
+    true>) is refused by phase 2 and instantiable nowhere: the mma.sync
+    attention forward is gone with its header (K1 and K6's forward moved to
+    the wgmma tile too).  Its redesign, the wgmma kernel, is listed and the
+    float32 split's instantiation and its combine are required."""
     smoke = _chip_smoke()
     old = ("_ZN5mhada24attention_mma_fwd_kernelILb0ELb1EEEvNS_11"
            "AttnMmaArgsE")
     assert re.search(smoke.OLD_BF16, old)
-    src = (CSRC / "attention_mma.cuh").read_text()
-    assert "template <bool kRes>\n__global__" in src
-    assert "kCross" not in src and "make_mma_cross_args" not in src
+    assert not (CSRC / "attention_mma.cuh").exists()
     every = set(_kernels("*.cuh")) | set(_kernels("*.cu"))
+    assert "attention_mma_fwd_kernel" not in every
+    for src in CSRC.glob("*.cu*"):
+        assert "kCross" not in src.read_text(), src.name
+        assert "make_mma_cross_args" not in src.read_text(), src.name
     assert "attention_wgmma_kernel" in every
     assert "attention_wgmma_kernel" in smoke.WGMMA_KERNELS
     for req in ("attention_f32_kernelILb0ELb0E",
@@ -122,6 +125,37 @@ def test_replaced_cross_kernel_is_refused():
                 "attention_f32_kernelILb0ELb1E", "attention_combine_kernelIfE",
                 "attention_combine_kernelI13__nv_bfloat16E"):
         assert req in smoke.F32_REQUIRED and not re.search(smoke.OLD_BF16, req)
+
+
+def test_replaced_attention_forward_is_refused():
+    """K1 and K6's forward at bf16 left the mma.sync tile for the wgmma +
+    TMA attention tile: every instantiation of attention_mma_fwd_kernel
+    (K1 <false>, K6's forward <true>) is refused by phase 2 and no source
+    defines or launches it; both C entries launch the self form of the
+    tile, whose <split> instantiations are required; the mma.sync list
+    keeps K6's backward only."""
+    smoke = _chip_smoke()
+    for old in ("_ZN5mhada24attention_mma_fwd_kernelILb0EEEvNS_11"
+                "AttnMmaArgsE",
+                "_ZN5mhada24attention_mma_fwd_kernelILb1EEEvNS_11"
+                "AttnMmaArgsE"):
+        assert re.search(smoke.OLD_BF16, old), old
+    for src in CSRC.glob("*.cu*"):
+        text = src.read_text()
+        assert "launch_attention_mma_fwd" not in text, src.name
+        assert "kMmaFwdSmemBytes" not in text, src.name
+    for entry in ("attention_fwd.cu", "attention_train.cu"):
+        assert "launch_self_attention_wgmma" in (CSRC / entry).read_text()
+    assert not any("attention_mma_fwd" in k for k in smoke.MMA_KERNELS)
+    assert {"attention_mma_dkv_kernel", "attention_mma_dq_kernel"} <= set(
+        smoke.MMA_KERNELS)
+    for req in ("attention_wgmma_kernelILb0E", "attention_wgmma_kernelILb1E"):
+        assert req in smoke.WGMMA_REQUIRED
+        assert not re.search(smoke.OLD_BF16, req)
+    mangled = ("_ZN5mhada3xwg22attention_wgmma_kernelILb0EEEv14CUtensorMap_st"
+               "S2_NS0_5XArgsENS_6xsplit8PartialsE")
+    assert "attention_wgmma_kernelILb0E" in mangled
+    assert not re.search(smoke.OLD_BF16, mangled)
 
 
 def test_replaced_mhada_instantiations_are_refused():
@@ -145,7 +179,7 @@ def test_replaced_mhada_instantiations_are_refused():
         text = (CSRC / entry).read_text()
         assert "launch_mhada_mma_fwd" not in text
         assert "launch_mhada_wgmma" in text
-    assert set(smoke.WGMMA_REQUIRED) == {
+    assert {r for r in smoke.WGMMA_REQUIRED if r.startswith("mhada")} == {
         f"mhada_wgmma_kernelILb{p}ELb{s}E" for p in (0, 1) for s in (0, 1)}
     for req in ("mhada_combine_kernelILb1E", "mhada_combine_kernelILb0E"):
         assert req in smoke.F32_REQUIRED

@@ -12,7 +12,9 @@ import jax.numpy as jnp
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from interpret_diagnostics import explain, interpreter_busy, worker_state
+from interpret_diagnostics import (explain, fresh_interpreter,
+                                   interpreter_busy, mhada_prologue_f64,
+                                   nearest_on_this_thread, worker_state)
 
 from mhada_tpu.config import ModelConfig as JaxModelConfig
 from mhada_tpu.infer import image as jax_image
@@ -63,8 +65,13 @@ def test_prologue_plain_matches_pallas():
     ragged N = 200, M = 130; k at input scale 0.35 keeps the unscaled
     logits' std near 1.6, where elementwise parity is meaningful (at std
     above ~2 single-ulp rounding flips the softmax's argmax).  A failure
-    names its largest error, its non-finite values, the worker's peak RSS
-    and any interpreter state left over from an earlier kernel."""
+    names its largest error, its non-finite values, each side's error
+    against a float64 evaluation, the worker's peak RSS and floating-point
+    environment and any interpreter state left over from an earlier
+    kernel.  The plain version runs on the calling thread rounding to
+    nearest (``nearest_on_this_thread``: torch's intra-op threads keep the
+    floating-point environment they were started in) and the interpreter
+    starts from fresh state (``fresh_interpreter``)."""
     rng = np.random.default_rng(43)
     b, n, m, c, h = 2, 200, 130, 128, 2
     fc = (rng.standard_normal((b, n, c)) * 2 + 1).astype(np.float32)
@@ -79,6 +86,7 @@ def test_prologue_plain_matches_pallas():
     ms, rs = instance_norm_stats(t[1])
     stats = torch.stack([mc, rc, ms, rs], 1)
     stale = interpreter_busy()
+    fresh_interpreter()
     try:
         with pltpu.force_tpu_interpret_mode():
             ref = np.asarray(jax_fused_prologue(
@@ -86,13 +94,16 @@ def test_prologue_plain_matches_pallas():
     except Exception as e:
         raise AssertionError(f"the Pallas kernel raised in interpret mode: "
                              f"{e!r}; {worker_state(stale)}") from e
-    got = mhada_fused_prologue_plain(t[0], t[1], stats, *t[2:]).numpy()
+    with nearest_on_this_thread():
+        got = mhada_fused_prologue_plain(t[0], t[1], stats, *t[2:]).numpy()
     assert got.shape == ref.shape == (b, n, c), worker_state(stale)
+    exact = mhada_prologue_f64(fc, fcs, stats.numpy(), wf, fb, k, v)
     np.testing.assert_allclose(got, ref, atol=5e-5, rtol=0,
-                               err_msg=explain(got, ref,
-                                                worker_state(stale)))
+                               err_msg=explain(got, ref, worker_state(stale),
+                                               exact))
     # the wrapper takes the plain version for CPU tensors
-    again = mhada_fused_prologue(t[0], t[1], stats, *t[2:]).numpy()
+    with nearest_on_this_thread():
+        again = mhada_fused_prologue(t[0], t[1], stats, *t[2:]).numpy()
     np.testing.assert_array_equal(again, got, err_msg=explain(
         again, got, worker_state(stale)))
 
