@@ -7,21 +7,22 @@
    whether cv2 imports (reported, never failed);
 2. build: compile mhada_tpu_torch/csrc/*.cu with nvcc (one per source, in
    parallel); the bf16 mma.sync kernels of K6's backward (dQ and dK/dV),
-   of K7 (forward, dQ and dK/dV), of the decoder tail (K5, K8), of K2, of
-   K14 and of K13 must each hold HMMA.16816.F32.BF16 in their SASS
-   (cuobjdump) and spill nothing (ptxas); the wgmma + TMA kernels, the
-   MHAda tile of K3, K4 and P2 (mhada_wgmma_kernel <prologue, split>, all
-   four instantiations present), the attention tile of K1, K6's forward
-   and K1's cross form (attention_wgmma_kernel <split>, both
-   instantiations present) and every block tile of P1's, must hold HGMMA
-   (wgmma) and UTMALDG (TMA loads) and spill nothing; every instantiation
-   that a bf16 path
-   launches must exist (K7's forward on the mma.sync MHAda tile, the tail
-   with and without residuals, K2's, K14's, K13's), no bf16
-   instantiation of the CUDA-core kernels they replaced may exist (those
-   of K1, K4, K5, K6, K7, K8 and K2), nor K3's and K4's on the mma.sync
-   MHAda tile (mhada_mma_fwd_kernel without residuals, or with the
-   prologue parameter it had before), nor
+   of the decoder tail (K5, K8), of K2, of K14 and of K13 must each hold
+   HMMA.16816.F32.BF16 in their SASS (cuobjdump) and spill nothing
+   (ptxas); the wgmma + TMA kernels, the MHAda tile of K3, K4, P2 and K7's
+   forward (mhada_wgmma_kernel <prologue, split, residuals>, all five
+   instantiations present), K7's backward (mhada_wgmma_dq_kernel,
+   mhada_wgmma_dkv_kernel), the attention tile of K1, K6's forward and
+   K1's cross form (attention_wgmma_kernel <split>, both instantiations
+   present) and every block tile of P1's, must hold HGMMA (wgmma) and
+   UTMALDG (TMA loads), spill nothing and draw no note from ptxas that it
+   serialised their products (C75xx); every instantiation that a bf16
+   path launches must exist (the tail with and without residuals, K2's,
+   K14's, K13's), no bf16 instantiation of the CUDA-core kernels they
+   replaced may exist (those of K1, K4, K5, K6, K7, K8 and K2), nor any
+   of the mma.sync MHAda tile (mhada_mma_fwd_kernel: K3 and K4 before the
+   wgmma tile, K7's forward before its residual epilogue) or of K7's
+   mma.sync backward (mhada_mma_dq_kernel, mhada_mma_dkv_kernel), nor
    any instantiation of K14's old
    conv (conv3x3_relu_kernel, either dtype) or of P1's old wmma kernel
    (mm_probe_kernel), nor any instantiation of the old flash tile
@@ -110,8 +111,11 @@
    path timed in the same turns; the video CLI's 256 x 512 frame at B = 1
    and 8; the streaming path at 1024^2, B = 1, bfloat16;
 6. training gates: the training kernels K6 (attention, forward and
-   backward), K7 (MHAda, forward and backward) and K8 (the decoder tail
-   writing its residuals) against their plain versions at the image
+   backward), K7 (MHAda, forward and backward; also at a ragged shape, B
+   = 2, 1000 queries against 3000 keys, and at a rank's share of the TP
+   split, 4 heads of 64, B = 1, 3600 queries against 1024 keys) and K8
+   (the decoder tail writing its residuals) against their plain versions
+   at the image
    training step's shapes (B = 8, 256^2: L = N = M = 1024 tokens, the tail
    from 128^2 to 256^2); K6 and K7 also beyond the TPU's token-major
    training windows, as the ports of K12, K10's residuals and K11 (B = 4 at
@@ -133,14 +137,22 @@
    non-square tail at full width; and a planted control of K6's forward
    split over the keys (B = 2, L = 2048, bfloat16: the kernel's partials
    combined in PyTorch without the last split must fail the gate's out
-   and lse bounds while the kernel and the whole combine pass them);
+   and lse bounds while the kernel and the whole combine pass them); K7's
+   checks at bfloat16 (K7_CHECK, B = 1, 1024 queries against 4096 keys):
+   its forward's out bit for bit K4's at every forced split count 1..3, a
+   planted control of its forward split over the keys (its partials
+   combined in PyTorch without the last split must fail the gate's out,
+   M1, E2 and lse bounds while the kernel and the whole combine pass
+   them), and two launches of its backward bitwise equal;
 7. the training paths: one step (``train.train_image``) on the kernel build
    and one on the plain build from the same weights and batch, losses and
    every gradient held together (each tensor against its own scale, to a
    bound widened only where a rounding-level change of the inputs moves
    the plain build as far), launch counts exact; controls that the
    gradient gate must report (a planted fault in K7's dq; the plain build
-   in bfloat16 against the float32 bounds); at 256^2, B = 8: that step, 5
+   in bfloat16 against the float32 bounds), and in bfloat16 what faults
+   of x 1.1 and x 1.25 in K7's dq move (printed, not gated); at 256^2, B
+   = 8: that step, 5
    steps on a fixed batch with a falling loss, ``train.run_image`` for 2
    steps over 16 synthetic PNGs and one resumed step, ms/step of both
    builds interleaved; the fused-LN build (``ModelConfig(fuse_ln=True)``,
@@ -151,7 +163,8 @@
    (``train.train_video``: B = 2 pairs of 256 x 512 frames, 256^2 styles,
    flow U(-5, 5), mask U(0, 1) > 0.2): that step, with K6 18 + 18, K7 30 +
    30 and K8 5 launches, its key biases' gradients held to their own
-   ceiling and a planted fault in K7's dK that must cross it, 5 steps on
+   ceiling (each one's reading printed beside its rounding controls) and
+   a planted fault in K7's dK that must cross it, 5 steps on
    a fixed batch with a falling loss, ``train.run_video`` for 2 steps
    over a synthetic SceneFlow tree and WikiArt PNGs, resumed across from
    the checkpoint that the 256^2 ``train.run_image`` run wrote, and
@@ -489,6 +502,14 @@ TRAIN_GATES = [
     ("K8 128x256->256x512 B=2", None, None, "tail", 2, (128, 256)),
 ]
 VIDEO_GATES = TRAIN_GATES[-3:]
+# K7 beyond the steps' shapes, at both dtypes: a ragged shape (no 192-query
+# block, 64-key tile or 128-key block divides 1000 or 3000) and a rank's
+# share of the TP split (4 heads of 64) at the Sintel eval's 3600 queries
+# against a 256^2 style.  (gate, kind, batch, tokens, tp.)
+K7_EXTRA_GATES = [
+    ("K7 B=2 N=1000 M=3000", "mhada", 2, (1000, 3000), 1),
+    ("K7 TP/2 B=1 N=3600 M=1024", "mhada", 1, (3600, 1024), 2),
+]
 TRAIN_B, TRAIN_SIZE = 8, 256
 # The 512^2 step (4096 tokens at every attention and MHAda site).
 BIG_B, BIG_SIZE = 4, 512
@@ -560,6 +581,9 @@ BELOW_DQ = {"float32": 1e-3, "bfloat16": 1e-1}
 # control; one of 2^-12 (float32: 2^-20) is counted, not gated.
 PLANTED_DK = {"float32": 2.0 ** -16, "bfloat16": 2.0 ** -8}
 BELOW_DK = {"float32": 2.0 ** -20, "bfloat16": 2.0 ** -12}
+# A fault in K7's dq between BELOW_DQ and PLANTED_DQ, bfloat16 only: what x
+# 1.25 moves in the step gate, printed beside x 1.1 (BELOW_DQ), not gated.
+MID_DQ = {"bfloat16": 0.25}
 # Gate bounds on max |kernel - plain| / max |plain|.  float32: the two
 # differ only in summation order (TF32 is off), ~1e-6 expected.  bfloat16:
 # both round intermediates to bf16 (2^-8 relative) at different points.
@@ -629,39 +653,43 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 DTYPE_NAMES = ("float32", "bfloat16")
 # The bf16 mma.sync kernels of K6's backward (csrc/attention_bwd_mma.cuh),
-# K7 (csrc/mhada_mma.cuh: K7's forward; csrc/mhada_bwd_mma.cuh), K5 and K8
-# (csrc/decoder_tail_mma.cuh), K2 (csrc/ln_matmul_mma.cuh), K14
+# K5 and K8 (csrc/decoder_tail_mma.cuh), K2 (csrc/ln_matmul_mma.cuh), K14
 # (csrc/decoder_mid_mma.cuh) and K13 (csrc/decoder_c6_mma.cuh) and the
 # instruction each must contain.
 MMA_KERNELS = ("attention_mma_dkv_kernel",
-               "attention_mma_dq_kernel", "mhada_mma_fwd_kernel",
-               "mhada_mma_dkv_kernel", "mhada_mma_dq_kernel",
+               "attention_mma_dq_kernel",
                "decoder_tail_mma_kernel", "ln_matmul_mma_kernel",
                "decoder_mid_mma_kernel", "decoder_c6_mma_kernel")
 HMMA = "HMMA.16816.F32.BF16"
 # The float32 tail's two kernels (csrc/decoder_tail_f32.cuh), timed apart
 # by name in the K5 and K8 gates.
 TAIL_STAGES = ("tail_up3_f32_kernel", "tail_c5c6_f32_kernel")
-# The bf16 wgmma + TMA kernels (the MHAda tile of K3, K4 and P2, split or
-# not: csrc/mhada_wgmma.cuh; the attention tile of K1, K6's forward and K1's
-# cross form, split or not: csrc/attention_wgmma.cuh; P1, each block tile:
-# csrc/mm_wgmma.cuh) and the instructions each must contain: HGMMA (wgmma)
-# and UTMALDG (TMA loads).
-WGMMA_KERNELS = ("mhada_wgmma_kernel", "attention_wgmma_kernel",
+# The bf16 wgmma + TMA kernels (the MHAda tile of K3, K4, P2 and K7's
+# forward, split or not: csrc/mhada_wgmma.cuh; K7's backward, its dQ and
+# dK/dV kernels: csrc/mhada_bwd_wgmma.cuh; the attention tile of K1, K6's
+# forward and K1's cross form, split or not: csrc/attention_wgmma.cuh; P1,
+# each block tile: csrc/mm_wgmma.cuh) and the instructions each must
+# contain: HGMMA (wgmma) and UTMALDG (TMA loads).
+WGMMA_KERNELS = ("mhada_wgmma_kernel", "mhada_wgmma_dq_kernel",
+                 "mhada_wgmma_dkv_kernel", "attention_wgmma_kernel",
                  "mm_wgmma_kernel")
 WGMMA_SASS = ("HGMMA", "UTMALDG")
-# Instantiations (mangled-name parts) that the bf16 paths launch: K7's
-# forward on the mma.sync MHAda tile (<kRes = true>), K5's and
-# K8's tail, K2, K14, K13; the MHAda wgmma tile's <prologue, split>: K3
-# (and P2) <true, false>, K3 split <true, true>, K4 <false, false>, K4 split
-# <false, true>; the attention wgmma tile's <split>: K1, K6's forward and
-# K1's cross form, <false> unsplit and <true> split over the keys.
-MMA_REQUIRED = ("mhada_mma_fwd_kernelILb1EEEv",
-                "decoder_tail_mma_kernelILb0E", "decoder_tail_mma_kernelILb1E",
+# Instantiations (mangled-name parts) that the bf16 paths launch: K5's and
+# K8's tail, K2, K14, K13; the MHAda wgmma tile's <prologue, split,
+# residuals>: K3 (and P2) <true, false, false>, K3 split <true, true,
+# false>, K4 <false, false, false>, K4 and K7's forward split <false, true,
+# false>, K7's forward unsplit <false, false, true>; K7's dQ and dK/dV
+# kernels; the attention wgmma tile's <split>: K1, K6's forward and K1's
+# cross form, <false> unsplit and <true> split over the keys.
+MMA_REQUIRED = ("decoder_tail_mma_kernelILb0E", "decoder_tail_mma_kernelILb1E",
                 "ln_matmul_mma_kernel", "decoder_mid_mma_kernel",
                 "decoder_c6_mma_kernel")
-WGMMA_REQUIRED = ("mhada_wgmma_kernelILb1ELb0E", "mhada_wgmma_kernelILb1ELb1E",
-                  "mhada_wgmma_kernelILb0ELb0E", "mhada_wgmma_kernelILb0ELb1E",
+WGMMA_REQUIRED = ("mhada_wgmma_kernelILb1ELb0ELb0E",
+                  "mhada_wgmma_kernelILb1ELb1ELb0E",
+                  "mhada_wgmma_kernelILb0ELb0ELb0E",
+                  "mhada_wgmma_kernelILb0ELb1ELb0E",
+                  "mhada_wgmma_kernelILb0ELb0ELb1E",
+                  "mhada_wgmma_dq_kernel", "mhada_wgmma_dkv_kernel",
                   "attention_wgmma_kernelILb0E", "attention_wgmma_kernelILb1E")
 # bf16 instantiations of the CUDA-core kernels that no path may reach any
 # more (mangled names): the attention and MHAda tile (K1, K4, K6's and
@@ -678,9 +706,11 @@ WGMMA_REQUIRED = ("mhada_wgmma_kernelILb1ELb0E", "mhada_wgmma_kernelILb1ELb1E",
 # csrc/decoder_c6_mma.cuh), every instantiation of the mma.sync attention
 # forward (attention_mma_fwd_kernel: K1's cross form <false, true> before
 # csrc/attention_wgmma.cuh, K1 <false> and K6's forward <true> before the
-# attention wgmma tile took them), and K3 and K4 on the mma.sync MHAda tile
-# (mhada_mma_fwd_kernel<false>, or any instantiation with the <kPrologue,
-# kRes> parameters it had before the wgmma tile of csrc/mhada_wgmma.cuh).
+# attention wgmma tile took them), and every instantiation of the mma.sync
+# MHAda tile (mhada_mma_fwd_kernel: K3 and K4 before the wgmma tile of
+# csrc/mhada_wgmma.cuh, K7's forward <true> before its residual epilogue
+# there) and of K7's mma.sync backward (mhada_mma_dq_kernel,
+# mhada_mma_dkv_kernel, before csrc/mhada_bwd_wgmma.cuh).
 OLD_BF16 = (r"flash_tile_kernel"
             r"|flash_bwd_(dkv|dq)_kernelI13__nv_bfloat16"
             r"|decoder_tail_kernelI13__nv_bfloat16"
@@ -691,7 +721,7 @@ OLD_BF16 = (r"flash_tile_kernel"
             r"|decoder_tail_kernelILb"
             r"|decoder_c6_kernel"
             r"|attention_mma_fwd_kernel"
-            r"|mhada_mma_fwd_kernelILb0EEEv|mhada_mma_fwd_kernelILb[01]ELb")
+            r"|mhada_mma_(fwd|dq|dkv)_kernel")
 # float32 kernels that compute in float32: they must exist, spill nothing
 # and hold no tensor-core instruction of any kind (HMMA, HGMMA: no TF32).
 # K2's float32 build, the float32 flash tile (csrc/mhada_f32_tile.cuh: the
@@ -817,7 +847,8 @@ def ptxas_summary(log: str) -> str:
 def mma_report(lib):
     """The bf16 tensor-core kernels in the built library -> (ok, text): each
     kernel's registers and spilled bytes (ptxas), its count of HMMA in the
-    SASS (cuobjdump; the wgmma kernels: HGMMA and UTMALDG), any
+    SASS (cuobjdump; the wgmma kernels: HGMMA and UTMALDG, and no note of
+    ptxas that it serialised their products, C7510-C7515), any
     instantiation of MMA_REQUIRED, WGMMA_REQUIRED or F32_REQUIRED that is
     missing, and any instantiation of a CUDA-core kernel that a redesign
     replaced
@@ -842,6 +873,11 @@ def mma_report(lib):
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
             ptxas.setdefault(name, {})["regs"] = int(m[1])
+        # ptxas' notes that it serialised a kernel's wgmma (C7510-C7515),
+        # which name the kernel
+        m = re.search(r"\((C75\d\d)\).*'(\w+)'", ln)
+        if m:
+            ptxas.setdefault(m[2], {}).setdefault("notes", set()).add(m[1])
     ok, out = True, []
     for kernel in MMA_KERNELS:
         found = [f for f in funcs if kernel in f]
@@ -858,12 +894,15 @@ def mma_report(lib):
         for f in found:
             counts = {ins: funcs[f].count(ins) for ins in WGMMA_SASS}
             info = ptxas.get(f, {})
-            ok = ok and all(counts.values()) and info.get("spill") == 0
+            ok = (ok and all(counts.values()) and info.get("spill") == 0
+                  and not info.get("notes"))
             out.append(f"{f}: {info.get('regs')} regs (the launch bound; "
                        f"setmaxnreg moves them between warpgroups), "
                        f"{info.get('spill')} B spilled, " + ", ".join(
                            f"{n} x {ins}" for ins, n in counts.items())
-                       + f", {funcs[f].count(HMMA)} x {HMMA}")
+                       + f", {funcs[f].count(HMMA)} x {HMMA}, ptxas' "
+                       f"serialisation notes: "
+                       f"{sorted(info.get('notes', ())) or 'none'}")
     missing = [m for m in MMA_REQUIRED + WGMMA_REQUIRED + F32_REQUIRED
                if not any(m in f for f in funcs)]
     out.append(f"missing instantiations: {missing or 'none'}")
@@ -900,11 +939,13 @@ def cuda_ms(fn, warmup=2, iters=5):
 def split_ms(fn, parts, iters=3, windows=6):
     """{part: device ms per call of the kernels whose names hold ``part``}
     from ``torch.profiler`` over ``iters`` calls of ``fn`` after one.  A
-    window in which the profiler recorded no kernel of some part (CUPTI
-    has returned a window without device events on an H100, three in a
-    row once) is profiled again, up to ``windows`` windows; the
-    last one's reading is returned, and the callers fail on a part still
-    at 0."""
+    window in which the profiler recorded no kernel of some part, or some
+    such kernel a number of times that is not a multiple of ``iters``
+    (CUPTI has returned a window without device events on an H100, three
+    in a row once, and windows that held a third of a backward's
+    launches), is profiled again, up to ``windows`` windows; the last
+    one's reading is returned, and the callers fail on a part still at
+    0."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -915,12 +956,13 @@ def split_ms(fn, parts, iters=3, windows=6):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        out = dict.fromkeys(parts, 0.0)
+        out, whole = dict.fromkeys(parts, 0.0), True
         for e in prof.key_averages():
             for part in parts:
                 if part in e.key:
                     out[part] += e.self_device_time_total / 1e3 / iters
-        if all(out.values()):
+                    whole = whole and e.count % iters == 0
+        if all(out.values()) and whole:
             break
     return out
 
@@ -1447,6 +1489,7 @@ def train_gate_inputs(kind, dtype, g, b, n, tp=1):
     from mhada_tpu_torch.ops import ln_matmul as lm
     from mhada_tpu_torch.ops import mhada_train as mt
     from mhada_tpu_torch.ops.attention_kernel import self_splits
+    from mhada_tpu_torch.ops.mhada_kernel import mhada_splits
 
     dev, c, heads = "cuda", 512, 8
     if kind in ("attention", "mhada"):
@@ -1510,10 +1553,11 @@ def train_gate_inputs(kind, dtype, g, b, n, tp=1):
 
         lib_backend, lib_graph = sdpa_backend(lib_graph)
         lib_out = lib_graph()
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
         return dict(
             run=lambda be, *a: mt.mhada_train(*a, heads, be),
             inputs=[q, k, v, f], cot=cot,
-            fwd={"kernel": lambda: mt._fwd_kernel(q, k, v, f, heads),
+            fwd={"kernel": lambda: mt.fwd_launch(q, k, v, f, heads)[:4],
                  "plain": lambda: mt.mhada_train_fwd_plain(q, k, v, f,
                                                            heads)},
             bwd={"kernel": lambda: mt._bwd_kernel(q, k, v, dm1, de2, lse,
@@ -1524,6 +1568,8 @@ def train_gate_inputs(kind, dtype, g, b, n, tp=1):
             names={"fwd": ["out", "M1", "E2", "lse"],
                    "bwd": ["dq", "dk", "dv"],
                    "grad": ["dq", "dk", "dv", "dfcs_n"]},
+            splits=(mhada_splits(b, heads, n, m, sms)
+                    if dtype == torch.bfloat16 else 1),
             flops=(6 * b * n * m * c, 14 * b * n * m * c),
             bytes=((3 * n + 2 * m) * b * c * es + 8 * b * n * c
                    + 4 * b * heads * n,
@@ -1719,6 +1765,24 @@ def run_train_gate(gate, kind, dname, card, b, n, tp=1):
             good = good and all(t > 0 for t in split.values())
             split_txt = (f" (profiler: dK/dV kernel {split['dkv_kernel']:.3f}"
                          f" + dQ kernel {split['dq_kernel']:.3f} ms)")
+        elif kind == "mhada":   # K7's forward: its split, its device time
+            parts = SPLIT_KERNELS[kind][dname][:1 if d["splits"] == 1
+                                               else 2]
+            dev = split_ms(calls["kernel"], parts)
+            recs[part]["splits"] = d["splits"]
+            dev_txt = "device time not measured (the profiler recorded no " \
+                "launch)"
+            if all(dev.values()):
+                recs[part].update(device_ms=sum(dev.values()),
+                                  tile_ms=dev[parts[0]],
+                                  combine_ms=dev[parts[1]]
+                                  if len(parts) > 1 else 0.0)
+                dev_txt = (f"device {dev[parts[0]]:.3f}"
+                           + (f" + combine {dev[parts[1]]:.3f}"
+                              if len(parts) > 1 else "") + " ms")
+            keys = n if isinstance(n, int) else n[1]
+            split_txt = (f" ({d['splits']} split(s) of {-(-keys // 64)} key"
+                         f" tiles; {dev_txt})")
         elif kind == "attention":   # K6's forward: its split, its lse
             parts = SPLIT_KERNELS[kind][dname][:1 if d["splits"] == 1
                                                else 2]
@@ -1836,6 +1900,87 @@ def k6_split_control() -> tuple[bool, dict]:
                  f"kernel and the whole combine within {bound:.0e} and "
                  f"{LSE_REL:.0e}; without the last split both must exceed "
                  "them: the gate sees a dropped split)"), rec
+
+
+# K7's checks at bfloat16: B = 1, 1024 queries against 4096 keys, 8 heads
+# (an SP rank's share of the 512^2 frame against the whole style, where
+# mhada_splits gives 2); the forced split counts of the bitwise check.
+K7_CHECK = (1, 1024, 4096)
+K7_FORCED_SPLITS = (1, 2, 3)
+
+
+def k7_checks() -> tuple[bool, dict]:
+    """K7 at bfloat16 on the wgmma tiles (K7_CHECK): its forward's out bit
+    for bit K4's at each of K7_FORCED_SPLITS (one tile, K7 also storing M1,
+    E2 and the lse); its forward split as ``mhada_splits`` picks, the
+    partials combined in plain PyTorch (``mhada_combine_partials``) without
+    the last split must fail the K7 gate (out, M1 or E2 over TRAIN_REL's
+    forward bound, the lse over LSE_REL) while the kernel and the whole
+    combine pass it; two launches of its backward bitwise equal -> (ok,
+    record)."""
+    import torch
+
+    from mhada_tpu_torch.ops import mhada_kernel as mk
+    from mhada_tpu_torch.ops import mhada_train as mt
+    from mhada_tpu_torch.ops.key_split import split_partials
+
+    b, n, m = K7_CHECK
+    c, heads, dtype = 512, 8, torch.bfloat16
+    g = torch.Generator().manual_seed(SEED)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to("cuda", dtype)
+
+    q, k = rnd(b, n, c, scale=0.35), rnd(b, m, c, scale=0.35)
+    v, f, cot = rnd(b, m, c), rnd(b, n, c), rnd(b, n, c)
+    bound = TRAIN_REL["bfloat16"][0]
+    rec = {}
+    with torch.inference_mode():
+        rec["equal_k4"] = {
+            s: torch.equal(mt.fwd_launch(q, k, v, f, heads, splits=s)[0],
+                           mk._mhada_launch(q, k, v, f, heads, splits=s)[0])
+            for s in K7_FORCED_SPLITS}
+        *got, part = mt.fwd_launch(q, k, v, f, heads)
+        ref = mt.mhada_train_fwd_plain(q, k, v, f, heads)
+        splits = 1 if part is None else part.numel() // (
+            b * n * (2 * c + 2 * heads))
+
+        def rels(outs):
+            return [((o.float() - r.float()).abs().max()
+                     / r.float().abs().max()).item()
+                    for o, r in zip(outs, ref)]
+
+        def fails(r):   # the K7 gate's verdict on (out, M1, E2, lse)
+            return max(r[:3]) > bound or r[3] > LSE_REL
+
+        rec.update(splits=splits, kernel=rels(got))
+        if splits > 1:
+            views = split_partials(part, splits, b, n, 2 * c, heads)
+            rec["combined"] = rels(mk.mhada_combine_partials(
+                *views, f, dtype, residuals=True))
+            rec["dropped"] = rels(mk.mhada_combine_partials(
+                *views, f, dtype, keep=splits - 1, residuals=True))
+        _, m1, e2, lse = ref
+        dm1, de2, delta, _ = mt.mhada_train_prologue(cot, f, m1, e2, heads,
+                                                     dtype)
+        grads = [mt._bwd_kernel(q, k, v, dm1, de2, lse, delta, heads)
+                 for _ in range(2)]
+        rec["bwd_repeat"] = all(torch.equal(x, y) for x, y in zip(*grads))
+    good = (all(rec["equal_k4"].values()) and splits > 1
+            and not fails(rec["kernel"]) and not fails(rec["combined"])
+            and fails(rec["dropped"]) and rec["bwd_repeat"])
+    del q, k, v, f, cot, got, part, ref, grads
+    torch.cuda.empty_cache()
+    txt = "; ".join(f"{key} out, M1, E2, lse rel "
+                    + ", ".join(f"{x:.2e}" for x in rec[key])
+                    for key in ("kernel", "combined", "dropped") if key in rec)
+    return phase("train gate K7 checks", good,
+                 f"B = {b}, N = {n}, M = {m}, bfloat16: out bit for bit K4's"
+                 f" at forced splits {rec['equal_k4']}; {splits} splits: "
+                 f"{txt} (the kernel and the whole combine within {bound:.0e}"
+                 f" and {LSE_REL:.0e}; without the last split the gate must "
+                 f"fail); the backward twice, bitwise equal: "
+                 f"{rec['bwd_repeat']}"), rec
 
 
 def step_grads(models, cfg, batch):
@@ -1957,6 +2102,7 @@ def train_step_gates(label, want, kcfg, ktrain, pcfg, ptrain, batch,
         dtype = getattr(torch, dname)
         kc, pc = (replace(c, compute_dtype=dname) for c in (kcfg, pcfg))
         rel_grad = TRAIN_REL[dname][1]
+        faults_d = faults + ([("dq", MID_DQ)] if dname in MID_DQ else [])
         try:
             peaks = {}
             torch.cuda.reset_peak_memory_stats()
@@ -1973,7 +2119,7 @@ def train_step_gates(label, want, kcfg, ktrain, pcfg, ptrain, batch,
                 nudged(x, dtype, nudge_gen) for x in batch[:images]]
                 + batch[images:])[1] for _ in range(2)]
             fgs = []
-            for kind, size in faults:
+            for kind, size in faults_d:
                 with planted_fault(**({"dq_scale": 1 + size[dname]}
                                       if kind == "dq" else
                                       {"dk_shift": size[dname]})):
@@ -2015,10 +2161,18 @@ def train_step_gates(label, want, kcfg, ktrain, pcfg, ptrain, batch,
                                  below=below[net, key])
             for net, key in sorted(live)}
         control_txt, controls_ok = "", bool(caught)
+        if dname in MID_DQ:   # x 1.25, counted, not gated
+            mid, mid_over = planted.pop()
+            records_mid = dict(mid_fault_tensors_over=len(mid_over))
+            control_txt += (f"; K7's dq x (1 + {MID_DQ[dname]:g}), counted,"
+                            f" not gated: {len(mid_over)} tensors over "
+                            f"(nearest: {worst_txt(mid, every_bound)})")
+        else:
+            records_mid = {}
         if key_bias:
             (dk, dk_caught), (dk_below, dk_below_over) = planted[2:]
             controls_ok = controls_ok and bool(dk_caught)
-            control_txt = (
+            control_txt += (
                 f"; K7's dK + {PLANTED_DK[dname]:.3g} x max|dK|: "
                 f"{len(dk_caught)} tensors over their bounds (nearest: "
                 f"{worst_txt(dk, every_bound)}); a smaller one, counted, not"
@@ -2047,13 +2201,23 @@ def train_step_gates(label, want, kcfg, ktrain, pcfg, ptrain, batch,
             noise_rounding_worst=noise_rounding,
             fault_tensors_over=len(caught),
             below_fault_tensors_over=len(below_over),
-            launches=counts, peak_gb=peaks)
+            launches=counts, peak_gb=peaks, **records_mid)
         if key_bias:
+            # each key bias's reading beside its two rounding controls
+            biases = {f"{net}.{key}": (noise[net, key],
+                                       [c[1][net, key] for c in controls])
+                      for net, key in sorted(noise) if key.endswith("g_bias")}
             records[dname].update(
-                key_bias_worst=max(v for t, v in noise.items()
-                                   if t[1].endswith("g_bias")),
+                key_bias_worst=max(v for v, _ in biases.values()),
+                key_bias_each=biases,
                 dk_fault_tensors_over=len(dk_caught),
                 below_dk_fault_tensors_over=len(dk_below_over))
+            phase(f"train step key biases {label} {dname}", True,
+                  "each against its network's largest gradient, kernel "
+                  "build (the plain build's two rounding controls): "
+                  + "; ".join(f"{t} {v:.3e} ({c[0]:.3e}, {c[1]:.3e})"
+                              for t, (v, c) in biases.items())
+                  + f" (bound {KEY_BIAS_BOUND[dname]:.0e}, not raised)")
         bound_txt = (f"{NOISE_BOUND[dname]:.0e}, the key biases "
                      f"{KEY_BIAS_BOUND[dname]:.0e}" if key_bias
                      else f"{NOISE_BOUND[dname]:.0e}")
@@ -4382,6 +4546,22 @@ def main() -> int:
         good, train_extra["K6 split control"] = k6_split_control()
     except Exception as e:
         good = phase("train gate K6 split control", False,
+                     f"{type(e).__name__}: {e}")
+    ok = good and ok
+    for gate, kind, b, n, tp in K7_EXTRA_GATES:
+        for dname in DTYPE_NAMES:
+            try:
+                good, recs = run_train_gate(gate, kind, dname, card, b, n, tp)
+            except Exception as e:
+                good = phase(f"train gate {gate} {dname}", False,
+                             f"{type(e).__name__}: {e}")
+            else:
+                train_extra.setdefault(gate, {})[dname] = recs
+            ok = good and ok
+    try:
+        good, train_extra["K7 checks"] = k7_checks()
+    except Exception as e:
+        good = phase("train gate K7 checks", False,
                      f"{type(e).__name__}: {e}")
     ok = good and ok
 

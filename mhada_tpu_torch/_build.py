@@ -41,7 +41,7 @@ SIGNATURES = {
     "mhada_attention_train_fwd": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
     "mhada_attention_train_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                                   _P],
-    "mhada_mhada_train_fwd": [_P] * 8 + [_I] * 6 + [_P],
+    "mhada_mhada_train_fwd": [_P] * 9 + [_I] * 7 + [_P],
     "mhada_mhada_train_bwd": [_P] * 10 + [_I] * 6 + [_P],
     "mhada_decoder_tail_res": [_P] * 10 + [_I] * 4 + [_P],
     "mhada_decoder_c6": [_P] * 4 + [_I] * 4 + [_P],

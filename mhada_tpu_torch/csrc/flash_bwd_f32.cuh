@@ -1,7 +1,7 @@
 // The float32 flash backward on the CUDA cores: K6's (attention_train.cu)
 // and K7's (mhada_train.cu) float32 backward, which also run K12's and
 // K11's at 4096 and 16384 tokens.  Their bfloat16 backwards run on the
-// tensor cores (attention_bwd_mma.cuh, mhada_bwd_mma.cuh).  Per head, with
+// tensor cores (attention_bwd_mma.cuh, mhada_bwd_wgmma.cuh).  Per head, with
 // P rebuilt from the forward's row log-sum-exp:
 //
 //   S  = scale Q K^T,  P = exp(S - lse)            (keys >= m masked to 0)

@@ -1,5 +1,5 @@
 // Warp-level building blocks of the tensor-core kernels
-// (attention_bwd_mma.cuh, mhada_mma.cuh, mhada_bwd_mma.cuh): the block
+// (attention_bwd_mma.cuh, decoder_*_mma.cuh, ln_matmul_mma.cuh): the block
 // shape, the alignment check of their entry points, the bf16 m16n8k16
 // product with float32 accumulators,
 // ldmatrix (plain and transposed), 16-byte cp.async copies with zero fill,

@@ -1,11 +1,13 @@
 // The port's Hopper building blocks for warp-specialised kernels: mbarrier
 // waits and arrivals, TMA tensor loads completing on an mbarrier, named
 // barriers, the wgmma fence / commit / wait, the register-A m64n64k16
-// product, the wgmma shared-memory descriptor of a tile in the 128-byte
-// swizzle, the host's encoder of tensor maps and the K / V map of 64 x 64
-// boxes, and 1-D bulk copies.  Used by P2 (mhada_wgmma.cuh), K1's cross
-// form at bf16 (attention_wgmma.cuh), P1 (mm_wgmma.cuh) and K13
-// (decoder_c6_f32.cuh, decoder_c6_mma.cuh).
+// product and the m64nNk16 products with both operands in shared memory,
+// the wgmma shared-memory descriptor of a tile in the
+// 128-byte swizzle, the host's encoder of tensor maps and the K / V map of
+// 64 x 64 boxes, and 1-D bulk copies.  Used by the MHAda tile of K3, K4,
+// P2 and K7's forward (mhada_wgmma.cuh), K7's backward
+// (mhada_bwd_wgmma.cuh), the bf16 attention tile (attention_wgmma.cuh), P1
+// (mm_wgmma.cuh) and K13 (decoder_c6_f32.cuh, decoder_c6_mma.cuh).
 #pragma once
 
 #include <cuda.h>
@@ -126,10 +128,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[kRegs]) {
 #pragma unroll
   for (int i = 0; i < kRegs; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
-// fence_regs for a register-A product's A fragments (16 registers).
-__device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
+// fence_regs for a register-A product's A fragments (4 registers a
+// k-step).
+template <int kSteps>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[kSteps][4]) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
+  for (int i = 0; i < 4 * kSteps; ++i)
     asm volatile("" : "+r"(a[i / 4][i % 4])::"memory");
 }
 
@@ -138,6 +142,101 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// The accumulator operands of a wgmma, c(d[i]) for d[0 .. 32 / 64 / 128).
+#define MHADA_D8(c, i)                                                     \
+  c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]), c(d[i + 5]), \
+      c(d[i + 6]), c(d[i + 7])
+#define MHADA_D32(c, i) \
+  MHADA_D8(c, i), MHADA_D8(c, i + 8), MHADA_D8(c, i + 16), MHADA_D8(c, i + 24)
+#define MHADA_D64(c, i) MHADA_D32(c, i), MHADA_D32(c, i + 32)
+#define MHADA_D128(c, i) MHADA_D64(c, i), MHADA_D64(c, i + 64)
+// Their placeholders.
+#define MHADA_P16 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, " \
+  "%10, %11, %12, %13, %14, %15"
+#define MHADA_P32 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, " \
+  "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31"
+#define MHADA_P64 \
+  MHADA_P32 ", " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, " \
+  "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, " \
+  "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, " \
+  "%62, %63"
+#define MHADA_P128 \
+  MHADA_P64 ", " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, " \
+  "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, " \
+  "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, " \
+  "%94, %95, %96, %97, %98, %99, %100, %101, %102, %103, " \
+  "%104, %105, %106, %107, %108, %109, %110, %111, %112, %113, " \
+  "%114, %115, %116, %117, %118, %119, %120, %121, %122, %123, " \
+  "%124, %125, %126, %127"
+
+// d (+)= a b: wgmma.m64nNk16 with N = 32, 64, 128 or 256 by the size of d
+// (16, 32, 64 or 128 accumulators a thread), both bf16 operands from shared
+// memory by descriptor, A K-major; kTransB: B is MN-major (the transpose
+// bit); float32 sums.  kFirst: d is written only, its old values no input
+// (scale-d 0), so that nothing that defined them can serialise the
+// products.  The operands `da`, `db`, the scale flag and kTransB follow
+// the accumulators.
+#define MHADA_WGMMA_SS(n, plist, da, db, scale, trans)                  \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %" scale ", 0;\n"                   \
+  "wgmma.mma_async.sync.aligned.m64n" n "k16.f32.bf16.bf16 {" plist     \
+  "}, %" da ", %" db ", p, 1, 1, 0, %" trans ";\n}\n"
+template <bool kFirst, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db) {
+  if constexpr (kFirst)
+    asm volatile(MHADA_WGMMA_SS("32", MHADA_P16, "16", "17", "18", "19")
+                 : MHADA_D8("=f", 0), MHADA_D8("=f", 8)
+                 : "l"(da), "l"(db), "n"(0), "n"(kTransB));
+  else
+    asm volatile(MHADA_WGMMA_SS("32", MHADA_P16, "16", "17", "18", "19")
+                 : MHADA_D8("+f", 0), MHADA_D8("+f", 8)
+                 : "l"(da), "l"(db), "n"(1), "n"(kTransB));
+}
+template <bool kFirst, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db) {
+  if constexpr (kFirst)
+    asm volatile(MHADA_WGMMA_SS("64", MHADA_P32, "32", "33", "34", "35")
+                 : MHADA_D32("=f", 0)
+                 : "l"(da), "l"(db), "n"(0), "n"(kTransB));
+  else
+    asm volatile(MHADA_WGMMA_SS("64", MHADA_P32, "32", "33", "34", "35")
+                 : MHADA_D32("+f", 0)
+                 : "l"(da), "l"(db), "n"(1), "n"(kTransB));
+}
+template <bool kFirst, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db) {
+  if constexpr (kFirst)
+    asm volatile(MHADA_WGMMA_SS("128", MHADA_P64, "64", "65", "66", "67")
+                 : MHADA_D64("=f", 0)
+                 : "l"(da), "l"(db), "n"(0), "n"(kTransB));
+  else
+    asm volatile(MHADA_WGMMA_SS("128", MHADA_P64, "64", "65", "66", "67")
+                 : MHADA_D64("+f", 0)
+                 : "l"(da), "l"(db), "n"(1), "n"(kTransB));
+}
+template <bool kFirst, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t da,
+                                         uint64_t db) {
+  if constexpr (kFirst)
+    asm volatile(MHADA_WGMMA_SS("256", MHADA_P128, "128", "129", "130",
+                                "131")
+                 : MHADA_D128("=f", 0)
+                 : "l"(da), "l"(db), "n"(0), "n"(kTransB));
+  else
+    asm volatile(MHADA_WGMMA_SS("256", MHADA_P128, "128", "129", "130",
+                                "131")
+                 : MHADA_D128("+f", 0)
+                 : "l"(da), "l"(db), "n"(1), "n"(kTransB));
 }
 
 // d[0..31] (+)= a b: m64n64k16, A (bf16) from registers in the

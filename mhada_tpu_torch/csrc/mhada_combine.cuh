@@ -1,6 +1,8 @@
-// K3 and K4 at bf16 split over the keys: the layout of the float32
-// partials that each split's block of the MHAda tile writes, and the kernel
-// that combines them and applies the MHAda epilogue.
+// K3, K4 and K7's forward at bf16 split over the keys: the layout of the
+// float32 partials that each split's block of the MHAda tile writes, and
+// the kernel that combines them and applies the MHAda epilogue (K7: also
+// writing M1, E2 and the row lse = ln 2 max_s m_s + log L, the formula of
+// attention_combine.cuh).
 //
 // Part of the redesign of mhada_prologue.cu::mhada_mhada_prologue (K3, the
 // counterpart of mhada_tpu/ops/mhada_pallas.py::mhada_fused_prologue,
@@ -26,8 +28,9 @@
 //   m = max_s m_s,  w_s = 2^(m_s - m),  L = sum_s w_s l_s
 //   M1 = sum_s w_s O1_s / L,  E2 = sum_s w_s O2_s / L
 //   out = sqrt(max(E2 - M1^2, 1e-6)) * f + M1       rounded once to bf16
+//   K7: M1, E2 and lse = m ln 2 + log L            float32
 //
-// f = IN(fcs) from raw fcs and the stats (K3) or fcs_n (K4).  E2 - M1^2
+// f = IN(fcs) from raw fcs and the stats (K3) or fcs_n (K4, K7).  E2 - M1^2
 // cancels, so every sum stays float32 until the clamp.  The buffer is
 // attention_combine.cuh's Partials with channels = 2 C: [O1 | O2] a row,
 // head h's O1 at h*64 and its O2 at C + h*64.
@@ -48,11 +51,15 @@ namespace mhada {
 namespace wg {
 
 // out (B, N, C) bf16 from the partials (p.channels = 2 C); f (B, N, C):
-// K3 raw fcs, normalised with stats (B, 4, C) rows 2 and 3; K4 fcs_n.
+// K3 raw fcs, normalised with stats (B, 4, C) rows 2 and 3; K4 and K7
+// fcs_n.  K7's forward also takes the residuals: m1, e2 (B, N, C) and lse
+// (B, heads, N), float32 (null for K3 and K4), the lse written by the
+// thread that holds a head's first four channels.
 template <bool kPrologue>
 __global__ void __launch_bounds__(xsplit::kCombineThreads)
     mhada_combine_kernel(xsplit::Partials p, const __nv_bfloat16* f,
-                         const float* stats, __nv_bfloat16* out) {
+                         const float* stats, __nv_bfloat16* out, float* m1s,
+                         float* e2s, float* lse) {
   const int C = p.channels / 2, quads = C / 4;
   const long long i =
       blockIdx.x * (long long)xsplit::kCombineThreads + threadIdx.x;
@@ -94,12 +101,21 @@ __global__ void __launch_bounds__(xsplit::kCombineThreads)
 #pragma unroll
     for (int e = 0; e < 4; ++e) fv[e] = (fv[e] - mean[e]) * rstd[e];
   }
-  float res[4];
+  float res[4], m1[4], e2[4];
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    const float m1 = o1[e] / l, e2 = o2[e] / l;
+    m1[e] = o1[e] / l;
+    e2[e] = o2[e] / l;
     // E2 - M1^2 cancels: both stay float32 until the clamp.
-    res[e] = sqrtf(fmaxf(e2 - m1 * m1, 1e-6f)) * fv[e] + m1;
+    res[e] = sqrtf(fmaxf(e2[e] - m1[e] * m1[e], 1e-6f)) * fv[e] + m1[e];
+  }
+  if (m1s != nullptr) {
+    *reinterpret_cast<float4*>(m1s + at) =
+        make_float4(m1[0], m1[1], m1[2], m1[3]);
+    *reinterpret_cast<float4*>(e2s + at) =
+        make_float4(e2[0], e2[1], e2[2], e2[3]);
+    if (ch % 64 == 0)
+      lse[(b * p.heads + h) * p.n + row] = mx * xsplit::kCombineLn2 + logf(l);
   }
   uint2 packed;
   __nv_bfloat162* px = reinterpret_cast<__nv_bfloat162*>(&packed);
@@ -111,13 +127,14 @@ __global__ void __launch_bounds__(xsplit::kCombineThreads)
 template <bool kPrologue>
 cudaError_t launch_mhada_combine(const xsplit::Partials& p,
                                  const __nv_bfloat16* f, const float* stats,
-                                 __nv_bfloat16* out, cudaStream_t stream) {
+                                 __nv_bfloat16* out, float* m1, float* e2,
+                                 float* lse, cudaStream_t stream) {
   const long long threads = (long long)p.batch * p.n * (p.channels / 8);
   const long long blocks =
       (threads + xsplit::kCombineThreads - 1) / xsplit::kCombineThreads;
   mhada_combine_kernel<kPrologue>
-      <<<(unsigned)blocks, xsplit::kCombineThreads, 0, stream>>>(p, f, stats,
-                                                                 out);
+      <<<(unsigned)blocks, xsplit::kCombineThreads, 0, stream>>>(
+          p, f, stats, out, m1, e2, lse);
   return cudaGetLastError();
 }
 

@@ -22,17 +22,21 @@
 // backward 20 N M d (S and dP = dM1 V^T + dE2 (V^2)^T in both kernels, two
 // P^T products, dS^T Q, dS K; 14 N M d without the recompute), i.e. 26 and
 // 86 GFLOP per call at the training shape (B = 8, N = M = 1024, 8 heads):
-// compute-bound.  bfloat16 runs on the tensor cores (mhada_mma.cuh,
-// mhada_bwd_mma.cuh: mma.sync with bf16 operands and float32 accumulators,
-// V^2 squared in registers); float32 keeps computing in float32, as FMAs on
-// the CUDA cores (the forward: K4's tile of mhada_f32_tile.cuh with its
-// residual stores, mhada_f32_kernel<false, 2, true>, so its out repeats
-// K4's bit for bit; the backward: flash_bwd_f32.cuh; float32 operands
-// 16-byte aligned and channels a multiple of 4, or the entry point
-// refuses).
+// compute-bound.  bfloat16 runs on the tensor cores as warp-specialised
+// wgmma + TMA kernels: the forward on K4's MHAda tile with its residual
+// epilogue (mhada_wgmma.cuh, mhada_wgmma_kernel<false, split, kRes = true>,
+// split over the keys as ops/mhada_kernel.py::mhada_splits picks, the
+// float32 partials combined with the residuals by mhada_combine.cuh), so
+// that its out repeats K4's bit for bit at the same split count; the
+// backward as a dK / dV kernel and a dQ kernel (mhada_bwd_wgmma.cuh).
+// float32 keeps computing in float32, as FMAs on the CUDA cores (the
+// forward: K4's tile of mhada_f32_tile.cuh with its residual stores,
+// mhada_f32_kernel<false, 2, true>, so its out repeats K4's bit for bit;
+// the backward: flash_bwd_f32.cuh; float32 operands 16-byte aligned and
+// channels a multiple of 4, or the entry point refuses).
 
 #include "flash_bwd_f32.cuh"  // and mhada_f32_tile.cuh
-#include "mhada_bwd_mma.cuh"
+#include "mhada_bwd_wgmma.cuh"
 
 namespace {
 
@@ -88,26 +92,27 @@ cudaError_t mhada_train_bwd_f32(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, fcs_n, out (B, N, C) and k, v (B, M, C) in T; m1, e2 (B, N, C) and lse
-// (B, heads, N) float32.  bfloat16: every bf16 pointer 16-byte aligned,
-// channels a multiple of 8.
+// (B, heads, N) float32.  float32: splits 1.  bfloat16: every pointer
+// 16-byte aligned, channels = 64 heads, 1 <= splits <= ceil(m / 64), and
+// with splits > 1 part holds xsplit::partial_floats(splits, batch, n, 2
+// channels, heads) float32.
 extern "C" int mhada_mhada_train_fwd(const void* q, const void* k,
                                      const void* v, const void* fcs_n,
                                      void* out, void* m1, void* e2, void* lse,
-                                     int batch, int n, int m, int channels,
-                                     int heads, int dtype, void* stream) {
+                                     void* part, int batch, int n, int m,
+                                     int channels, int heads, int splits,
+                                     int dtype, void* stream) {
   if (dtype == mhada::kF32)
-    return (int)mhada_train_fwd_f32(
-        q, k, v, fcs_n, out, static_cast<float*>(m1),
-        static_cast<float*>(e2), static_cast<float*>(lse), batch, n, m,
-        channels, heads, (cudaStream_t)stream);
-  if (dtype != mhada::kBF16 ||
-      !mhada::mma_aligned({q, k, v, fcs_n, out}, channels))
-    return (int)cudaErrorInvalidValue;
+    return splits != 1 ? (int)cudaErrorInvalidValue
+                       : (int)mhada_train_fwd_f32(
+                             q, k, v, fcs_n, out, static_cast<float*>(m1),
+                             static_cast<float*>(e2),
+                             static_cast<float*>(lse), batch, n, m, channels,
+                             heads, (cudaStream_t)stream);
+  if (dtype != mhada::kBF16) return (int)cudaErrorInvalidValue;
   using bf16 = __nv_bfloat16;
-  mhada::MhadaMmaArgs a{};
+  mhada::wg::WgArgs a{};
   a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
   a.f = static_cast<const bf16*>(fcs_n);
   a.out = static_cast<bf16*>(out);
   a.m1 = static_cast<float*>(m1);
@@ -116,13 +121,14 @@ extern "C" int mhada_mhada_train_fwd(const void* q, const void* k,
   a.n = n;
   a.m = m;
   a.channels = channels;
-  return (int)mhada::launch_mhada_mma_fwd<true>(a, heads, batch,
-                                                (cudaStream_t)stream);
+  return (int)mhada::wg::launch_mhada_wgmma<false, true>(
+      a, k, v, batch, heads, splits, static_cast<float*>(part),
+      (cudaStream_t)stream);
 }
 
 // dm1, de2 (B, N, C) in T; lse, delta (B, heads, N) float32; dq (B, N, C),
 // dk, dv (B, M, C) in T.  bfloat16: every bf16 pointer 16-byte aligned,
-// channels a multiple of 8.
+// channels = 64 heads.
 extern "C" int mhada_mhada_train_bwd(const void* q, const void* k,
                                      const void* v, const void* dm1,
                                      const void* de2, const void* lse,
@@ -135,16 +141,10 @@ extern "C" int mhada_mhada_train_bwd(const void* q, const void* k,
         q, k, v, dm1, de2, static_cast<const float*>(lse),
         static_cast<const float*>(delta), dq, dk, dv, batch, n, m, channels,
         heads, (cudaStream_t)stream);
-  if (dtype != mhada::kBF16 ||
-      !mhada::mma_aligned({q, k, v, dm1, de2, dq, dk, dv}, channels))
-    return (int)cudaErrorInvalidValue;
+  if (dtype != mhada::kBF16) return (int)cudaErrorInvalidValue;
   using bf16 = __nv_bfloat16;
-  mhada::MhadaBwdArgs a{};
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
+  mhada::wg::BwdArgs a{};
   a.v = static_cast<const bf16*>(v);
-  a.g1 = static_cast<const bf16*>(dm1);
-  a.g2 = static_cast<const bf16*>(de2);
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
   a.dq = static_cast<bf16*>(dq);
@@ -153,6 +153,6 @@ extern "C" int mhada_mhada_train_bwd(const void* q, const void* k,
   a.n = n;
   a.m = m;
   a.channels = channels;
-  return (int)mhada::launch_mhada_mma_bwd(a, heads, batch,
-                                          (cudaStream_t)stream);
+  return (int)mhada::wg::launch_mhada_wgmma_bwd(a, q, k, dm1, de2, batch,
+                                                heads, (cudaStream_t)stream);
 }

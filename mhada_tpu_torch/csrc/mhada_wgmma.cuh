@@ -1,13 +1,16 @@
 // The MHAda tile at bf16 as a warp-specialised wgmma + TMA kernel, each
-// consumer's softmax running under the other consumers' products: K3, K4
-// and the probe P2, optionally split over the keys (mhada_combine.cuh).
+// consumer's softmax running under the other consumers' products: K3, K4,
+// the probe P2 and K7's forward (kRes: its epilogue also stores M1, E2 and
+// the row lse), optionally split over the keys (mhada_combine.cuh).
 //
 // Replaces, at bf16, mhada_tpu/ops/mhada_pallas.py::mhada_fused_prologue
 // (K3: _fused_kernel, pallas_call at mhada_pallas.py:239), which the JAX
 // AdaAttnMultiHead runs on cached style K/V (mhada_tpu/models/
 // adaformer.py:80-97), and _mhada_pallas_fwd_impl (K4: _kernel,
 // pallas_call at mhada_pallas.py:114; through K4 also the TPU's K10
-// forward without residuals, :622); and scripts/mhada_pipe_probe.py::
+// forward without residuals, :622); _tm_res_kernel (K7's forward,
+// _mhada_tm_fwd_impl, pallas_call at :336; through K7 the TPU's K10 with
+// its residuals, :622); and scripts/mhada_pipe_probe.py::
 // _pipe_kernel (P2, pallas_call at mhada_pipe_probe.py:112), the TPU probe
 // that ordered two heads' work so that one head's vector work could hide
 // under the other's matrix-unit work, whose function is K3's.  Per (b, h),
@@ -17,16 +20,21 @@
 //   K3, P2 (kPrologue):
 //       qn  = (fc - mean_fc) * rstd_fc              float32, rounded to bf16
 //       q   = qn Wf_h + fb_h                        float32, rounded to bf16
-//   K4: q given
+//   K4, K7: q given
 //   S   = q K^T, UNSCALED; keys >= M set to -inf
 //   P   = online softmax of S, rounded to bf16 before the product (the row
 //         sum takes P before rounding); V^2 = each bf16 squared, rounded
 //   M1  = (P V) / l,  E2 = (P V^2) / l          float32, divided after
 //   out = sqrt(max(E2 - M1^2, 1e-6)) * f + M1, rounded to bf16, with
-//         f = IN(fcs) (K3, P2: from raw fcs and the stats) or fcs_n (K4)
+//         f = IN(fcs) (K3, P2: from raw fcs and the stats) or fcs_n (K4,
+//         K7)
+//   K7 (kRes) also: M1 and E2 (float32, (B, N, C)) and lse = m + log l
+//         with m the unscaled row maximum ((B, heads, N) float32), from
+//         the values out is made of, so that its out is K4's bit for bit
 //
-// ops/mhada_prologue.py::mhada_fused_prologue_plain and
-// ops/mhada_kernel.py::mhada_tm_plain are the plain versions.
+// ops/mhada_prologue.py::mhada_fused_prologue_plain,
+// ops/mhada_kernel.py::mhada_tm_plain and
+// ops/mhada_train.py::mhada_train_fwd_plain are the plain versions.
 //
 // Bound: 6 N M d flops per head (K3 and P2 add 2 N d^2 for the projection;
 // 414.5 GFLOP at B = 8, N = M = 4096, 8 heads: 0.419 ms at the bf16
@@ -138,6 +146,9 @@ struct WgArgs {
   const bf16* wf;        // K3, P2: (heads, 64, 64) as (in, out)
   const float* fb;       // K3, P2: (heads, 64)
   bf16* out;             // (B, N, C)
+  float* m1;             // kRes (K7): M1, E2 (B, N, C) and the row lse
+  float* e2;             // (B, heads, N), float32; otherwise null
+  float* lse;
   int n, m, channels;
 };
 
@@ -178,9 +189,78 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "n"(kTransB));
 }
 
+// The producer warpgroup of the K / V ring (the block's last warpgroup,
+// its registers already lowered): warp 0's first thread keeps TMA loads of
+// the key tiles [t0, t0 + ntiles) of head h, batch b in flight, K and V
+// each a 64-key x 64-channel box of a 3-D tensor map (C, M, B) in the
+// 128-byte swizzle, zero-filled past M; warps 1-3 square each V tile into
+// the stage's V^2 tile and arrive on its full barrier.  Stage s of the ring
+// sits at s * kStageBytes from the 1024-aligned `smem`; its barriers at
+// `bars` (a shared address): landed, full, empty, kStages each.  The MHAda
+// tile and K7's dQ kernel (mhada_bwd_wgmma.cuh) share it.
+__device__ __forceinline__ void kv_producer(const CUtensorMap* kmap,
+                                            const CUtensorMap* vmap,
+                                            unsigned char* smem, uint32_t bars,
+                                            int h, int b, int t0, int ntiles) {
+  using namespace mma;
+  const uint32_t base = smem_addr(smem);
+  auto landed = [&](int s) { return bars + 8 * s; };
+  auto full = [&](int s) { return bars + 8 * (kStages + s); };
+  auto empty = [&](int s) { return bars + 8 * (2 * kStages + s); };
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  if (warp == 0) {
+    if (lane == 0) {
+      for (int j = 0; j < ntiles; ++j) {
+        const int s = j % kStages;
+        // stage s is free once every consumer released tile j - kStages
+        if (j >= kStages) mbar_wait(empty(s), ((j / kStages) & 1) ^ 1);
+        const uint32_t kt = base + s * kStageBytes;
+        mbar_expect_tx(landed(s), 2 * kTileBytes);
+        tma_load_3d(kt, kmap, landed(s), h * 64, (t0 + j) * 64, b);
+        tma_load_3d(kt + kTileBytes, vmap, landed(s), h * 64, (t0 + j) * 64,
+                    b);
+      }
+    }
+    return;
+  }
+  const int i0 = threadIdx.x % 128 - 32;
+  for (int j = 0; j < ntiles; ++j) {
+    const int s = j % kStages;
+    mbar_wait(landed(s), (j / kStages) & 1);
+    unsigned char* stage = smem + s * kStageBytes;
+    const uint4* v = reinterpret_cast<const uint4*>(stage + kTileBytes);
+    uint4* v2 = reinterpret_cast<uint4*>(stage + 2 * kTileBytes);
+    // two passes of kSquares / 2 chunks, each pass's loads in flight
+    // together (the producer keeps few registers)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      uint4 x[kSquares / 2];
+#pragma unroll
+      for (int u = 0; u < kSquares / 2; ++u) {
+        const int i = i0 + (half * kSquares / 2 + u) * kSquarers;
+        if (i < kTileBytes / 16) x[u] = v[i];
+      }
+#pragma unroll
+      for (int u = 0; u < kSquares / 2; ++u) {
+        const int i = i0 + (half * kSquares / 2 + u) * kSquarers;
+        x[u].x = square_bf16x2(x[u].x);
+        x[u].y = square_bf16x2(x[u].y);
+        x[u].z = square_bf16x2(x[u].z);
+        x[u].w = square_bf16x2(x[u].w);
+        if (i < kTileBytes / 16) v2[i] = x[u];
+      }
+    }
+    // the generic-proxy writes, visible to the products' async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_arrive(full(s));
+  }
+}
+
 // part: kSplit's partials (attention_combine.cuh's layout with channels =
 // 2 C; see mhada_combine.cuh); unsplit, part.splits = 1 and it is unused.
-template <bool kPrologue, bool kSplit>
+// kRes (K7's forward, unsplit): the epilogue also stores M1, E2 and the
+// row lse (a.m1, a.e2, a.lse); split, the combine does.
+template <bool kPrologue, bool kSplit, bool kRes = false>
 __global__ void __launch_bounds__(kThreads, 1)
     mhada_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap, WgArgs a,
@@ -222,54 +302,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   if (role == kConsumers) {
-    // ---- producer: TMA (warp 0), V^2 (warps 1-3)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    if (warp == 4 * kConsumers) {
-      if (lane == 0) {
-        for (int j = 0; j < ntiles; ++j) {
-          const int s = j % kStages;
-          // stage s is free once every consumer released tile j - kStages
-          if (j >= kStages) mbar_wait(empty(s), ((j / kStages) & 1) ^ 1);
-          const uint32_t kt = base + s * kStageBytes;
-          mbar_expect_tx(landed(s), 2 * kTileBytes);
-          tma_load_3d(kt, &kmap, landed(s), h * 64, (t0 + j) * 64, b);
-          tma_load_3d(kt + kTileBytes, &vmap, landed(s), h * 64,
-                      (t0 + j) * 64, b);
-        }
-      }
-    } else {
-      const int i0 = threadIdx.x - 32 * (4 * kConsumers + 1);
-      for (int j = 0; j < ntiles; ++j) {
-        const int s = j % kStages;
-        mbar_wait(landed(s), (j / kStages) & 1);
-        unsigned char* stage = smem + s * kStageBytes;
-        const uint4* v = reinterpret_cast<const uint4*>(stage + kTileBytes);
-        uint4* v2 = reinterpret_cast<uint4*>(stage + 2 * kTileBytes);
-        // two passes of kSquares / 2 chunks, each pass's loads in flight
-        // together (the producer keeps few registers)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          uint4 x[kSquares / 2];
-#pragma unroll
-          for (int u = 0; u < kSquares / 2; ++u) {
-            const int i = i0 + (half * kSquares / 2 + u) * kSquarers;
-            if (i < kTileBytes / 16) x[u] = v[i];
-          }
-#pragma unroll
-          for (int u = 0; u < kSquares / 2; ++u) {
-            const int i = i0 + (half * kSquares / 2 + u) * kSquarers;
-            x[u].x = square_bf16x2(x[u].x);
-            x[u].y = square_bf16x2(x[u].y);
-            x[u].z = square_bf16x2(x[u].z);
-            x[u].w = square_bf16x2(x[u].w);
-            if (i < kTileBytes / 16) v2[i] = x[u];
-          }
-        }
-        // the generic-proxy writes, visible to the products' async proxy
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        mbar_arrive(full(s));
-      }
-    }
+    kv_producer(&kmap, &vmap, smem, bars, h, b, t0, ntiles);
   } else {
     // ---- consumer `role`: 64 queries
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
@@ -564,6 +598,12 @@ __global__ void __launch_bounds__(kThreads, 1)
           const float e2x = o[32 + 4 * n + 2 * r] / l;
           const float e2y = o[32 + 4 * n + 2 * r + 1] / l;
           const int ch = 8 * n + 2 * t;
+          if constexpr (kRes) {
+            const long long at = (static_cast<long long>(b) * N + row) * C +
+                                 hoff + ch;
+            *reinterpret_cast<float2*>(a.m1 + at) = make_float2(m1x, m1y);
+            *reinterpret_cast<float2*>(a.e2 + at) = make_float2(e2x, e2y);
+          }
           float2 f = __bfloat1622float2(
               *reinterpret_cast<const __nv_bfloat162*>(frow + ch));
           if (kPrologue) {   // IN(fcs) from raw fcs and the stats
@@ -576,6 +616,10 @@ __global__ void __launch_bounds__(kThreads, 1)
           *reinterpret_cast<uint32_t*>(orow + ch) =
               pack_bf16(sdx * f.x + m1x, sdy * f.y + m1y);
         }
+        // lse = m + log l: the row maximum is kept unscaled
+        if (kRes && t == 0)
+          a.lse[(static_cast<long long>(b) * gridDim.y + h) * N + row] =
+              mrow[r] + logf(l);
       }
     }
   }
@@ -584,8 +628,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 // k, v (B, M, C); every pointer 16-byte aligned, C = 64 heads; 1 <= splits
 // <= ceil(M / 64).  splits > 1: the split tile into `part`, which holds
 // xsplit::partial_floats(splits, batch, n, 2 C, heads) floats (16-byte
-// aligned), then the combine into a.out on the same stream.
-template <bool kPrologue>
+// aligned), then the combine into a.out on the same stream.  kRes: a.m1,
+// a.e2 (16-byte aligned) and a.lse take the residuals, from the unsplit
+// epilogue or the combine.
+template <bool kPrologue, bool kRes = false>
 inline cudaError_t launch_mhada_wgmma(const WgArgs& a, const void* k,
                                       const void* v, int batch, int heads,
                                       int splits, float* part,
@@ -595,6 +641,7 @@ inline cudaError_t launch_mhada_wgmma(const WgArgs& a, const void* k,
       a.channels != 64 * heads ||
       !mma_aligned({a.q, a.f, a.out, k, v}, a.channels) ||
       (kPrologue && !mma_aligned({a.wf}, a.channels)) ||
+      (kRes && (a.lse == nullptr || !mma_aligned({a.m1, a.e2}, 8))) ||
       (splits > 1 && (part == nullptr || !mma_aligned({part}, 8))))
     return cudaErrorInvalidValue;
   CUtensorMap kmap, vmap;
@@ -604,7 +651,7 @@ inline cudaError_t launch_mhada_wgmma(const WgArgs& a, const void* k,
   const xsplit::Partials p{part, splits, batch, a.n, 2 * a.channels, heads};
   const dim3 grid((a.n + kRows - 1) / kRows * splits, heads, batch);
   auto* kernel = splits > 1 ? mhada_wgmma_kernel<kPrologue, true>
-                            : mhada_wgmma_kernel<kPrologue, false>;
+                            : mhada_wgmma_kernel<kPrologue, false, kRes>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes));
@@ -612,7 +659,8 @@ inline cudaError_t launch_mhada_wgmma(const WgArgs& a, const void* k,
   kernel<<<grid, kThreads, kSmemBytes, stream>>>(kmap, vmap, a, p);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  return launch_mhada_combine<kPrologue>(p, a.f, a.stats, a.out, stream);
+  return launch_mhada_combine<kPrologue>(p, a.f, a.stats, a.out, a.m1, a.e2,
+                                         a.lse, stream);
 }
 
 }  // namespace wg

@@ -109,83 +109,6 @@ struct MmCfg {
   static_assert(kConsumerRegs >= BN / 2 + 56, "the accumulators must fit");
 };
 
-// The accumulator operands of a wgmma, c(d[i]) for d[0 .. 32 / 64 / 128).
-#define MHADA_D8(c, i)                                                     \
-  c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]), c(d[i + 5]), \
-      c(d[i + 6]), c(d[i + 7])
-#define MHADA_D32(c, i) \
-  MHADA_D8(c, i), MHADA_D8(c, i + 8), MHADA_D8(c, i + 16), MHADA_D8(c, i + 24)
-#define MHADA_D64(c, i) MHADA_D32(c, i), MHADA_D32(c, i + 32)
-#define MHADA_D128(c, i) MHADA_D64(c, i), MHADA_D64(c, i + 64)
-// Their placeholders.
-#define MHADA_P32 \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, " \
-  "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
-  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31"
-#define MHADA_P64 \
-  MHADA_P32 ", " \
-  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, " \
-  "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, " \
-  "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, " \
-  "%62, %63"
-#define MHADA_P128 \
-  MHADA_P64 ", " \
-  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, " \
-  "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, " \
-  "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, " \
-  "%94, %95, %96, %97, %98, %99, %100, %101, %102, %103, " \
-  "%104, %105, %106, %107, %108, %109, %110, %111, %112, %113, " \
-  "%114, %115, %116, %117, %118, %119, %120, %121, %122, %123, " \
-  "%124, %125, %126, %127"
-
-// d (+)= a b: wgmma.m64nNk16, bf16 operands from shared memory by
-// descriptor (A K-major, B N-major: the transpose bit), float32 sums;
-// operands `da`, `db` and the scale flag follow the accumulators.
-#define MHADA_WGMMA_SS(n, plist, da, db, scale)                         \
-  "{\n.reg .pred p;\nsetp.ne.b32 p, %" scale ", 0;\n"                   \
-  "wgmma.mma_async.sync.aligned.m64n" n "k16.f32.bf16.bf16 {" plist    \
-  "}, %" da ", %" db ", p, 1, 1, 0, 1;\n}\n"
-
-// d = a b (kFirst: d is written only, its old values no input) or d += a
-// b, as m64n64k16, m64n128k16 or m64n256k16 by the size of d.
-template <bool kFirst>
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db) {
-  if constexpr (kFirst)
-    asm volatile(MHADA_WGMMA_SS("64", MHADA_P32, "32", "33", "34")
-                 : MHADA_D32("=f", 0)
-                 : "l"(da), "l"(db), "n"(0));
-  else
-    asm volatile(MHADA_WGMMA_SS("64", MHADA_P32, "32", "33", "34")
-                 : MHADA_D32("+f", 0)
-                 : "l"(da), "l"(db), "n"(1));
-}
-template <bool kFirst>
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
-                                         uint64_t db) {
-  if constexpr (kFirst)
-    asm volatile(MHADA_WGMMA_SS("128", MHADA_P64, "64", "65", "66")
-                 : MHADA_D64("=f", 0)
-                 : "l"(da), "l"(db), "n"(0));
-  else
-    asm volatile(MHADA_WGMMA_SS("128", MHADA_P64, "64", "65", "66")
-                 : MHADA_D64("+f", 0)
-                 : "l"(da), "l"(db), "n"(1));
-}
-template <bool kFirst>
-__device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t da,
-                                         uint64_t db) {
-  if constexpr (kFirst)
-    asm volatile(MHADA_WGMMA_SS("256", MHADA_P128, "128", "129", "130")
-                 : MHADA_D128("=f", 0)
-                 : "l"(da), "l"(db), "n"(0));
-  else
-    asm volatile(MHADA_WGMMA_SS("256", MHADA_P128, "128", "129", "130")
-                 : MHADA_D128("+f", 0)
-                 : "l"(da), "l"(db), "n"(1));
-}
-
 // out (m, n) = a (m, k) b (k, n) for the block's BM x BN tile; grid (n /
 // BN, m / BM, reps).
 template <int BM, int BN>
@@ -253,9 +176,9 @@ __global__ void __launch_bounds__(MmCfg<BM, BN>::kThreads,
         const uint64_t da = sw128_desc(at + 32 * kk, 16, 1024);
         const uint64_t db = sw128_desc(bt + 2048 * kk, kBoxBytes, 1024);
         if (decltype(first)::value && kk == 0)
-          wgmma_ss<true>(acc, da, db);
+          wgmma_ss<true, 1>(acc, da, db);
         else
-          wgmma_ss<false>(acc, da, db);
+          wgmma_ss<false, 1>(acc, da, db);
       }
     };
     auto release = [&](int s) {

@@ -19,6 +19,7 @@ cosine activation runs the plain core of ops/mhada.py.
 """
 
 import functools
+import math
 
 import torch
 
@@ -95,24 +96,32 @@ def mhada_partials(name: str, splits: int | None, ref: torch.Tensor,
 
 def mhada_combine_partials(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
                            f: torch.Tensor, dtype: torch.dtype,
-                           keep: int | None = None) -> torch.Tensor:
+                           keep: int | None = None, residuals: bool = False):
     """The MHAda combine kernel's function in plain PyTorch, on the split
     tile's partials (``key_split.split_partials`` with channels = 2 C: O
     (S, B, N, 2 C) = [O1 | O2], m and l (S, B, H, N)) and f (B, N, C), the
-    epilogue's factor (K3: IN(fcs); K4: fcs_n), over the first ``keep``
+    epilogue's factor (K3: IN(fcs); K4, K7: fcs_n), over the first ``keep``
     splits (all by default): M1 = sum_s w_s O1_s / L, E2 likewise, with w_s
     = 2^(m_s - max m) and L = sum_s w_s l_s, then sqrt(max(E2 - M1^2,
-    1e-6)) f + M1 in float32, rounded once to ``dtype`` -> (B, N, C)."""
+    1e-6)) f + M1 in float32, rounded once to ``dtype`` -> (B, N, C);
+    ``residuals`` (K7's forward): (that, M1 and E2 (B, N, C) float32, the
+    row lse = ln 2 max m + log L (B, H, N) float32)."""
     keep = o.shape[0] if keep is None else keep
     o, m, l = o[:keep], m[:keep], l[:keep]
     s, b, n, c2 = o.shape
-    w = torch.exp2(m - m.amax(0)).permute(0, 1, 3, 2)[..., None]
+    top = m.amax(0)                                         # (B, H, N)
+    w = torch.exp2(m - top).permute(0, 1, 3, 2)[..., None]
     den = (w * l.permute(0, 1, 3, 2)[..., None]).sum(0)     # (B, N, H, 1)
     num = (o.view(s, b, n, 2, -1, HEAD_DIM) * w[:, :, :, None]).sum(0)
     m1, e2 = (num[:, :, i] / den for i in (0, 1))           # (B, N, H, 64)
     sd = torch.sqrt(torch.clamp(e2 - m1.square(), min=1e-6))
     out = sd * f.float().view(b, n, -1, HEAD_DIM) + m1
-    return out.reshape(b, n, c2 // 2).to(dtype)
+    out = out.reshape(b, n, c2 // 2).to(dtype)
+    if not residuals:
+        return out
+    lse = top * math.log(2.0) + torch.log(den[..., 0]).transpose(1, 2)
+    return (out, m1.reshape(b, n, c2 // 2), e2.reshape(b, n, c2 // 2),
+            lse)
 
 
 def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:

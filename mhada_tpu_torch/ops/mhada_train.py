@@ -13,8 +13,12 @@ pair serves every length.  Forward: the MHAda tile also writing M1 and E2
 Backward: the elementwise prologue of ``_mhada_tm_bwd_impl``
 (mhada_pallas.py:431-448, the same as :821-834) in plain torch, then the K7
 backward kernels for dQ, dK and dV = P^T dM1 + 2 V * (P^T dE2).  At
-bfloat16 the kernels run on the tensor cores and raise on a tensor that is
-not 16-byte aligned; at float32 they compute in float32.  The softmax is
+bfloat16 the kernels are wgmma + TMA kernels on the tensor cores (the
+forward K4's MHAda tile with a residual epilogue, split over the keys as
+K4 is, ``fwd_launch``; its partials combined with the residuals by the
+same C entry, ``mhada_kernel.mhada_combine_partials(residuals=True)`` in
+plain PyTorch) and raise on a tensor that is not 16-byte aligned; at
+float32 they compute in float32.  The softmax is
 unscaled (reference network/adaDecoder.py:11-17); the Var clamp's gradient
 is zero below 1e-6.  The plain versions follow the JAX math step by step,
 with the same rounding points (P and V^2 rounded to the storage dtype as
@@ -27,7 +31,8 @@ import torch
 from .. import _build
 from ..config import use_kernel
 from .attention_train import _head, _heads
-from .mhada_kernel import ALIGNED, HEAD_DIM
+from .key_split import check_splits
+from .mhada_kernel import ALIGNED, HEAD_DIM, mhada_partials
 
 
 def mhada_train_fwd_plain(q, k, v, fcs_n, num_heads: int):
@@ -95,17 +100,26 @@ def mhada_train_bwd_plain(q, k, v, dm1, de2, lse, delta, num_heads: int):
     return tuple(torch.cat(gs, dim=-1).to(dt) for gs in grads)
 
 
-def _fwd_kernel(q, k, v, fcs_n, num_heads):
+def fwd_launch(q, k, v, fcs_n, num_heads, splits: int | None = None):
+    """Check the CUDA inputs and launch K7's forward, split over the keys
+    as ``mhada_kernel.mhada_partials`` says for K4 (``splits`` forces the
+    count, 1 .. ceil(M / 64); float32 takes none) -> (out, M1, E2, lse, the
+    float32 partials buffer or None when unsplit)."""
     b, n, c = q.shape
+    m = k.shape[1]
+    check_splits("mhada_train", splits, m)
+    _build.check_cuda_inputs("mhada_train", q, k, v, fcs_n)
+    splits, part = mhada_partials("mhada_train", splits, q, m, num_heads)
     out = torch.empty_like(q)
     m1, e2 = (torch.empty((b, n, c), device=q.device, dtype=torch.float32)
               for _ in range(2))
     lse = torch.empty((b, num_heads, n), device=q.device, dtype=torch.float32)
-    _build.check_aligned("mhada_train", q, k, v, fcs_n, out, dtypes=ALIGNED)
+    _build.check_aligned("mhada_train", q, k, v, fcs_n, out, m1, e2, part,
+                         dtypes=ALIGNED)
     _build.launch("mhada_mhada_train_fwd", q.device, q, k, v, fcs_n, out, m1,
-                  e2, lse, b, n, k.shape[1], c, num_heads,
+                  e2, lse, part, b, n, m, c, num_heads, splits,
                   _build.dtype_code(q))
-    return out, m1, e2, lse
+    return out, m1, e2, lse, part
 
 
 def _bwd_kernel(q, k, v, dm1, de2, lse, delta, num_heads):
@@ -122,8 +136,8 @@ def _bwd_kernel(q, k, v, dm1, de2, lse, delta, num_heads):
 class _MhadaTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, fcs_n, num_heads, kernel):
-        fwd = _fwd_kernel if kernel else mhada_train_fwd_plain
-        out, m1, e2, lse = fwd(q, k, v, fcs_n, num_heads)
+        fwd = fwd_launch if kernel else mhada_train_fwd_plain
+        out, m1, e2, lse = fwd(q, k, v, fcs_n, num_heads)[:4]
         ctx.save_for_backward(q, k, v, fcs_n, m1, e2, lse)
         ctx.num_heads, ctx.kernel = num_heads, kernel
         return out

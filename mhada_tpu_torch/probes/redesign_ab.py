@@ -1,10 +1,10 @@
 """P1, K14, K13, the float32 tail, K1, K6's forward, K1's cross form, K3,
-K4 and the bf16 frames against another checkout's builds of them, on one
-card, in turns: the time a redesign saves (or a change of a kernel's
+K4, K7 and the bf16 frames against another checkout's builds of them, on
+one card, in turns: the time a redesign saves (or a change of a kernel's
 arguments costs), measured in one call.
 
     python -m mhada_tpu_torch.probes.redesign_ab --other DIR [--rounds 2]
-        [--groups P1 K14 K13 tail K1 K1x mhada frames]
+        [--groups P1 K14 K13 tail K1 K1x mhada K7 frames]
 
 DIR is the root of another checkout of the repository (for example the
 parent commit, unpacked with ``git archive``).  Each side runs in a process
@@ -43,11 +43,20 @@ events:
 - K3 (``ops.mhada_prologue.mhada_fused_prologue`` on P2's probe inputs)
   and K4 (``ops.mhada_kernel.mhada_tm``) at bfloat16, B = 1, N = M = 4096
   (the 512^2 frame) and 16384 (1024^2), and K3 at B = 8, 4096 (P2's
-  shape), each at its wrapper's default split, and K7's forward
-  (``ops.mhada_train._fwd_kernel``, the mma.sync MHAda tile with its
-  residuals) at B = 8, N = M = 1024 (the training step's), as wall ms and
-  as device ms of the MHAda kernels (names holding "mhada"; K3's wrapper
-  also casts fb per call, which is left out);
+  shape), each at its wrapper's default split, as wall ms and as device ms
+  of the MHAda kernels (names holding "mhada"; K3's wrapper also casts fb
+  per call, which is left out);
+- K7 at bfloat16, its forward (``ops.mhada_train.fwd_launch``, or
+  ``_fwd_kernel`` in a checkout that predates it, at its default split)
+  and its backward (``_bwd_kernel`` on the plain forward's residuals and
+  the elementwise prologue's dM1, dE2 and delta) at its
+  training gates' shapes (B = 8, N = M = 1024; B = 4, 4096; B = 1, 16384;
+  B = 2, 2048 x 1024; 8 heads), as wall ms and as device ms of the MHAda
+  kernels (the tile and the combine; the dK/dV and dQ kernels), beside
+  SDPA on [V | V^2] with scale 1 (its forward, and the backward of that
+  call, the square and the concatenation through torch.autograd.grad from
+  [dM1 | dE2]: chip_smoke.py's K7 yardsticks), device ms of every kernel
+  the call launches;
 - the bf16 frames of ``chip_smoke.py``'s phase 5 on full-width models from
   seed 0: the full path at 512^2, B = 1, the streaming path at 512^2, B =
   1 and 8 (ms a frame), and at 1024^2, B = 1.
@@ -84,8 +93,11 @@ C6_SHAPES = [(512, 512, 1), (512, 512, 8), (1024, 1024, 1), (256, 512, 8),
              (264, 488, 1)]
 # (kernel, batch, tokens) of K3's and K4's gates in chip_smoke.py
 MHADA_SHAPES = [("K3", 1, 4096), ("K4", 1, 4096), ("K3", 1, 16384),
-                ("K4", 1, 16384), ("K3", 8, 4096), ("K7 forward", 8, 1024)]
-GROUPS = ("P1", "K14", "K13", "tail", "K1", "K1x", "mhada", "frames")
+                ("K4", 1, 16384), ("K3", 8, 4096)]
+# (batch, queries, keys) of K7's training gates in chip_smoke.py
+K7_SHAPES = [(8, 1024, 1024), (4, 4096, 4096), (1, 16384, 16384),
+             (2, 2048, 1024)]
+GROUPS = ("P1", "K14", "K13", "tail", "K1", "K1x", "mhada", "K7", "frames")
 
 
 def _cuda_ms(fn, warmup=3, iters=10):
@@ -105,11 +117,12 @@ def _cuda_ms(fn, warmup=3, iters=10):
 
 
 def device_ms(fn, iters=10, windows=6, only=None):
-    """Device ms per call of ``fn``, which launches each of its kernels
-    once: their time from torch.profiler (only the kernels whose names hold
-    ``only``, if given).  A window in which some kernel's count is not
-    ``iters`` (CUPTI has dropped events on an H100) is profiled again, up
-    to ``windows`` windows -> NaN if none was whole."""
+    """Device ms per call of ``fn``, which launches each of its kernels a
+    fixed number of times: their time from torch.profiler (only the kernels
+    whose names hold ``only``, if given).  A window in which some kernel's
+    count is not a multiple of ``iters`` (CUPTI has dropped events on an
+    H100) is profiled again, up to ``windows`` windows -> NaN if none was
+    whole."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -123,7 +136,7 @@ def device_ms(fn, iters=10, windows=6, only=None):
         kernels = [e for e in prof.key_averages()
                    if e.self_device_time_total > 0
                    and (only is None or only in e.key)]
-        if kernels and all(e.count == iters for e in kernels):
+        if kernels and all(e.count % iters == 0 for e in kernels):
             return sum(e.self_device_time_total for e in kernels) \
                 / 1e3 / iters
     return float("nan")
@@ -227,6 +240,13 @@ def worker(root: str, groups=GROUPS) -> dict:
             out[key + " device"] = device_ms(call, only="mhada")
             del call
             torch.cuda.empty_cache()
+    # outside inference mode: SDPA's backward needs a graph
+    for batch, n, m in K7_SHAPES if "K7" in groups else ():
+        for part, (call, only) in _k7_calls(batch, n, m).items():
+            key = f"K7 {part} N={n} M={m} B={batch} bfloat16"
+            out[key] = _cuda_ms(call)
+            out[key + " device"] = device_ms(call, only=only)
+        torch.cuda.empty_cache()
     if "frames" in groups:
         out.update(_frames())
     return out
@@ -247,9 +267,47 @@ def _mhada_call(kind, batch, n):
     q, k = (0.35 * torch.randn(batch, n, 512, generator=g) for _ in "qk")
     v, f = (torch.randn(batch, n, 512, generator=g) for _ in "vf")
     q, k, v, f = (t.to("cuda", torch.bfloat16) for t in (q, k, v, f))
-    if kind == "K7 forward":
-        return lambda: mhada_train._fwd_kernel(q, k, v, f, 8)
     return lambda: mhada_kernel.mhada_tm(q, k, v, f, 8)
+
+
+def _k7_calls(batch, n, m):
+    """K7's forward and backward at bf16 on seeded inputs, 8 heads of 64,
+    and SDPA on [V | V^2] (forward, and the backward of that call) ->
+    {part: (call(), the name part of the kernels device_ms counts, or
+    None for every kernel)}."""
+    import torch
+    import torch.nn.functional as F
+
+    from mhada_tpu_torch.ops import mhada_train as mt
+
+    g = torch.Generator().manual_seed(0)
+    q, k = (0.35 * torch.randn(batch, length, 512, generator=g)
+            for length in (n, m))
+    v = torch.randn(batch, m, 512, generator=g)
+    f, cot = (torch.randn(batch, n, 512, generator=g) for _ in "fc")
+    q, k, v, f, cot = (t.to("cuda", torch.bfloat16)
+                       for t in (q, k, v, f, cot))
+    _, m1, e2, lse = mt.mhada_train_fwd_plain(q, k, v, f, 8)
+    dm1, de2, delta, _ = mt.mhada_train_prologue(cot, f, m1, e2, 8,
+                                                 torch.bfloat16)
+    del m1, e2
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    qh, kh, vh = (t.unflatten(-1, (8, 64)).transpose(1, 2) for t in leaves)
+    vv = torch.cat([vh, vh * vh], dim=-1)
+    lib_out = F.scaled_dot_product_attention(qh, kh, vv, scale=1.0)
+    lib_cot = torch.cat([t.unflatten(-1, (8, 64)).transpose(1, 2)
+                         for t in (dm1, de2)], dim=-1)
+    qd, kd, vvd = qh.detach(), kh.detach(), vv.detach()
+    # fwd_launch, or _fwd_kernel in a checkout that predates it
+    fwd = getattr(mt, "fwd_launch", None) or mt._fwd_kernel
+    return {
+        "forward": (lambda: fwd(q, k, v, f, 8), "mhada"),
+        "backward": (lambda: mt._bwd_kernel(q, k, v, dm1, de2, lse, delta,
+                                             8), "mhada"),
+        "forward SDPA": (lambda: F.scaled_dot_product_attention(
+            qd, kd, vvd, scale=1.0), None),
+        "backward SDPA": (lambda: torch.autograd.grad(
+            lib_out, leaves, lib_cot, retain_graph=True), None)}
 
 
 def _frames() -> dict:

@@ -796,6 +796,38 @@ def test_f32_train_bwd_rejects_unaligned(gen, kind):
     assert _build.LAUNCHES == before
 
 
+def test_k7_bf16_splits_and_repeat(gen):
+    """K7 at bf16 on the wgmma tiles at (2, 200, 700), 2 heads, V = 3 +
+    0.3 N(0, 1): its forward's out bit for bit K4's at every forced split
+    count (one tile; K7 also stores M1, E2 and the lse, which match the
+    plain version's), one launch a call; its backward within the bf16
+    gradient bound of the plain backward, twice bitwise equal."""
+    b, n, m, heads = 2, 200, 700, 2
+    c = 64 * heads
+    bf = torch.bfloat16
+    q, k = (_rnd(gen, bf, b, t, c, scale=0.35).to(bf) for t in (n, m))
+    v = _v(gen, bf, b, m, 3.0).to(bf)
+    f, g = (_rnd(gen, bf, b, n, c).to(bf) for _ in range(2))
+    ref = mhada_train_ops.mhada_train_fwd_plain(q, k, v, f, heads)
+    for splits in range(1, MAX_SPLITS + 1):
+        before = _build.LAUNCHES["mhada_mhada_train_fwd"]
+        *got, _ = mhada_train_ops.fwd_launch(q, k, v, f, heads, splits)
+        assert _build.LAUNCHES["mhada_mhada_train_fwd"] == before + 1
+        assert torch.equal(got[0], _mhada_launch(q, k, v, f, heads,
+                                                 splits)[0])
+        for x, r in zip(got[1:], ref[1:]):
+            assert _rel(x, r) <= 1e-2, (splits, _rel(x, r))
+    _, m1, e2, lse = ref
+    dm1, de2, delta, _ = mhada_train_ops.mhada_train_prologue(
+        g, f, m1, e2, heads, bf)
+    args = (q, k, v, dm1, de2, lse, delta, heads)
+    got = mhada_train_ops._bwd_kernel(*args)
+    want = mhada_train_ops.mhada_train_bwd_plain(*args)
+    for x, y, r in zip(got, mhada_train_ops._bwd_kernel(*args), want):
+        assert torch.equal(x, y)
+        assert _rel(x.float(), r.float()) <= 5e-2
+
+
 # (batch, queries, keys, V's offset) of the float32 forwards at the full
 # width (C = 512, 8 heads): lengths past and below the attention kernel's
 # 256-query blocks, the MHAda kernel's 128 and the 64-key tiles, N = 1
@@ -828,7 +860,7 @@ def test_f32_forwards_full_width(gen, b, n, m, shift):
     k = _rnd(gen, torch.float32, b, m, c, scale=0.35)
     v = _rnd(gen, torch.float32, b, m, c, scale=0.3 if shift else 1.0) + shift
     f = _rnd(gen, torch.float32, b, n, c)
-    k7 = mhada_train_ops._fwd_kernel(q, k, v, f, heads)
+    k7 = mhada_train_ops.fwd_launch(q, k, v, f, heads)[:4]
     k4 = mhada_tm(q, k, v, f, heads)
     assert [_build.LAUNCHES[e] for e in entries] == [x + 1 for x in before]
     ref6 = attention_train_ops.attention_train_fwd_plain(qkv, heads, 0.125)
@@ -862,8 +894,8 @@ def test_f32_forwards_reject_unaligned(gen, entry):
                   "f": (b, n, c)}
 
         def call(t):
-            return mhada_train_ops._fwd_kernel(t["q"], t["k"], t["v"],
-                                               t["f"], heads)
+            return mhada_train_ops.fwd_launch(t["q"], t["k"], t["v"],
+                                              t["f"], heads)
     else:
         shapes = {"qkv": (b, n, 3 * c)}
 
@@ -885,14 +917,15 @@ def test_f32_forwards_reject_unaligned(gen, entry):
     if entry == "mhada_mhada_train_fwd":
         q, kv = torch.zeros(b, n, c, device="cuda"), torch.zeros(
             b, m, c, device="cuda")
-        args = [q, kv, kv, q, out, out.clone(), out.clone(), lse, b, n, m]
+        args = [q, kv, kv, q, out, out.clone(), out.clone(), lse, None, b,
+                n, m]
     else:   # (qkv, out[, lse], part, b, n), then C, heads, splits, scale
         args = [torch.zeros(b, n, 3 * c, device="cuda"), out]
         args += [lse] if entry == "mhada_attention_train_fwd" else []
         args += [None, b, n]
     with pytest.raises(RuntimeError, match="CUDA error"):
         _build.launch(entry, out.device, *args, c, heads,
-                      *([] if entry == "mhada_mhada_train_fwd"
+                      *([1] if entry == "mhada_mhada_train_fwd"
                         else [1, 0.125]), 0)
     assert _build.LAUNCHES == before
     call({key: torch.zeros(shape, device="cuda")

@@ -27,8 +27,8 @@ from interpret_diagnostics import (explain, fresh_interpreter,
 from mhada_tpu_torch.ops.instance_norm import instance_norm_stats
 from mhada_tpu_torch import _build
 from mhada_tpu_torch.probes import (attention_wgmma_ablate, c6_ablate,
-                                    f32_tile_geometry,
-                                    ln_matmul_split, mhada_pipe_probe,
+                                    f32_tile_geometry, ln_matmul_split,
+                                    mhada_bwd_ablate, mhada_pipe_probe,
                                     mhada_wgmma_ablate, mm_probe, redesign_ab,
                                     tail_f32_geometry)
 
@@ -310,6 +310,33 @@ def test_attention_ablate_needs_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         attention_wgmma_ablate.main(["--variants", "as built"])
+
+
+@pytest.mark.parametrize("variant", list(mhada_bwd_ablate.VARIANTS))
+def test_mhada_bwd_ablate_edits_apply(variant):
+    """Each variant of K7's backward ablation probe still finds its text in
+    csrc/mhada_bwd_wgmma.cuh (the probe raises otherwise) and changes it; a
+    loop edit replaces the whole loop (the braces stay balanced) with one
+    that keeps a second product group in flight (wgmma_wait<1>, which the
+    kernels as built never use)."""
+    src = (_build.CSRC / mhada_bwd_ablate.HEADER).read_text()
+    edits = mhada_bwd_ablate.VARIANTS[variant]
+    out = mhada_bwd_ablate.patched(src, edits)
+    assert (out != src) == bool(edits)
+    assert out.count("{") - out.count("}") == src.count("{") - src.count("}")
+    assert "wgmma_wait<1>" not in src
+    assert ("wgmma_wait<1>" in out) == ("two groups" in variant)
+    assert ("kDkvPart = 64," in out) == ("whole" in variant)
+    for loop in (mhada_bwd_ablate.DQ_LOOP, mhada_bwd_ablate.DKV_LOOP):
+        assert src.count(loop) == 1
+    with pytest.raises(ValueError, match="not found"):
+        mhada_bwd_ablate.patched(src, [("no such text", "")])
+
+
+def test_mhada_bwd_ablate_needs_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        mhada_bwd_ablate.main(["--variants", "as built"])
 
 
 @pytest.mark.parametrize("variant", list(c6_ablate.VARIANTS))

@@ -6,12 +6,12 @@ MMA_KERNELS or WGMMA_KERNELS, and every one of the float32 MHAda tile
 (csrc/flash_bwd_f32.cuh), of the float32 tail (csrc/decoder_tail_f32.cuh),
 of K14's float32 conv (csrc/decoder_mid_f32.cuh), of K13's
 (csrc/decoder_c6_f32.cuh) and the combines of K1's split cross form
-(csrc/attention_combine.cuh) and of K3's and K4's split MHAda tile
-(csrc/mhada_combine.cuh) in F32_KERNELS (no tensor-core instruction, no
-spills), so that no kernel skips the check; each listed kernel exists,
-each instantiation required of a path is listed, and K13's, K1's cross
-form's, K1's and K6's forward's, K3's and K4's replaced kernels are refused
-and gone.
+(csrc/attention_combine.cuh) and of the split MHAda tile of K3, K4 and
+K7's forward (csrc/mhada_combine.cuh) in F32_KERNELS (no tensor-core
+instruction, no spills), so that no kernel skips the check; each listed
+kernel exists, each instantiation required of a path is listed, and K13's,
+K1's cross form's, K1's and K6's forward's, K3's, K4's and K7's replaced
+kernels are refused and gone.
 CPU: reads the sources and chip_smoke.py's constants (it imports torch only
 inside main)."""
 
@@ -159,28 +159,62 @@ def test_replaced_attention_forward_is_refused():
 
 
 def test_replaced_mhada_instantiations_are_refused():
-    """K3 and K4 on the mma.sync MHAda tile (mhada_mma_fwd_kernel<true,
-    false> and <false, false> of its old <kPrologue, kRes> template, or
-    <false> of its <kRes> template) are refused by phase 2; K7's forward,
-    <true>, is required and not refused.  Their redesign, the wgmma tile's
-    four <prologue, split> instantiations, is required, and the split's
-    combine (both epilogues) is a listed float32 kernel."""
+    """Every instantiation of the mma.sync MHAda tile (mhada_mma_fwd_kernel:
+    K3 and K4 <true, false> and <false, false> of its old <kPrologue, kRes>
+    template, <false> of its <kRes> template, and K7's forward <true>) is
+    refused by phase 2, and its header is gone.  Their redesign, the wgmma
+    tile's five <prologue, split, residuals> instantiations (K7's forward
+    the unsplit <false, false, true>; split, K4's <false, true, false>), is
+    required, and the split's combine (both epilogues, K7's residuals in
+    K4's) is a listed float32 kernel."""
     smoke = _chip_smoke()
     for old in ("_ZN5mhada20mhada_mma_fwd_kernelILb1ELb0EEEvNS_12"
                 "MhadaMmaArgsE",
                 "_ZN5mhada20mhada_mma_fwd_kernelILb0ELb0EEEvNS_12"
                 "MhadaMmaArgsE",
-                "_ZN5mhada20mhada_mma_fwd_kernelILb0EEEvNS_12MhadaMmaArgsE"):
+                "_ZN5mhada20mhada_mma_fwd_kernelILb0EEEvNS_12MhadaMmaArgsE",
+                "_ZN5mhada20mhada_mma_fwd_kernelILb1EEEvNS_12MhadaMmaArgsE"):
         assert re.search(smoke.OLD_BF16, old), old
-    k7 = "_ZN5mhada20mhada_mma_fwd_kernelILb1EEEvNS_12MhadaMmaArgsE"
-    assert not re.search(smoke.OLD_BF16, k7)
-    assert any(req in k7 for req in smoke.MMA_REQUIRED)
-    for entry in ("mhada_prologue.cu", "mhada_fwd.cu"):
+    assert not (CSRC / "mhada_mma.cuh").exists()
+    assert not any("mhada_mma" in k for k in smoke.MMA_KERNELS)
+    for entry in ("mhada_prologue.cu", "mhada_fwd.cu", "mhada_train.cu"):
         text = (CSRC / entry).read_text()
         assert "launch_mhada_mma_fwd" not in text
         assert "launch_mhada_wgmma" in text
-    assert {r for r in smoke.WGMMA_REQUIRED if r.startswith("mhada")} == {
-        f"mhada_wgmma_kernelILb{p}ELb{s}E" for p in (0, 1) for s in (0, 1)}
+    assert {r for r in smoke.WGMMA_REQUIRED
+            if r.startswith("mhada_wgmma_kernel")} == {
+        f"mhada_wgmma_kernelILb{p}ELb{s}ELb{r}E"
+        for p, s, r in ((1, 0, 0), (1, 1, 0), (0, 0, 0), (0, 1, 0),
+                        (0, 0, 1))}
+    mangled = ("_ZN5mhada2wg18mhada_wgmma_kernelILb0ELb0ELb1EEEv14CUtensorMap"
+               "_stS2_NS0_6WgArgsENS_6xsplit8PartialsE")
+    assert "mhada_wgmma_kernelILb0ELb0ELb1E" in mangled
+    assert not re.search(smoke.OLD_BF16, mangled)
     for req in ("mhada_combine_kernelILb1E", "mhada_combine_kernelILb0E"):
         assert req in smoke.F32_REQUIRED
     assert "mhada_combine_kernel" in smoke.F32_KERNELS
+
+
+def test_replaced_mhada_backward_is_refused():
+    """K7's mma.sync backward (mhada_mma_dq_kernel, mhada_mma_dkv_kernel)
+    is refused by phase 2 and its header is gone; its bf16 entry launches
+    the wgmma + TMA dQ and dK/dV kernels, which phase 2 lists and requires
+    and does not refuse; its float32 kernels (the flash backward's <true>)
+    stay required."""
+    smoke = _chip_smoke()
+    for old in ("_ZN5mhada20mhada_mma_dkv_kernelENS_12MhadaBwdArgsE",
+                "_ZN5mhada19mhada_mma_dq_kernelENS_12MhadaBwdArgsE"):
+        assert re.search(smoke.OLD_BF16, old), old
+    assert not (CSRC / "mhada_bwd_mma.cuh").exists()
+    every = set(_kernels("*.cuh")) | set(_kernels("*.cu"))
+    for name in ("mhada_wgmma_dq_kernel", "mhada_wgmma_dkv_kernel"):
+        assert name in every and name in smoke.WGMMA_KERNELS
+        assert name in smoke.WGMMA_REQUIRED
+        assert not re.search(smoke.OLD_BF16, name)
+    text = (CSRC / "mhada_train.cu").read_text()
+    assert "launch_mhada_wgmma_bwd" in text
+    assert "launch_mhada_mma_bwd" not in text
+    for req in ("flash_bwd_f32_dkv_kernelILb1E",
+                "flash_bwd_f32_dq_kernelILb1E",
+                "mhada_f32_kernelILb0ELi2ELb1E"):
+        assert req in smoke.F32_REQUIRED
