@@ -6,24 +6,26 @@
 1. environment: torch / CUDA versions, the card's name and power limit,
    whether cv2 imports (reported, never failed);
 2. build: compile mhada_tpu_torch/csrc/*.cu with nvcc (one per source, in
-   parallel); the bf16 mma.sync kernels of K6's backward (dQ and dK/dV),
-   of the decoder tail (K5, K8), of K2, of K14 and of K13 must each hold
-   HMMA.16816.F32.BF16 in their SASS (cuobjdump) and spill nothing
-   (ptxas); the wgmma + TMA kernels, the MHAda tile of K3, K4, P2 and K7's
-   forward (mhada_wgmma_kernel <prologue, split, residuals>, all five
-   instantiations present), K7's backward (mhada_wgmma_dq_kernel,
-   mhada_wgmma_dkv_kernel), the attention tile of K1, K6's forward and
-   K1's cross form (attention_wgmma_kernel <split>, both instantiations
-   present) and every block tile of P1's, must hold HGMMA (wgmma) and
+   parallel); the bf16 mma.sync kernels of the decoder tail (K5, K8), of
+   K2, of K14 and of K13 must each hold HMMA.16816.F32.BF16 in their SASS
+   (cuobjdump) and spill nothing (ptxas); the wgmma + TMA kernels, the
+   MHAda tile of K3, K4, P2 and K7's forward (mhada_wgmma_kernel
+   <prologue, split, residuals>, all five instantiations present), K7's
+   backward (mhada_wgmma_dq_kernel, mhada_wgmma_dkv_kernel), the attention
+   tile of K1, K6's forward and K1's cross form (attention_wgmma_kernel
+   <split>, both instantiations present), K6's backward
+   (attention_wgmma_dq_kernel, attention_wgmma_dkv_kernel) and every block
+   tile of P1's, must hold HGMMA (wgmma) and
    UTMALDG (TMA loads), spill nothing and draw no note from ptxas that it
    serialised their products (C75xx); every instantiation that a bf16
    path launches must exist (the tail with and without residuals, K2's,
    K14's, K13's), no bf16 instantiation of the CUDA-core kernels they
    replaced may exist (those of K1, K4, K5, K6, K7, K8 and K2), nor any
    of the mma.sync MHAda tile (mhada_mma_fwd_kernel: K3 and K4 before the
-   wgmma tile, K7's forward before its residual epilogue) or of K7's
-   mma.sync backward (mhada_mma_dq_kernel, mhada_mma_dkv_kernel), nor
-   any instantiation of K14's old
+   wgmma tile, K7's forward before its residual epilogue) or of K7's and
+   K6's mma.sync backwards (mhada_mma_dq_kernel, mhada_mma_dkv_kernel,
+   attention_mma_dq_kernel, attention_mma_dkv_kernel), nor any
+   instantiation of K14's old
    conv (conv3x3_relu_kernel, either dtype) or of P1's old wmma kernel
    (mm_probe_kernel), nor any instantiation of the old flash tile
    (flash_tile_kernel, the f32 forwards of K1, K4, K6 and K7 before the
@@ -143,7 +145,13 @@
    planted control of its forward split over the keys (its partials
    combined in PyTorch without the last split must fail the gate's out,
    M1, E2 and lse bounds while the kernel and the whole combine pass
-   them), and two launches of its backward bitwise equal;
+   them), and two launches of its backward bitwise equal; K6 and K7 also
+   at a ragged shape (K6: B = 2, 1000 tokens) and at a rank's share of the
+   TP split (K6: 4 heads of 64, B = 1, 2048 tokens) at both dtypes; K6's
+   checks at bfloat16 (K6_CHECK, B = 4, 4096 tokens, the 512^2 step's):
+   two launches of its backward bitwise equal, and a planted fault, its
+   dQ times 1.25, that must fail the gate's backward bound while the
+   kernel passes it;
 7. the training paths: one step (``train.train_image``) on the kernel build
    and one on the plain build from the same weights and batch, losses and
    every gradient held together (each tensor against its own scale, to a
@@ -502,10 +510,15 @@ TRAIN_GATES = [
     ("K8 128x256->256x512 B=2", None, None, "tail", 2, (128, 256)),
 ]
 VIDEO_GATES = TRAIN_GATES[-3:]
-# K7 beyond the steps' shapes, at both dtypes: a ragged shape (no 192-query
-# block, 64-key tile or 128-key block divides 1000 or 3000) and a rank's
-# share of the TP split (4 heads of 64) at the Sintel eval's 3600 queries
-# against a 256^2 style.  (gate, kind, batch, tokens, tp.)
+# K6 and K7 beyond the steps' shapes, at both dtypes: a ragged shape (no
+# 192-query block, 64-key tile or 128-key block divides 1000 or 3000) and
+# a rank's share of the TP split (4 heads of 64): K6 at the video step's
+# frames, K7 at the Sintel eval's 3600 queries against a 256^2 style.
+# (gate, kind, batch, tokens, tp.)
+K6_EXTRA_GATES = [
+    ("K6 B=2 L=1000", "attention", 2, 1000, 1),
+    ("K6 TP/2 B=1 L=2048", "attention", 1, 2048, 2),
+]
 K7_EXTRA_GATES = [
     ("K7 B=2 N=1000 M=3000", "mhada", 2, (1000, 3000), 1),
     ("K7 TP/2 B=1 N=3600 M=1024", "mhada", 1, (3600, 1024), 2),
@@ -652,13 +665,10 @@ PIXEL_BOUND = {"float32": 0.1, "bfloat16": 4.0}
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 DTYPE_NAMES = ("float32", "bfloat16")
-# The bf16 mma.sync kernels of K6's backward (csrc/attention_bwd_mma.cuh),
-# K5 and K8 (csrc/decoder_tail_mma.cuh), K2 (csrc/ln_matmul_mma.cuh), K14
-# (csrc/decoder_mid_mma.cuh) and K13 (csrc/decoder_c6_mma.cuh) and the
-# instruction each must contain.
-MMA_KERNELS = ("attention_mma_dkv_kernel",
-               "attention_mma_dq_kernel",
-               "decoder_tail_mma_kernel", "ln_matmul_mma_kernel",
+# The bf16 mma.sync kernels of K5 and K8 (csrc/decoder_tail_mma.cuh), K2
+# (csrc/ln_matmul_mma.cuh), K14 (csrc/decoder_mid_mma.cuh) and K13
+# (csrc/decoder_c6_mma.cuh) and the instruction each must contain.
+MMA_KERNELS = ("decoder_tail_mma_kernel", "ln_matmul_mma_kernel",
                "decoder_mid_mma_kernel", "decoder_c6_mma_kernel")
 HMMA = "HMMA.16816.F32.BF16"
 # The float32 tail's two kernels (csrc/decoder_tail_f32.cuh), timed apart
@@ -667,11 +677,13 @@ TAIL_STAGES = ("tail_up3_f32_kernel", "tail_c5c6_f32_kernel")
 # The bf16 wgmma + TMA kernels (the MHAda tile of K3, K4, P2 and K7's
 # forward, split or not: csrc/mhada_wgmma.cuh; K7's backward, its dQ and
 # dK/dV kernels: csrc/mhada_bwd_wgmma.cuh; the attention tile of K1, K6's
-# forward and K1's cross form, split or not: csrc/attention_wgmma.cuh; P1,
-# each block tile: csrc/mm_wgmma.cuh) and the instructions each must
+# forward and K1's cross form, split or not: csrc/attention_wgmma.cuh;
+# K6's backward, its dQ and dK/dV kernels: csrc/attention_bwd_wgmma.cuh;
+# P1, each block tile: csrc/mm_wgmma.cuh) and the instructions each must
 # contain: HGMMA (wgmma) and UTMALDG (TMA loads).
 WGMMA_KERNELS = ("mhada_wgmma_kernel", "mhada_wgmma_dq_kernel",
                  "mhada_wgmma_dkv_kernel", "attention_wgmma_kernel",
+                 "attention_wgmma_dq_kernel", "attention_wgmma_dkv_kernel",
                  "mm_wgmma_kernel")
 WGMMA_SASS = ("HGMMA", "UTMALDG")
 # Instantiations (mangled-name parts) that the bf16 paths launch: K5's and
@@ -680,7 +692,8 @@ WGMMA_SASS = ("HGMMA", "UTMALDG")
 # false>, K4 <false, false, false>, K4 and K7's forward split <false, true,
 # false>, K7's forward unsplit <false, false, true>; K7's dQ and dK/dV
 # kernels; the attention wgmma tile's <split>: K1, K6's forward and K1's
-# cross form, <false> unsplit and <true> split over the keys.
+# cross form, <false> unsplit and <true> split over the keys; K6's dQ and
+# dK/dV kernels.
 MMA_REQUIRED = ("decoder_tail_mma_kernelILb0E", "decoder_tail_mma_kernelILb1E",
                 "ln_matmul_mma_kernel", "decoder_mid_mma_kernel",
                 "decoder_c6_mma_kernel")
@@ -690,7 +703,8 @@ WGMMA_REQUIRED = ("mhada_wgmma_kernelILb1ELb0ELb0E",
                   "mhada_wgmma_kernelILb0ELb1ELb0E",
                   "mhada_wgmma_kernelILb0ELb0ELb1E",
                   "mhada_wgmma_dq_kernel", "mhada_wgmma_dkv_kernel",
-                  "attention_wgmma_kernelILb0E", "attention_wgmma_kernelILb1E")
+                  "attention_wgmma_kernelILb0E", "attention_wgmma_kernelILb1E",
+                  "attention_wgmma_dq_kernel", "attention_wgmma_dkv_kernel")
 # bf16 instantiations of the CUDA-core kernels that no path may reach any
 # more (mangled names): the attention and MHAda tile (K1, K4, K6's and
 # K7's forwards) and backward (K6, K7), the decoder tail (K5, K8), K2's
@@ -710,7 +724,9 @@ WGMMA_REQUIRED = ("mhada_wgmma_kernelILb1ELb0ELb0E",
 # MHAda tile (mhada_mma_fwd_kernel: K3 and K4 before the wgmma tile of
 # csrc/mhada_wgmma.cuh, K7's forward <true> before its residual epilogue
 # there) and of K7's mma.sync backward (mhada_mma_dq_kernel,
-# mhada_mma_dkv_kernel, before csrc/mhada_bwd_wgmma.cuh).
+# mhada_mma_dkv_kernel, before csrc/mhada_bwd_wgmma.cuh), and K6's
+# (attention_mma_dq_kernel, attention_mma_dkv_kernel, before
+# csrc/attention_bwd_wgmma.cuh).
 OLD_BF16 = (r"flash_tile_kernel"
             r"|flash_bwd_(dkv|dq)_kernelI13__nv_bfloat16"
             r"|decoder_tail_kernelI13__nv_bfloat16"
@@ -721,7 +737,8 @@ OLD_BF16 = (r"flash_tile_kernel"
             r"|decoder_tail_kernelILb"
             r"|decoder_c6_kernel"
             r"|attention_mma_fwd_kernel"
-            r"|mhada_mma_(fwd|dq|dkv)_kernel")
+            r"|mhada_mma_(fwd|dq|dkv)_kernel"
+            r"|attention_mma_(dq|dkv)_kernel")
 # float32 kernels that compute in float32: they must exist, spill nothing
 # and hold no tensor-core instruction of any kind (HMMA, HGMMA: no TF32).
 # K2's float32 build, the float32 flash tile (csrc/mhada_f32_tile.cuh: the
@@ -1981,6 +1998,53 @@ def k7_checks() -> tuple[bool, dict]:
                  f" and {LSE_REL:.0e}; without the last split the gate must "
                  f"fail); the backward twice, bitwise equal: "
                  f"{rec['bwd_repeat']}"), rec
+
+
+# K6's checks at bfloat16: the 512^2 step's shape (B, tokens; 8 heads) and
+# the planted fault's factor on the kernel's dQ.
+K6_CHECK = (4, 4096)
+K6_DQ_FAULT = 1.25
+
+
+def k6_checks() -> tuple[bool, dict]:
+    """K6's backward at bfloat16 on the wgmma pair (K6_CHECK): two launches
+    bitwise equal; its dq, dk and dv against the plain backward within the
+    gate's bound (TRAIN_REL), and a planted fault, the kernel's dq times
+    K6_DQ_FAULT, that must exceed it -> (ok, record)."""
+    import torch
+
+    from mhada_tpu_torch.ops import attention_train as at
+
+    b, n = K6_CHECK
+    c, heads, dtype, scale = 512, 8, torch.bfloat16, 0.125
+    g = torch.Generator().manual_seed(SEED)
+    qkv = torch.randn(b, n, 3 * c, generator=g).to("cuda", dtype)
+    cot = torch.randn(b, n, c, generator=g).to("cuda", dtype)
+    names = ["dq", "dk", "dv"]
+    with torch.inference_mode():
+        out, lse = at.attention_train_fwd_plain(qkv, heads, scale)
+        delta = at.row_delta(cot, out, heads)
+        grads = [at._bwd_kernel(qkv, lse, delta, cot, heads, scale)
+                 for _ in range(2)]
+        ref = at.attention_train_bwd_plain(qkv, lse, delta, cot, heads,
+                                           scale).chunk(3, dim=-1)
+        got = grads[0].chunk(3, dim=-1)
+        kernel = _errs(names, got, ref)
+        planted = _errs(names, (got[0] * K6_DQ_FAULT, *got[1:]), ref)
+        rec = dict(bwd_repeat=torch.equal(*grads),
+                   kernel={k: e[1] for k, e in kernel.items()},
+                   planted={k: e[1] for k, e in planted.items()})
+    bound = TRAIN_REL["bfloat16"][1]
+    good = (rec["bwd_repeat"] and _worst(kernel)[1] <= bound
+            and _worst(planted)[1] > bound)
+    del qkv, cot, out, lse, delta, grads, ref, got
+    torch.cuda.empty_cache()
+    return phase("train gate K6 checks", good,
+                 f"B = {b}, L = {n}, bfloat16: the backward twice, bitwise "
+                 f"equal: {rec['bwd_repeat']}; against the plain backward "
+                 f"rel {_errs_txt(kernel)}, with its dq x {K6_DQ_FAULT} "
+                 f"(planted) {_errs_txt(planted)} (the kernel within "
+                 f"{bound:.0e} each, the planted fault must exceed it)"), rec
 
 
 def step_grads(models, cfg, batch):
@@ -4548,7 +4612,7 @@ def main() -> int:
         good = phase("train gate K6 split control", False,
                      f"{type(e).__name__}: {e}")
     ok = good and ok
-    for gate, kind, b, n, tp in K7_EXTRA_GATES:
+    for gate, kind, b, n, tp in K6_EXTRA_GATES + K7_EXTRA_GATES:
         for dname in DTYPE_NAMES:
             try:
                 good, recs = run_train_gate(gate, kind, dname, card, b, n, tp)
@@ -4562,6 +4626,12 @@ def main() -> int:
         good, train_extra["K7 checks"] = k7_checks()
     except Exception as e:
         good = phase("train gate K7 checks", False,
+                     f"{type(e).__name__}: {e}")
+    ok = good and ok
+    try:
+        good, train_extra["K6 checks"] = k6_checks()
+    except Exception as e:
+        good = phase("train gate K6 checks", False,
                      f"{type(e).__name__}: {e}")
     ok = good and ok
 

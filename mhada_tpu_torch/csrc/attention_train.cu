@@ -22,13 +22,14 @@
 // compute-bound.  bfloat16 runs on the tensor cores: the forward on the
 // wgmma + TMA attention tile (attention_wgmma.cuh, split over the keys where
 // the grid leaves SMs idle, the combine also forming the lse), the backward
-// on mma.sync (attention_bwd_mma.cuh); float32 keeps computing in float32,
+// on a wgmma + TMA dQ and dK/dV pair (attention_bwd_wgmma.cuh); float32
+// keeps computing in float32,
 // as FMAs on the CUDA cores (the forward: mhada_f32_tile.cuh,
 // attention_f32_kernel<true>; the backward: flash_bwd_f32.cuh; float32
 // operands 16-byte aligned and channels a multiple of 4, or the entry
 // point refuses).
 
-#include "attention_bwd_mma.cuh"
+#include "attention_bwd_wgmma.cuh"
 #include "attention_wgmma.cuh"
 #include "flash_bwd_f32.cuh"  // and mhada_f32_tile.cuh
 
@@ -108,12 +109,14 @@ extern "C" int mhada_attention_train_bwd(const void* qkv, const void* g,
         qkv, g, static_cast<const float*>(lse),
         static_cast<const float*>(delta), dqkv, batch, seq, channels, heads,
         scale, (cudaStream_t)stream);
-  mhada::AttnMmaArgs a{};
-  if (dtype != mhada::kBF16 ||
-      !mhada::make_mma_args(a, qkv, g, dqkv, seq, channels, scale))
-    return (int)cudaErrorInvalidValue;
-  a.lse_in = static_cast<const float*>(lse);
+  if (dtype != mhada::kBF16) return (int)cudaErrorInvalidValue;
+  mhada::xbw::AttnBwdArgs a{};
+  a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
-  return (int)mhada::launch_attention_mma_bwd(a, heads, batch,
-                                              (cudaStream_t)stream);
+  a.dqkv = static_cast<__nv_bfloat16*>(dqkv);
+  a.seq = seq;
+  a.channels = channels;
+  a.scale = scale;
+  return (int)mhada::xbw::launch_attention_wgmma_bwd(a, qkv, g, batch, heads,
+                                                     (cudaStream_t)stream);
 }

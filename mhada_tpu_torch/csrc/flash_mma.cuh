@@ -1,7 +1,7 @@
 // Warp-level building blocks of the tensor-core kernels
-// (attention_bwd_mma.cuh, decoder_*_mma.cuh, ln_matmul_mma.cuh): the block
-// shape, the alignment check of their entry points, the bf16 m16n8k16
-// product with float32 accumulators,
+// (decoder_*_mma.cuh, ln_matmul_mma.cuh, and the pieces the wgmma kernels
+// take from them): the alignment check of their entry points, the bf16
+// m16n8k16 product with float32 accumulators,
 // ldmatrix (plain and transposed), 16-byte cp.async copies with zero fill,
 // the quad reductions over an accumulator fragment, and the conversion of a
 // float32 accumulator fragment into a bf16 A-operand fragment in registers,
@@ -30,11 +30,6 @@
 
 namespace mhada {
 
-// The block shape of every tensor-core kernel: 4 warps of 16 rows.
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kMmaRows = 16 * kMmaWarps;   // rows of a block: 64
-constexpr int kMmaStages = 2;              // depth of the cp.async rings
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -154,24 +149,6 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
   a[1] = pack_bf16(lo[2], lo[3]);
   a[2] = pack_bf16(hi[0], hi[1]);
   a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-// Copy 64 rows x 64 bf16 channels of a token-major tensor into a padded
-// shared tile with 16-byte cp.async, `kThreads` threads sharing the 512
-// chunks; rows r0 + r >= rows are zero-filled.  `base` points at row 0 of
-// the batch at the head's channel offset; rs is the row stride (elements).
-template <int kThreads>
-__device__ __forceinline__ void load_tile_async(
-    __nv_bfloat16* dst, const __nv_bfloat16* base, long long rs, int r0,
-    int rows) {
-#pragma unroll
-  for (int j = 0; j < 64 * 8 / kThreads; ++j) {
-    const int i = threadIdx.x + j * kThreads;
-    const int r = i / 8, c = (i % 8) * 8;
-    const bool valid = r0 + r < rows;
-    const __nv_bfloat16* src = base + (valid ? (r0 + r) * rs + c : 0);
-    cp_async_16(smem_addr(dst + r * kMmaStride + c), src, valid);
-  }
 }
 
 // Lane addresses of ldmatrix_x4 on a padded tile, for the 16 x 16 block

@@ -73,6 +73,7 @@
 #include "flash_mma.cuh"
 #include "hopper_async.cuh"
 #include "mhada_wgmma.cuh"
+#include "wgmma_bwd_parts.cuh"
 
 namespace mhada {
 namespace wg {
@@ -115,17 +116,6 @@ constexpr size_t kDkvSmemBytes = kDkvBarOff + (2 * kStages + 1) * 8 + 1024;
 // Named barriers (0 is __syncthreads): consumer w's own (kBarOwn + w) and
 // its turn (kBarTurn + w), as the MHAda tile's.
 
-// Consumer `role`'s turns among `consumers`: the products of a turn are
-// issued while the other consumers' softmax-like work runs.
-struct Turns {
-  int turn, next;
-  bool last;
-  __device__ Turns(int role, int consumers)
-      : turn(kBarTurn + role),
-        next(kBarTurn + (role + 1) % consumers),
-        last(role == consumers - 1) {}
-};
-
 // P = exp(S - lse) and dS = P (dP - delta) over an m64nN accumulator pair
 // in place (kE = N / 2 elements a thread): s becomes P and dp becomes dS
 // (float32).  lse2(i) and delta(i): element i's lse in log2 units and its
@@ -139,22 +129,6 @@ __device__ __forceinline__ void p_and_ds(float (&s)[kE], float (&dp)[kE],
     if (!keep(i)) p = 0.f;
     dp[i] = p * (dp[i] - delta(i));
     s[i] = p;
-  }
-}
-
-// An m64nN accumulator x rounded to bf16 into the A fragments of N / 16
-// k-steps (k-step kk: columns 16 kk..), the layout pack_p of the MHAda
-// tile uses.
-template <int kSteps>
-__device__ __forceinline__ void pack_frags(uint32_t (&f)[kSteps][4],
-                                           const float (&x)[8 * kSteps]) {
-  using mma::pack_bf16;
-#pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk) {
-    f[kk][0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
-    f[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
-    f[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
-    f[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
   }
 }
 
@@ -294,7 +268,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(st));
   };
-  const Turns turns(role, kConsumers);
+  const Turns turns(role, kConsumers, kBarTurn);
 
   // Consumers issue S and dP in turn, 0 first, one turn a key tile; each
   // runs P and dS, then issues dQ += dS K outside the turns and waits for
@@ -489,7 +463,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(stage(u)));
   };
-  const Turns turns(role, kDkvConsumers);
+  const Turns turns(role, kDkvConsumers, kBarTurn);
 
   // One product group in flight: each turn issues step u's S^T and dP^T;
   // dV and dK follow outside the turns.

@@ -167,29 +167,34 @@ VARIANTS = {
 }
 
 
-def patched(text: str, edits) -> str:
+def patched(text: str, edits, loops=(DQ_LOOP, DKV_LOOP),
+            header=HEADER) -> str:
     """The header's text with ``edits`` applied; an edit whose old text is
-    a loop's first line replaces that loop through its closing brace.
-    Raises if one is missing."""
+    one of ``loops`` replaces a consumer's loop: a loop's first line, from
+    it through the loop's closing brace, or a pair (first line, last
+    text), from the first line through the last text.  Raises if one is
+    missing."""
+    ends = dict(loop if isinstance(loop, tuple) else (loop, "\n  }\n")
+                for loop in loops)
     for old, new in edits:
         if old not in text:
-            raise ValueError(f"variant edit not found in {HEADER}: {old!r}")
-        if old in (DQ_LOOP, DKV_LOOP):
+            raise ValueError(f"variant edit not found in {header}: {old!r}")
+        if old in ends:
             start = text.index(old)
-            end = text.index("\n  }\n", start) + len("\n  }\n")
+            end = text.index(ends[old], start) + len(ends[old])
             text = text[:start] + new + text[end:]
         else:
             text = text.replace(old, new)
     return text
 
 
-def ptxas_notes(log: str) -> dict:
+def ptxas_notes(log: str, kernels=KERNELS) -> dict:
     """Each backward kernel's registers and spilled bytes, and the codes of
     ptxas' performance notes that name it, from the ``-Xptxas -v`` log."""
     notes, kernel = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            kernel = next((k for k in KERNELS if k in ln), None)
+            kernel = next((k for k in kernels if k in ln), None)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if kernel and m:
             notes.setdefault(kernel, {})["spill_bytes"] = int(m[1]) + int(m[2])
@@ -198,24 +203,28 @@ def ptxas_notes(log: str) -> dict:
             notes.setdefault(kernel, {})["regs"] = int(m[1])
             kernel = None
         m = re.search(r"\((C75\d\d)\).*'(\w+)'", ln)
-        for k in KERNELS:
+        for k in kernels:
             if m and k in m[2]:
                 codes = notes.setdefault(k, {}).setdefault("ptxas", [])
                 codes += [m[1]] if m[1] not in codes else []
     return notes
 
 
-def build_variants(names, workdir: Path) -> dict:
-    """name -> (the variant's C entry point, its ptxas notes)."""
+def build_variants(names, workdir: Path, variants=VARIANTS, header=HEADER,
+                   source=SOURCE, entry=ENTRY, loops=(DQ_LOOP, DKV_LOOP),
+                   kernels=KERNELS) -> dict:
+    """name -> (the variant's C entry point, its ptxas notes): each variant
+    of ``variants`` is ``header`` with its edits, compiled with ``source``
+    into a library of its own whose C entry ``entry`` is returned."""
     procs = {}
     for i, name in enumerate(names):
         src = workdir / f"v{i}"
         shutil.copytree(_build.CSRC, src)
-        (src / HEADER).write_text(
-            patched((src / HEADER).read_text(), VARIANTS[name]))
+        (src / header).write_text(patched((src / header).read_text(),
+                                          variants[name], loops, header))
         lib = src / "variant.so"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib),
-               str(src / SOURCE)]
+               str(src / source)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        lib)
@@ -224,11 +233,49 @@ def build_variants(names, workdir: Path) -> dict:
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{log[-3000:]}")
-        fn = getattr(ctypes.CDLL(str(lib)), ENTRY)
-        fn.argtypes = _build.SIGNATURES[ENTRY]
+        fn = getattr(ctypes.CDLL(str(lib)), entry)
+        fn.argtypes = _build.SIGNATURES[entry]
         fn.restype = ctypes.c_int
-        built[name] = (fn, ptxas_notes(log))
+        built[name] = (fn, ptxas_notes(log, kernels))
     return built
+
+
+def measure(built, cases, launch, device, iters) -> list:
+    """One record a variant of ``built``: its ptxas notes and per case of
+    ``cases`` ((key, inputs, outputs, bound ms)) the device ms of
+    ``launch(fn, inputs, outputs)`` in two rounds (the variants in order,
+    then reversed; CUDA events over ``iters`` back-to-back launches), the
+    bound's share at the faster round and max |variant - first| / max
+    |first| over the outputs."""
+    def ms(call):
+        call()
+
+        def loop():
+            for _ in range(iters):
+                call()
+        return _elapsed_ms(device, loop) / iters
+
+    rows = {name: {"variant": name, **notes, "shapes": {}}
+            for name, (_, notes) in built.items()}
+    first = next(iter(built))
+    for key, ins, outs, bound in cases:
+        launch(built[first][0], ins, outs)
+        ref = [t.float().clone() for t in outs]
+        for name, (fn, _) in built.items():
+            launch(fn, ins, outs)
+            rows[name]["shapes"][key] = {
+                "rel_err_vs_first": max(
+                    ((o.float() - r).abs().max() / r.abs().max()).item()
+                    for o, r in zip(outs, ref)), "ms": []}
+        for order in (list(built), list(built)[::-1]):
+            for name in order:
+                rows[name]["shapes"][key]["ms"].append(ms(
+                    lambda: launch(built[name][0], ins, outs)))
+        for name in built:
+            rec = rows[name]["shapes"][key]
+            rec["bound_ms"] = bound
+            rec["bound_share"] = bound / min(rec["ms"])
+    return list(rows.values())
 
 
 def main(argv=None) -> None:
@@ -241,7 +288,7 @@ def main(argv=None) -> None:
     print(f"# {card()}; C={C}, {HEADS} heads, bfloat16", flush=True)
     bf = torch.bfloat16
     g = torch.Generator().manual_seed(0)
-    data = []
+    cases = []
     with torch.inference_mode():
         for b, n, m in SHAPES:
             q, k = (0.35 * torch.randn(b, t, C, generator=g).to(device, bf)
@@ -254,49 +301,23 @@ def main(argv=None) -> None:
                                                       bf)
             grads = (torch.empty_like(q), torch.empty_like(k),
                      torch.empty_like(v))
-            data.append((b, n, m, (q, k, v, dm1, de2, lse, delta), grads))
+            cases.append((f"B={b} N={n} M={m}",
+                          (b, n, m, (q, k, v, dm1, de2, lse, delta)), grads,
+                          20 * b * n * m * C / PEAK_BF16 * 1e3))
             del m1, e2, f, cot
     with tempfile.TemporaryDirectory() as tmp, torch.inference_mode():
         built = build_variants(args.variants, Path(tmp))
 
-        def run(fn, b, n, m, ins, outs):
+        def launch(fn, shape_ins, outs):
+            b, n, m, ins = shape_ins
             stream = torch.cuda.current_stream(device).cuda_stream
             err = fn(*(t.data_ptr() for t in (*ins, *outs)), b, n, m, C,
                      HEADS, _build.DTYPE_CODES[bf], stream)
             if err:
                 raise RuntimeError(f"{ENTRY} failed: CUDA error {err}")
 
-        def ms(call):
-            call()
-
-            def loop():
-                for _ in range(args.iters):
-                    call()
-            return _elapsed_ms(device, loop) / args.iters
-
-        rows = {name: {"variant": name, **notes, "shapes": {}}
-                for name, (_, notes) in built.items()}
-        first = next(iter(built))
-        for b, n, m, ins, outs in data:
-            key = f"B={b} N={n} M={m}"
-            run(built[first][0], b, n, m, ins, outs)
-            ref = [t.float().clone() for t in outs]
-            for name, (fn, _) in built.items():
-                run(fn, b, n, m, ins, outs)
-                rows[name]["shapes"][key] = {
-                    "rel_err_vs_first": max(
-                        ((o.float() - r).abs().max() / r.abs().max()).item()
-                        for o, r in zip(outs, ref)), "ms": []}
-            for order in (list(built), list(built)[::-1]):
-                for name in order:
-                    rows[name]["shapes"][key]["ms"].append(ms(
-                        lambda: run(built[name][0], b, n, m, ins, outs)))
-            bound = 20 * b * n * m * C / PEAK_BF16 * 1e3
-            for name in built:
-                rec = rows[name]["shapes"][key]
-                rec["bound_ms"] = bound
-                rec["bound_share"] = bound / min(rec["ms"])
-    for row in rows.values():
+        rows = measure(built, cases, launch, device, args.iters)
+    for row in rows:
         print(json.dumps(row), flush=True)
 
 

@@ -1,10 +1,10 @@
 """P1, K14, K13, the float32 tail, K1, K6's forward, K1's cross form, K3,
-K4, K7 and the bf16 frames against another checkout's builds of them, on
-one card, in turns: the time a redesign saves (or a change of a kernel's
-arguments costs), measured in one call.
+K4, K7, K6's backward and the bf16 frames against another checkout's
+builds of them, on one card, in turns: the time a redesign saves (or a
+change of a kernel's arguments costs), measured in one call.
 
     python -m mhada_tpu_torch.probes.redesign_ab --other DIR [--rounds 2]
-        [--groups P1 K14 K13 tail K1 K1x mhada K7 frames]
+        [--groups P1 K14 K13 tail K1 K1x mhada K7 K6b frames]
 
 DIR is the root of another checkout of the repository (for example the
 parent commit, unpacked with ``git archive``).  Each side runs in a process
@@ -57,6 +57,15 @@ events:
   call, the square and the concatenation through torch.autograd.grad from
   [dM1 | dE2]: chip_smoke.py's K7 yardsticks), device ms of every kernel
   the call launches;
+- K6's backward at bfloat16 (``ops.attention_train._bwd_kernel`` on the
+  plain forward's lse and the wrapper's delta, scale 1/8) at its training
+  gates' shapes (B = 8, L = 1024; B = 4, 4096; B = 1, 16384; B = 2, 2048;
+  8 heads), at inversion's B = 1, 1024 and at the TP share (4 heads: B =
+  4, 1024 and B = 1, 2048), as wall ms and as device ms, whole and of its
+  dK/dV and dQ kernels apart, beside SDPA's backward on the same packed
+  qkv (torch.autograd.grad of that call into the packed qkv), its forward
+  on the flash backend and on the backend PyTorch picks (chip_smoke.py's K6
+  yardstick), wall ms and device ms of every kernel the call launches;
 - the bf16 frames of ``chip_smoke.py``'s phase 5 on full-width models from
   seed 0: the full path at 512^2, B = 1, the streaming path at 512^2, B =
   1 and 8 (ms a frame), and at 1024^2, B = 1.
@@ -72,6 +81,7 @@ put the other checkout's package first on ``sys.path``.
 """
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -97,7 +107,12 @@ MHADA_SHAPES = [("K3", 1, 4096), ("K4", 1, 4096), ("K3", 1, 16384),
 # (batch, queries, keys) of K7's training gates in chip_smoke.py
 K7_SHAPES = [(8, 1024, 1024), (4, 4096, 4096), (1, 16384, 16384),
              (2, 2048, 1024)]
-GROUPS = ("P1", "K14", "K13", "tail", "K1", "K1x", "mhada", "K7", "frames")
+# (batch, tokens, heads) of K6's backward: its training gates' shapes in
+# chip_smoke.py, inversion's B = 1 at 1024 tokens and the TP share
+K6B_SHAPES = [(8, 1024, 8), (4, 4096, 8), (1, 16384, 8), (2, 2048, 8),
+              (1, 1024, 8), (4, 1024, 4), (1, 2048, 4)]
+GROUPS = ("P1", "K14", "K13", "tail", "K1", "K1x", "mhada", "K7", "K6b",
+          "frames")
 
 
 def _cuda_ms(fn, warmup=3, iters=10):
@@ -247,6 +262,18 @@ def worker(root: str, groups=GROUPS) -> dict:
             out[key] = _cuda_ms(call)
             out[key + " device"] = device_ms(call, only=only)
         torch.cuda.empty_cache()
+    for batch, n, heads in K6B_SHAPES if "K6b" in groups else ():
+        kernel, sdpa = _k6b_calls(batch, n, heads)
+        key = f"K6b backward L={n} B={batch} heads={heads} bfloat16"
+        out[key] = _cuda_ms(kernel)
+        out[key + " device"] = device_ms(kernel)
+        for part in ("dkv_kernel", "dq_kernel"):
+            out[f"{key} {part} device"] = device_ms(kernel, only=part)
+        for name, call in sdpa.items():
+            out[f"{key} {name}"] = _cuda_ms(call)
+            out[f"{key} {name} device"] = device_ms(call)
+        del kernel, sdpa
+        torch.cuda.empty_cache()
     if "frames" in groups:
         out.update(_frames())
     return out
@@ -308,6 +335,38 @@ def _k7_calls(batch, n, m):
             qd, kd, vvd, scale=1.0), None),
         "backward SDPA": (lambda: torch.autograd.grad(
             lib_out, leaves, lib_cot, retain_graph=True), None)}
+
+
+def _k6b_calls(batch, n, heads):
+    """K6's backward at bf16 on seeded inputs, ``heads`` heads of 64, scale
+    1/8, and SDPA's backward on the same packed qkv, its forward on the
+    flash backend and on the backend PyTorch picks (chip_smoke.py's K6
+    yardstick) -> (kernel call, {name: SDPA call})."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from mhada_tpu_torch.ops import attention_train as at
+
+    g = torch.Generator().manual_seed(0)
+    c = 64 * heads
+    qkv, cot = (torch.randn(batch, n, width, generator=g).to(
+        "cuda", torch.bfloat16) for width in (3 * c, c))
+    out, lse = at.attention_train_fwd_plain(qkv, heads, 0.125)
+    delta = at.row_delta(cot, out, heads)
+    del out
+    leaf = qkv.detach().requires_grad_()
+    q, k, v = (t.unflatten(-1, (heads, 64)).transpose(1, 2)
+               for t in leaf.split(c, dim=-1))
+    lib_cot = cot.unflatten(-1, (heads, 64)).transpose(1, 2)
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        flash = F.scaled_dot_product_attention(q, k, v, scale=0.125)
+    default = F.scaled_dot_product_attention(q, k, v, scale=0.125)
+    return (lambda: at._bwd_kernel(qkv, lse, delta, cot, heads, 0.125),
+            {name: functools.partial(torch.autograd.grad, out, leaf, lib_cot,
+                                     retain_graph=True)
+             for name, out in (("SDPA", flash),
+                               ("SDPA default backend", default))})
 
 
 def _frames() -> dict:

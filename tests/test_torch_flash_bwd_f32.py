@@ -17,7 +17,18 @@ product at a time; K7's dV = P^T G1 + 2 V (P^T G2).  Shapes: ragged L = 300
 and 1 (K6, B = 2 and 1; N(0, 1) inputs at scale 1/8), N x M = 300 x 260
 and 1 x 63 (K7, B = 2 and 1), q and k at input scale 0.35 (the MHAda
 softmax is unscaled), and for K7 also V = 3 + 0.3 N(0, 1), where E2 - M1^2
-cancels."""
+cancels.
+
+Both tests run as the P2 probe test does (tests/interpret_diagnostics.py):
+the TPU interpreter starts from fresh state (a kernel that raised in an
+earlier file of the worker leaves its memory behind), the torch side (the
+model, the plain versions, the float64 gradients) runs on the calling
+thread rounding to nearest (torch's intra-op threads keep the rounding
+mode of the thread that started them: under a directed mode the model
+moves 3.1e-6 to 3.3e-6 from float64 in the K6 test at L = 300, past its
+1.7e-6 bound, while the interpreted kernel stays 5e-7 off; measured on the
+CPU), and a failure names the assertion, the gradient, each side's
+distance from float64, the worker and its floating-point state."""
 
 import numpy as np
 import pytest
@@ -27,6 +38,9 @@ import torch
 import torch.nn.functional as F
 from jax.experimental.pallas import tpu as pltpu
 
+from interpret_diagnostics import (explain, fresh_interpreter,
+                                   interpreter_busy, nearest_on_this_thread,
+                                   worker_state)
 from mhada_tpu.ops.attention_pallas import attention_tm_train
 from mhada_tpu.ops.mhada_pallas import mhada_tm_train
 from mhada_tpu_torch.ops.attention_train import (attention_train_bwd_plain,
@@ -128,8 +142,20 @@ def _token_major(x):
     return x.transpose(1, 2).reshape(b, n, h * d)
 
 
-def _check(got, ref, plain, exact):
-    """got, ref, plain, exact: lists of (B, L, C) gradients (dq, dk, dv).
+def _pallas(fn, stale):
+    """fn() in TPU interpret mode -> its result; a kernel that raises is
+    reported with the worker's state."""
+    try:
+        with pltpu.force_tpu_interpret_mode():
+            return fn()
+    except Exception as e:
+        raise AssertionError(f"the Pallas kernel raised in interpret mode: "
+                             f"{e!r}; {worker_state(stale)}") from e
+
+
+def _check(got, ref, plain, exact, stale):
+    """got, ref, plain, exact: lists of (B, L, C) gradients (dq, dk, dv);
+    stale: whether the interpreter held state when the test started.
     The model may be at most twice as far from float64 as the Pallas
     backward, plus a floor of 2^-20 (four float32 units in the last place)
     of the largest exact gradient: with one token, dq and dk are zero in
@@ -138,13 +164,21 @@ def _check(got, ref, plain, exact):
     63) to 2^-24 of itself, which moves P, and dk with it, by some 1e-6 of
     dk's scale, where the Pallas backward's exp(S - lse) comes to 2e-7."""
     floor = 2.0 ** -20 * max(np.abs(e).max() for e in exact)
-    for g, r, p, e in zip(got, ref, plain, exact):
-        assert g.shape == r.shape == p.shape == e.shape
-        assert np.isfinite(g).all()
-        np.testing.assert_allclose(g, r, atol=ATOL, rtol=RTOL)
-        np.testing.assert_allclose(g, p, atol=ATOL, rtol=RTOL)
+    state = worker_state(stale)
+    for name, g, r, p, e in zip(("dq", "dk", "dv"), got, ref, plain, exact):
+        assert g.shape == r.shape == p.shape == e.shape, (name, state)
+        assert np.isfinite(g).all(), (name, state)
+        np.testing.assert_allclose(g, r, atol=ATOL, rtol=RTOL, err_msg=(
+            f"{name}, model against the Pallas backward: "
+            + explain(g, r, state, e, ATOL)))
+        np.testing.assert_allclose(g, p, atol=ATOL, rtol=RTOL, err_msg=(
+            f"{name}, model against the plain backward: "
+            + explain(g, p, state, e, ATOL)))
         err, err_ref = np.abs(g - e).max(), np.abs(r - e).max()
-        assert err <= 2 * err_ref + floor, (err, err_ref, floor)
+        assert err <= 2 * err_ref + floor, (
+            f"{name}: the model {err:.3e} from float64, past 2 x the Pallas "
+            f"backward's {err_ref:.3e} + {floor:.3e}; the plain backward "
+            f"{np.abs(p - e).max():.3e}; {state}")
 
 
 @pytest.mark.parametrize("b,n", [(2, 300), (1, 1)])
@@ -154,27 +188,32 @@ def test_k6_flash_bwd_model_matches_pallas(b, n):
     # N(0, 1): the scaled logits' std near 1
     qkv = rng.standard_normal((b, n, 3 * c)).astype(np.float32)
     cot = rng.standard_normal((b, n, c)).astype(np.float32)
-    with pltpu.force_tpu_interpret_mode():
+    stale = interpreter_busy()
+    fresh_interpreter()
+
+    def pallas():
         _, vjp = jax.vjp(lambda x: attention_tm_train(x, scale, HEADS),
                          jnp.asarray(qkv))
-        (ref,) = vjp(jnp.asarray(cot))
-    ref = np.split(np.asarray(ref), 3, axis=-1)
+        return vjp(jnp.asarray(cot))[0]
+
+    ref = np.split(np.asarray(_pallas(pallas, stale)), 3, axis=-1)
 
     x, g = torch.from_numpy(qkv), torch.from_numpy(cot)
-    out, lse = attention_train_fwd_plain(x, HEADS, scale)
-    delta = row_delta(g, out, HEADS)
-    q, k, v = (_heads(t) for t in x.chunk(3, dim=-1))
-    got = flash_bwd_model(q, k, v, _heads(g), None, lse, delta, scale)
-    got = [_token_major(t).numpy() for t in got]
-    plain = [t.numpy() for t in attention_train_bwd_plain(
-        x, lse, delta, g, HEADS, scale).chunk(3, dim=-1)]
+    with nearest_on_this_thread():
+        out, lse = attention_train_fwd_plain(x, HEADS, scale)
+        delta = row_delta(g, out, HEADS)
+        q, k, v = (_heads(t) for t in x.chunk(3, dim=-1))
+        got = flash_bwd_model(q, k, v, _heads(g), None, lse, delta, scale)
+        got = [_token_major(t).numpy() for t in got]
+        plain = [t.numpy() for t in attention_train_bwd_plain(
+            x, lse, delta, g, HEADS, scale).chunk(3, dim=-1)]
 
-    x64 = x.double().requires_grad_()
-    q, k, v = (_heads(t) for t in x64.chunk(3, dim=-1))
-    o = torch.softmax(q @ k.transpose(-1, -2) * scale, -1) @ v
-    _token_major(o).backward(g.double())
-    exact = np.split(x64.grad.numpy(), 3, axis=-1)
-    _check(got, ref, plain, exact)
+        x64 = x.double().requires_grad_()
+        q, k, v = (_heads(t) for t in x64.chunk(3, dim=-1))
+        o = torch.softmax(q @ k.transpose(-1, -2) * scale, -1) @ v
+        _token_major(o).backward(g.double())
+        exact = np.split(x64.grad.numpy(), 3, axis=-1)
+    _check(got, ref, plain, exact, stale)
 
 
 @pytest.mark.parametrize("b,n,m,shift", [(2, 300, 260, 0.0), (1, 1, 63, 0.0),
@@ -190,29 +229,35 @@ def test_k7_flash_bwd_model_matches_pallas(b, n, m, shift):
     f, cot = (rng.standard_normal((b, n, c)).astype(np.float32)
               for _ in range(2))
     fj = jnp.asarray(f)
-    with pltpu.force_tpu_interpret_mode():
+    stale = interpreter_busy()
+    fresh_interpreter()
+
+    def pallas():
         _, vjp = jax.vjp(lambda *a: mhada_tm_train(*a, fj, HEADS),
                          *map(jnp.asarray, (q, k, v)))
-        ref = [np.asarray(t) for t in vjp(jnp.asarray(cot))]
+        return vjp(jnp.asarray(cot))
+
+    ref = [np.asarray(t) for t in _pallas(pallas, stale)]
 
     t = {key: torch.from_numpy(a) for key, a in
          dict(q=q, k=k, v=v, f=f, cot=cot).items()}
-    _, m1, e2, lse = mhada_train_fwd_plain(t["q"], t["k"], t["v"], t["f"],
-                                           HEADS)
-    dm1, de2, delta, _ = mhada_train_prologue(t["cot"], t["f"], m1, e2,
-                                              HEADS, torch.float32)
-    got = flash_bwd_model(*(_heads(t[key]) for key in "qkv"), _heads(dm1),
-                          _heads(de2), lse, delta, 1.0)
-    got = [_token_major(x).numpy() for x in got]
-    plain = [x.numpy() for x in mhada_train_bwd_plain(
-        t["q"], t["k"], t["v"], dm1, de2, lse, delta, HEADS)]
+    with nearest_on_this_thread():
+        _, m1, e2, lse = mhada_train_fwd_plain(t["q"], t["k"], t["v"],
+                                               t["f"], HEADS)
+        dm1, de2, delta, _ = mhada_train_prologue(t["cot"], t["f"], m1, e2,
+                                                  HEADS, torch.float32)
+        got = flash_bwd_model(*(_heads(t[key]) for key in "qkv"),
+                              _heads(dm1), _heads(de2), lse, delta, 1.0)
+        got = [_token_major(x).numpy() for x in got]
+        plain = [x.numpy() for x in mhada_train_bwd_plain(
+            t["q"], t["k"], t["v"], dm1, de2, lse, delta, HEADS)]
 
-    leaves = [t[key].double().requires_grad_() for key in "qkv"]
-    qh, kh, vh = (_heads(x) for x in leaves)
-    a = torch.softmax(qh @ kh.transpose(-1, -2), -1)
-    m1_, e2_ = a @ vh, a @ (vh * vh)
-    o = (torch.sqrt(torch.clamp(e2_ - m1_ * m1_, min=1e-6))
-         * _heads(t["f"].double()) + m1_)
-    _token_major(o).backward(t["cot"].double())
-    exact = [x.grad.numpy() for x in leaves]
-    _check(got, ref, plain, exact)
+        leaves = [t[key].double().requires_grad_() for key in "qkv"]
+        qh, kh, vh = (_heads(x) for x in leaves)
+        a = torch.softmax(qh @ kh.transpose(-1, -2), -1)
+        m1_, e2_ = a @ vh, a @ (vh * vh)
+        o = (torch.sqrt(torch.clamp(e2_ - m1_ * m1_, min=1e-6))
+             * _heads(t["f"].double()) + m1_)
+        _token_major(o).backward(t["cot"].double())
+        exact = [x.grad.numpy() for x in leaves]
+    _check(got, ref, plain, exact, stale)

@@ -26,7 +26,8 @@ from interpret_diagnostics import (explain, fresh_interpreter,
                                    nearest_on_this_thread, worker_state)
 from mhada_tpu_torch.ops.instance_norm import instance_norm_stats
 from mhada_tpu_torch import _build
-from mhada_tpu_torch.probes import (attention_wgmma_ablate, c6_ablate,
+from mhada_tpu_torch.probes import (attention_bwd_ablate,
+                                    attention_wgmma_ablate, c6_ablate,
                                     f32_tile_geometry, ln_matmul_split,
                                     mhada_bwd_ablate, mhada_pipe_probe,
                                     mhada_wgmma_ablate, mm_probe, redesign_ab,
@@ -337,6 +338,45 @@ def test_mhada_bwd_ablate_needs_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         mhada_bwd_ablate.main(["--variants", "as built"])
+
+
+@pytest.mark.parametrize("variant", list(attention_bwd_ablate.VARIANTS))
+def test_attention_bwd_ablate_edits_apply(variant):
+    """Each variant of K6's backward ablation probe still finds its text in
+    csrc/attention_bwd_wgmma.cuh (the probe raises otherwise) and changes
+    it; a loop edit replaces the whole loop (the braces stay balanced) with
+    one that keeps one product group in flight or two (wgmma_wait<1>,
+    which as built only the dQ kernel uses); a consumer count comes with
+    registers within the block's allocation, as the kernel's static_assert
+    demands."""
+    probe = attention_bwd_ablate
+    src = (_build.CSRC / probe.HEADER).read_text()
+    edits = probe.VARIANTS[variant]
+    out = mhada_bwd_ablate.patched(src, edits, probe.LOOPS, probe.HEADER)
+    assert (out != src) == bool(edits)
+    assert out.count("{") - out.count("}") == src.count("{") - src.count("}")
+    # as built, only the dQ kernel keeps a second group in flight
+    assert src.count("wgmma_wait<1>") == 1
+    assert out.count("wgmma_wait<1>") == (
+        2 if "dK/dV two groups" in variant
+        else 0 if "dQ" in variant and "one group" in variant else 1)
+    assert ("kDkvConsumers = 3;" in out) == ("dK/dV three" in variant)
+    assert ("kDqConsumers = 3;" in out) == ("dQ three" in variant)
+    for loop in (probe.DQ_LOOP, probe.DQ_END, probe.DKV_LOOP):
+        assert src.count(loop) == 1
+    for consumers, regs, producer in ((3, 152, 56), (2, 232, 40),
+                                      (3, 160, 32)):
+        threads = 128 * (consumers + 1)
+        assert consumers * 128 * regs + 128 * producer <= \
+            65536 // threads // 8 * 8 * threads
+    with pytest.raises(ValueError, match="not found"):
+        mhada_bwd_ablate.patched(src, [("no such text", "")])
+
+
+def test_attention_bwd_ablate_needs_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        attention_bwd_ablate.main(["--variants", "as built"])
 
 
 @pytest.mark.parametrize("variant", list(c6_ablate.VARIANTS))

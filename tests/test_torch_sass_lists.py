@@ -129,11 +129,14 @@ def test_replaced_cross_kernel_is_refused():
 
 def test_replaced_attention_forward_is_refused():
     """K1 and K6's forward at bf16 left the mma.sync tile for the wgmma +
-    TMA attention tile: every instantiation of attention_mma_fwd_kernel
-    (K1 <false>, K6's forward <true>) is refused by phase 2 and no source
-    defines or launches it; both C entries launch the self form of the
-    tile, whose <split> instantiations are required; the mma.sync list
-    keeps K6's backward only."""
+    TMA attention tile, and K6's backward left its mma.sync pair
+    (attention_mma_dq_kernel, attention_mma_dkv_kernel) for the wgmma + TMA
+    pair: every instantiation of attention_mma_fwd_kernel (K1 <false>, K6's
+    forward <true>) and of the old pair is refused by phase 2 and no source
+    defines or launches them; both C entries launch the self form of the
+    tile, whose <split> instantiations are required, and the training
+    entry the new pair, whose kernels are listed and required; no
+    attention kernel is left on the mma.sync list."""
     smoke = _chip_smoke()
     for old in ("_ZN5mhada24attention_mma_fwd_kernelILb0EEEvNS_11"
                 "AttnMmaArgsE",
@@ -146,9 +149,29 @@ def test_replaced_attention_forward_is_refused():
         assert "kMmaFwdSmemBytes" not in text, src.name
     for entry in ("attention_fwd.cu", "attention_train.cu"):
         assert "launch_self_attention_wgmma" in (CSRC / entry).read_text()
-    assert not any("attention_mma_fwd" in k for k in smoke.MMA_KERNELS)
-    assert {"attention_mma_dkv_kernel", "attention_mma_dq_kernel"} <= set(
-        smoke.MMA_KERNELS)
+    assert not any("attention" in k for k in smoke.MMA_KERNELS)
+    for old in ("_ZN5mhada24attention_mma_dkv_kernelENS_11AttnMmaArgsE",
+                "_ZN5mhada23attention_mma_dq_kernelENS_11AttnMmaArgsE"):
+        assert re.search(smoke.OLD_BF16, old), old
+    assert not (CSRC / "attention_bwd_mma.cuh").exists()
+    every = set(_kernels("*.cuh")) | set(_kernels("*.cu"))
+    for src in CSRC.glob("*.cu*"):
+        text = src.read_text()
+        for gone in ("attention_mma_dkv_kernel", "attention_mma_dq_kernel",
+                     "launch_attention_mma_bwd", "load_tile_async"):
+            assert gone not in text, (src.name, gone)
+    assert "launch_attention_wgmma_bwd" in (
+        CSRC / "attention_train.cu").read_text()
+    for name in ("attention_wgmma_dq_kernel", "attention_wgmma_dkv_kernel"):
+        assert name in every and name in smoke.WGMMA_KERNELS
+        assert name in smoke.WGMMA_REQUIRED
+        assert not re.search(smoke.OLD_BF16, name)
+    mangled = ("_ZN5mhada3xbw25attention_wgmma_dq_kernelE14CUtensorMap_stS1_"
+               "S1_S1_NS0_11AttnBwdArgsE")
+    assert not re.search(smoke.OLD_BF16, mangled)
+    for req in ("flash_bwd_f32_dkv_kernelILb0E",
+                "flash_bwd_f32_dq_kernelILb0E"):
+        assert req in smoke.F32_REQUIRED
     for req in ("attention_wgmma_kernelILb0E", "attention_wgmma_kernelILb1E"):
         assert req in smoke.WGMMA_REQUIRED
         assert not re.search(smoke.OLD_BF16, req)
