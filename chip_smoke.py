@@ -7,15 +7,16 @@
    whether cv2 imports (reported, never failed);
 2. build: compile mhada_tpu_torch/csrc/*.cu with nvcc (one per source, in
    parallel); the bf16 mma.sync kernels of the decoder tail (K5, K8), of
-   K2, of K14 and of K13 must each hold HMMA.16816.F32.BF16 in their SASS
+   K14 and of K13 must each hold HMMA.16816.F32.BF16 in their SASS
    (cuobjdump) and spill nothing (ptxas); the wgmma + TMA kernels, the
    MHAda tile of K3, K4, P2 and K7's forward (mhada_wgmma_kernel
    <prologue, split, residuals>, all five instantiations present), K7's
    backward (mhada_wgmma_dq_kernel, mhada_wgmma_dkv_kernel), the attention
    tile of K1, K6's forward and K1's cross form (attention_wgmma_kernel
    <split>, both instantiations present), K6's backward
-   (attention_wgmma_dq_kernel, attention_wgmma_dkv_kernel) and every block
-   tile of P1's, must hold HGMMA (wgmma) and
+   (attention_wgmma_dq_kernel, attention_wgmma_dkv_kernel), K2's
+   (ln_matmul_wgmma_kernel) and every block tile of P1's, must hold HGMMA
+   (wgmma) and
    UTMALDG (TMA loads), spill nothing and draw no note from ptxas that it
    serialised their products (C75xx); every instantiation that a bf16
    path launches must exist (the tail with and without residuals, K2's,
@@ -24,8 +25,8 @@
    of the mma.sync MHAda tile (mhada_mma_fwd_kernel: K3 and K4 before the
    wgmma tile, K7's forward before its residual epilogue) or of K7's and
    K6's mma.sync backwards (mhada_mma_dq_kernel, mhada_mma_dkv_kernel,
-   attention_mma_dq_kernel, attention_mma_dkv_kernel), nor any
-   instantiation of K14's old
+   attention_mma_dq_kernel, attention_mma_dkv_kernel) or K2's mma.sync
+   kernel (ln_matmul_mma_kernel), nor any instantiation of K14's old
    conv (conv3x3_relu_kernel, either dtype) or of P1's old wmma kernel
    (mm_probe_kernel), nor any instantiation of the old flash tile
    (flash_tile_kernel, the f32 forwards of K1, K4, K6 and K7 before the
@@ -81,7 +82,10 @@
    concatenated), the kernel alone and the library chain (F.layer_norm +
    F.linear per width, cuBLAS; two calls, so it stands in the library
    column only as a named chain, as the plain cuDNN chain is K5's
-   yardstick), both on the inputs cast once to the compute dtype; K14 also
+   yardstick), both on the inputs cast once to the compute dtype, and the
+   kernel alone run twice, bit for bit (K2's gates at phases 6, 8 and 10d
+   too: the kernel alone, the wrapper, the chain, the share of the bound
+   and the repeat); K14 also
    as the kernel alone (its weights converted once); K5 at float32 also as
    its two kernels' device times apart (``torch.profiler``); then the
    probes' CLIs, their launches counted;
@@ -665,11 +669,11 @@ PIXEL_BOUND = {"float32": 0.1, "bfloat16": 4.0}
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 DTYPE_NAMES = ("float32", "bfloat16")
-# The bf16 mma.sync kernels of K5 and K8 (csrc/decoder_tail_mma.cuh), K2
-# (csrc/ln_matmul_mma.cuh), K14 (csrc/decoder_mid_mma.cuh) and K13
-# (csrc/decoder_c6_mma.cuh) and the instruction each must contain.
-MMA_KERNELS = ("decoder_tail_mma_kernel", "ln_matmul_mma_kernel",
-               "decoder_mid_mma_kernel", "decoder_c6_mma_kernel")
+# The bf16 mma.sync kernels of K5 and K8 (csrc/decoder_tail_mma.cuh), K14
+# (csrc/decoder_mid_mma.cuh) and K13 (csrc/decoder_c6_mma.cuh) and the
+# instruction each must contain.
+MMA_KERNELS = ("decoder_tail_mma_kernel", "decoder_mid_mma_kernel",
+               "decoder_c6_mma_kernel")
 HMMA = "HMMA.16816.F32.BF16"
 # The float32 tail's two kernels (csrc/decoder_tail_f32.cuh), timed apart
 # by name in the K5 and K8 gates.
@@ -679,24 +683,24 @@ TAIL_STAGES = ("tail_up3_f32_kernel", "tail_c5c6_f32_kernel")
 # dK/dV kernels: csrc/mhada_bwd_wgmma.cuh; the attention tile of K1, K6's
 # forward and K1's cross form, split or not: csrc/attention_wgmma.cuh;
 # K6's backward, its dQ and dK/dV kernels: csrc/attention_bwd_wgmma.cuh;
-# P1, each block tile: csrc/mm_wgmma.cuh) and the instructions each must
-# contain: HGMMA (wgmma) and UTMALDG (TMA loads).
+# K2: csrc/ln_matmul_wgmma.cuh; P1, each block tile: csrc/mm_wgmma.cuh) and
+# the instructions each must contain: HGMMA (wgmma) and UTMALDG (TMA
+# loads).
 WGMMA_KERNELS = ("mhada_wgmma_kernel", "mhada_wgmma_dq_kernel",
                  "mhada_wgmma_dkv_kernel", "attention_wgmma_kernel",
                  "attention_wgmma_dq_kernel", "attention_wgmma_dkv_kernel",
-                 "mm_wgmma_kernel")
+                 "ln_matmul_wgmma_kernel", "mm_wgmma_kernel")
 WGMMA_SASS = ("HGMMA", "UTMALDG")
 # Instantiations (mangled-name parts) that the bf16 paths launch: K5's and
-# K8's tail, K2, K14, K13; the MHAda wgmma tile's <prologue, split,
+# K8's tail, K14, K13; the MHAda wgmma tile's <prologue, split,
 # residuals>: K3 (and P2) <true, false, false>, K3 split <true, true,
 # false>, K4 <false, false, false>, K4 and K7's forward split <false, true,
 # false>, K7's forward unsplit <false, false, true>; K7's dQ and dK/dV
 # kernels; the attention wgmma tile's <split>: K1, K6's forward and K1's
 # cross form, <false> unsplit and <true> split over the keys; K6's dQ and
-# dK/dV kernels.
+# dK/dV kernels; K2's.
 MMA_REQUIRED = ("decoder_tail_mma_kernelILb0E", "decoder_tail_mma_kernelILb1E",
-                "ln_matmul_mma_kernel", "decoder_mid_mma_kernel",
-                "decoder_c6_mma_kernel")
+                "decoder_mid_mma_kernel", "decoder_c6_mma_kernel")
 WGMMA_REQUIRED = ("mhada_wgmma_kernelILb1ELb0ELb0E",
                   "mhada_wgmma_kernelILb1ELb1ELb0E",
                   "mhada_wgmma_kernelILb0ELb0ELb0E",
@@ -704,7 +708,8 @@ WGMMA_REQUIRED = ("mhada_wgmma_kernelILb1ELb0ELb0E",
                   "mhada_wgmma_kernelILb0ELb0ELb1E",
                   "mhada_wgmma_dq_kernel", "mhada_wgmma_dkv_kernel",
                   "attention_wgmma_kernelILb0E", "attention_wgmma_kernelILb1E",
-                  "attention_wgmma_dq_kernel", "attention_wgmma_dkv_kernel")
+                  "attention_wgmma_dq_kernel", "attention_wgmma_dkv_kernel",
+                  "ln_matmul_wgmma_kernel")
 # bf16 instantiations of the CUDA-core kernels that no path may reach any
 # more (mangled names): the attention and MHAda tile (K1, K4, K6's and
 # K7's forwards) and backward (K6, K7), the decoder tail (K5, K8), K2's
@@ -724,9 +729,10 @@ WGMMA_REQUIRED = ("mhada_wgmma_kernelILb1ELb0ELb0E",
 # MHAda tile (mhada_mma_fwd_kernel: K3 and K4 before the wgmma tile of
 # csrc/mhada_wgmma.cuh, K7's forward <true> before its residual epilogue
 # there) and of K7's mma.sync backward (mhada_mma_dq_kernel,
-# mhada_mma_dkv_kernel, before csrc/mhada_bwd_wgmma.cuh), and K6's
+# mhada_mma_dkv_kernel, before csrc/mhada_bwd_wgmma.cuh), K6's
 # (attention_mma_dq_kernel, attention_mma_dkv_kernel, before
-# csrc/attention_bwd_wgmma.cuh).
+# csrc/attention_bwd_wgmma.cuh), and K2's mma.sync kernel
+# (ln_matmul_mma_kernel, before csrc/ln_matmul_wgmma.cuh).
 OLD_BF16 = (r"flash_tile_kernel"
             r"|flash_bwd_(dkv|dq)_kernelI13__nv_bfloat16"
             r"|decoder_tail_kernelI13__nv_bfloat16"
@@ -738,7 +744,8 @@ OLD_BF16 = (r"flash_tile_kernel"
             r"|decoder_c6_kernel"
             r"|attention_mma_fwd_kernel"
             r"|mhada_mma_(fwd|dq|dkv)_kernel"
-            r"|attention_mma_(dq|dkv)_kernel")
+            r"|attention_mma_(dq|dkv)_kernel"
+            r"|ln_matmul_mma_kernel")
 # float32 kernels that compute in float32: they must exist, spill nothing
 # and hold no tensor-core instruction of any kind (HMMA, HGMMA: no TF32).
 # K2's float32 build, the float32 flash tile (csrc/mhada_f32_tile.cuh: the
@@ -1328,6 +1335,9 @@ def run_gate(gate, kind, n, b, dname, card):
         library_ms = cuda_ms(lib, *reps) if lib else None
         alone = getattr(run, "kernel_alone", None)   # K2, K13, K14: no casts
         kernel_ms = cuda_ms(alone, *reps) if alone else None
+        # K2: the kernel run twice on the same inputs, bit for bit
+        same = (all(torch.equal(u, v) for u, v in zip(alone(), alone()))
+                if kind == "ln_matmul" else None)
         stages = getattr(run, "stages", None) if dname == "float32" else None
         split = split_ms(lambda: run("kernel"), stages) if stages else None
     bound_ms, bound_by = bound(flops, nbytes, dname)
@@ -1340,7 +1350,12 @@ def run_gate(gate, kind, n, b, dname, card):
                else "none (no single call)")
     if kernel_ms is not None:
         rec["kernel_ms"] = kernel_ms
-        lib_txt += f", the kernel alone {kernel_ms:.3f} ms"
+        lib_txt += (f", the kernel alone {kernel_ms:.3f} ms "
+                    f"({100 * bound_ms / kernel_ms:.1f} % of the bound)")
+    if same is not None:
+        rec["twice_bitwise"] = same
+        good = good and same
+        lib_txt += f", the kernel twice bitwise equal: {same}"
     tile = getattr(run, "tile", None)   # P1: the kernel's block tile
     if tile:
         rec["tile"] = list(tile)
@@ -1826,9 +1841,14 @@ def run_train_gate(gate, kind, dname, card, b, n, tp=1):
             good = good and all(t > 0 for t in split.values())
             split_txt = tail_stage_txt(split)
         lib_txt = f"{library_ms:.3f} ms" if lib else "none"
-        if part == "fwd" and "wrapper" in d:   # K2
+        if part == "fwd" and "wrapper" in d:   # K2: also twice bit for bit
             recs[part]["wrapper_ms"] = cuda_ms(d["wrapper"], 2, 5)
-            lib_txt += f", the wrapper {recs[part]['wrapper_ms']:.3f} ms"
+            same = all(torch.equal(u, v) for u, v in zip(calls["kernel"](),
+                                                         calls["kernel"]()))
+            recs[part]["twice_bitwise"] = same
+            good = good and same
+            lib_txt += (f", the wrapper {recs[part]['wrapper_ms']:.3f} ms, "
+                        f"the kernel twice bitwise equal: {same}")
         lines.append(f"{part}: rel {_errs_txt(errs)} (bound {limit:.0e} "
                      f"each; max|d| {mx:.3e}); kernel {ms:.3f} ms{split_txt}"
                      f", plain "

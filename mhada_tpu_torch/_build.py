@@ -36,7 +36,7 @@ SIGNATURES = {
     "mhada_attention_cross_fwd": [_P] * 4 + [_I] * 8 + [_F, _I, _P],
     "mhada_mhada_fwd": [_P] * 6 + [_I] * 7 + [_P],
     "mhada_mhada_prologue": [_P] * 9 + [_I] * 7 + [_P],
-    "mhada_ln_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "mhada_ln_matmul": [_P] * 6 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
     "mhada_decoder_tail": [_P] * 9 + [_I] * 4 + [_P],
     "mhada_attention_train_fwd": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
     "mhada_attention_train_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,

@@ -6,8 +6,9 @@
 // normalised tensor never reaches device memory, which is the point of the
 // TPU kernel (ln_matmul_pallas.py:1-13).
 //
-// bfloat16 runs on the tensor cores (ln_matmul_mma.cuh: the LN as the
-// prologue of an mma.sync GEMM, h resident in shared memory).  The kernel
+// bfloat16 runs on the tensor cores (ln_matmul_wgmma.cuh: a warp-
+// specialised wgmma + TMA GEMM whose A tile is the LN, written once into
+// shared memory in the swizzled layout the products read).  The kernel
 // below is the float32 build, which computes in float32 on the CUDA cores
 // (no TF32): 2 N E F flops (6.4 + 8.6 GFLOP at N = 4096) at 67 TFLOP/s
 // bound it.  A resident h does not fit at float32 (128 x 512 x 4 bytes is
@@ -30,7 +31,7 @@
 // values the JAX kernel widens (ln_matmul_pallas.py:70-73).
 
 #include "common.cuh"
-#include "ln_matmul_mma.cuh"
+#include "ln_matmul_wgmma.cuh"
 
 namespace {
 
@@ -202,14 +203,20 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// x (rows, e), ln_w, ln_b (e,), w (f, e), bias (f,) and out (rows, f), all
-// in T.  bfloat16: e % 8 == 0, e <= 640, x, w and out 16-byte aligned.
+// x (rows, e), ln_w, ln_b (e,), w (f, e), bias (f,) and out (rows, f) with
+// rows ldo elements apart, all in T.  float32: ldo == f.  bfloat16: e % 8
+// == 0, e <= 640, ldo a multiple of 4, x, w and out 16-byte aligned, and
+// the block's column tiles and ring stages from
+// ops/ln_matmul.py::launch_plan (float32 ignores them).
 extern "C" int mhada_ln_matmul(const void* x, const void* ln_w,
                                const void* ln_b, const void* w,
                                const void* bias, void* out, int rows, int e,
-                               int f, float eps, int dtype, void* stream) {
+                               int f, float eps, int dtype, int ldo,
+                               int tiles_per_block, int stages,
+                               void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   if (dtype == mhada::kF32) {
+    if (ldo != f) return (int)cudaErrorInvalidValue;
     F32Args a{static_cast<const float*>(x), static_cast<const float*>(ln_w),
               static_cast<const float*>(ln_b), static_cast<const float*>(w),
               static_cast<const float*>(bias), static_cast<float*>(out),
@@ -220,14 +227,14 @@ extern "C" int mhada_ln_matmul(const void* x, const void* ln_w,
     ln_matmul_f32_kernel<<<grid, kThreads, 0, st>>>(a);
     return (int)cudaGetLastError();
   }
-  if (dtype != mhada::kBF16 || e > mhada::lnmm::kMaxE ||
-      !mhada::mma_aligned({x, w, out}, e))
+  if (dtype != mhada::kBF16 || !mhada::mma_aligned({x, w, out}, e))
     return (int)cudaErrorInvalidValue;
   using bf16 = __nv_bfloat16;
-  mhada::lnmm::LnMmArgs a{
-      static_cast<const bf16*>(x), static_cast<const bf16*>(ln_w),
-      static_cast<const bf16*>(ln_b), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(bias), static_cast<bf16*>(out), rows, e, f,
-      eps, 0};
-  return (int)mhada::lnmm::launch_ln_matmul_mma(a, st);
+  mhada::lnwg::LnWgArgs a{
+      static_cast<const bf16*>(ln_w), static_cast<const bf16*>(ln_b),
+      static_cast<const bf16*>(bias), nullptr, 0, rows, e, f, eps,
+      tiles_per_block, stages};
+  return (int)mhada::lnwg::launch_ln_matmul_wgmma(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+      static_cast<bf16*>(out), ldo, a, st);
 }

@@ -1,6 +1,7 @@
 """K2: LayerNorm fused into the following matmul (csrc/ln_matmul.cu: at
-bfloat16 an mma.sync GEMM with the LN as its prologue, csrc/ln_matmul_mma.cuh;
-at float32 a register-tiled CUDA-core GEMM), and its VJP.
+bfloat16 a warp-specialised wgmma + TMA GEMM whose A tile is the LN, written
+once into shared memory, csrc/ln_matmul_wgmma.cuh; at float32 a
+register-tiled CUDA-core GEMM), and its VJP.
 
 Port of mhada_tpu/ops/ln_matmul_pallas.py::ln_matmul for the ViT's
 ln1 -> qkv and ln2 -> fc1 sites.  ``layer_norm`` is the LayerNorm math of
@@ -15,16 +16,52 @@ kept in float32, and the LN gradients in float32, each cast to its input's
 dtype.
 """
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from .. import _build
 from ..config import use_kernel
 
-# The bf16 kernel keeps its 128 normalised rows (128 x E in bf16) resident
-# in shared memory beside the W ring: E <= 640 fits (csrc/ln_matmul_mma.cuh).
-# The float32 kernel takes any E.
+# The bf16 kernel's block (csrc/ln_matmul_wgmma.cuh, the constants of the
+# same names): BM rows (64 a consumer warpgroup) against column tiles of BN,
+# k steps of BK.  Its BM normalised rows stay resident in shared memory (E_k
+# / BK boxes of BM x BK bf16, E_k the E rounded up to BK) beside a ring of W
+# stages of BN x BK: E <= 640 fits four stages in the 227 KB a block may
+# take.  The float32 kernel takes any E.
 MAX_E = 640
+BM, BN, BK = 128, 128, 64
+BLOCKS_PER_SM = 1
+MAX_STAGES = 8
+SMEM_PER_SM = 228 * 1024   # an H100's; 1 KB of it reserved a block
+
+
+def smem_bytes(e: int, stages: int) -> int:
+    """The bf16 kernel's dynamic shared memory: the alignment slack, h, the
+    ring, the full and empty barriers of each stage and one x barrier a
+    consumer (csrc/ln_matmul_wgmma.cuh::smem_bytes)."""
+    return (1024 + -(-e // BK) * BM * BK * 2 + stages * BN * BK * 2
+            + 8 * (2 * stages + BM // 64))
+
+
+def launch_plan(rows: int, e: int, f: int, sms: int) -> tuple[int, int]:
+    """(column tiles a block, ring stages) of the bf16 kernel.  A row tile's
+    column tiles are cut into as many groups as fill the SMs once (at least
+    one, at most one a column tile), so that one block's LN serves every
+    tile of its group; the ring takes as many stages (2 .. MAX_STAGES) as
+    fit beside h."""
+    row_tiles, col_tiles = -(-rows // BM), -(-f // BN)
+    groups = max(1, min(col_tiles, sms * BLOCKS_PER_SM // max(row_tiles, 1)))
+    limit = SMEM_PER_SM // BLOCKS_PER_SM - 1024
+    stages = max((s for s in range(2, MAX_STAGES + 1)
+                  if smem_bytes(e, s) <= limit), default=2)
+    return -(-col_tiles // groups), stages
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _ln_stats(x: torch.Tensor, eps: float):
@@ -52,16 +89,24 @@ def _ln_matmul_kernel(x, ln_w, ln_b, w, b, eps):
     """The launch: all five inputs in x's dtype (the kernel widens the LN
     affine and the bias to float32 itself)."""
     e, f = x.shape[-1], w.shape[0]
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and (e % 8 or e > MAX_E):
+        raise ValueError(f"ln_matmul: the bfloat16 kernel takes E a "
+                         f"multiple of 8 and <= {MAX_E}, got {e}")
     _build.check_cuda_inputs("ln_matmul", x, ln_w, ln_b, w, b)
-    if x.dtype == torch.bfloat16:
-        if e % 8 or e > MAX_E:
-            raise ValueError(f"ln_matmul: the bfloat16 kernel takes E a "
-                             f"multiple of 8 and <= {MAX_E}, got {e}")
+    rows = x.numel() // e
+    # the bf16 kernel stores 4 columns at a time, 8-byte aligned: for F % 4
+    # != 0 it writes a buffer 4-padded and the wrapper copies the F columns
+    # out
+    ldo, plan = f, (0, 0)   # the float32 kernel has no plan
+    if bf16:
         _build.check_aligned("ln_matmul", x, w)
-    out = torch.empty((*x.shape[:-1], f), device=x.device, dtype=x.dtype)
+        ldo, plan = -(-f // 4) * 4, launch_plan(rows, e, f,
+                                                _sm_count(x.device))
+    out = torch.empty((*x.shape[:-1], ldo), device=x.device, dtype=x.dtype)
     _build.launch("mhada_ln_matmul", x.device, x, ln_w, ln_b, w, b, out,
-                  x.numel() // e, e, f, float(eps), _build.dtype_code(x))
-    return out
+                  rows, e, f, float(eps), _build.dtype_code(x), ldo, *plan)
+    return out if ldo == f else out[..., :f].contiguous()
 
 
 def ln_matmul_bwd(x, ln_w, ln_b, w, g, eps: float = 1e-6):

@@ -1,10 +1,10 @@
 """P1, K14, K13, the float32 tail, K1, K6's forward, K1's cross form, K3,
-K4, K7, K6's backward and the bf16 frames against another checkout's
+K4, K7, K6's backward, K2 and the bf16 frames against another checkout's
 builds of them, on one card, in turns: the time a redesign saves (or a
 change of a kernel's arguments costs), measured in one call.
 
     python -m mhada_tpu_torch.probes.redesign_ab --other DIR [--rounds 2]
-        [--groups P1 K14 K13 tail K1 K1x mhada K7 K6b frames]
+        [--groups P1 K14 K13 tail K1 K1x mhada K7 K6b K2 frames]
 
 DIR is the root of another checkout of the repository (for example the
 parent commit, unpacked with ``git archive``).  Each side runs in a process
@@ -66,6 +66,13 @@ events:
   qkv (torch.autograd.grad of that call into the packed qkv), its forward
   on the flash backend and on the backend PyTorch picks (chip_smoke.py's K6
   yardstick), wall ms and device ms of every kernel the call launches;
+- K2 at bfloat16, the kernel alone (``ops.ln_matmul._ln_matmul_kernel`` on
+  inputs already in bf16, chip_smoke.py's "kernel alone") on the ViT's
+  pair of widths at its gate shapes (1536 + 2048 at 4096 and 16384 rows
+  and at the fused-LN step's 8192; the TP share's 768 + 1024 at 4096), as
+  wall ms and as device ms (the kernels named ln_matmul), beside the
+  library chain (``F.layer_norm`` + ``F.linear`` per width), wall and
+  device ms of every kernel it launches;
 - the bf16 frames of ``chip_smoke.py``'s phase 5 on full-width models from
   seed 0: the full path at 512^2, B = 1, the streaming path at 512^2, B =
   1 and 8 (ms a frame), and at 1024^2, B = 1.
@@ -111,8 +118,11 @@ K7_SHAPES = [(8, 1024, 1024), (4, 4096, 4096), (1, 16384, 16384),
 # chip_smoke.py, inversion's B = 1 at 1024 tokens and the TP share
 K6B_SHAPES = [(8, 1024, 8), (4, 4096, 8), (1, 16384, 8), (2, 2048, 8),
               (1, 1024, 8), (4, 1024, 4), (1, 2048, 4)]
+# (rows, output widths) of K2's gates in chip_smoke.py
+K2_SHAPES = [(4096, (1536, 2048)), (16384, (1536, 2048)),
+             (8192, (1536, 2048)), (4096, (768, 1024))]
 GROUPS = ("P1", "K14", "K13", "tail", "K1", "K1x", "mhada", "K7", "K6b",
-          "frames")
+          "K2", "frames")
 
 
 def _cuda_ms(fn, warmup=3, iters=10):
@@ -255,6 +265,15 @@ def worker(root: str, groups=GROUPS) -> dict:
             out[key + " device"] = device_ms(call, only="mhada")
             del call
             torch.cuda.empty_cache()
+        for rows, widths in K2_SHAPES if "K2" in groups else ():
+            kernel, chain = _k2_calls(rows, widths)
+            key = f"K2 N={rows} F={'+'.join(map(str, widths))} bfloat16"
+            out[key] = _cuda_ms(kernel)
+            out[key + " device"] = device_ms(kernel, only="ln_matmul")
+            out[key + " chain"] = _cuda_ms(chain)
+            out[key + " chain device"] = device_ms(chain)
+            del kernel, chain
+            torch.cuda.empty_cache()
     # outside inference mode: SDPA's backward needs a graph
     for batch, n, m in K7_SHAPES if "K7" in groups else ():
         for part, (call, only) in _k7_calls(batch, n, m).items():
@@ -295,6 +314,31 @@ def _mhada_call(kind, batch, n):
     v, f = (torch.randn(batch, n, 512, generator=g) for _ in "vf")
     q, k, v, f = (t.to("cuda", torch.bfloat16) for t in (q, k, v, f))
     return lambda: mhada_kernel.mhada_tm(q, k, v, f, 8)
+
+
+def _k2_calls(rows, widths):
+    """K2's kernel alone at bf16 on seeded inputs (E = 512, one LN affine
+    in front of each width) and the library chain -> (kernel call, chain
+    call)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mhada_tpu_torch.ops import ln_matmul
+
+    g = torch.Generator().manual_seed(0)
+    e = 512
+    x = torch.randn(1, rows, e, generator=g)
+    lw = 1 + 0.1 * torch.randn(e, generator=g)
+    lb = 0.1 * torch.randn(e, generator=g)
+    pairs = [(torch.randn(f, e, generator=g) / e ** 0.5,
+              0.1 * torch.randn(f, generator=g)) for f in widths]
+    x, lw, lb = (t.to("cuda", torch.bfloat16) for t in (x, lw, lb))
+    pairs = [(w.to("cuda", torch.bfloat16), b.to("cuda", torch.bfloat16))
+             for w, b in pairs]
+    return (lambda: [ln_matmul._ln_matmul_kernel(x, lw, lb, w, b, 1e-6)
+                     for w, b in pairs],
+            lambda: [F.linear(F.layer_norm(x, (e,), lw, lb, 1e-6), w, b)
+                     for w, b in pairs])
 
 
 def _k7_calls(batch, n, m):

@@ -248,13 +248,19 @@ def test_probe_guards(monkeypatch):
 
 
 def test_ln_matmul_split_cuts(monkeypatch):
-    """K2's split probe: every cut it makes names text that is in the bf16
-    kernel's source (so each scratch build is the kernel less one part),
-    and without a card it raises."""
-    src = (_build.CSRC / "ln_matmul_mma.cuh").read_text()
+    """K2's split probe: every edit it makes names text that is in the bf16
+    kernel's source once (so each scratch build is the kernel less one part
+    or with one choice changed), each edited build differs from the
+    source, each variant that changes the block also sets the launch
+    plan's constants, and without a card it raises."""
+    src = (_build.CSRC / ln_matmul_split.HEADER).read_text()
     for cut, edits in ln_matmul_split.CUTS.items():
         for old, _ in edits:
             assert src.count(old) == 1, (cut, old)
+        assert (ln_matmul_split.patched(src, edits) != src) == bool(edits)
+        assert edits or cut in ln_matmul_split.PLANS, cut
+    for cut, plan in ln_matmul_split.PLANS.items():
+        assert all(hasattr(ln_matmul_split.lm, k) for k in plan), cut
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA card"):
         ln_matmul_split.main([])
