@@ -6,10 +6,12 @@
 1. environment: torch / CUDA versions, the card's name and power limit,
    whether cv2 imports (reported, never failed);
 2. build: compile mhada_tpu_torch/csrc/*.cu with nvcc (one per source, in
-   parallel); the bf16 mma.sync kernels of the decoder tail (K5, K8), of
-   K14 and of K13 must each hold HMMA.16816.F32.BF16 in their SASS
-   (cuobjdump) and spill nothing (ptxas); the wgmma + TMA kernels, the
-   MHAda tile of K3, K4, P2 and K7's forward (mhada_wgmma_kernel
+   parallel); the bf16 mma.sync kernels of K14 and of K13 must each hold
+   HMMA.16816.F32.BF16 in their SASS (cuobjdump) and spill nothing
+   (ptxas); the wgmma + TMA kernels, the decoder tail of K5 and K8
+   (tail_up3_wgmma_kernel, tail_c5c6_wgmma_kernel <residuals>, both
+   instantiations present), the MHAda tile of K3, K4, P2 and K7's forward
+   (mhada_wgmma_kernel
    <prologue, split, residuals>, all five instantiations present), K7's
    backward (mhada_wgmma_dq_kernel, mhada_wgmma_dkv_kernel), the attention
    tile of K1, K6's forward and K1's cross form (attention_wgmma_kernel
@@ -26,7 +28,8 @@
    wgmma tile, K7's forward before its residual epilogue) or of K7's and
    K6's mma.sync backwards (mhada_mma_dq_kernel, mhada_mma_dkv_kernel,
    attention_mma_dq_kernel, attention_mma_dkv_kernel) or K2's mma.sync
-   kernel (ln_matmul_mma_kernel), nor any instantiation of K14's old
+   kernel (ln_matmul_mma_kernel) or the mma.sync tail of K5 and K8
+   (decoder_tail_mma_kernel), nor any instantiation of K14's old
    conv (conv3x3_relu_kernel, either dtype) or of P1's old wmma kernel
    (mm_probe_kernel), nor any instantiation of the old flash tile
    (flash_tile_kernel, the f32 forwards of K1, K4, K6 and K7 before the
@@ -669,38 +672,44 @@ PIXEL_BOUND = {"float32": 0.1, "bfloat16": 4.0}
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 DTYPE_NAMES = ("float32", "bfloat16")
-# The bf16 mma.sync kernels of K5 and K8 (csrc/decoder_tail_mma.cuh), K14
-# (csrc/decoder_mid_mma.cuh) and K13 (csrc/decoder_c6_mma.cuh) and the
-# instruction each must contain.
-MMA_KERNELS = ("decoder_tail_mma_kernel", "decoder_mid_mma_kernel",
-               "decoder_c6_mma_kernel")
+# The bf16 mma.sync kernels of K14 (csrc/decoder_mid_mma.cuh) and K13
+# (csrc/decoder_c6_mma.cuh) and the instruction each must contain.
+MMA_KERNELS = ("decoder_mid_mma_kernel", "decoder_c6_mma_kernel")
 HMMA = "HMMA.16816.F32.BF16"
-# The float32 tail's two kernels (csrc/decoder_tail_f32.cuh), timed apart
-# by name in the K5 and K8 gates.
-TAIL_STAGES = ("tail_up3_f32_kernel", "tail_c5c6_f32_kernel")
+# The tail's two kernels at each dtype (csrc/decoder_tail_f32.cuh,
+# csrc/decoder_tail_wgmma.cuh): up3, then the upsample, c5 and c6; timed
+# apart by name in the K5 and K8 gates.
+# The K5 gates run the kernel this many times on the same inputs and fail
+# unless every output is bitwise the first's.
+TAIL_REPEATS = 8
+TAIL_STAGES = {"float32": ("tail_up3_f32_kernel", "tail_c5c6_f32_kernel"),
+               "bfloat16": ("tail_up3_wgmma_kernel",
+                            "tail_c5c6_wgmma_kernel")}
 # The bf16 wgmma + TMA kernels (the MHAda tile of K3, K4, P2 and K7's
 # forward, split or not: csrc/mhada_wgmma.cuh; K7's backward, its dQ and
 # dK/dV kernels: csrc/mhada_bwd_wgmma.cuh; the attention tile of K1, K6's
 # forward and K1's cross form, split or not: csrc/attention_wgmma.cuh;
 # K6's backward, its dQ and dK/dV kernels: csrc/attention_bwd_wgmma.cuh;
-# K2: csrc/ln_matmul_wgmma.cuh; P1, each block tile: csrc/mm_wgmma.cuh) and
-# the instructions each must contain: HGMMA (wgmma) and UTMALDG (TMA
-# loads).
+# K2: csrc/ln_matmul_wgmma.cuh; P1, each block tile: csrc/mm_wgmma.cuh;
+# K5's and K8's tail, its up3 kernel and its upsample + c5 + c6 kernel:
+# csrc/decoder_tail_wgmma.cuh) and the instructions each must contain:
+# HGMMA (wgmma) and UTMALDG (TMA loads).
 WGMMA_KERNELS = ("mhada_wgmma_kernel", "mhada_wgmma_dq_kernel",
                  "mhada_wgmma_dkv_kernel", "attention_wgmma_kernel",
                  "attention_wgmma_dq_kernel", "attention_wgmma_dkv_kernel",
-                 "ln_matmul_wgmma_kernel", "mm_wgmma_kernel")
+                 "ln_matmul_wgmma_kernel", "mm_wgmma_kernel",
+                 "tail_up3_wgmma_kernel", "tail_c5c6_wgmma_kernel")
 WGMMA_SASS = ("HGMMA", "UTMALDG")
-# Instantiations (mangled-name parts) that the bf16 paths launch: K5's and
-# K8's tail, K14, K13; the MHAda wgmma tile's <prologue, split,
+# Instantiations (mangled-name parts) that the bf16 paths launch: K14,
+# K13; the MHAda wgmma tile's <prologue, split,
 # residuals>: K3 (and P2) <true, false, false>, K3 split <true, true,
 # false>, K4 <false, false, false>, K4 and K7's forward split <false, true,
 # false>, K7's forward unsplit <false, false, true>; K7's dQ and dK/dV
 # kernels; the attention wgmma tile's <split>: K1, K6's forward and K1's
 # cross form, <false> unsplit and <true> split over the keys; K6's dQ and
-# dK/dV kernels; K2's.
-MMA_REQUIRED = ("decoder_tail_mma_kernelILb0E", "decoder_tail_mma_kernelILb1E",
-                "decoder_mid_mma_kernel", "decoder_c6_mma_kernel")
+# dK/dV kernels; K2's; the tail's up3 kernel (K5 and K8) and its upsample
+# + c5 + c6 kernel <residuals>, K5 <false>, K8 <true>.
+MMA_REQUIRED = ("decoder_mid_mma_kernel", "decoder_c6_mma_kernel")
 WGMMA_REQUIRED = ("mhada_wgmma_kernelILb1ELb0ELb0E",
                   "mhada_wgmma_kernelILb1ELb1ELb0E",
                   "mhada_wgmma_kernelILb0ELb0ELb0E",
@@ -709,7 +718,9 @@ WGMMA_REQUIRED = ("mhada_wgmma_kernelILb1ELb0ELb0E",
                   "mhada_wgmma_dq_kernel", "mhada_wgmma_dkv_kernel",
                   "attention_wgmma_kernelILb0E", "attention_wgmma_kernelILb1E",
                   "attention_wgmma_dq_kernel", "attention_wgmma_dkv_kernel",
-                  "ln_matmul_wgmma_kernel")
+                  "ln_matmul_wgmma_kernel", "tail_up3_wgmma_kernel",
+                  "tail_c5c6_wgmma_kernelILb0E",
+                  "tail_c5c6_wgmma_kernelILb1E")
 # bf16 instantiations of the CUDA-core kernels that no path may reach any
 # more (mangled names): the attention and MHAda tile (K1, K4, K6's and
 # K7's forwards) and backward (K6, K7), the decoder tail (K5, K8), K2's
@@ -731,8 +742,10 @@ WGMMA_REQUIRED = ("mhada_wgmma_kernelILb1ELb0ELb0E",
 # there) and of K7's mma.sync backward (mhada_mma_dq_kernel,
 # mhada_mma_dkv_kernel, before csrc/mhada_bwd_wgmma.cuh), K6's
 # (attention_mma_dq_kernel, attention_mma_dkv_kernel, before
-# csrc/attention_bwd_wgmma.cuh), and K2's mma.sync kernel
-# (ln_matmul_mma_kernel, before csrc/ln_matmul_wgmma.cuh).
+# csrc/attention_bwd_wgmma.cuh), K2's mma.sync kernel
+# (ln_matmul_mma_kernel, before csrc/ln_matmul_wgmma.cuh) and the
+# mma.sync tail of K5 and K8 (decoder_tail_mma_kernel<bool>, before
+# csrc/decoder_tail_wgmma.cuh).
 OLD_BF16 = (r"flash_tile_kernel"
             r"|flash_bwd_(dkv|dq)_kernelI13__nv_bfloat16"
             r"|decoder_tail_kernelI13__nv_bfloat16"
@@ -745,7 +758,8 @@ OLD_BF16 = (r"flash_tile_kernel"
             r"|attention_mma_fwd_kernel"
             r"|mhada_mma_(fwd|dq|dkv)_kernel"
             r"|attention_mma_(dq|dkv)_kernel"
-            r"|ln_matmul_mma_kernel")
+            r"|ln_matmul_mma_kernel"
+            r"|decoder_tail_mma_kernel")
 # float32 kernels that compute in float32: they must exist, spill nothing
 # and hold no tensor-core instruction of any kind (HMMA, HGMMA: no TF32).
 # K2's float32 build, the float32 flash tile (csrc/mhada_f32_tile.cuh: the
@@ -799,8 +813,15 @@ def all_gates():
                     for i, (m, k, n) in enumerate(SHAPES)]
 
 
+# The phases that failed, named again on standard error at the end, where a
+# reader who sees only its last lines finds them.
+FAILED = []
+
+
 def phase(name, ok, detail):
     print(f"[{'PASS' if ok else 'FAIL'}] {name}: {detail}", flush=True)
+    if not ok:
+        FAILED.append(f"{name}: {detail}"[:600])
     return ok
 
 
@@ -1015,12 +1036,14 @@ def busy_ms(fn, parts=(), iters=3):
 
 
 def tail_stage_ms(split):
-    """The float32 tail's stage times from ``split_ms`` over TAIL_STAGES."""
-    return {"up3_ms": split[TAIL_STAGES[0]], "c5c6_ms": split[TAIL_STAGES[1]]}
+    """The tail's stage times from ``split_ms`` over one dtype's
+    TAIL_STAGES."""
+    up3, c5c6 = split.values()
+    return {"up3_ms": up3, "c5c6_ms": c5c6}
 
 
 def tail_stage_txt(split):
-    up3, c5c6 = (split[p] for p in TAIL_STAGES)
+    up3, c5c6 = split.values()
     return f" (profiler: up3 {up3:.3f} + upsample, c5 and c6 {c5c6:.3f} ms)"
 
 
@@ -1238,7 +1261,7 @@ def gate_inputs(kind, n, dtype, g, b=1):
             return decoder_tail.decoder_tail(x, wu, bu, w5, b5, w6, b6,
                                              backend=be)
 
-        run.stages = TAIL_STAGES   # timed apart at float32
+        run.stages = TAIL_STAGES[str(dtype)[6:]]   # timed apart
         return run, flops, nbytes, None
     if kind == "c6":
         hh, ww = (n, n) if isinstance(n, int) else n
@@ -1335,10 +1358,17 @@ def run_gate(gate, kind, n, b, dname, card):
         library_ms = cuda_ms(lib, *reps) if lib else None
         alone = getattr(run, "kernel_alone", None)   # K2, K13, K14: no casts
         kernel_ms = cuda_ms(alone, *reps) if alone else None
-        # K2: the kernel run twice on the same inputs, bit for bit
-        same = (all(torch.equal(u, v) for u, v in zip(alone(), alone()))
-                if kind == "ln_matmul" else None)
-        stages = getattr(run, "stages", None) if dname == "float32" else None
+        # K2: the kernel run twice on the same inputs, bit for bit; the
+        # tail (K5), which has no atomics either, TAIL_REPEATS times
+        same = None
+        if kind == "ln_matmul":
+            same = all(torch.equal(u, v) for u, v in zip(alone(), alone()))
+        elif kind == "tail":
+            first = run("kernel")
+            same = all(torch.equal(first, run("kernel"))
+                       for _ in range(TAIL_REPEATS - 1))
+            del first
+        stages = getattr(run, "stages", None)
         split = split_ms(lambda: run("kernel"), stages) if stages else None
     bound_ms, bound_by = bound(flops, nbytes, dname)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1353,9 +1383,11 @@ def run_gate(gate, kind, n, b, dname, card):
         lib_txt += (f", the kernel alone {kernel_ms:.3f} ms "
                     f"({100 * bound_ms / kernel_ms:.1f} % of the bound)")
     if same is not None:
-        rec["twice_bitwise"] = same
+        times = TAIL_REPEATS if kind == "tail" else 2
+        rec["twice_bitwise" if times == 2 else "repeats_bitwise"] = same
         good = good and same
-        lib_txt += f", the kernel twice bitwise equal: {same}"
+        lib_txt += (f", the kernel twice bitwise equal: {same}" if times == 2
+                    else f", the kernel {times} times bitwise equal: {same}")
     tile = getattr(run, "tile", None)   # P1: the kernel's block tile
     if tile:
         rec["tile"] = list(tile)
@@ -1835,8 +1867,8 @@ def run_train_gate(gate, kind, dname, card, b, n, tp=1):
             split_txt = (f" ({d['splits']} split(s) of {-(-n // 64)} key "
                          f"tiles; {dev_txt}; lse rel {lse_rel:.2e}, bound "
                          f"{LSE_REL:.0e})")
-        elif kind == "tail" and dname == "float32":   # K8's two stages
-            split = split_ms(calls["kernel"], TAIL_STAGES)
+        elif kind == "tail":   # K8's two stages
+            split = split_ms(calls["kernel"], TAIL_STAGES[dname])
             recs[part].update(tail_stage_ms(split))
             good = good and all(t > 0 for t in split.values())
             split_txt = tail_stage_txt(split)
@@ -4981,7 +5013,9 @@ def main() -> int:
                       "step_peak_gb": step_peak_gb,
                       "card": card, "seconds": seconds}), flush=True)
     if not ok:
-        print("chip_smoke: FAILED", file=sys.stderr)
+        for line in FAILED:
+            print(f"chip_smoke: failed phase {line}", file=sys.stderr)
+        print(f"chip_smoke: FAILED ({len(FAILED)} phase(s))", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,10 +16,12 @@
 // 0.020 ms at the bf16 tensor-core rate) against 2 x 8.4 MB of bf16
 // activations: operations.
 //
-// Design: the decoder tail's conv (decoder_tail_mma.cuh, conv3x3_mma)
-// generalised to chunks of input channels, since a C = 256 window does not
-// fit beside its weights.  A block of 8 warps owns 16 x 16 output pixels
-// and 128 output channels; K = 9 taps x C runs as C / 64 chunks of 9 taps.
+// Design: each conv an implicit GEMM on mma.sync m16n8k16 (M = output
+// pixels, N = output channels, K = 9 taps x C, a tap a shift of the A
+// rows' window positions), over chunks of 64 input channels, since a C =
+// 256 window does not fit beside its weights.  A block of 8 warps owns 16
+// x 16 output pixels and 128 output channels; K runs as C / 64 chunks of
+// 9 taps.
 // - The chunk's window, 18 x 18 positions x 64 channels with the 1-pixel
 //   halo reflected in the index arithmetic (clamped past a ragged edge,
 //   where no stored output reads it), lies pixel-major, 72 bf16 a position

@@ -22,13 +22,14 @@
 // What bounds it on the card: operations, 29.9 GFLOP per 512^2 frame.
 // float32 runs on the CUDA cores (decoder_tail_f32.cuh: up3 over the whole
 // image into y1, then the upsample, c5 and c6 in one kernel that recomputes
-// only c5's 1-pixel ring; two launches, one entry call); bfloat16 runs on
-// the tensor cores (decoder_tail_mma.cuh: each conv an implicit GEMM on
-// mma.sync, the windows pixel-major, the weights streamed a tap at a time).
+// only c5's 1-pixel ring; two launches, one entry call); bfloat16 splits
+// the same way on the tensor cores (decoder_tail_wgmma.cuh: each conv an
+// implicit GEMM on wgmma with A from registers, the weights resident in
+// shared memory by TMA; two launches, one entry call).
 
 #include "common.cuh"
 #include "decoder_tail_f32.cuh"
-#include "decoder_tail_mma.cuh"
+#include "decoder_tail_wgmma.cuh"
 
 namespace {
 
@@ -57,29 +58,30 @@ int decoder_tail_entry(const void* x, const void* w_up, const void* b_up,
       !mhada::mma_aligned({x, w_up, w5, y1, c5}, kCmid))
     return (int)cudaErrorInvalidValue;
   using bf16 = __nv_bfloat16;
-  mhada::tail::TailArgs a{};
+  mhada::tailwg::TailArgs a{};
   a.x = static_cast<const bf16*>(x);
-  a.w_up = static_cast<const bf16*>(w_up);
   a.b_up = fb_up;
-  a.w5 = static_cast<const bf16*>(w5);
   a.b5 = fb5;
   a.w6 = static_cast<const bf16*>(w6);
   a.b6 = fb6;
   a.out = static_cast<bf16*>(out);
   a.y1 = static_cast<bf16*>(y1);
   a.c5 = static_cast<bf16*>(c5);
+  a.batch = batch;
   a.hl = hl;
   a.wl = wl;
-  return (int)mhada::tail::launch_decoder_tail_mma<kRes>(a, batch, stream);
+  return (int)mhada::tailwg::launch_decoder_tail_wgmma<kRes>(
+      static_cast<const bf16*>(w_up), static_cast<const bf16*>(w5), a,
+      stream);
 }
 
 }  // namespace
 
 // x (B, H, W, 128) NHWC in T (float32 or bfloat16); weights HWIO in T:
 // w_up (3, 3, 128, 64), w5 (3, 3, 64, 64), w6 (3, 3, 64, 3); biases
-// float32; out (B, 2H, 2W, 3).  float32: y1 is a (B, H, W, 64) scratch, and
-// x, the weights, out and y1 are 16-byte aligned; bfloat16: y1 is ignored,
-// x, w_up and w5 are 16-byte aligned.
+// float32; out (B, 2H, 2W, 3); y1 a (B, H, W, 64) scratch in T for y1
+// between the two kernels.  float32: x, the weights, out and y1 are 16-byte
+// aligned; bfloat16: x, w_up, w5 and y1 are.
 extern "C" int mhada_decoder_tail(const void* x, const void* w_up,
                                   const void* b_up, const void* w5,
                                   const void* b5, const void* w6,
@@ -87,8 +89,8 @@ extern "C" int mhada_decoder_tail(const void* x, const void* w_up,
                                   int batch, int hl, int wl, int dtype,
                                   void* stream) {
   return decoder_tail_entry<false>(
-      x, w_up, b_up, w5, b5, w6, b6, out, dtype == mhada::kF32 ? y1 : nullptr,
-      nullptr, batch, hl, wl, dtype, (cudaStream_t)stream);
+      x, w_up, b_up, w5, b5, w6, b6, out, y1, nullptr, batch, hl, wl, dtype,
+      (cudaStream_t)stream);
 }
 
 // K8: as mhada_decoder_tail, plus the residuals y1 (B, H, W, 64) and c5

@@ -7,7 +7,9 @@
 // 64 x 64 boxes, and 1-D bulk copies.  Used by the MHAda tile of K3, K4,
 // P2 and K7's forward (mhada_wgmma.cuh), K7's backward
 // (mhada_bwd_wgmma.cuh), the bf16 attention tile (attention_wgmma.cuh), P1
-// (mm_wgmma.cuh) and K13 (decoder_c6_f32.cuh, decoder_c6_mma.cuh).
+// (mm_wgmma.cuh), the bf16 decoder tail of K5 and K8
+// (decoder_tail_wgmma.cuh) and K13 (decoder_c6_f32.cuh,
+// decoder_c6_mma.cuh).
 #pragma once
 
 #include <cuda.h>

@@ -5,11 +5,12 @@ K5 ports mhada_tpu/ops/decoder_tail_pallas.py::tail3_fused, K8 its training
 form ``tail3_train``: the same kernels also writing the post-ReLU residuals
 y1 = relu(up3 conv) (B, H, W, 64) and c5 (B, 2H, 2W, 64), with a plain
 PyTorch backward written from ``_tail3_train_bwd``
-(decoder_tail_pallas.py:622-653), as the JAX package's is XLA.  At
-bfloat16 one kernel runs on the tensor cores (csrc/decoder_tail_mma.cuh);
-at float32 two run on the CUDA cores (csrc/decoder_tail_f32.cuh: up3 into
-y1, which K5 keeps in a scratch tensor allocated here, then the upsample,
-c5 and c6).  The wrapper raises on a tensor that is not 16-byte aligned.
+(decoder_tail_pallas.py:622-653), as the JAX package's is XLA.  Two
+kernels run under one entry call: up3 into y1, which K5 keeps in a scratch
+tensor allocated here, then the upsample, c5 and c6; at bfloat16 on the
+tensor cores (csrc/decoder_tail_wgmma.cuh, wgmma + TMA), at float32 on the
+CUDA cores (csrc/decoder_tail_f32.cuh).  The wrapper raises on a tensor
+that is not 16-byte aligned.
 The plain forward is the chain of
 mhada_tpu/models/decoder.py:215-217 (reflect-padded convs, ReLU after
 each, a 2x bilinear upsample after up3) with tail3_fused's rounding
@@ -30,6 +31,13 @@ from .pad_conv import conv2d_reflect, no_tf32, reflect_pad2d
 from .resize import upsample2x
 
 C_IN, C_MID, C_OUT = 128, 64, 3
+# The bf16 kernels' geometry (csrc/decoder_tail_wgmma.cuh): stage 1's tile
+# of y1 pixels a warpgroup (rows, columns) and its warpgroups a block, each
+# walking tiles of its own; stage 2's tile of rgb pixels a block and its
+# warpgroups, which share it.
+UP3_TILE, UP3_CONSUMERS = (4, 16), 2
+RGB_TILE, C5C6_CONSUMERS = (16, 16), 3
+
 
 
 def _conv_relu(x, w, b):
@@ -112,9 +120,8 @@ def _launch_tail(entry, x, w_up, b_up, w5, b5, w6, b6):
         outs += [x.new_empty((b, h, w, C_MID)),
                  x.new_empty((b, 2 * h, 2 * w, C_MID))]
         scratch = []
-    else:   # K5's y1 between its two float32 kernels; bf16 takes none
-        scratch = [x.new_empty((b, h, w, C_MID))
-                   if dt == torch.float32 else None]
+    else:   # K5's y1 between its two kernels
+        scratch = [x.new_empty((b, h, w, C_MID))]
     _build.check_aligned("decoder_tail", x, *hwio, *outs, *scratch,
                          dtypes=ALIGNED)
     _build.launch(entry, x.device, x, hwio[0], bias[0], hwio[1], bias[1],

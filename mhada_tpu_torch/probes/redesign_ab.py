@@ -22,9 +22,17 @@ events:
   ``mhada_decoder_c6``, whose arguments no redesign changed) at its gate
   shapes (512^2 with B = 1 and 8, 1024^2, 256 x 512 with B = 8, 264 x
   488), float32 and bfloat16;
-- the float32 decoder tail, whose direct conv K14's float32 build shares:
-  K5 from 256^2 to 512^2 (B = 1) and K8's forward from 128^2 to 256^2 (B =
-  8), ``chip_smoke.py``'s K5 and K8 gate shapes;
+- the decoder tail (K5, ``ops.decoder_tail.decoder_tail``, and K8's
+  forward, ``decoder_tail_train``, weights cast per call as the paths
+  call them): float32, whose direct conv K14's float32 build shares, at K5
+  from 256^2 to 512^2 (B = 1) and K8 from 128^2 to 256^2 (B = 8),
+  ``chip_smoke.py``'s K5 and K8 gate shapes; bfloat16 at those and at K5
+  from 512^2 to 1024^2, K8 from 256^2 to 512^2 (B = 4) and K5 at the video
+  CLI's 128 x 256 (B = 8), as wall ms and as device ms of the tail's
+  kernels, beside a library chain that the port never calls (reflect pad
+  and F.conv2d three times with F.interpolate's 2x bilinear after the
+  first, channels-last bf16 on cuDNN: no single call computes the tail),
+  wall and device ms of every kernel it launches;
 - K1 (``ops.attention_kernel.attention_tm``) and K6's forward
   (``ops.attention_train.fwd_launch``; ``_fwd_kernel`` in a checkout that
   predates it), which share the attention tiles
@@ -99,6 +107,12 @@ MM_REPS = 100
 # (side, batch) of K14's gates in chip_smoke.py
 MID_SHAPES = [(128, 1), (128, 8), (256, 1)]
 MID_C = 256
+# (kernel, batch, low-res side or (height, width)) of the tail: K5's and
+# K8's gates in chip_smoke.py, bfloat16 also the 1024^2 frame, the 512^2
+# step and the video CLI's 256 x 512 frame at --chunk 8
+TAIL_SHAPES = {"float32": [("K5", 1, 256), ("K8", 8, 128)],
+               "bfloat16": [("K5", 1, 256), ("K8", 8, 128), ("K5", 1, 512),
+                            ("K8", 4, 256), ("K5", 8, (128, 256))]}
 # (kernel, batch, tokens) of K1's and K6's forward's gates in chip_smoke.py
 SELF_SHAPES = [("K1", 1, 4096), ("K1", 1, 16384), ("K6 forward", 1, 4096),
                ("K6 forward", 8, 1024), ("K6 forward", 4, 4096),
@@ -174,7 +188,7 @@ def worker(root: str, groups=GROUPS) -> dict:
 
     from mhada_tpu_torch import _build
     from mhada_tpu_torch.ops import (attention_kernel, attention_train,
-                                     decoder_mid, decoder_tail)
+                                     decoder_mid)
     from mhada_tpu_torch.probes import mm_probe
 
     if not Path(mm_probe.__file__).resolve().is_relative_to(Path(root)):
@@ -218,16 +232,11 @@ def worker(root: str, groups=GROUPS) -> dict:
                                           hwio, bias, o, batch, h, w, code))
                 del y, o
             torch.cuda.empty_cache()
-        for name, fn, batch, side in (
-                ("K5", decoder_tail.decoder_tail, 1, 256),
-                ("K8", decoder_tail.decoder_tail_train, 8, 128)) \
-                if "tail" in groups else ():
-            x = torch.rand(batch, side, side, 128, generator=g).cuda()
-            tail_w = [((torch.rand(shape, generator=g) * 2 - 1) / 24).cuda()
-                      for shape in ((64, 128, 3, 3), (64,), (64, 64, 3, 3),
-                                    (64,), (3, 64, 3, 3), (3,))]
-            out[f"{name} {side}^2 B={batch} float32"] = _cuda_ms(
-                lambda: fn(x, *tail_w))
+        for dname, shapes in TAIL_SHAPES.items() if "tail" in groups \
+                else ():
+            for name, batch, side in shapes:
+                out.update(_tail_times(name, batch, side, dname, g))
+            torch.cuda.empty_cache()
         for dtype in (torch.float32, torch.bfloat16) \
                 if {"K1", "K1x"} & set(groups) else ():
             k6_fwd = getattr(attention_train, "fwd_launch", None) \
@@ -295,6 +304,48 @@ def worker(root: str, groups=GROUPS) -> dict:
         torch.cuda.empty_cache()
     if "frames" in groups:
         out.update(_frames())
+    return out
+
+
+def _tail_times(name, batch, side, dname, g) -> dict:
+    """K5 or K8's forward on seeded inputs at the conv init scale -> {key:
+    ms}: wall ms of the wrapper; at bfloat16 also its kernels' device ms
+    and the library chain's wall and device ms."""
+    import torch
+    import torch.nn.functional as F
+
+    from mhada_tpu_torch.ops import decoder_tail
+
+    dtype = getattr(torch, dname)
+    h, w = (side, side) if isinstance(side, int) else side
+    x = torch.rand(batch, h, w, 128, generator=g).to("cuda", dtype)
+    ws = [((torch.rand(shape, generator=g) * 2 - 1) / 24).cuda()
+          for shape in ((64, 128, 3, 3), (64,), (64, 64, 3, 3), (64,),
+                        (3, 64, 3, 3), (3,))]
+    fn = decoder_tail.decoder_tail if name == "K5" \
+        else decoder_tail.decoder_tail_train
+    size = f"{side}^2" if isinstance(side, int) else f"{h}x{w}"
+    key = f"{name} {size} B={batch} {dname}"
+    out = {key: _cuda_ms(lambda: fn(x, *ws))}
+    if dname == "float32":
+        return out
+    out[key + " device"] = device_ms(lambda: fn(x, *ws), only="tail")
+    # the chain, channels-last (x is NHWC: its NCHW view is channels-last)
+    xc = x.permute(0, 3, 1, 2)
+    wc = [t.to(dtype).contiguous(memory_format=torch.channels_last)
+          if t.dim() == 4 else t.to(dtype) for t in ws]
+
+    def conv(t, i):
+        return F.relu(F.conv2d(F.pad(t, (1, 1, 1, 1), mode="reflect"),
+                               wc[2 * i], wc[2 * i + 1]))
+
+    def chain():
+        up = F.interpolate(conv(xc, 0), scale_factor=2, mode="bilinear",
+                           align_corners=False)
+        return conv(conv(up, 1), 2)
+
+    out[key + " chain"] = _cuda_ms(chain)
+    out[key + " chain device"] = device_ms(chain)
     return out
 
 

@@ -10,8 +10,8 @@ of K14's float32 conv (csrc/decoder_mid_f32.cuh), of K13's
 K7's forward (csrc/mhada_combine.cuh) in F32_KERNELS (no tensor-core
 instruction, no spills), so that no kernel skips the check; each listed
 kernel exists, each instantiation required of a path is listed, and K13's,
-K1's cross form's, K1's and K6's forward's, K3's, K4's and K7's replaced
-kernels are refused and gone.
+K1's cross form's, K1's and K6's forward's, K3's, K4's, K7's and the
+decoder tail's (K5, K8) replaced kernels are refused and gone.
 CPU: reads the sources and chip_smoke.py's constants (it imports torch only
 inside main)."""
 
@@ -241,3 +241,39 @@ def test_replaced_mhada_backward_is_refused():
                 "flash_bwd_f32_dq_kernelILb1E",
                 "mhada_f32_kernelILb0ELi2ELb1E"):
         assert req in smoke.F32_REQUIRED
+
+
+def test_replaced_tail_kernel_is_refused():
+    """K5's and K8's mma.sync tail (decoder_tail_mma_kernel<bool>) is
+    refused by phase 2 and its header is gone; the tail's entry launches
+    the two wgmma + TMA kernels, which phase 2 lists and requires (both
+    instantiations of the second) and does not refuse, and times apart at
+    bf16; the float32 tail's kernels stay required; no tail kernel is left
+    on the mma.sync lists."""
+    smoke = _chip_smoke()
+    for old in ("_ZN5mhada4tail23decoder_tail_mma_kernelILb0EEEvNS0_8TailArgsE",
+                "_ZN5mhada4tail23decoder_tail_mma_kernelILb1EEEvNS0_8TailArgsE"):
+        assert re.search(smoke.OLD_BF16, old), old
+    assert not (CSRC / "decoder_tail_mma.cuh").exists()
+    assert not any("tail" in k
+                   for k in (*smoke.MMA_KERNELS, *smoke.MMA_REQUIRED))
+    text = (CSRC / "decoder_tail.cu").read_text()
+    assert "launch_decoder_tail_wgmma" in text
+    assert "decoder_tail_mma" not in text
+    every = set(_kernels("*.cuh")) | set(_kernels("*.cu"))
+    assert "decoder_tail_mma_kernel" not in every
+    stages = ("tail_up3_wgmma_kernel", "tail_c5c6_wgmma_kernel")
+    for name in stages:
+        assert name in every and name in smoke.WGMMA_KERNELS
+        assert not re.search(smoke.OLD_BF16, name)
+    for req in ("tail_up3_wgmma_kernel", "tail_c5c6_wgmma_kernelILb0E",
+                "tail_c5c6_wgmma_kernelILb1E"):
+        assert req in smoke.WGMMA_REQUIRED
+    mangled = ("_ZN5mhada6tailwg22tail_c5c6_wgmma_kernelILb1EEEv14CUtensorMap"
+               "_stNS0_8TailArgsE")
+    assert "tail_c5c6_wgmma_kernelILb1E" in mangled
+    assert not re.search(smoke.OLD_BF16, mangled)
+    for req in ("tail_up3_f32_kernel", "tail_c5c6_f32_kernelILb0E",
+                "tail_c5c6_f32_kernelILb1E"):
+        assert req in smoke.F32_REQUIRED
+    assert smoke.TAIL_STAGES["bfloat16"] == stages
